@@ -1,0 +1,28 @@
+"""Fusion judge MLP: 5 forensic signals → REAL/FAKE logits.
+
+Counterpart of ``misinfo_tpu/models/fusion.py``: Linear(5,64) → ReLU →
+Linear(64,32) → ReLU → Linear(32,2) over ``[ai_score, misinfo_score,
+deepfake_score, clip_similarity, vault_discrepancy]``, run in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from misinfo_tpu_torch.ops.common import F32_POLICY, dense, dense_init
+
+FUSION_DIMS = (5, 64, 32, 2)
+
+
+def fusion_init(gen: torch.Generator) -> Dict:
+    return {f"fc{i + 1}": dense_init(gen, FUSION_DIMS[i], FUSION_DIMS[i + 1])
+            for i in range(3)}
+
+
+def fusion_apply(params: Dict, scores: torch.Tensor) -> torch.Tensor:
+    """scores [B,5] → logits [B,2] f32."""
+    h = torch.relu(dense(params["fc1"], scores.float(), F32_POLICY))
+    h = torch.relu(dense(params["fc2"], h, F32_POLICY))
+    return dense(params["fc3"], h, F32_POLICY)
