@@ -31,3 +31,12 @@ def params_from_jax(tree, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return tensor_from_numpy(tree, device)
+
+
+def to_device(tree, device):
+    """Copy a parameter tree (nested dicts/lists of tensors) to `device`."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device)

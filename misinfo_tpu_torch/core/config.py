@@ -1,7 +1,8 @@
 """Single dataclass config tree for the whole framework.
 
 Host copy of ``misinfo_tpu/core/config.py`` (the JAX package's ``core``
-imports JAX on import). Defaults are held identical to the original by
+imports JAX on import), including ``WhisperDecodeConfig`` for the
+transcript path. Defaults are held identical to the original by
 tests/test_torch_host.py; only the host-probe branch of ``from_env``
 differs (the probe is not ported, ROADMAP.md M15).
 
@@ -47,6 +48,56 @@ class VideoConfig:
     max_frames: int = 12               # misinfo_forensics.py:497
     stride_seconds: float = 1.0        # misinfo_forensics.py:498
     fps_fallback: float = 25.0         # misinfo_forensics.py:513-514
+
+
+@dataclass(frozen=True)
+class WhisperDecodeConfig:
+    """openai-whisper ``transcribe()`` defaults, inherited verbatim by the
+    reference's transcript call (forensics_dashboard.py:80-83 →
+    whisper/transcribe.py): the temperature-fallback ladder, the
+    compression-ratio / avg-logprob acceptance checks, and the no-speech
+    silence gate. serve/transcript.py consumes these.
+
+    Sampled retry rungs draw ``best_of`` independent candidates per window
+    (whisper's GreedyDecoder best_of=5) and keep the highest-avg-logprob
+    candidate. Known divergence (documented, conscious): no cross-window
+    ``condition_on_previous_text`` prompt carry."""
+
+    fallback_temperatures: Tuple[float, ...] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+    best_of: int = 5
+    # whisper/transcribe.py: language=None on a multilingual model triggers
+    # detect_language() on the first 30 s mel window; English-only (.en)
+    # layouts pin "en" without detection. A language code here ("en", "de",
+    # …) pins the decoder prompt and skips the detection step.
+    language: Optional[str] = None
+    compression_ratio_threshold: float = 2.4
+    logprob_threshold: float = -1.0
+    no_speech_threshold: float = 0.6
+    # whisper/transcribe.py loops `while seek < content_frames` over 30 s
+    # windows; windows decode as batches here. The cap bounds total work
+    # per clip: 120 windows = 1 hour of audio (logged when it binds —
+    # openai-whisper itself has no cap).
+    max_windows: int = 120
+    # window-batch buckets: the window count is rounded up and padding
+    # windows repeat the last real window so they decode-and-exit like
+    # normal speech; clips with more windows than the largest bucket are
+    # processed in chunks of that size.
+    window_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 20)
+    # Decode-weight quantization (no reference counterpart — the reference
+    # decodes f32 torch). "auto" (default) resolves to "kernels" when the
+    # fused decode step is on, exact decode otherwise. "embedding": int8
+    # token embedding + logits product only. "none" disables. "int8": the
+    # full int8 streaming decode (dense kernels + embedding + cross-K/V
+    # caches stored int8). "kernels": the decoder dense weights int8 inside
+    # the two fused decode-step kernels, plus the int8 embedding; caches
+    # stay bf16 merged-lane. Env: WHISPER_QUANT.
+    quant: str = "auto"
+    # Fused decode step: the whole decoder layer as TWO kernels —
+    # self-attention and cross-attention+FFN. "auto" (default) enables it
+    # on the accelerator and leaves it off on the CPU; "on"/"off" force.
+    # Env: WHISPER_PALLAS=auto|on|off. Numerics: in bf16 serving mode the
+    # fused FFN's GELU is the tanh form; f32 parity mode keeps erf.
+    pallas: str = "auto"
 
 
 @dataclass(frozen=True)

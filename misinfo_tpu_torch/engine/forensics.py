@@ -21,6 +21,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from misinfo_tpu_torch import not_ported
+from misinfo_tpu_torch.checkpoints.from_jax import to_device
 from misinfo_tpu_torch.core.config import ForensicsConfig
 from misinfo_tpu_torch.engine.explain import Explainer
 from misinfo_tpu_torch.engine.signals import (
@@ -45,20 +47,6 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
-def to_device(tree, device):
-    """Copy a parameter tree (nested dicts/lists of tensors) to `device`."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_device(v, device) for v in tree)
-    return tree.to(device)
-
-
-def _refuse(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to misinfo_tpu_torch yet (ROADMAP.md {item})")
-
-
 class MisinfoForensics:
     """Batched forensics engine on one device (a CUDA card or the CPU)."""
 
@@ -74,18 +62,18 @@ class MisinfoForensics:
         self.policy = Policy(self.cfg.precision)
         sv = self.cfg.serving
         if mesh is not None:
-            _refuse("a device mesh (multi-GPU serving)", "M17")
+            not_ported("a device mesh (multi-GPU serving)", "M17")
         if use_pallas:
-            _refuse("use_pallas (the Pallas attention/FFN options)",
-                    "queue 2, K3-K5")
+            not_ported("use_pallas (the Pallas attention/FFN options)",
+                       "queue 2, K3-K5")
         if sv.device_resize:
-            _refuse("serving.device_resize", "M14")
+            not_ported("serving.device_resize", "M14")
         if sv.aot_cache:
-            _refuse("serving.aot_cache", "M15")
+            not_ported("serving.aot_cache", "M15")
         if sv.vault_ivf or sv.vault_dtype != "float32":
-            _refuse("IVF and the bf16/int8/int4 vault dtypes", "M14")
+            not_ported("IVF and the bf16/int8/int4 vault dtypes", "M14")
         if self.cfg.paths.orbax_dir:
-            _refuse("native checkpoint loading", "M16")
+            not_ported("native checkpoint loading", "M16")
         set_exact_f32(parity=self.policy.compute == torch.float32)
         t0 = time.perf_counter()
 
@@ -149,10 +137,10 @@ class MisinfoForensics:
         return out
 
     def warmup(self, *args, **kwargs):
-        _refuse("warmup (CUDA-graph capture per signature)", "M9")
+        not_ported("warmup (CUDA-graph capture per signature)", "M9")
 
     def reload_vault(self, *args, **kwargs):
-        _refuse("reload_vault", "M9")
+        not_ported("reload_vault", "M9")
 
     @property
     def _rb_max(self) -> int:
@@ -245,7 +233,7 @@ class MisinfoForensics:
         groups: Dict[str, List[int]] = {}
         for i, r in enumerate(requests):
             if "video" in r:
-                _refuse("video analysis", "M12")
+                not_ported("video analysis", "M12")
             if r.get("text") and "image" in r:
                 v = "full"
             elif r.get("text"):

@@ -39,14 +39,17 @@ def multi_head_attention(
     causal: bool = False,
     policy: Policy = DEFAULT_POLICY,
     segment_ids: Optional[torch.Tensor] = None,  # [B, S] int, 0 = padding
+    kv: Optional[torch.Tensor] = None,        # [B, S_kv, D] cross-attention
 ) -> torch.Tensor:
-    """Self-attention with padding, causal or block-diagonal (packed
-    segments) masking; bf16 matmuls in serving mode, f32 softmax."""
+    """Self- or cross-attention with padding, causal or block-diagonal
+    (packed segments) masking; bf16 matmuls in serving mode, f32 softmax."""
     B, S, D = x.shape
+    kv = x if kv is None else kv
+    S_kv = kv.shape[1]
     hd = D // num_heads
     q = dense(params["q"], x, policy).reshape(B, S, num_heads, hd)
-    k = dense(params["k"], x, policy).reshape(B, S, num_heads, hd)
-    v = dense(params["v"], x, policy).reshape(B, S, num_heads, hd)
+    k = dense(params["k"], kv, policy).reshape(B, S_kv, num_heads, hd)
+    v = dense(params["v"], kv, policy).reshape(B, S_kv, num_heads, hd)
 
     sdt = policy.score
     scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=x.device))
@@ -61,7 +64,8 @@ def multi_head_attention(
         scores = scores + _additive(mask[:, None, None, :].float(), sdt)
     if causal:
         idx = torch.arange(S, device=x.device)
-        cmask = (idx[:, None] >= idx[None, :]).float()
+        cmask = (idx[:, None] >= torch.arange(S_kv, device=x.device)[None, :]
+                 ).float()
         scores = scores + _additive(cmask[None, None], sdt)
     probs = torch.softmax(scores.float(), dim=-1).to(policy.compute)
     ctx = torch.einsum("bhst,bthd->bshd", probs, v)

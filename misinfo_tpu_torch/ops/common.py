@@ -46,6 +46,10 @@ class Policy:
 DEFAULT_POLICY = Policy()
 F32_POLICY = Policy(PrecisionConfig.highest())
 
+# From this many rows an int8 dense runs the TPU kernel K2 in the JAX
+# package (``pallas_int8._DENSE_MIN_ROWS``); below it, the plain product.
+INT8_DENSE_MIN_ROWS = 256
+
 
 def set_exact_f32(parity: bool) -> None:
     """Keep f32 products in full f32 on the card. Matmuls never use TF32
@@ -73,11 +77,20 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def dense(params: Dict, x: torch.Tensor,
           policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
-    """y = x @ W + b: product in f32, bias added in f32, one rounding."""
+    """y = x @ W + b: product in f32, bias added in f32, one rounding.
+
+    int8 params ({kernel_q, w_scale, bias?}) take the plain
+    ``quant.dense_int8`` below 256 rows, as the JAX package's
+    ``dense_int8_dispatch`` does; from 256 rows on JAX runs the TPU kernel
+    K2, which is not ported yet."""
     if "kernel_q" in params:
-        raise NotImplementedError(
-            "int8 dense layers (quant='int8', TPU kernel K2) are not ported "
-            "yet (ROADMAP.md queue 2, K2)")
+        rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+        if rows >= INT8_DENSE_MIN_ROWS:
+            raise NotImplementedError(
+                f"int8 dense at {rows} rows (quant='int8', TPU kernel K2) "
+                "is not ported yet (ROADMAP.md queue 2, K2)")
+        from misinfo_tpu_torch.ops.quant import dense_int8
+        return dense_int8(params, x, policy.compute)
     w = params["kernel"].to(policy.compute)
     y = matmul_f32(x.to(policy.compute), w)
     if "bias" in params:
@@ -101,6 +114,11 @@ def layer_norm(params: Dict, x: torch.Tensor, eps: float = 1e-5,
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * params["scale"] + params["bias"]
     return y.to(policy.compute)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """erf-based GELU in f32, rounded back to x's dtype."""
+    return F.gelu(x.float()).to(x.dtype)
 
 
 def gelu(x: torch.Tensor, policy: Policy = DEFAULT_POLICY) -> torch.Tensor:

@@ -22,25 +22,17 @@ either way.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, Policy
+from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
 from misinfo_tpu_torch.ops.quant import int_matmul, quantize_rows
 
 _JC = 512                       # intermediate chunk target, as on the TPU
 _BM = 32                        # rows per block (BM in csrc/int8_ffn.cu)
 _MODES = {"tanh": 0, "erf": 1, "quick": 2}
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "int8_ffn.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "misinfo_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = 0                    # kernel launches since import (or reset)
 build_log = ""                  # nvcc's output of the last build
@@ -89,19 +81,7 @@ def _library():
     global _lib, build_log
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"int8_ffn_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {_SRC}:\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, build_log = build("int8_ffn")
     lib.int8_ffn_launch.restype = ctypes.c_int
     lib.int8_ffn_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
@@ -109,16 +89,6 @@ def _library():
     lib.int8_ffn_error_string.argtypes = [ctypes.c_int]
     _lib = lib
     return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"int8_ffn: {name} must be on {device}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"int8_ffn: {name} must be {dtype} {tuple(shape)}, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"int8_ffn: {name} must be contiguous, 16-B aligned")
 
 
 def _launch(x, w1q, s1, b1, w2q, s2, b2, mode: str, jc: int) -> torch.Tensor:
@@ -134,7 +104,7 @@ def _launch(x, w1q, s1, b1, w2q, s2, b2, mode: str, jc: int) -> torch.Tensor:
             (w2q, "w2q", torch.int8, (N, K2)),
             (s2, "s2", torch.float32, (K2,)),
             (b2, "b2", torch.float32, (K2,))):
-        _check(t, name, dt, shape, x.device)
+        check_tensor(t, f"int8_ffn: {name}", dt, shape, x.device)
     out = torch.empty(M, K2, dtype=torch.bfloat16, device=x.device)
     if M:
         lib = _library()

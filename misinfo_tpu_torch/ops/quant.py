@@ -29,7 +29,7 @@ MIN_KERNEL_ELEMS = 262_144
 def quantize_dense(p: Dict) -> Dict:
     """{kernel[f32 in×out], bias?} → {kernel_q[int8], w_scale[f32 out], bias?}."""
     w = p["kernel"].float()
-    s = _scale(w.abs().amax(dim=0))
+    s = int8_scale(w.abs().amax(dim=0))
     wq = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
     out = {"kernel_q": wq, "w_scale": s}
     if "bias" in p:
@@ -57,7 +57,7 @@ def quantize_ffn_params(tree, min_elems: int = MIN_KERNEL_ELEMS):
     return tree
 
 
-def _scale(amax: torch.Tensor) -> torch.Tensor:
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
     """max(amax / 127, 1e-8) with an IEEE division on every device."""
     return (amax / amax.new_full((), 127.0)).clamp_min(1e-8)
 
@@ -65,7 +65,7 @@ def _scale(amax: torch.Tensor) -> torch.Tensor:
 def quantize_rows(xf: torch.Tensor):
     """Per-row symmetric int8 of an f32 tensor: (xq int8, sx f32 [..., 1])
     with an f32 abs-max / 127 floored at 1e-8 and round-half-to-even."""
-    sx = _scale(xf.abs().amax(dim=-1, keepdim=True))
+    sx = int8_scale(xf.abs().amax(dim=-1, keepdim=True))
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 

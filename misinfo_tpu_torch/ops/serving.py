@@ -1,16 +1,18 @@
 """Serving-time parameter-tree transforms (inference only).
 
 Counterpart of ``misinfo_tpu/ops/serving.py`` for the transforms the
-serving default runs: ``quant="int8_ffn"`` (tower FFNs to int8, served by
-the fused int8 FFN kernel) and ``cast_big_kernels`` (large dense kernels
-stored in bf16). Both are pure tree rewrites; models are unchanged.
+serving defaults run: ``quant="int8_ffn"`` (tower FFNs to int8, served by
+the fused int8 FFN kernel), ``cast_big_kernels`` (large dense kernels
+stored in bf16), and Whisper's bf16 storage and int8 decoder/embedding
+transforms. All are pure tree rewrites; models are unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 
-from misinfo_tpu_torch.ops.quant import MIN_KERNEL_ELEMS, quantize_ffn_params
+from misinfo_tpu_torch.ops.quant import (
+    MIN_KERNEL_ELEMS, int8_scale, quantize_dense, quantize_ffn_params)
 
 
 def cast_big_kernels(tree, dtype=torch.bfloat16,
@@ -52,3 +54,66 @@ def optimize_for_serving(params, policy, quant: str):
     if policy.compute == torch.bfloat16:
         params = cast_big_kernels(params, torch.bfloat16)
     return params
+
+
+def optimize_whisper_for_serving(params, policy,
+                                 min_elems: int = MIN_KERNEL_ELEMS):
+    """Whisper's serving transform: bf16 storage for the big dense kernels
+    and the decoder token embedding (a memory transform: ``dense`` casts
+    to bf16 before the product anyway). Never fuses QKV: the
+    cross-attention shares the {q,k,v,o} shape. No-op in f32 parity
+    mode."""
+    if policy.compute != torch.bfloat16:
+        return params
+    params = cast_big_kernels(params, torch.bfloat16, min_elems)
+    dec = params.get("decoder", {})
+    emb = dec.get("token_embedding")
+    if emb is not None and emb.numel() >= min_elems:
+        params = {**params, "decoder": {
+            **dec, "token_embedding": emb.to(torch.bfloat16)}}
+    return params
+
+
+def quantize_whisper_decoder(params):
+    """int8 decoder weights: every block's self-attention projections (the
+    fused qkv after ``fuse_whisper_decoder_qkv``) and o, the
+    cross-attention q and o, both FFN kernels — per-output-channel scales
+    — plus the int8 token embedding (``quantize_whisper_embedding``). The
+    cross-attention k/v kernels (used once per utterance), the encoder,
+    LayerNorms, biases and positions stay as they are. Apply after the
+    qkv fuse; idempotent."""
+    dec = params.get("decoder")
+    if dec is None or "token_embedding" not in dec:
+        return params
+
+    def q8(p):
+        return quantize_dense(p) if "kernel" in p else p
+
+    def quant_block(blk):
+        out = dict(blk)
+        out["self_attn"] = {k: q8(v) for k, v in blk["self_attn"].items()}
+        out["cross_attn"] = {k: (q8(v) if k in ("q", "o") else v)
+                             for k, v in blk["cross_attn"].items()}
+        out["mlp_in"] = q8(blk["mlp_in"])
+        out["mlp_out"] = q8(blk["mlp_out"])
+        return out
+
+    new_dec = {**dec, "blocks": [quant_block(b) for b in dec["blocks"]]}
+    return quantize_whisper_embedding({**params, "decoder": new_dec})
+
+
+def quantize_whisper_embedding(params):
+    """int8 token embedding only: ``token_embedding_q`` int8 [V, D] with
+    per-row ``emb_scale`` f32 [V]; the input lookup dequantizes the
+    gathered rows and the logits product runs int8 × int8. Idempotent."""
+    dec = params.get("decoder")
+    if dec is None or "token_embedding" not in dec:
+        return params
+    new_dec = dict(dec)
+    emb = dec["token_embedding"].float()
+    se = int8_scale(emb.abs().amax(dim=1))
+    new_dec["token_embedding_q"] = torch.clamp(
+        torch.round(emb / se[:, None]), -127, 127).to(torch.int8)
+    new_dec["emb_scale"] = se
+    del new_dec["token_embedding"]
+    return {**params, "decoder": new_dec}

@@ -1,8 +1,9 @@
 """The PyTorch port's host copies held to their JAX-package originals.
 
 Each copy must match exactly: config defaults, token ids (hash fallback
-and BPE), packed arrays, image arrays, the vault round trip and the
-explanation text. Also checks that importing the port's engine loads
+and BPE), packed arrays, image arrays, the vault round trip, the
+explanation text, and the transcript path's audio frontend and Whisper
+tokenizers. Also checks that importing the port's engine loads
 neither JAX nor the JAX package.
 """
 
@@ -18,18 +19,22 @@ import pytest
 from misinfo_tpu.core import config as j_config
 from misinfo_tpu.engine import explain as j_explain
 from misinfo_tpu.models.detector import DetectorConfig as JDetectorConfig
+from misinfo_tpu.preprocess import audio as j_audio
 from misinfo_tpu.preprocess import image as j_image
 from misinfo_tpu.preprocess import packing as j_packing
 from misinfo_tpu.preprocess import tokenizer as j_tok
+from misinfo_tpu.preprocess import whisper_tokenizer as j_wtok
 from misinfo_tpu.preprocess.bpe import bytes_to_unicode
 from misinfo_tpu.vault.store import TruthVault as JVault
 
 from misinfo_tpu_torch.core import config as t_config
 from misinfo_tpu_torch.engine import explain as t_explain
 from misinfo_tpu_torch.models.detector import DetectorConfig as TDetectorConfig
+from misinfo_tpu_torch.preprocess import audio as t_audio
 from misinfo_tpu_torch.preprocess import image as t_image
 from misinfo_tpu_torch.preprocess import packing as t_packing
 from misinfo_tpu_torch.preprocess import tokenizer as t_tok
+from misinfo_tpu_torch.preprocess import whisper_tokenizer as t_wtok
 from misinfo_tpu_torch.vault.store import TruthVault as TVault
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,7 +46,7 @@ TEXTS = ["Breaking: the moon landing was FAKED, experts say!!",
 def test_config_defaults_identical():
     for name in ("ForensicsConfig", "PrecisionConfig", "ServingConfig",
                  "SequenceConfig", "Thresholds", "VideoConfig",
-                 "ModelPaths", "MeshConfig"):
+                 "ModelPaths", "MeshConfig", "WhisperDecodeConfig"):
         assert (dataclasses.asdict(getattr(t_config, name)())
                 == dataclasses.asdict(getattr(j_config, name)())), name
     assert (dataclasses.asdict(t_config.PrecisionConfig.highest())
@@ -171,8 +176,90 @@ def test_explanation_text_identical(scores):
 
 def test_port_imports_no_jax():
     code = ("import misinfo_tpu_torch.engine.forensics, sys; "
+            "import misinfo_tpu_torch.serve.transcript; "
             "import misinfo_tpu_torch.checkpoints.from_jax; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m == 'misinfo_tpu' or m.startswith('misinfo_tpu.')"
             " for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+def _write_wav(path, pcm, rate, width, channels=1):
+    import wave
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(width)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+
+
+def test_audio_frontend_identical(tmp_path, monkeypatch):
+    rng = np.random.default_rng(4)
+    audio = (0.3 * rng.normal(size=16000 * 3)).astype(np.float32)
+    np.testing.assert_array_equal(t_audio.log_mel_spectrogram(audio),
+                                  j_audio.log_mel_spectrogram(audio))
+    for n in (8000, 16000 * 5):
+        np.testing.assert_array_equal(t_audio.pad_or_trim_audio(audio, n),
+                                      j_audio.pad_or_trim_audio(audio, n))
+    mel = j_audio.log_mel_spectrogram(audio)
+    for frames in (100, 400):
+        np.testing.assert_array_equal(t_audio.pad_or_trim_mel(mel, frames),
+                                      j_audio.pad_or_trim_mel(mel, frames))
+    for cap in (1, 5):
+        a, b = (m.mel_windows(audio, 128, cap) for m in (t_audio, j_audio))
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+    # no ffmpeg: a PCM WAV decodes with numpy and the stdlib alone
+    for m in (t_audio, j_audio):
+        monkeypatch.setattr(m, "ffmpeg_decode_audio", lambda *a, **k: None)
+    wavs = {"s16.wav": ((audio * 32767).astype(np.int16), 16000, 2, 1),
+            "u8_stereo_8k.wav": (
+                (np.repeat(audio[:8000, None], 2, 1) * 100 + 128)
+                .astype(np.uint8), 8000, 1, 2)}
+    for name, (pcm, rate, width, ch) in wavs.items():
+        _write_wav(tmp_path / name, pcm, rate, width, ch)
+        a = t_audio.decode_audio(str(tmp_path / name))
+        b = j_audio.decode_audio(str(tmp_path / name))
+        assert a is not None and a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+        for x, y in zip(t_audio.prep_mel_windows(str(tmp_path / name), 128, 3),
+                        j_audio.prep_mel_windows(str(tmp_path / name), 128, 3)):
+            np.testing.assert_array_equal(x, y)
+    assert t_audio.prep_mel_windows(str(tmp_path / "missing.wav"), 128, 3) \
+        == (None, 0)
+
+
+def _specials(sp):
+    return {k: v for k, v in vars(sp).items()}
+
+
+def test_whisper_tokenizer_identical(tmp_path):
+    for vocab in (51865, 51864, 51866, 1864):
+        assert (_specials(t_wtok.specials_for_vocab(vocab))
+                == _specials(j_wtok.specials_for_vocab(vocab)))
+        sp_t, sp_j = (m.specials_for_vocab(vocab) for m in (t_wtok, j_wtok))
+        for lang in ("en", "de", "xx"):
+            for task in ("transcribe", "translate"):
+                assert (sp_t.sot_sequence(lang, task)
+                        == sp_j.sot_sequence(lang, task))
+    bt, bj = t_wtok.ByteWhisperTokenizer(), j_wtok.ByteWhisperTokenizer()
+    assert _specials(bt.specials) == _specials(bj.specials)
+    assert bt.vocab_size == bj.vocab_size == 1864
+    for text in TEXTS:
+        ids = bt.encode(text)
+        assert ids == bj.encode(text)
+        seq = bt.sot_sequence(language="de") + ids + [bt.specials.eot]
+        assert seq == bj.sot_sequence(language="de") + ids + [bj.specials.eot]
+        assert bt.decode(seq) == bj.decode(seq)
+    vocab = {"h": 0, "e": 1, "l": 2, "o": 3, "he": 4, "ll": 5, "llo": 6,
+             "hello": 7, "<|endoftext|>": 8}
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text(
+        "#version: 0.2\nh e\nl l\nll o\nhe llo\n")
+    tt, tj = (m.load_whisper_tokenizer(str(tmp_path)) for m in (t_wtok, j_wtok))
+    assert tt.parity_grade and _specials(tt.specials) == _specials(tj.specials)
+    assert tt.encode("hello hell") == tj.encode("hello hell")
+    assert tt.decode([7, 8, 9, 3]) == tj.decode([7, 8, 9, 3])
+    assert tt.sot_sequence() == tj.sot_sequence()
+    assert isinstance(t_wtok.load_whisper_tokenizer(None),
+                      t_wtok.ByteWhisperTokenizer)

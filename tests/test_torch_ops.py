@@ -205,3 +205,26 @@ def test_signal_output_pack_roundtrip():
     out = t_signals.unpack_signal_output(b.numpy())
     np.testing.assert_array_equal(out.vault_top_idx, idx)
     np.testing.assert_array_equal(out.verdict, verdict)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_int8_dense_below_kernel_rows_matches_jax(mode):
+    """``dense`` on int8 params ({kernel_q, w_scale, bias}) at M = 4 rows
+    takes the plain dense_int8, as JAX's dense_int8_dispatch does below
+    256 rows: bitwise equal (integer products, IEEE scales). From 256 rows
+    JAX runs the TPU kernel K2, which the port refuses by name."""
+    rng = np.random.default_rng(9)
+    p = j_quant.quantize_dense(_dense_params(rng, 64, 48))
+    jpol = (j_common.Policy(JPrecision.highest()) if mode == "f32"
+            else j_common.DEFAULT_POLICY)
+    tpol = (t_common.Policy(TPrecision.highest()) if mode == "f32"
+            else t_common.DEFAULT_POLICY)
+    x = rng.normal(size=(4, 64)).astype(np.float32)
+    want = j_common.dense(p, jnp.asarray(x), jpol)
+    got = t_common.dense(params_from_jax(jax.tree.map(np.asarray, p)),
+                         torch.from_numpy(x), tpol)
+    assert got.dtype == tpol.compute
+    np.testing.assert_array_equal(_np(got), _np(want))
+    with pytest.raises(NotImplementedError, match="K2"):
+        t_common.dense(params_from_jax(jax.tree.map(np.asarray, p)),
+                       torch.zeros(2, 128, 64), tpol)
