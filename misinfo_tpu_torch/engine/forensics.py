@@ -8,15 +8,23 @@ scores, vault_matches, explanation}``. Requests are grouped per variant
 buckets 64/128/256/512 or packed into shared rows (``pack_text="auto"``),
 and each group runs as one signal program on the device.
 
+The Truth Vault takes every ``ServingConfig.vault_dtype`` (float32,
+bfloat16, int8, int4 with its ``<vault>.int4.npz`` sidecar) and
+``vault_ivf`` (with its ``<vault>.ivf.npz`` sidecar), hot-swaps with
+``reload_vault`` and reports its footprint in ``memory_report``.
+
 Not carried yet, and refused with NotImplementedError: video, meshes,
-warmup and the AOT cache, ``reload_vault``, IVF and the vault capacity
-dtypes, on-device resize and the Pallas attention options.
+warmup and the AOT cache, on-device resize and the Pallas attention
+options.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +45,25 @@ from misinfo_tpu_torch.preprocess.packing import (
     dense_rows_from_seqs, pack_token_rows, pad_packed_rows, trim_padded)
 from misinfo_tpu_torch.preprocess.tokenizer import (
     load_clip_tokenizer, load_roberta_tokenizer)
+from misinfo_tpu_torch.vault.int4 import Int4Vault, pad_int4_vault
+from misinfo_tpu_torch.vault import ivf as vault_ivf
+from misinfo_tpu_torch.vault.prepack import get_or_build
+from misinfo_tpu_torch.vault.search import quantize_rows_int8
 from misinfo_tpu_torch.vault.store import TruthVault
+
+_UNSET = object()  # distinguishes "default to self.vault" from vault=None
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return _nbytes(tree) if isinstance(tree, torch.Tensor) else 0
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -70,8 +96,6 @@ class MisinfoForensics:
             not_ported("serving.device_resize", "M14")
         if sv.aot_cache:
             not_ported("serving.aot_cache", "M15")
-        if sv.vault_ivf or sv.vault_dtype != "float32":
-            not_ported("IVF and the bf16/int8/int4 vault dtypes", "M14")
         if self.cfg.paths.orbax_dir:
             not_ported("native checkpoint loading", "M16")
         set_exact_f32(parity=self.policy.compute == torch.float32)
@@ -103,6 +127,8 @@ class MisinfoForensics:
         self.vault = TruthVault.load(self.cfg.paths.vault_path)
         self.vault_loaded = self.vault is not None
         self._vault_device = self._prepare_vault()
+        self._warn_vault_capacity(self._vault_device)
+        self._reload_lock = threading.Lock()  # serializes reload_vault
         self.explainer = Explainer(self.cfg.gemini_api_key,
                                    self.cfg.gemini_model,
                                    self.cfg.thresholds)
@@ -111,6 +137,7 @@ class MisinfoForensics:
             print(f"MisinfoForensics ready in {self.init_seconds:.1f}s "
                   f"(device={self.device}, quant={self.quant}, "
                   f"vault={'loaded' if self.vault_loaded else 'absent'}, "
+                  f"vault_dtype={sv.vault_dtype}, "
                   f"ckpt={self.load_report['mode']})")
 
     # ----------------------------------------------------------- helpers
@@ -118,29 +145,195 @@ class MisinfoForensics:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
-    def _prepare_vault(self) -> Dict[str, torch.Tensor]:
-        vault = self.vault
+    def _prepare_vault(self, vault=_UNSET,
+                       vault_path=_UNSET) -> Dict[str, torch.Tensor]:
+        """The device arrays of ``vault`` (default ``self.vault``; None
+        gives the empty dummy). ``vault_path`` locates the IVF and int4
+        sidecars. Pure staging: engine state is untouched, so
+        ``reload_vault`` can quantize for minutes while the old vault
+        serves."""
+        vault = self.vault if vault is _UNSET else vault
+        vault_path = (self.cfg.paths.vault_path
+                      if vault_path is _UNSET else vault_path)
+        dev = self.device
         if vault is None:
             # 128-row dummy so program shapes stay static; no valid rows
             d = self.det_cfg.clip.projection_dim
-            return {"vault_emb": torch.zeros(128, d, device=self.device),
+            return {"vault_emb": torch.zeros(128, d, device=dev),
                     "vault_valid": torch.zeros(128, dtype=torch.bool,
-                                               device=self.device),
-                    "vault_text_emb": torch.zeros(128, d,
-                                                  device=self.device)}
-        out = {"vault_emb": self._tensor(vault.embeddings),
+                                               device=dev),
+                    "vault_text_emb": torch.zeros(128, d, device=dev)}
+        sv = self.cfg.serving
+        # IVF index first: its k-means needs a transient bf16 row copy on
+        # the device before the vault planes occupy it; the index is
+        # cached beside the vault file and invalidated by a content digest
+        index = None
+        ivf_engages = sv.vault_ivf and vault.num_articles > 0
+        if ivf_engages and sv.vault_dtype == "int4":
+            raise ValueError(
+                "vault_dtype='int4' and vault_ivf are mutually exclusive "
+                "— the IVF gather needs addressable rows; pick one")
+        if ivf_engages:
+            sidecar = (vault_path + ".ivf.npz") if vault_path else None
+            index = vault_ivf.IVFIndex.load(sidecar) if sidecar else None
+            if (index is None
+                    or index.n_rows != vault.embeddings.shape[0]
+                    or index.digest != vault_ivf.vault_digest(
+                        vault.embeddings, vault.row_valid)):
+                index = vault_ivf.build_ivf(vault.embeddings,
+                                            vault.row_valid, device=dev)
+                if sidecar:
+                    try:
+                        index.save(sidecar)
+                    except OSError:
+                        pass  # read-only vault dir: rebuild next start
+
+        if sv.vault_dtype == "int4":
+            # packed nibbles, 8× f32's articles per card on both planes:
+            # image rows feed the int4 kernels, title rows are a [B]-row
+            # gather. Rows pad to the kernel tile, row_valid alongside.
+            pre = get_or_build(vault_path, vault)
+            q4 = pad_int4_vault(pre.image)
+            n_pad = q4.packed.shape[0]
+            valid = np.zeros((n_pad,), bool)
+            valid[: vault.row_valid.shape[0]] = vault.row_valid
+            if pre.text is not None:
+                t4 = pad_int4_vault(pre.text)
+            else:
+                # no titles: the packed-zero plane directly, not an
+                # [N, D] f32 zeros array through the quantizer
+                t4 = Int4Vault(packed=np.zeros_like(q4.packed),
+                               scale=np.zeros((n_pad,), np.float32))
+            return {"vault_emb": self._tensor(q4.packed),
+                    "vault_scale": self._tensor(q4.scale),
+                    "vault_valid": self._tensor(valid),
+                    "vault_text_emb": self._tensor(t4.packed),
+                    "vault_text_scale": self._tensor(t4.scale)}
+        if sv.vault_dtype == "int8":
+            def cast(a):
+                return self._tensor(quantize_rows_int8(a))
+        elif sv.vault_dtype == "bfloat16":
+            def cast(a):
+                return torch.from_numpy(a).to(torch.bfloat16).to(dev)
+        else:
+            cast = self._tensor
+        out = {"vault_emb": cast(vault.embeddings),
                "vault_valid": self._tensor(vault.row_valid)}
         out["vault_text_emb"] = (
-            self._tensor(vault.text_embeddings)
+            cast(vault.text_embeddings)
             if vault.text_embeddings is not None
             else torch.zeros_like(out["vault_emb"]))
+        if index is not None:
+            out.update(index.device_arrays(dev))
+            if sv.ivf_bf16_gather:
+                out["ivf_emb16"] = torch.from_numpy(vault.embeddings).to(
+                    torch.bfloat16).to(dev)
+        return out
+
+    # warn when the vault's device residency crosses this fraction of the
+    # card's memory: past it, the 2× headroom a staged reload_vault needs
+    # is gone and batch activations start fighting the allocator
+    _VAULT_HBM_WARN_FRACTION = 0.7
+
+    def _device_memory(self) -> Optional[Tuple[int, int]]:
+        """(bytes allocated by PyTorch, the card's total bytes), or None
+        on the CPU, which reports nothing."""
+        if self.device.type != "cuda":
+            return None
+        _, total = torch.cuda.mem_get_info(self.device)
+        return torch.cuda.memory_allocated(self.device), total
+
+    def _warn_vault_capacity(self, dev: Dict[str, torch.Tensor]) -> None:
+        """Operator guardrail: log when the vault's footprint approaches
+        the card's memory, naming the cheaper capacity mode. Diagnostics
+        only; the allocator is the hard limit."""
+        mem = self._device_memory()
+        if mem is None:
+            return
+        limit = mem[1]
+        used = sum(_nbytes(t) for t in dev.values())
+        if used <= self._VAULT_HBM_WARN_FRACTION * limit:
+            return
+        vdt = self.cfg.serving.vault_dtype
+        nxt = {"int4": "row-sharding across cards (ROADMAP.md M17)",
+               "int8": 'vault_dtype="int4" (2× more capacity)'}.get(
+            vdt, 'vault_dtype="int8" (4× capacity) or "int4" (8×)')
+        logging.getLogger("misinfo_tpu_torch.engine").warning(
+            "vault occupies %.0f%% of device HBM (%.2f GB of %.2f GB, "
+            "dtype=%s); hot reload_vault needs ~2× headroom (or "
+            "drop_first=True) — consider %s",
+            100.0 * used / limit, used / 2**30, limit / 2**30, vdt, nxt)
+
+    def _publish_vault(self, vault, dev: Dict[str, torch.Tensor]) -> None:
+        """Swap the serving vault in a few reference assignments (atomic
+        under the GIL)."""
+        self.vault_loaded = vault is not None
+        self.vault = vault
+        self._vault_device = dev
+
+    def reload_vault(self, path: Optional[str] = None,
+                     drop_first: bool = False) -> Dict:
+        """Hot-swap the Truth Vault without restarting the engine.
+
+        The replacement is staged first (host load, normalization,
+        quantization or IVF and their sidecars, device copies) while
+        requests keep serving the old vault; a few assignments then
+        publish it and, for an explicit ``path``, the engine config. A
+        failed staging leaves both untouched. A missing file soft-fails
+        to the vault-less dummy, as a missing vault does at start.
+        Concurrent reloads serialize on a lock.
+
+        Device memory: the staged swap holds both vaults' arrays briefly,
+        2× the footprint ``memory_report()`` shows. ``drop_first=True``
+        publishes the dummy before staging, so requests during the swap
+        are served without a vault instead of running out of memory.
+
+        A batch in flight during the swap may map its scores onto the new
+        metadata; append-only growth keeps indices stable. Returns
+        ``{articles, rows, sharded}``."""
+        with self._reload_lock:
+            new_path = path if path is not None else self.cfg.paths.vault_path
+            new_vault = TruthVault.load(new_path)
+            if drop_first:
+                self._publish_vault(None, self._prepare_vault(None, None))
+            dev = self._prepare_vault(new_vault, vault_path=new_path)
+            self._warn_vault_capacity(dev)
+            if path is not None:  # publish config only after staging worked
+                self.cfg = self.cfg.replace(
+                    paths=dataclasses.replace(self.cfg.paths,
+                                              vault_path=path))
+            self._publish_vault(new_vault, dev)
+            return {"articles": (0 if new_vault is None
+                                 else new_vault.num_articles),
+                    "rows": int(dev["vault_emb"].shape[0]),
+                    "sharded": False}
+
+    def memory_report(self) -> Dict:
+        """Device-memory accounting for capacity planning: detector
+        params, vault planes by key and, on a card, PyTorch's allocated
+        bytes against the card's total (the JAX engine's keys)."""
+        vault_by_key = {k: _nbytes(v) for k, v in self._vault_device.items()}
+        out = {
+            "params_bytes": _tree_bytes(self.params),
+            "vault_bytes": sum(vault_by_key.values()),
+            "vault_bytes_per_device": sum(vault_by_key.values()),
+            "vault_bytes_by_key": vault_by_key,
+            "vault_dtype": self.cfg.serving.vault_dtype,
+            "vault_articles": (self.vault.num_articles
+                               if self.vault is not None else 0),
+            "vault_rows_padded": int(
+                self._vault_device["vault_emb"].shape[0]),
+            "vault_sharded": False,
+            "devices": 1,
+        }
+        mem = self._device_memory()
+        if mem is not None:
+            out["hbm_in_use_bytes"], out["hbm_limit_bytes"] = mem
+            out["hbm_headroom_bytes"] = mem[1] - mem[0]
         return out
 
     def warmup(self, *args, **kwargs):
         not_ported("warmup (CUDA-graph capture per signature)", "M9")
-
-    def reload_vault(self, *args, **kwargs):
-        not_ported("reload_vault", "M9")
 
     @property
     def _rb_max(self) -> int:

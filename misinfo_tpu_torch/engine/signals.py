@@ -112,13 +112,20 @@ def _visual_branch(params, batch, det_cfg, cfg, policy,
         effnet_apply(params["efficientnet"], img_eff, policy))[:, 1]
     image_emb = l2_normalize(clip_image_features(
         params["clip"], img_clip, det_cfg.clip, policy))
+    ivf = ({k: batch[k]
+            for k in ("ivf_centroids", "ivf_lists", "ivf_spill", "ivf_emb16")
+            if k in batch}
+           if "ivf_centroids" in batch else None)
     vr = vault_search(
         image_emb, batch["vault_emb"], batch["vault_valid"],
         top_k=cfg.seq.vault_top_k,
         reuse_threshold=cfg.thresholds.vault_reuse,
         caption_text_emb=caption_text_emb,
         vault_text_emb=batch.get("vault_text_emb"),
-        has_caption=has_caption)
+        has_caption=has_caption,
+        ivf=ivf, nprobe=cfg.serving.ivf_nprobe,
+        vault_scale=batch.get("vault_scale"),
+        vault_text_scale=batch.get("vault_text_scale"))
     return deepfake_score, image_emb, vr
 
 

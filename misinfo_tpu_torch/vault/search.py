@@ -1,17 +1,40 @@
-"""On-device vault kNN: one exact f32 matmul + top-k.
+"""On-device vault kNN: one similarity product + top-k per batch.
 
-Counterpart of the exact path of ``misinfo_tpu/vault/search.py``
-(``vault_dtype="float32"``, the default): cosine sims in full f32 (no
-TF32; the 0.85 reuse gate depends on it), invalid rows filled with −2.0,
-top-k with ties going to the lowest index as ``lax.top_k`` does, then the
-reuse gate and the caption-vs-headline similarity gather.
+Counterpart of ``misinfo_tpu/vault/search.py`` (single device; the
+row-sharded search is ROADMAP.md M17). ``vault_sims`` takes every row
+type of ``ServingConfig.vault_dtype``:
+
+* f32 rows (the default): exact f32, no TF32 (the 0.85 reuse gate
+  depends on it);
+* bf16 rows: bf16 operands with f32 sums;
+* int8 rows: the query rounded to int8 too, int8 · int8 sums (exact),
+  times 1/127²;
+* packed int4 rows with per-row scales (``row_scale``): the int4
+  kernels of ``vault/int4.py``.
+
+Invalid rows are filled with −2.0, then top-k. ``topk_first`` is exact
+with ties going to the lowest index, as ``lax.top_k`` resolves them, so
+it stands for every mode of the JAX package's ``_topk`` (iterative,
+chunked, approx at recall 1.0, mono: those differ in speed on a TPU, not
+in results). Then the reuse gate and the caption-vs-headline similarity
+gather, with int8 or int4 title rows dequantized after the gather.
+``vault_search(ivf=...)`` scores only the probed clusters' rows
+(``vault/ivf.py``); IVF and int4 rows are mutually exclusive.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+
+from misinfo_tpu_torch.ops.common import matmul_f32
+
+_INT8_SCALE = 127.0  # rows are L2-normalized → every element is in [-1, 1]
+# int8 rows are widened to bf16 this many at a time (a copy of the whole
+# plane would cost twice the int8 vault's memory)
+_INT8_CHUNK_ROWS = 1 << 16
 
 
 class VaultResult(NamedTuple):
@@ -21,16 +44,51 @@ class VaultResult(NamedTuple):
     text_similarity: torch.Tensor   # [B] f32
 
 
-def vault_sims(query: torch.Tensor, vault_emb: torch.Tensor) -> torch.Tensor:
-    """[B,D]×[N,D]ᵀ cosine sims in full f32."""
-    if vault_emb.dtype != torch.float32:
-        raise NotImplementedError(
-            "only f32 vault rows are ported; the bf16/int8/int4 capacity "
-            "modes are ROADMAP.md M14")
-    if query.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("vault sims need exact f32: TF32 matmuls are on "
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched too) with both operands widened to f32 and full
+    f32 sums: on the card only with TF32 off (``ops.common.
+    set_exact_f32``), which the f32 vault's 0.85 gate, the IVF rescoring
+    and the exact integer sums of the int4 plain versions depend on."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("exact f32 products need TF32 matmuls off "
                            "(ops.common.set_exact_f32)")
-    return query.float() @ vault_emb.T
+    return a.float() @ b.float()
+
+
+def quantize_rows_int8(rows):
+    """Symmetric per-tensor int8 quantization of L2-normalized embedding
+    rows (|element| ≤ 1 → scale 127), numpy on the host. 4× the articles
+    per card against f32; cosine error ~0.5% RMS."""
+    return np.clip(np.round(np.asarray(rows, np.float32) * _INT8_SCALE),
+                   -127, 127).astype(np.int8)
+
+
+def _dequant(rows: torch.Tensor) -> torch.Tensor:
+    if rows.dtype == torch.int8:
+        return rows.float() * (1.0 / _INT8_SCALE)
+    return rows.float()
+
+
+def vault_sims(query: torch.Tensor, vault_emb: torch.Tensor,
+               row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B,D]×[N,D]ᵀ cosine sims over any vault row type (module
+    docstring); ``row_scale`` marks ``vault_emb`` as packed int4 rows."""
+    if row_scale is not None:
+        from misinfo_tpu_torch.vault.int4 import int4_vault_sims
+        return int4_vault_sims(query, vault_emb, row_scale)
+    if vault_emb.dtype == torch.int8:
+        q = torch.clamp(torch.round(query.float() * _INT8_SCALE), -127, 127)
+        # int8 values are exact in bf16 and every partial sum is an
+        # integer below 512·127² < 2^24: the f32 sums are exact
+        q = q.to(torch.bfloat16)
+        acc = torch.cat([
+            matmul_f32(q, vault_emb[i:i + _INT8_CHUNK_ROWS].to(
+                torch.bfloat16).T)
+            for i in range(0, vault_emb.shape[0], _INT8_CHUNK_ROWS)], dim=1)
+        return acc * (1.0 / (_INT8_SCALE * _INT8_SCALE))
+    if vault_emb.dtype == torch.bfloat16:
+        return matmul_f32(query.to(torch.bfloat16), vault_emb.T)
+    return exact_matmul(query, vault_emb.T)
 
 
 def topk_first(sims: torch.Tensor, k: int) -> Tuple[torch.Tensor,
@@ -51,7 +109,7 @@ def topk_first(sims: torch.Tensor, k: int) -> Tuple[torch.Tensor,
 
 def vault_search(
     query_image_emb: torch.Tensor,   # [B, D] L2-normalized f32
-    vault_emb: torch.Tensor,         # [N, D] L2-normalized, zero rows padded
+    vault_emb: torch.Tensor,         # [N, D] normalized rows, or int4 [N, D/2]
     row_valid: torch.Tensor,         # [N] bool
     *,
     top_k: int = 5,
@@ -59,25 +117,49 @@ def vault_search(
     caption_text_emb: Optional[torch.Tensor] = None,  # [B, D] normalized
     vault_text_emb: Optional[torch.Tensor] = None,    # [N, D] normalized
     has_caption: Optional[torch.Tensor] = None,       # [B] bool
+    ivf: Optional[Dict[str, torch.Tensor]] = None,    # ivf.py device arrays
+    nprobe: int = 8,
+    vault_scale: Optional[torch.Tensor] = None,       # [N] f32 → int4 rows
+    vault_text_scale: Optional[torch.Tensor] = None,  # [N] f32 → int4 titles
 ) -> VaultResult:
-    sims = vault_sims(query_image_emb, vault_emb)
-    sims = torch.where(row_valid[None, :], sims, sims.new_full((), -2.0))
-    top_sims, top_idx = topk_first(sims, top_k)
+    """Batched vault search on the device. With ``ivf`` only the probed
+    clusters' rows are scored; ``vault_scale`` marks ``vault_emb`` as
+    packed int4 rows and ``vault_text_scale`` likewise the titles."""
+    if ivf is not None and vault_scale is not None:
+        raise ValueError("int4 vault storage and IVF are mutually "
+                         "exclusive (engine enforces this at vault prep)")
+    if ivf is not None:
+        from misinfo_tpu_torch.vault.ivf import ivf_topk
+        top_sims, top_idx = ivf_topk(
+            query_image_emb, vault_emb, row_valid,
+            ivf["ivf_centroids"], ivf["ivf_lists"], ivf["ivf_spill"],
+            top_k=top_k, nprobe=nprobe, emb16=ivf.get("ivf_emb16"))
+    else:
+        sims = vault_sims(query_image_emb, vault_emb, row_scale=vault_scale)
+        sims = torch.where(row_valid[None, :], sims, sims.new_full((), -2.0))
+        top_sims, top_idx = topk_first(sims, top_k)
     return _gate_and_text(top_sims, top_idx, reuse_threshold,
-                          caption_text_emb, vault_text_emb, has_caption)
+                          caption_text_emb, vault_text_emb, has_caption,
+                          vault_text_scale=vault_text_scale)
 
 
 def _gate_and_text(top_sims, top_idx, reuse_threshold,
                    caption_text_emb=None, vault_text_emb=None,
-                   has_caption=None) -> VaultResult:
+                   has_caption=None, vault_text_scale=None) -> VaultResult:
     """The exact 0.85 reuse gate + the conditional caption-vs-headline
-    text similarity."""
+    text similarity (only the B matched title rows are dequantized)."""
     max_sim = top_sims[:, 0]
     gate = max_sim > reuse_threshold
     zero = max_sim.new_zeros(())
     vault_discrepancy = torch.where(gate, max_sim, zero)
     if caption_text_emb is not None and vault_text_emb is not None:
-        matched = vault_text_emb[top_idx[:, 0].long()].float()
+        i = top_idx[:, 0].long()
+        if vault_text_scale is not None:
+            from misinfo_tpu_torch.vault.int4 import unpack_int4
+            matched = (unpack_int4(vault_text_emb[i]).float()
+                       * vault_text_scale[i][:, None])
+        else:
+            matched = _dequant(vault_text_emb[i])
         tsim = (caption_text_emb * matched).sum(dim=-1)
         if has_caption is not None:
             gate = gate & has_caption

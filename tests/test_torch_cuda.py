@@ -18,6 +18,13 @@ adds to its residual input; the kernels sum in another order than cuBLAS)
 plus one bf16 step of the residual per rounding, with planted keys that
 make each head attend to one row and emulated wrong kernels (rows or a T
 chunk left out, the mask one row off) that must fall outside that band.
+
+The int4 vault similarity kernels (K10a bf16 query, K10b int8 query) are
+held to their plain versions through misinfo_tpu_torch/vault/int4_checks.py:
+K10b bit for bit, K10a within (D + 1)·2^-23·Σ|q·nib|·scale per element
+(the two sum orders' error bound), with planted faults (a tile or the
+ragged edge left out, nibbles swapped or read unsigned, the row scale
+dropped) outside that band.
 """
 
 import pytest
@@ -28,6 +35,8 @@ from misinfo_tpu_torch.ops import decode_checks as DC
 from misinfo_tpu_torch.ops import int8_ffn as K1
 from misinfo_tpu_torch.ops import self_attn_step as K6
 from misinfo_tpu_torch.ops.quant import quantize_dense
+from misinfo_tpu_torch.vault import int4 as K10
+from misinfo_tpu_torch.vault import int4_checks as IC
 
 D, H, S, T = 512, 8, 448, 1500           # whisper-base decode shapes
 
@@ -115,3 +124,50 @@ def test_decode_step_kernels_refuse_what_they_cannot_run(card):
                                 o, ck[:1].expand(big, S, D).contiguous(),
                                 cv[:1].expand(big, S, D).contiguous(), 0,
                                 n_heads=H)
+
+
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("N", [K10.INT4_TILE_ROWS * 3, 5000 + 77])
+def test_int4_sims_kernels_match_plain(card, B, N):
+    packed, scale = IC.vault_case(N, seed=N, device=card)
+    q = IC.query_case(B, seed=B, device=card)
+    before = (K10.launches, K10.launches_i8)
+    res = IC.check_k10a(q, packed, scale)          # band, planted faults
+    IC.check_k10b(q, packed, scale)                # bit for bit
+    torch.cuda.synchronize()
+    assert res["faults"] == (5 if N % IC.KERNEL_TILE else 4)
+    assert (K10.launches, K10.launches_i8) == (before[0] + 1, before[1] + 1)
+
+
+def test_int4_vault_dispatch_on_the_card(card, monkeypatch):
+    """From KERNEL_MIN_ROWS aligned rows the dispatcher launches K10b,
+    below it K10a; the environment variable forces either."""
+    q = IC.query_case(2, device=card)
+    for n, env, want in ((K10.KERNEL_MIN_ROWS, "auto", "i8"),
+                         (4096, "auto", "bf16"), (4096, "i8", "i8"),
+                         (K10.KERNEL_MIN_ROWS, "bf16", "bf16")):
+        packed, scale = IC.vault_case(n, device=card)
+        monkeypatch.setenv("MISINFO_TPU_INT4_PALLAS", env)
+        before = (K10.launches, K10.launches_i8)
+        K10.int4_vault_sims(q, packed, scale)
+        assert (K10.launches - before[0], K10.launches_i8 - before[1]) == (
+            (0, 1) if want == "i8" else (1, 0))
+
+
+def test_int4_sims_kernels_refuse_what_they_cannot_run(card):
+    packed, scale = IC.vault_case(4096, device=card)
+    q = IC.query_case(2, device=card)
+    for fn in (K10.int4_sims, K10.int4_sims_i8):
+        with pytest.raises(ValueError):                # f64 scales
+            fn(q, packed, scale.double())
+        with pytest.raises(ValueError):                # int8 rows
+            fn(q, packed.view(torch.int8), scale)
+        with pytest.raises(ValueError):                # packed dim ≠ D/2
+            fn(q[:, :256], packed, scale)
+        with pytest.raises(ValueError):                # vault on the CPU
+            fn(q, packed.cpu(), scale)
+        with pytest.raises(ValueError):                # B past MAX_BATCH
+            fn(q[:1].expand(K10.MAX_BATCH + 1, 512).contiguous(), packed,
+               scale)
+        with pytest.raises(ValueError):                # D not a multiple of 32
+            fn(q[:, :496].contiguous(), packed[:, :248].contiguous(), scale)
