@@ -4,9 +4,9 @@
 
 Phases (any failure exits non-zero before the result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the four kernel sources in parallel, one nvcc each
-     (misinfo_tpu_torch/csrc/{int8_ffn,self_attn_step,cross_ffn_step,
-     int4_sims}.cu);
+  2. build the eight kernel sources in parallel, one nvcc each
+     (misinfo_tpu_torch/csrc/{int8_ffn,int8_dense,fused_attention,
+     layer_norm,fused_ffn,self_attn_step,cross_ffn_step,int4_sims}.cu);
   3. K1 (fused int8 FFN) against its plain PyTorch version on the card at
      the main path's three shapes (RoBERTa, CLIP text, CLIP vision; B = 3,
      the kernel's split form) and at RoBERTa b32/S512 (its one-block-per-
@@ -67,11 +67,30 @@ Phases (any failure exits non-zero before the result line):
  13. reload_vault(drop_first=True) onto the vault with 4,096 rows
      appended, one of them planted: the new row is found;
  14. an int4 engine over phase 4's 2,176-row vault (below 65,536 rows the
-     dispatcher runs K10a): K10a launched once per visual program.
+     dispatcher runs K10a): K10a launched once per visual program;
+ 15. (after phase 3) the detector's opt-in kernels against their plain
+     versions at the main path's b32/S512 shapes, bf16 and f32, through
+     misinfo_tpu_torch/ops/kernel_checks.py: K2 (int8 dense) bit for bit,
+     K3 (fused attention), K4 (LayerNorm, driven once on its own: no model
+     calls it) and K5 (fused FFN; also at the Whisper tiny, medium and
+     large decode widths) within that module's bands with its planted
+     faults outside; CUDA-event times at the RoBERTa shape, with
+     the bound and, for K3 and K4, scaled_dot_product_attention and
+     layer_norm as the library's time;
+ 16. (after phase 4) engine I at full width, quant="int8" and
+     use_pallas=True (phase 4's weights, vault and b32 requests): one
+     analyze() and the b32/S512 batch with exact K2/K1/K3 launch counts
+     (144/36/36 for the batch), scores within 0.05 of the plain versions,
+     verdicts/s beside the default engine's, params bytes;
+ 17. engine II likewise with use_pallas="ffn": K5 36 times per batch;
+ 18. (after phase 8) one whisper-base greedy decode_transcript(
+     pallas_ffn=True) with bf16 weights and the fused steps off: K5 once
+     per decoder layer per step, tokens equal to the plain version's,
+     teacher-forced logits within FFN_TF_BAND.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors and times. ``--profile FILE``
-also writes torch.profiler tables of the b32 batch and of one greedy
-transcript decode to FILE.
+the kernels with their launches, errors, times and bounds. ``--profile FILE``
+also writes torch.profiler tables of the b32 batch (default engine and
+engines I and II) and of one greedy transcript decode to FILE.
 """
 
 import argparse
@@ -208,18 +227,6 @@ def check_reports(reports, what: str) -> None:
             raise AssertionError(f"{what}: clip_similarity out of range")
 
 
-@contextlib.contextmanager
-def plain_ffn(K1):
-    """Serve the engine's FFNs with the kernel's plain version (on the
-    card) for the duration of the block."""
-    kernel_fn = K1.int8_ffn
-    K1.int8_ffn = lambda *a, **kw: K1.int8_ffn_plain(*a, **kw)
-    try:
-        yield
-    finally:
-        K1.int8_ffn = kernel_fn
-
-
 def verdicts_per_s(engine, requests, reps: int = 3) -> float:
     engine.analyze_batch(requests)
     torch.cuda.synchronize()
@@ -242,19 +249,23 @@ WB = dict(d_model=512, encoder_layers=6, decoder_layers=6, num_heads=8,
 # teacher-forced decode, three times the largest measured on an H100
 # (0.045, against a logit range of 3.4)
 TF_BAND = 0.135
+# phase 18: the same for K5 in the unfused step, three times the largest
+# measured on an H100 (0.0131)
+FFN_TF_BAND = 0.04
 
 
-def build_all(modules) -> None:
-    """Phase 2: one nvcc per kernel source, all started together."""
-    def one(m):
+def build_all(builds) -> None:
+    """Phase 2: one nvcc per kernel source, all started together. builds:
+    (module, the name of its build function, the name of its build log)."""
+    def one(b):
         t0 = time.perf_counter()
-        m._library()
+        getattr(b[0], b[1])()
         return time.perf_counter() - t0
-    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
-        secs = list(pool.map(one, modules))
-    for m, sec in zip(modules, secs):
-        print(f"build {m.__name__}: {sec:.2f} s", flush=True)
-        print("\n".join(line for line in m.build_log.splitlines()
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        secs = list(pool.map(one, builds))
+    for (m, fn, log), sec in zip(builds, secs):
+        print(f"build {m.__name__}.{fn}: {sec:.2f} s", flush=True)
+        print("\n".join(line for line in getattr(m, log).splitlines()
                         if "registers" in line or "spill" in line))
 
 
@@ -288,8 +299,28 @@ def check_decode_kernels(K6, K7):
                       f"kernel_ms={ms} plain_ms={plain_ms}", flush=True)
                 if B == 4 and where != "pos=3":
                     rows[name + sfx] = {"err": res["err"], "ms": ms,
-                                        "plain_ms": plain_ms}
+                                        "plain_ms": plain_ms,
+                                        **decode_bound(name, case, int8)}
     return rows
+
+
+def decode_bound(name, case, int8: bool):
+    """bound_ms of one decode-step body: each input read once (the weights,
+    the attended cache rows), the output written once; 2 operations per
+    weight per row and 4·D per attended cache row."""
+    args = case["args"]
+    x = args[0]
+    B, D = x.shape
+    tensors = [t for a in args for t in (a.values() if isinstance(a, dict)
+                                         else [a])
+               if isinstance(t, torch.Tensor)]
+    weights = sum(t.numel() for t in tensors if t.dim() == 2 and t is not x)
+    caches = [t for t in tensors if t.dim() == 3]
+    rows = args[-1] + (1 if name == "self_attn_step" else 0)
+    moved = (nbytes(*[t for t in tensors if t.dim() < 3]) + nbytes(x)
+             + sum(B * rows * D * c.element_size() for c in caches))
+    return bound(moved, 2 * B * weights + 4 * B * rows * D,
+                 "int8" if int8 else "bf16")
 
 
 def write_wav(path: str, seconds: float = 20.0, sr: int = 16000) -> None:
@@ -332,17 +363,11 @@ def counting_steps(W):
         W._cached_decoder_step = real
 
 
-@contextlib.contextmanager
 def plain_decode_steps(W, K6, K7):
-    """Run the fused decode step with the kernels' plain versions (on the
+    """The fused decode step with the kernels' plain versions (on the
     card) for the duration of the block."""
-    real = (W.fused_self_attn_step, W.fused_cross_ffn_step)
-    W.fused_self_attn_step = K6.self_attn_step_plain
-    W.fused_cross_ffn_step = K7.cross_ffn_step_plain
-    try:
-        yield
-    finally:
-        W.fused_self_attn_step, W.fused_cross_ffn_step = real
+    return swapped((W, "fused_self_attn_step", K6.self_attn_step_plain),
+                   (W, "fused_cross_ffn_step", K7.cross_ffn_step_plain))
 
 
 def transcribe_counted(tr, wav, W, K6, K7, int8: bool):
@@ -497,7 +522,31 @@ def transcript_phases(engine, image, card, profile):
     print(f"one transcribe() wall time: {time.perf_counter() - t0} s "
           f"[{card}]", flush=True)
     transcript_timings(tr, wav, W, K6, K7, profile)
+    launches["fused_ffn_whisper"] = whisper_pallas_ffn(weights, cfg, wav,
+                                                       card)
     return launches
+
+
+# ------------------------------------------------------------------- bounds
+
+# H100 SXM peaks, dense, from NVIDIA's data sheet: HBM3 bytes and
+# operations per second by operand type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(moved: float, ops: float, kind: str):
+    """The least time the card could take (ms): the bytes moved over the
+    memory rate or the operations over the peak rate of their type,
+    whichever is larger."""
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 # -------------------------------------------------------------------- vault
@@ -505,7 +554,6 @@ def transcript_phases(engine, image, card, profile):
 BIG_ROWS = 1 << 20                  # 512 × INT4_TILE_ROWS
 RAGGED_ROWS = BIG_ROWS - 1971       # not a multiple of 2048, nor of 128
 K10_BATCHES = (1, 8, 32)
-PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published
 SEP = 0.75         # most a request image may resemble another planted one
 PLANT_SIGMA = 0.005                 # noise per element of a planted row
 
@@ -541,10 +589,11 @@ def check_int4_kernels(K10, IC, card):
             row = rows.setdefault(name, {"errs": []})
             row["errs"].append(err)
             if n == BIG_ROWS and b == 32:
-                row.update(ms=ms, plain_ms=plain_ms)
+                row.update(ms=ms, plain_ms=plain_ms, **bound(
+                    moved, 2 * b * n * q.shape[1],
+                    "int8" if name == "int4_sims_i8" else "bf16"))
     del packed, scale
-    return {k: {"err": max(v["errs"]), "ms": v["ms"],
-                "plain_ms": v["plain_ms"]} for k, v in rows.items()}
+    return {k: {"err": max(v.pop("errs")), **v} for k, v in rows.items()}
 
 
 def vault_params():
@@ -902,6 +951,304 @@ def vault_phases(card, small_vault, profile=None):
     return {"int4_sims": k10a[0], "int4_sims_i8": k10[1]}
 
 
+# ------------------------------------------------------- opt-in kernel modes
+
+OPT_SHAPES = {                      # the main path's shapes at full b32/S512
+    "int8_dense": (("roberta", 32 * 512, 768, 768),
+                   ("clip_text", 32 * 77, 512, 512),
+                   ("clip_vision", 32 * 50, 768, 768)),
+    "fused_attention": (("roberta", 32, 512, 12, True, False),
+                        ("clip_text", 32, 77, 8, True, True),
+                        ("clip_vision", 32, 50, 12, False, False)),
+    "fused_ffn": (("roberta", 32 * 512, 768, 3072, "tanh"),
+                  ("clip_text", 32 * 77, 512, 2048, "quick"),
+                  ("clip_vision", 32 * 50, 768, 3072, "quick"),
+                  ("whisper_decode", 32, 512, 2048, "tanh"),
+                  ("whisper_tiny_decode", 32, 384, 1536, "tanh"),
+                  ("whisper_medium_decode", 32, 1024, 4096, "tanh"),
+                  ("whisper_large_decode", 32, 1280, 5120, "tanh")),
+}
+
+
+# phases 16-17: (label, quant, use_pallas, launches of one analyze of a
+# 300-word request, launches of the b32/S512 batch). 12 layers per tower;
+# K2 takes the 4 projections of a tower whose rows reach 256 (RoBERTa
+# 512 / 16,384, CLIP text 77 / 2,464, CLIP vision 50 / 1,600)
+OPT_ENGINES = (
+    ("I", "int8", True,
+     {"int8_dense": 48, "int8_ffn": 36, "fused_attention": 36},
+     {"int8_dense": 144, "int8_ffn": 36, "fused_attention": 36}),
+    ("II", "none", "ffn", {"fused_ffn": 36}, {"fused_ffn": 36}))
+
+
+def _report(what, res, card) -> None:
+    extra = (f"bitwise equal (a one-ulp scale fault moves "
+             f"{res['fault_elements']} outputs)" if "fault_elements" in res
+             else f"max_abs_err={res['err']} (band up to {res['band']}; "
+                  f"worst {res['worst']:.3f} of the band; {res['faults']} "
+                  f"planted faults, nearest at "
+                  f"{res['nearest_fault']:.1f} bands)")
+    print(f"{what}: {extra} [{card}]", flush=True)
+
+
+def _timed(name, fn, plain, library, moved, ops, kind, card, reps=20):
+    row = {"ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, 3),
+           "library_ms": cuda_ms(library, reps) if library else None,
+           **bound(moved, ops, kind)}
+    print(f"{name} times: kernel_ms={row['ms']} plain_ms={row['plain_ms']} "
+          f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} "
+          f"({row['bound_by']}) [{card}]", flush=True)
+    return row
+
+
+def check_opt_in_kernels(card):
+    """Phase 15: K2-K5 against their plain versions on the card at the
+    main path's shapes (ops/kernel_checks.py), bf16 and f32; CUDA-event
+    times at the RoBERTa shape (bf16) with the bound and, for K3 and K4,
+    the one PyTorch call that computes the same function."""
+    import torch.nn.functional as F
+    from misinfo_tpu_torch.ops import fused_attention as K3
+    from misinfo_tpu_torch.ops import fused_ffn as K5
+    from misinfo_tpu_torch.ops import int8_dense as K2
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    for name, M, K, N in OPT_SHAPES["int8_dense"]:
+        for xd in (bf16, f32):
+            _report(f"int8_dense {name} M={M} K={K} N={N} x {xd}",
+                    KC.check_int8_dense(KC.int8_dense_case(M, K, N, xd)),
+                    card)
+    _report("int8_dense no bias M=300 K=N=768", KC.check_int8_dense(
+        KC.int8_dense_case(300, 768, 768, bias=False)), card)
+    _, M, K, N = OPT_SHAPES["int8_dense"][0]
+    c = KC.int8_dense_case(M, K, N)
+    a = (c["x"], c["wq"], c["w_scale"], c["bias"])
+    rows["int8_dense"] = {"err": 0.0, **_timed(
+        "int8_dense roberta", lambda: K2.int8_dense(*a),
+        lambda: K2.int8_dense_plain(*a), None, nbytes(*a) + M * N * 2,
+        2 * M * K * N, "int8", card)}
+
+    errs = []
+    for dt in (bf16, f32):
+        for name, B, S, H, m, causal in OPT_SHAPES["fused_attention"]:
+            res = KC.check_attention(KC.attention_case(B, S, H, m, causal, dt))
+            errs.append(res["err"])
+            _report(f"fused_attention {name} B={B} S={S} H={H} {dt}", res,
+                    card)
+    _, B, S, H, m, causal = OPT_SHAPES["fused_attention"][0]
+    c = KC.attention_case(B, S, H, m, causal, bf16)
+    q, k, v, mask = c["q"], c["k"], c["v"], c["mask"]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    add = ((1.0 - mask) * -1e9)[:, None, None, :].to(bf16)
+    rows["fused_attention"] = {"err": max(errs), **_timed(
+        "fused_attention roberta", lambda: K3.fused_attention(q, k, v, mask),
+        lambda: K3.fused_attention_plain(q, k, v, mask),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add),
+        nbytes(q, k, v, q, mask), 4 * B * H * S * S * q.shape[-1], "bf16",
+        card)}
+
+    errs = []
+    for dt in (bf16, f32):
+        res = KC.check_layer_norm(KC.layer_norm_case(32 * 512, 768, dt))
+        errs.append(res["err"])
+        _report(f"layer_norm rows={32 * 512} D=768 {dt}", res, card)
+    c = KC.layer_norm_case(32 * 512, 768, bf16)
+    x, sc, bi = c["x"], c["scale"], c["bias"]
+    sc16, bi16 = sc.to(bf16), bi.to(bf16)
+    K3.ln_launches = 0      # K4's own drive (no model calls it) starts here
+    K3.fused_layer_norm(x, sc, bi)
+    torch.cuda.synchronize()
+    ln_launches = K3.ln_launches        # read just after it
+    rows["layer_norm"] = {"err": max(errs), "launches": ln_launches, **_timed(
+        "layer_norm", lambda: K3.fused_layer_norm(x, sc, bi),
+        lambda: K3.fused_layer_norm_plain(x, sc, bi),
+        lambda: F.layer_norm(x, (768,), sc16, bi16),
+        2 * nbytes(x) + nbytes(sc, bi), 8 * x.numel(), "f32", card)}
+
+    errs = []
+    for dt in (bf16, f32):
+        for name, M, K, N, mode in OPT_SHAPES["fused_ffn"]:
+            res = KC.check_ffn(KC.ffn_case(M, K, N, mode, dt))
+            errs.append(res["err"])
+            _report(f"fused_ffn {name} M={M} K={K} N={N} {mode} {dt}", res,
+                    card)
+    _, M, K, N, mode = OPT_SHAPES["fused_ffn"][0]
+    a = KC.ffn_case(M, K, N, mode, bf16)["args"]
+    rows["fused_ffn"] = {"err": max(errs), **_timed(
+        "fused_ffn roberta", lambda: K5.fused_ffn(*a, mode=mode),
+        lambda: K5.fused_ffn_plain(*a, mode=mode), None,
+        nbytes(*a) + M * K * 2, 2 * M * N * 2 * K, "bf16", card, reps=10)}
+    return rows
+
+
+@contextlib.contextmanager
+def swapped(*swaps):
+    """Replace module attributes, (module, name, stand-in) each, for the
+    duration of the block: here the kernels' wrappers by their plain
+    versions, which then run on the card."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def opt_in_engines(default, vault_path, b32, image, rng, card,
+                   profile=None):
+    """Phases 16-17: the engine at full width in its opt-in kernel modes,
+    with phase 4's seeded weights, vault and b32/S512 requests. Engine I
+    (quant="int8", use_pallas=True): one analyze() of a 300-word request
+    (RoBERTa's 512 rows take K2, CLIP's 77 and 50 stay below 256) and the
+    b32 batch, whose full program must launch K2 144, K1 36 and K3 36
+    times. Engine II (quant="none", use_pallas="ffn"): K5 36 times. Each:
+    scores within 0.05 of the same engine with the plain versions,
+    verdicts/s beside the default engine's, params bytes. With
+    ``profile``, appends a profiler table of each engine's b32 batch.
+    Returns the kernels' launch counts of the b32 runs."""
+    from misinfo_tpu_torch.core.config import ForensicsConfig
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.ops import fused_attention as K3
+    from misinfo_tpu_torch.ops import fused_ffn as K5
+    from misinfo_tpu_torch.ops import int8_dense as K2
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    mods = {"int8_dense": K2, "int8_ffn": K1, "fused_attention": K3,
+            "fused_ffn": K5}
+    plain = {"int8_dense": (K2, "int8_dense", K2.int8_dense_plain),
+             "int8_ffn": (K1, "int8_ffn", K1.int8_ffn_plain),
+             "fused_attention": (K3, "fused_attention",
+                                 K3.fused_attention_plain),
+             "fused_ffn": (K5, "fused_ffn", K5.fused_ffn_plain)}
+    launches = {}
+    vps = {"default": verdicts_per_s(default, b32)}
+    for label, quant, use_pallas, want_single, want_b32 in OPT_ENGINES:
+        cfg = ForensicsConfig(verbose=False)
+        cfg = cfg.replace(
+            paths=dataclasses.replace(cfg.paths, vault_path=vault_path),
+            precision=dataclasses.replace(cfg.precision, quant=quant))
+        eng = MisinfoForensics(cfg, DetectorConfig(), use_pallas=use_pallas,
+                               device="cuda")
+        what = f"engine {label} (quant={quant!r}, use_pallas={use_pallas!r})"
+        if eng.quant != quant:
+            raise AssertionError(f"{what}: quant resolved to {eng.quant}")
+        text = words(rng, 300)
+        eng.analyze(text, image, verbose=False)          # build, warm up
+        torch.cuda.synchronize()
+        counts = {}
+        for run, fn in (("single", lambda: [eng.analyze(text, image,
+                                                        verbose=False)]),
+                        ("b32", lambda: eng.analyze_batch(b32))):
+            for m in mods.values():
+                m.launches = 0          # this path's run starts here
+            reports = fn()
+            torch.cuda.synchronize()
+            counts[run] = {n: m.launches for n, m in mods.items()
+                           if m.launches}  # read just after the path
+            check_reports(reports, f"{what} {run}")
+        print(f"{what}: launches, one analyze {counts['single']} (want "
+              f"{want_single}); full b32/S512 {counts['b32']} (want "
+              f"{want_b32})", flush=True)
+        if counts != {"single": want_single, "b32": want_b32}:
+            raise AssertionError(f"{what}: launch counts off")
+        launches.update(counts["b32"])
+        with_kernels = eng.analyze_batch(b32)
+        with swapped(*[plain[n] for n in want_b32]):
+            with_plain = eng.analyze_batch(b32)
+        drift = max(abs(a["scores"][k] - b["scores"][k])
+                    for a, b in zip(with_kernels, with_plain)
+                    for k in ("ai_score", "misinfo_score", "deepfake_score",
+                              "clip_similarity", "fake_probability"))
+        vps[label] = verdicts_per_s(eng, b32)
+        print(f"{what}: max score drift against the plain versions {drift} "
+              f"(limit 0.05); b32/S512 {vps[label]} verdicts/s; params "
+              f"{eng.memory_report()['params_bytes']} bytes (default "
+              f"engine, quant={default.quant!r}: "
+              f"{default.memory_report()['params_bytes']}) [{card}]",
+              flush=True)
+        if not drift < 0.05:
+            raise AssertionError(f"{what}: scores drift {drift} >= 0.05")
+        if profile:
+            append_profile(profile, f"{what} full b32/S512 analyze_batch",
+                           lambda: eng.analyze_batch(b32), rows=40)
+        del eng
+    vps["default again"] = verdicts_per_s(default, b32)
+    print("b32/S512 verdicts/s in one run: " + ", ".join(
+        f"{k} {v}" for k, v in vps.items()) + f" [{card}]", flush=True)
+    return launches
+
+
+def whisper_pallas_ffn(weights, cfg, wav, card):
+    """Phase 18: one whisper-base greedy decode_transcript(pallas_ffn=True)
+    (bf16 weights, fused steps off): K5 once per decoder layer per step;
+    tokens equal to those of the same decode with K5's plain version;
+    teacher-forced logits within FFN_TF_BAND. Returns K5's launches."""
+    from misinfo_tpu_torch.core.config import WhisperDecodeConfig
+    from misinfo_tpu_torch.models import whisper as W
+    from misinfo_tpu_torch.ops import fused_ffn as K5
+    from misinfo_tpu_torch.preprocess.audio import prep_mel_windows
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    tr = WhisperTranscriber(weights, config=cfg, device="cuda",
+                            decode_cfg=dataclasses.replace(
+                                WhisperDecodeConfig(), quant="none",
+                                pallas="off"))
+    mels, _ = prep_mel_windows(wav, 2 * cfg.max_source_positions, 1)
+    prompt = torch.tensor([tr.tokenizer.sot_sequence(language="en")[1:]],
+                          device=tr.device)
+    real_step = W._cached_decoder_step
+    steps = []
+
+    def step(*a, **kw):
+        steps.append(1)
+        return real_step(*a, **kw)
+
+    def decode():
+        return W.decode_transcript(tr.params, None, tr.cfg, tr.policy,
+                                   enc_out=enc, prompt_tokens=prompt,
+                                   pallas_ffn=True)[0]
+    with torch.inference_mode():
+        enc = tr._encode(mels)
+        decode()                                        # warm up
+        torch.cuda.synchronize()
+        with swapped((W, "_cached_decoder_step", step)):
+            K5.launches = 0             # this path's run starts here
+            t0 = time.perf_counter()
+            tokens = decode()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = K5.launches      # read just after the path
+        with swapped((K5, "fused_ffn", K5.fused_ffn_plain)):
+            tokens_plain = decode()
+        n = tokens.shape[1]
+
+        def forced():
+            cache = W.init_kv_cache(tr.params, enc, n, tr.cfg, tr.policy)
+            return torch.cat([W._cached_decoder_step(
+                tr.params, tokens[:, i], i, enc, cache, tr.cfg, tr.policy,
+                pallas_ffn=True)[0].float() for i in range(n - 1)])
+        got = forced()
+        with swapped((K5, "fused_ffn", K5.fused_ffn_plain)):
+            want = forced()
+    layers = cfg.decoder_layers
+    diff = (got - want).abs().max().item()
+    emitted = int((tokens[0] != cfg.eos_token_id).sum().item())
+    same = torch.equal(tokens, tokens_plain)
+    print(f"whisper pallas_ffn decode: {len(steps)} steps ({emitted} tokens "
+          f"before EOS) in {sec} s, K5 launches {launches} (want "
+          f"{layers} × {len(steps)}); tokens equal to the plain version's: "
+          f"{same}; teacher-forced max |Δlogit| {diff} (band {FFN_TF_BAND}) "
+          f"[{card}]", flush=True)
+    if launches != layers * len(steps) or not steps:
+        raise AssertionError(f"K5 launches {launches} != {layers} × "
+                             f"{len(steps)} decode steps")
+    if not (same and math.isfinite(diff) and diff <= FFN_TF_BAND):
+        raise AssertionError("the pallas_ffn decode disagrees with its plain "
+                             "version")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -915,6 +1262,9 @@ def main() -> int:
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
     from misinfo_tpu_torch.models.detector import DetectorConfig
     from misinfo_tpu_torch.ops import cross_ffn_step as K7
+    from misinfo_tpu_torch.ops import fused_attention as K3
+    from misinfo_tpu_torch.ops import fused_ffn as K5
+    from misinfo_tpu_torch.ops import int8_dense as K2
     from misinfo_tpu_torch.ops import int8_ffn as K1
     from misinfo_tpu_torch.ops import self_attn_step as K6
     from misinfo_tpu_torch.ops.quant import quantize_dense
@@ -923,8 +1273,11 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)                                   # phase 1
-    build_all((K1, K6, K7, K10))                              # phase 2
+    build_all([(m, "_library", "build_log")                   # phase 2
+               for m in (K1, K2, K3, K5, K6, K7, K10)]
+              + [(K3, "_ln_library", "ln_build_log")])
     kernel_rows = check_kernel(K1, quantize_dense)            # phase 3
+    opt_rows = check_opt_in_kernels(card)                     # phase 15
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     vault_path = os.path.join(tmp, "vault.npz")
@@ -961,7 +1314,7 @@ def main() -> int:
 
     full = batch[:4]
     with_kernel = engine.analyze_batch(full)
-    with plain_ffn(K1):
+    with swapped((K1, "int8_ffn", K1.int8_ffn_plain)):
         with_plain = engine.analyze_batch(full)
     drift = max(abs(a["scores"][k] - b["scores"][k])
                 for a, b in zip(with_kernel, with_plain)
@@ -982,35 +1335,42 @@ def main() -> int:
     single_ms = (time.perf_counter() - t0) / 5 * 1e3
     b32 = [{"text": words(rng, 400 + i), "image": image} for i in range(32)]
     vps = verdicts_per_s(engine, b32)
-    with plain_ffn(K1):
+    with swapped((K1, "int8_ffn", K1.int8_ffn_plain)):
         vps_plain = verdicts_per_s(engine, b32)
     vps_again = verdicts_per_s(engine, b32)
     print(f"single analyze latency: {single_ms} ms; full b32/S512: {vps} "
           f"verdicts/s, plain FFN {vps_plain}, kernel again {vps_again} "
           f"[{card}]", flush=True)
-    decode_rows = check_decode_kernels(K6, K7)                # phase 5
     if args.profile:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
         open(args.profile, "w").close()
+    opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
+                                  image, rng, card, args.profile)
+    decode_rows = check_decode_kernels(K6, K7)                # phase 5
+    if args.profile:
         append_profile(args.profile, "full b32/S512 analyze_batch",
                        lambda: engine.analyze_batch(b32), rows=40)
 
-    decode_launches = transcript_phases(engine, image, card,  # phases 6-8
-                                        args.profile)
+    decode_launches = transcript_phases(engine, image, card,  # phases 6-8,
+                                        args.profile)         # 18
     del engine
     int4_rows = check_int4_kernels(K10, IC, card)             # phase 9
     int4_launches = vault_phases(card, vault_path,            # phases 10-14
                                  args.profile)
 
     rob = kernel_rows["roberta"]
+    M, K, N = 3 * 512, 768, 3072
     kernels = [{
         "name": "int8_ffn", "route": "cuda",
         "source": "misinfo_tpu_torch/csrc/int8_ffn.cu",
         "replaces": "misinfo_tpu/ops/pallas_int8.py:237",
         "launches": main_launches,
         "max_abs_err": max(r["err"] for r in kernel_rows.values()),
-        "ms": rob["ms"], "plain_ms": rob["plain_ms"]}]
+        "ms": rob["ms"], "plain_ms": rob["plain_ms"],
+        **bound(M * K * 2 * 2 + 2 * K * N + 4 * (2 * N + 2 * K),
+                2 * M * N * 2 * K, "int8"),
+        "library_ms": None}]
     replaces = {"self_attn_step": "misinfo_tpu/ops/pallas_decode.py:52",
                 "self_attn_step_i8": "misinfo_tpu/ops/pallas_decode.py:148",
                 "cross_ffn_step": "misinfo_tpu/ops/pallas_cross_ffn.py:125",
@@ -1023,7 +1383,8 @@ def main() -> int:
                        f"{name.removesuffix('_i8')}.cu"),
             "replaces": where, "launches": decode_launches[name],
             "max_abs_err": row["err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"]})
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
     for name, line in (("int4_sims", 123), ("int4_sims_i8", 177)):
         row = int4_rows[name]
         kernels.append({
@@ -1031,7 +1392,29 @@ def main() -> int:
             "source": "misinfo_tpu_torch/csrc/int4_sims.cu",
             "replaces": f"misinfo_tpu/vault/int4.py:{line}",
             "launches": int4_launches[name], "max_abs_err": row["err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"]})
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None})
+    for name, src, where, launches in (
+            ("int8_dense", "int8_dense.cu",
+             "misinfo_tpu/ops/pallas_int8.py:123",
+             opt_launches["int8_dense"]),
+            ("fused_attention", "fused_attention.cu",
+             "misinfo_tpu/ops/pallas_attention.py:32",
+             opt_launches["fused_attention"]),
+            ("layer_norm", "layer_norm.cu",
+             "misinfo_tpu/ops/pallas_attention.py:115",
+             opt_rows["layer_norm"]["launches"]),
+            ("fused_ffn", "fused_ffn.cu", "misinfo_tpu/ops/pallas_ffn.py:59",
+             opt_launches["fused_ffn"])):
+        row = opt_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"misinfo_tpu_torch/csrc/{src}", "replaces": where,
+            "launches": launches, "max_abs_err": row["err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

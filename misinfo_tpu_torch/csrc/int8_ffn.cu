@@ -32,12 +32,14 @@
 // contraction changes a rounding. Never build this file with
 // --use_fast_math: approximate scales flip quantization levels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "kernel_common.cuh"
 
 using namespace nvcuda;
+using int8k::quant;
+using int8k::tile_off;
+using int8k::warp_max;
 
 namespace {
 
@@ -46,50 +48,18 @@ constexpr int KS = 32;        // weight rows staged per step
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 
-enum { MODE_TANH = 0, MODE_ERF = 1, MODE_QUICK = 2 };
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+using int8k::MODE_ERF;
+using int8k::MODE_QUICK;
+using int8k::MODE_TANH;
 
 __device__ __forceinline__ float row_scale(float amax) {
   return fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
 }
 
-__device__ __forceinline__ int8_t quant(float v, float s) {
-  int q = __float2int_rn(__fdiv_rn(v, s));
-  return (int8_t)max(-127, min(127, q));
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Offset of element (r, c) in a matrix stored as 16x16 tiles, tile (r/16,
-// c/16) at ((r/16)·ct + c/16)·256 with rows of 16 bytes. Every tile starts
-// 256-byte aligned, as WMMA loads require.
-__device__ __forceinline__ int tile_off(int r, int c, int ct) {
-  return (((r >> 4) * ct + (c >> 4)) << 8) + ((r & 15) << 4) + (c & 15);
-}
-
 // Activation of the dequantized f32 pre-activation, with the casts of
 // _act_f32: round to bf16, compute in f32, round to bf16.
 __device__ __forceinline__ float act(float h32, int mode) {
-  const float h = bf16_round(h32);
-  if (mode == MODE_QUICK) {
-    const float s = bf16_round(1.0f / (1.0f + expf(-1.702f * h)));
-    return bf16_round(h * s);
-  }
-  float g;
-  if (mode == MODE_TANH) {
-    const float c = 0.7978845608028654f;  // sqrt(2/pi)
-    g = h * (0.5f * (1.0f + tanhf(c * (h + 0.044715f * (h * h * h)))));
-  } else {
-    g = 0.5f * h * erfcf(-h * 0.7071067811865476f);
-  }
-  return bf16_round(g);
+  return int8k::act<true>(h32, mode);
 }
 
 // Copy rows [r0, r0 + KS) x columns [c0, c0 + w) of a row-major int8

@@ -13,9 +13,14 @@ bfloat16, int8, int4 with its ``<vault>.int4.npz`` sidecar) and
 ``vault_ivf`` (with its ``<vault>.ivf.npz`` sidecar), hot-swaps with
 ``reload_vault`` and reports its footprint in ``memory_report``.
 
+The opt-in kernel modes are carried: ``PrecisionConfig.quant="int8"``
+(every large dense in int8: the int8 dense kernel K2 from 256 rows, the
+fused int8 FFN K1), ``use_pallas=True`` (the fused attention kernel K3
+on unpacked rows) and ``use_pallas="ffn"`` (the fused FFN kernel K5).
+
 Not carried yet, and refused with NotImplementedError: video, meshes,
-warmup and the AOT cache, on-device resize and the Pallas attention
-options.
+warmup and the AOT cache, on-device resize and ``use_pallas="flash"``
+(JAX's library TPU kernel).
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from misinfo_tpu_torch.engine.signals import (
 from misinfo_tpu_torch.models.clip import clip_text_features
 from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
 from misinfo_tpu_torch.ops.common import Policy, l2_normalize, set_exact_f32
-from misinfo_tpu_torch.ops.serving import optimize_for_serving, resolve_quant
+from misinfo_tpu_torch.ops.serving import (
+    optimize_for_serving, quant_mode, resolve_quant)
 from misinfo_tpu_torch.preprocess.image import (
     batch_images, decode_rgb, image_to_array)
 from misinfo_tpu_torch.preprocess.packing import (
@@ -74,14 +80,15 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 class MisinfoForensics:
-    """Batched forensics engine on one device (a CUDA card or the CPU)."""
+    """Batched forensics engine on one device: the CUDA card by default,
+    the CPU when the caller asks for it (``device="cpu"``)."""
 
     _TEXT_BUCKETS = (64, 128, 256, 512)
 
     def __init__(self, config: Optional[ForensicsConfig] = None,
                  det_cfg: Optional[DetectorConfig] = None,
                  params: Optional[Dict] = None, mesh=None,
-                 use_pallas: bool = False, device="cpu"):
+                 use_pallas=False, device="cuda"):
         self.cfg = config or ForensicsConfig.from_env()
         self.det_cfg = det_cfg or DetectorConfig()
         self.device = torch.device(device)
@@ -89,9 +96,13 @@ class MisinfoForensics:
         sv = self.cfg.serving
         if mesh is not None:
             not_ported("a device mesh (multi-GPU serving)", "M17")
-        if use_pallas:
-            not_ported("use_pallas (the Pallas attention/FFN options)",
-                       "queue 2, K3-K5")
+        if use_pallas == "flash":
+            not_ported("use_pallas='flash' (JAX's library TPU flash-attention "
+                       "kernel, not this repository's code)", "queue 2, K3")
+        if use_pallas not in (False, True, "ffn"):
+            raise ValueError(f"use_pallas={use_pallas!r}: expected False, "
+                             "True or 'ffn'")
+        self.use_pallas = use_pallas
         if sv.device_resize:
             not_ported("serving.device_resize", "M14")
         if sv.aot_cache:
@@ -121,6 +132,8 @@ class MisinfoForensics:
         self.load_report["tokenizer_parity"] = self.tokenizer_parity
         self.quant = resolve_quant(self.cfg.precision.quant, self.policy,
                                    self.device)
+        if self.quant != "none":
+            quant_mode(self.policy, self.device)    # raises on a bad mode
         params = to_device(params, self.device)
         self.params = optimize_for_serving(params, self.policy, self.quant)
 
@@ -136,6 +149,7 @@ class MisinfoForensics:
         if self.cfg.verbose:
             print(f"MisinfoForensics ready in {self.init_seconds:.1f}s "
                   f"(device={self.device}, quant={self.quant}, "
+                  f"use_pallas={self.use_pallas}, "
                   f"vault={'loaded' if self.vault_loaded else 'absent'}, "
                   f"vault_dtype={sv.vault_dtype}, "
                   f"ckpt={self.load_report['mode']})")
@@ -487,7 +501,8 @@ class MisinfoForensics:
         with torch.inference_mode():
             out = pack_signal_output(signals_program(
                 self.params, batch, variant=program, det_cfg=self.det_cfg,
-                cfg=self.cfg, policy=self.policy))
+                cfg=self.cfg, policy=self.policy,
+                use_pallas=self.use_pallas))
         return variant, out, idxs
 
     def _finalize_batch(self, dispatches, requests: List[Dict],

@@ -84,13 +84,14 @@ def unpack_signal_output(arr) -> SignalOutput:
         real_probability=v[:, 9], vault_top_sims=sims, vault_top_idx=idx)
 
 
-def _text_branch(params, batch, det_cfg, policy):
+def _text_branch(params, batch, det_cfg, policy, use_pallas):
     if "roberta_seg" in batch:
         # packed rows: block-diagonal attention, per-segment positions,
         # CLS scores gathered per request
         hidden = roberta_encode(
             params["roberta"], batch["roberta_ids"], batch["roberta_mask"],
-            det_cfg.roberta, policy, position_ids=batch["roberta_pos"],
+            det_cfg.roberta, policy, use_pallas=use_pallas,
+            position_ids=batch["roberta_pos"],
             segment_ids=batch["roberta_seg"])
         pooled = hidden[batch["cls_rows"].long(), batch["cls_cols"].long()]
         ai_logits = head_apply(params["ai_head"], pooled, policy)
@@ -99,11 +100,11 @@ def _text_branch(params, batch, det_cfg, policy):
         ai_logits, mis_logits = dual_head_logits(
             params["roberta"], params["ai_head"], params["misinfo_head"],
             batch["roberta_ids"], batch["roberta_mask"], det_cfg.roberta,
-            policy)
+            policy, use_pallas)
     return softmax_f32(ai_logits)[:, 1], softmax_f32(mis_logits)[:, 1]
 
 
-def _visual_branch(params, batch, det_cfg, cfg, policy,
+def _visual_branch(params, batch, det_cfg, cfg, policy, use_pallas,
                    caption_text_emb=None, has_caption=None):
     img_eff = normalize_images(batch["image_effnet"], "imagenet",
                                policy.compute)
@@ -111,7 +112,7 @@ def _visual_branch(params, batch, det_cfg, cfg, policy,
     deepfake_score = softmax_f32(
         effnet_apply(params["efficientnet"], img_eff, policy))[:, 1]
     image_emb = l2_normalize(clip_image_features(
-        params["clip"], img_clip, det_cfg.clip, policy))
+        params["clip"], img_clip, det_cfg.clip, policy, use_pallas))
     ivf = ({k: batch[k]
             for k in ("ivf_centroids", "ivf_lists", "ivf_spill", "ivf_emb16")
             if k in batch}
@@ -146,9 +147,11 @@ def _verdict_from_prob(fake_p):
 
 def signals_program(params: Dict, batch: Dict[str, torch.Tensor], *,
                     variant: str, det_cfg: DetectorConfig,
-                    cfg: ForensicsConfig, policy: Policy) -> SignalOutput:
+                    cfg: ForensicsConfig, policy: Policy,
+                    use_pallas=False) -> SignalOutput:
     """One program (``full``, ``text_only``, ``visual_only`` or
-    ``text_packed``) over a device batch → SignalOutput."""
+    ``text_packed``) over a device batch → SignalOutput. ``use_pallas``
+    (False, True or "ffn") selects the towers' opt-in kernels."""
     if variant == "text_packed":
         variant = "text_only"   # the packed keys route _text_branch
     B = (batch["cls_rows"].shape[0] if "cls_rows" in batch
@@ -159,7 +162,7 @@ def signals_program(params: Dict, batch: Dict[str, torch.Tensor], *,
     K = cfg.seq.vault_top_k
 
     if variant == "text_only":
-        ai, mis = _text_branch(params, batch, det_cfg, policy)
+        ai, mis = _text_branch(params, batch, det_cfg, policy, use_pallas)
         verdict, conf, fake_p, real_p = _verdict_from_prob(mis)
         return SignalOutput(
             ai, mis, zeros, zeros, zeros, zeros, verdict, conf, fake_p,
@@ -167,7 +170,8 @@ def signals_program(params: Dict, batch: Dict[str, torch.Tensor], *,
             torch.full((B, K), -1, dtype=torch.int32, device=dev))
 
     if variant == "visual_only":
-        deep, _, vr = _visual_branch(params, batch, det_cfg, cfg, policy)
+        deep, _, vr = _visual_branch(params, batch, det_cfg, cfg, policy,
+                                     use_pallas)
         verdict, conf, fake_p, real_p = _verdict_from_prob(
             torch.maximum(deep, vr.vault_discrepancy))
         return SignalOutput(zeros, zeros, deep, zeros, vr.vault_discrepancy,
@@ -175,12 +179,13 @@ def signals_program(params: Dict, batch: Dict[str, torch.Tensor], *,
                             vr.top_sims, vr.top_idx)
 
     if variant == "full":
-        ai, mis = _text_branch(params, batch, det_cfg, policy)
+        ai, mis = _text_branch(params, batch, det_cfg, policy, use_pallas)
         cap_emb = l2_normalize(clip_text_features(
             params["clip"], batch["clip_ids"], batch["clip_mask"],
-            det_cfg.clip, policy))
+            det_cfg.clip, policy, use_pallas))
         deep, img_emb, vr = _visual_branch(
-            params, batch, det_cfg, cfg, policy, caption_text_emb=cap_emb,
+            params, batch, det_cfg, cfg, policy, use_pallas,
+            caption_text_emb=cap_emb,
             has_caption=torch.ones(B, dtype=torch.bool, device=dev))
         clip_sim = (cap_emb * img_emb).sum(dim=-1)
         scores_vec = torch.stack([ai, mis, deep, clip_sim,

@@ -5,7 +5,9 @@ blocks, causal + padding mask, quick_gelu, pooling at the first EOS and a
 bias-free ``text_projection``; vision tower with a 32×32 patch conv (no
 bias, NHWC at the public function), class token, learned positions,
 pre/post LayerNorm and a bias-free ``visual_projection``. Int8-quantized
-FFNs run through the fused int8 FFN (ops/int8_ffn.py, quick mode).
+FFNs run through the fused int8 FFN (ops/int8_ffn.py, quick mode);
+``use_pallas`` selects the fused FFN (``"ffn"``) or fused attention
+(``True``) kernels as in models/roberta.py.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from misinfo_tpu_torch.ops.attention import attention_init, multi_head_attention
 from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, dense, dense_init, layer_norm, layer_norm_init,
     quick_gelu)
+from misinfo_tpu_torch.ops.fused_ffn import ffn_apply
 from misinfo_tpu_torch.ops.int8_ffn import int8_ffn_apply
 
 
@@ -66,15 +69,21 @@ def _block_init(gen: torch.Generator, width: int, mlp: int) -> Dict:
 
 
 def _encoder_apply(blocks, x, num_heads, *, mask=None, causal=False,
-                   eps=1e-5, policy=DEFAULT_POLICY):
+                   eps=1e-5, policy=DEFAULT_POLICY, use_pallas=False):
+    ffn_fused = use_pallas == "ffn"
+    attn_pallas = False if ffn_fused else use_pallas
     for blk in blocks:
         h = layer_norm(blk["ln1"], x, eps, policy)
         x = x + multi_head_attention(blk["attn"], h, num_heads, mask=mask,
-                                     causal=causal, policy=policy)
+                                     causal=causal, policy=policy,
+                                     use_pallas=attn_pallas)
         h = layer_norm(blk["ln2"], x, eps, policy)
         if "kernel_q" in blk["mlp_in"]:
             h = int8_ffn_apply(blk["mlp_in"], blk["mlp_out"], h,
                                policy=policy, mode="quick")
+        elif ffn_fused:
+            h = ffn_apply(blk["mlp_in"], blk["mlp_out"], h, policy=policy,
+                          mode="quick")
         else:
             h = dense(blk["mlp_out"],
                       quick_gelu(dense(blk["mlp_in"], h, policy)), policy)
@@ -119,14 +128,16 @@ def clip_init(gen: torch.Generator, cfg: ClipConfig = ClipConfig()) -> Dict:
 def clip_text_features(params: Dict, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor,
                        cfg: ClipConfig = ClipConfig(),
-                       policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
+                       policy: Policy = DEFAULT_POLICY,
+                       use_pallas=False) -> torch.Tensor:
     """→ unnormalized text_embeds [B, proj] f32."""
     t = params["text"]
     S = input_ids.shape[1]
     x = t["token_embedding"][input_ids.long()] + t["position_embedding"][:S]
     x = _encoder_apply(t["blocks"], x.to(policy.compute), cfg.text_heads,
                        mask=attention_mask, causal=True,
-                       eps=cfg.layer_norm_eps, policy=policy)
+                       eps=cfg.layer_norm_eps, policy=policy,
+                       use_pallas=use_pallas)
     x = layer_norm(t["final_ln"], x, cfg.layer_norm_eps, policy)
     # pool at the first EOS (argmax returns the first maximum)
     eos_pos = torch.argmax((input_ids == cfg.eos_token_id).to(torch.int32),
@@ -137,7 +148,8 @@ def clip_text_features(params: Dict, input_ids: torch.Tensor,
 
 def clip_image_features(params: Dict, images: torch.Tensor,
                         cfg: ClipConfig = ClipConfig(),
-                        policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
+                        policy: Policy = DEFAULT_POLICY,
+                        use_pallas=False) -> torch.Tensor:
     """images [B, H, W, 3] normalized NHWC → unnormalized image_embeds
     [B, proj] f32."""
     v = params["vision"]
@@ -152,6 +164,7 @@ def clip_image_features(params: Dict, images: torch.Tensor,
     x = x + v["position_embedding"].to(policy.compute)
     x = layer_norm(v["pre_ln"], x, cfg.layer_norm_eps, policy)
     x = _encoder_apply(v["blocks"], x, cfg.vision_heads,
-                       eps=cfg.layer_norm_eps, policy=policy)
+                       eps=cfg.layer_norm_eps, policy=policy,
+                       use_pallas=use_pallas)
     pooled = layer_norm(v["post_ln"], x[:, 0], cfg.layer_norm_eps, policy)
     return dense(params["visual_projection"], pooled, policy).float()

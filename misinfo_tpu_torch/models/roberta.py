@@ -5,7 +5,9 @@ RoBERTa position ids (cumsum(mask)·mask + padding_idx), additive padding
 mask, CLS pooling into the ``ai_head`` / ``misinfo_head`` MLPs
 (768→256→ReLU→256→2). The packed path takes explicit ``position_ids``
 and ``segment_ids`` (block-diagonal attention). Int8-quantized FFNs run
-through the fused int8 FFN (ops/int8_ffn.py).
+through the fused int8 FFN (ops/int8_ffn.py); ``use_pallas="ffn"`` runs
+the other FFNs through the fused FFN kernel (ops/fused_ffn.py) and keeps
+the einsum attention, ``use_pallas=True`` the fused attention kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from misinfo_tpu_torch.ops.attention import attention_init, multi_head_attention
 from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, dense, dense_init, gelu, layer_norm,
     layer_norm_init)
+from misinfo_tpu_torch.ops.fused_ffn import ffn_apply
 from misinfo_tpu_torch.ops.int8_ffn import int8_ffn_apply
 
 
@@ -89,6 +92,7 @@ def roberta_encode(
     cfg: RobertaConfig = RobertaConfig(),
     policy: Policy = DEFAULT_POLICY,
     *,
+    use_pallas=False,
     position_ids: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -99,16 +103,21 @@ def roberta_encode(
     x = (emb["word"][input_ids.long()] + emb["position"][pos_ids.long()]
          + emb["token_type"][0])
     x = layer_norm(emb["ln"], x, cfg.layer_norm_eps, policy)
+    ffn_fused = use_pallas == "ffn"
+    attn_pallas = False if ffn_fused else use_pallas
     for layer in params["layers"]:
         attn_out = multi_head_attention(
             layer["attn"], x, cfg.num_heads,
             mask=None if segment_ids is not None else attention_mask,
-            segment_ids=segment_ids, policy=policy)
+            segment_ids=segment_ids, policy=policy, use_pallas=attn_pallas)
         x = layer_norm(layer["attn_ln"], x + attn_out, cfg.layer_norm_eps,
                        policy)
         if "kernel_q" in layer["mlp_in"]:
             mlp = int8_ffn_apply(layer["mlp_in"], layer["mlp_out"], x,
                                  policy=policy, mode=policy.gelu_mode)
+        elif ffn_fused:
+            mlp = ffn_apply(layer["mlp_in"], layer["mlp_out"], x,
+                            policy=policy, mode=policy.gelu_mode)
         else:
             mlp = dense(layer["mlp_out"],
                         gelu(dense(layer["mlp_in"], x, policy), policy),
@@ -125,10 +134,11 @@ def dual_head_logits(
     attention_mask: torch.Tensor,
     cfg: RobertaConfig = RobertaConfig(),
     policy: Policy = DEFAULT_POLICY,
+    use_pallas=False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CLS pooling into both heads → (ai_logits [B,2], misinfo_logits [B,2])
     in f32."""
     pooled = roberta_encode(backbone_params, input_ids, attention_mask,
-                            cfg, policy)[:, 0, :]
+                            cfg, policy, use_pallas=use_pallas)[:, 0, :]
     return (head_apply(ai_head_params, pooled, policy),
             head_apply(misinfo_head_params, pooled, policy))

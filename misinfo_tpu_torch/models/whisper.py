@@ -13,10 +13,13 @@ layer as two hand-written kernels: the self-attention step
 FFN step (ops/cross_ffn_step.py, K7a/K7b); the flags keep the JAX names
 ``pallas_self_attn`` / ``pallas_cross``.
 
+``pallas_ffn`` runs the unfused step's FFN through the fused FFN kernel
+(ops/fused_ffn.py, TPU kernel K5): erf GELU in f32 parity mode, tanh in
+bf16, as the JAX package does.
+
 Not carried yet, and refused by name: the stacked-layer scan decode
 (ROADMAP.md M13), the int8 streaming decode with int8 cross caches
-(``quant=True``), ``cross_int8`` (K8), ``pallas_layer`` (K9) and
-``pallas_ffn`` (K5).
+(``quant=True``), ``cross_int8`` (K8) and ``pallas_layer`` (K9).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, dense, dense_init, gelu_exact, layer_norm,
     layer_norm_init, matmul_f32)
 from misinfo_tpu_torch.ops.cross_ffn_step import fused_cross_ffn_step
+from misinfo_tpu_torch.ops.fused_ffn import ffn_apply
 from misinfo_tpu_torch.ops.quant import int_matmul, quantize_rows
 from misinfo_tpu_torch.ops.self_attn_step import fused_self_attn_step
 
@@ -188,6 +192,7 @@ def _attend(q, k, v, mask, policy: Policy, Dh: int):
 def _cached_decoder_step(params: Dict, token: torch.Tensor, pos: int,
                          enc_out: torch.Tensor, kv_cache: Dict,
                          cfg: WhisperConfig, policy: Policy,
+                         pallas_ffn: bool = False,
                          pallas_self_attn: bool = False,
                          pallas_cross: bool = False):
     """One decoder step with KV caching: token [B] → (logits [B, V] f32,
@@ -245,8 +250,13 @@ def _cached_decoder_step(params: Dict, token: torch.Tensor, pos: int,
                       None, policy, Dh)
         x = x + dense(blk["cross_attn"]["o"], ctx.reshape(B, D), policy)
         h = layer_norm(blk["ln2"], x, policy=policy)
-        x = x + dense(blk["mlp_out"],
-                      gelu_exact(dense(blk["mlp_in"], h, policy)), policy)
+        if pallas_ffn:
+            mode = "erf" if policy.compute == torch.float32 else "tanh"
+            x = x + ffn_apply(blk["mlp_in"], blk["mlp_out"], h,
+                              policy=policy, mode=mode)
+        else:
+            x = x + dense(blk["mlp_out"],
+                          gelu_exact(dense(blk["mlp_in"], h, policy)), policy)
 
     x = layer_norm(dec["final_ln"], x, policy=policy)
     if "token_embedding_q" in dec:
@@ -369,9 +379,19 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
     if pallas_layer:
         not_ported("the whole-layer decode kernel (pallas_layer)",
                    "queue 2, K9")
-    if pallas_ffn:
-        not_ported("the bf16 Pallas FFN decode option (pallas_ffn)",
-                   "queue 2, K5")
+    blocks_q = bool(params["decoder"].get("blocks")) and any(
+        isinstance(v, dict) and "kernel_q" in v
+        for v in params["decoder"]["blocks"][0]["self_attn"].values())
+    if quant and (pallas_ffn or pallas_self_attn or pallas_cross):
+        raise ValueError("int8 streaming decode (quant=True) composes only "
+                         "with the default unrolled step — drop pallas_ffn "
+                         "/ pallas_self_attn / pallas_cross")
+    if blocks_q and pallas_ffn:
+        raise ValueError("pallas_ffn reads unquantized FFN kernels — with "
+                         "int8 decode weights use pallas_cross (its fused "
+                         "step carries the int8 FFN)")
+    if pallas_cross and pallas_ffn:
+        raise ValueError("pallas_cross subsumes the FFN — drop pallas_ffn")
     if quant:
         not_ported("the int8 streaming decode (quant=True)", "M13")
     if cross_int8:
@@ -400,7 +420,8 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
         # looked up by name on every call, so a caller can wrap the step
         logits, _ = _cached_decoder_step(
             params, tok, pos, enc_out, cache, cfg, policy,
-            pallas_self_attn=pallas_self_attn, pallas_cross=pallas_cross)
+            pallas_ffn=pallas_ffn, pallas_self_attn=pallas_self_attn,
+            pallas_cross=pallas_cross)
         return logits.float()
 
     done = torch.zeros(B, dtype=torch.bool, device=dev)

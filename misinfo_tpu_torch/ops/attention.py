@@ -1,10 +1,13 @@
 """Multi-head attention for the RoBERTa and CLIP towers.
 
-Counterpart of the plain path of ``misinfo_tpu/ops/attention.py``
-(einsum attention; its Pallas and flash routes are the TPU kernel K3,
-not ported yet). Scores are materialised in ``policy.score`` dtype with
-an f32 softmax. ``scaled_dot_product_attention`` is deliberately not
-used: it rounds in other places than the reference.
+Counterpart of ``misinfo_tpu/ops/attention.py``. The default path is
+einsum attention: scores materialised in ``policy.score`` dtype with an
+f32 softmax (``scaled_dot_product_attention`` is deliberately not used:
+it rounds in other places than the reference). ``use_pallas=True`` runs
+the fused attention kernel K3 (ops/fused_attention.py) wherever rows are
+not packed, as the JAX package does; ``use_pallas="flash"`` selects JAX's
+library TPU flash-attention kernel there, which is not this repository's
+code, and is refused.
 """
 
 from __future__ import annotations
@@ -13,8 +16,10 @@ from typing import Dict, Optional
 
 import torch
 
+from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, dense, dense_init)
+from misinfo_tpu_torch.ops import fused_attention as K3
 
 _NEG_INF = -1e9  # additive mask value, as the JAX package
 
@@ -40,9 +45,14 @@ def multi_head_attention(
     policy: Policy = DEFAULT_POLICY,
     segment_ids: Optional[torch.Tensor] = None,  # [B, S] int, 0 = padding
     kv: Optional[torch.Tensor] = None,        # [B, S_kv, D] cross-attention
+    use_pallas=False,
 ) -> torch.Tensor:
     """Self- or cross-attention with padding, causal or block-diagonal
     (packed segments) masking; bf16 matmuls in serving mode, f32 softmax."""
+    if use_pallas == "flash":
+        not_ported("use_pallas='flash' (JAX's library TPU flash-attention "
+                   "kernel, not this repository's code; use_pallas=True "
+                   "runs the fused attention kernel)", "queue 2, K3")
     B, S, D = x.shape
     kv = x if kv is None else kv
     S_kv = kv.shape[1]
@@ -50,6 +60,9 @@ def multi_head_attention(
     q = dense(params["q"], x, policy).reshape(B, S, num_heads, hd)
     k = dense(params["k"], kv, policy).reshape(B, S_kv, num_heads, hd)
     v = dense(params["v"], kv, policy).reshape(B, S_kv, num_heads, hd)
+    if use_pallas and segment_ids is None:
+        ctx = K3.fused_attention(q, k, v, mask=mask, causal=causal)
+        return dense(params["o"], ctx.reshape(B, S, D), policy)
 
     sdt = policy.score
     scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=x.device))

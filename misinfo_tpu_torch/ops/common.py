@@ -19,6 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from misinfo_tpu_torch.core.config import PrecisionConfig
+from misinfo_tpu_torch.ops import int8_dense as K2
+from misinfo_tpu_torch.ops.quant import dense_int8
+from misinfo_tpu_torch.ops.serving import dense_kernel_enabled
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -41,6 +44,8 @@ class Policy:
         if gm == "auto":
             gm = "tanh" if self.compute == torch.bfloat16 else "erf"
         self.gelu_mode = gm
+        # which int8 kernels serve quantized denses (ops/serving.quant_mode)
+        self.quant_pallas = cfg.quant_pallas
 
 
 DEFAULT_POLICY = Policy()
@@ -79,17 +84,17 @@ def dense(params: Dict, x: torch.Tensor,
           policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
     """y = x @ W + b: product in f32, bias added in f32, one rounding.
 
-    int8 params ({kernel_q, w_scale, bias?}) take the plain
-    ``quant.dense_int8`` below 256 rows, as the JAX package's
-    ``dense_int8_dispatch`` does; from 256 rows on JAX runs the TPU kernel
-    K2, which is not ported yet."""
+    int8 params ({kernel_q, w_scale, bias?}) route as the JAX package's
+    ``dense_int8_dispatch``: from 256 rows, with the dense kernel enabled
+    (``serving.quant_mode``; always on a CUDA device, where a mode that
+    turns it off raises), the int8 dense kernel K2 (ops/int8_dense.py);
+    otherwise the plain ``quant.dense_int8``."""
     if "kernel_q" in params:
         rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
-        if rows >= INT8_DENSE_MIN_ROWS:
-            raise NotImplementedError(
-                f"int8 dense at {rows} rows (quant='int8', TPU kernel K2) "
-                "is not ported yet (ROADMAP.md queue 2, K2)")
-        from misinfo_tpu_torch.ops.quant import dense_int8
+        if (rows >= INT8_DENSE_MIN_ROWS
+                and dense_kernel_enabled(policy, x.device)):
+            return K2.int8_dense(x, params["kernel_q"], params["w_scale"],
+                                 params.get("bias"), out_dtype=policy.compute)
         return dense_int8(params, x, policy.compute)
     w = params["kernel"].to(policy.compute)
     y = matmul_f32(x.to(policy.compute), w)

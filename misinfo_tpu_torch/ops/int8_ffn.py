@@ -29,6 +29,7 @@ import torch
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, Policy
 from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
 from misinfo_tpu_torch.ops.quant import int_matmul, quantize_rows
+from misinfo_tpu_torch.ops.serving import ffn_kernel_enabled
 
 _JC = 512                       # intermediate chunk target, as on the TPU
 _BM = 32                        # rows per block (BM in csrc/int8_ffn.cu)
@@ -140,7 +141,13 @@ def int8_ffn_apply(p_in: Dict, p_out: Dict, x: torch.Tensor, *,
                    policy: Policy = DEFAULT_POLICY,
                    mode: str = "tanh") -> torch.Tensor:
     """Tower FFN entry point for int8-quantized layers
-    ({kernel_q, w_scale, bias})."""
-    return int8_ffn(x.to(policy.compute), p_in["kernel_q"], p_in["w_scale"],
-                    p_in["bias"], p_out["kernel_q"], p_out["w_scale"],
-                    p_out["bias"], mode=mode)
+    ({kernel_q, w_scale, bias}): the kernel (chunked) when
+    ``serving.quant_mode`` enables it for x's device (always on a CUDA
+    device, where a mode that turns it off raises), else the single-chunk
+    chain ``dense_int8 → act → dense_int8`` (the JAX package's
+    ``int8_ffn_xla``)."""
+    args = (x.to(policy.compute), p_in["kernel_q"], p_in["w_scale"],
+            p_in["bias"], p_out["kernel_q"], p_out["w_scale"], p_out["bias"])
+    if ffn_kernel_enabled(policy, x.device):
+        return int8_ffn(*args, mode=mode)
+    return int8_ffn_plain(*args, mode=mode, jc=p_in["kernel_q"].shape[1])

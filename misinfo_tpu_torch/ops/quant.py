@@ -12,7 +12,10 @@ partial sum is an integer below 2^53.
 
 Scales divide by a 0-d tensor of 127, not by the Python number: PyTorch's
 CUDA division by a CPU scalar multiplies by its reciprocal, which is one
-ulp off for some abs-max values and moves quantization levels.
+ulp off for some abs-max values and moves quantization levels. (These
+are the eager JAX function's scales. Under ``jit`` XLA folds JAX's
+``/ 127.0`` into a multiply by f32(1/127); the int8 dense kernel K2
+follows that form, ops/int8_dense.py.)
 """
 
 from __future__ import annotations
@@ -35,6 +38,19 @@ def quantize_dense(p: Dict) -> Dict:
     if "bias" in p:
         out["bias"] = p["bias"]
     return out
+
+
+def quantize_params(tree, min_elems: int = MIN_KERNEL_ELEMS):
+    """Replace every large dense-param dict ({kernel: 2-D, bias?}) with
+    its int8 form: the serving mode ``quant="int8"``. Idempotent."""
+    if isinstance(tree, dict):
+        k = tree.get("kernel")
+        if getattr(k, "ndim", 0) == 2 and k.numel() >= min_elems:
+            return quantize_dense(tree)
+        return {key: quantize_params(v, min_elems) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(quantize_params(v, min_elems) for v in tree)
+    return tree
 
 
 def quantize_ffn_params(tree, min_elems: int = MIN_KERNEL_ELEMS):

@@ -1,18 +1,70 @@
 """Serving-time parameter-tree transforms (inference only).
 
-Counterpart of ``misinfo_tpu/ops/serving.py`` for the transforms the
-serving defaults run: ``quant="int8_ffn"`` (tower FFNs to int8, served by
-the fused int8 FFN kernel), ``cast_big_kernels`` (large dense kernels
-stored in bf16), and Whisper's bf16 storage and int8 decoder/embedding
-transforms. All are pure tree rewrites; models are unchanged.
+Counterpart of ``misinfo_tpu/ops/serving.py``: ``quant="int8_ffn"``
+(tower FFNs to int8, served by the fused int8 FFN kernel K1),
+``quant="int8"`` (every large dense to int8, K1 for the FFNs and the
+int8 dense kernel K2 for the rest), ``cast_big_kernels`` (large dense
+kernels stored in bf16), and Whisper's bf16 storage and int8
+decoder/embedding transforms. All are pure tree rewrites; models are
+unchanged. (The JAX package's QKV fuse and its inverses have no caller
+here: its engine keeps the fuse off, and the port has no trainer yet.)
+
+``quant_mode`` says which int8 kernels serve quantized denses (the JAX
+package's ``pallas_int8.quant_mode``): ``PrecisionConfig.quant_pallas``,
+overridden by ``MISINFO_TPU_INT8_PALLAS`` (auto | off | ffn | dense |
+all, and JAX's aliases); "auto" is "all" on a CUDA device and "off"
+elsewhere. On the CPU the mode picks the numerics as in JAX: with the
+FFN kernel off an int8 FFN runs the single-chunk chain
+(``int8_ffn.int8_ffn_apply``), with the dense kernel off every int8 dense
+runs ``quant.dense_int8``. On a CUDA device both kernels always run, so a
+mode that turns one off raises there.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from misinfo_tpu_torch.ops.quant import (
-    MIN_KERNEL_ELEMS, int8_scale, quantize_dense, quantize_ffn_params)
+    MIN_KERNEL_ELEMS, int8_scale, quantize_dense, quantize_ffn_params,
+    quantize_params)
+
+
+_ALIASES = {"": "auto", "1": "all", "on": "all", "true": "all",
+            "0": "off", "none": "off", "false": "off"}
+_QUANT_MODES = ("auto", "off", "ffn", "dense", "all")
+
+
+def quant_mode(policy, device) -> str:
+    """'off', 'ffn', 'dense' or 'all' for tensors on ``device``. The
+    environment wins over the policy. Raises ValueError for a value
+    outside ``_QUANT_MODES`` and its aliases, and on a CUDA device for any
+    mode but "all": the port hands no card tensor to a plain version."""
+    raw = os.getenv("MISINFO_TPU_INT8_PALLAS", "") or getattr(
+        policy, "quant_pallas", "auto")
+    m = _ALIASES.get(raw, raw)
+    if m not in _QUANT_MODES:
+        raise ValueError(f"MISINFO_TPU_INT8_PALLAS / quant_pallas {raw!r}: "
+                         f"expected one of {', '.join(_QUANT_MODES)}")
+    on_card = torch.device(device).type == "cuda"
+    if m == "auto":
+        return "all" if on_card else "off"
+    if on_card and m != "all":
+        raise ValueError(
+            f"MISINFO_TPU_INT8_PALLAS / quant_pallas {raw!r} turns an int8 "
+            "kernel off, which only CPU tensors allow: on a CUDA device the "
+            "int8 FFN (K1) and int8 dense (K2) kernels always run (use "
+            "'auto' or 'all')")
+    return m
+
+
+def ffn_kernel_enabled(policy, device) -> bool:
+    return quant_mode(policy, device) in ("ffn", "all")
+
+
+def dense_kernel_enabled(policy, device) -> bool:
+    return quant_mode(policy, device) in ("dense", "all")
 
 
 def cast_big_kernels(tree, dtype=torch.bfloat16,
@@ -41,14 +93,14 @@ def resolve_quant(quant: str, policy, device) -> str:
 
 
 def optimize_for_serving(params, policy, quant: str):
-    """Quantize the tower FFNs (``quant="int8_ffn"``) and, in bf16 mode,
-    store big kernels in bf16. ``quant`` is resolved (``resolve_quant``);
-    ``"int8"`` (every large dense in int8, TPU kernel K2) and fused QKV
-    are not ported yet."""
-    if quant not in ("none", "int8_ffn"):
-        raise NotImplementedError(
-            f"optimize_for_serving(quant={quant!r}): only 'none' and "
-            "'int8_ffn' are ported (ROADMAP.md M10, K2)")
+    """The engine's serving pipeline: quantize every large dense
+    (``quant="int8"``; nothing big is left to cast) or the tower FFNs
+    (``"int8_ffn"``), and in bf16 mode store the remaining big kernels in
+    bf16. ``quant`` is resolved (``resolve_quant``)."""
+    if quant not in ("none", "int8", "int8_ffn"):
+        raise ValueError(f"optimize_for_serving: unknown quant {quant!r}")
+    if quant == "int8":
+        return quantize_params(params)
     if quant == "int8_ffn":
         params = quantize_ffn_params(params)
     if policy.compute == torch.bfloat16:

@@ -83,12 +83,13 @@ def needs_fallback(text: str, avg_logprob: float,
 
 class WhisperTranscriber:
     """Log-mel frontend + Whisper decoding with whisper's temperature-
-    fallback ladder and no-speech gate, on one device."""
+    fallback ladder and no-speech gate, on one device: the CUDA card by
+    default, the CPU when the caller asks for it (``device="cpu"``)."""
 
     def __init__(self, params=None, size: Optional[str] = None,
                  tokenizer_dir: Optional[str] = None,
                  decode_cfg: WhisperDecodeConfig = _DECODE_DEFAULTS,
-                 config: Optional[WhisperConfig] = None, device="cpu",
+                 config: Optional[WhisperConfig] = None, device="cuda",
                  checkpoint_dir: Optional[str] = None, mesh=None):
         if checkpoint_dir:
             not_ported("checkpoint loading (orbax / HF .pt)", "M16")
@@ -327,8 +328,9 @@ _engine_failed = False
 def _get_engine() -> Optional[WhisperTranscriber]:
     """Lazily build (once) the module-cached transcriber from the
     environment, or None when construction failed (latched, like the
-    reference's global whisper model cache). It has no weights until
-    checkpoint loading is ported (M16), so it transcribes to ""."""
+    reference's global whisper model cache). It is built on the card;
+    without one its construction fails like any other. It has no weights
+    until checkpoint loading is ported (M16), so it transcribes to ""."""
     global _engine, _engine_failed
     with _lock:
         if _engine is None and not _engine_failed:
@@ -342,8 +344,7 @@ def _get_engine() -> Optional[WhisperTranscriber]:
                                      _DECODE_DEFAULTS.pallas))
                 _engine = WhisperTranscriber(
                     checkpoint_dir=os.getenv("WHISPER_CHECKPOINT"),
-                    decode_cfg=dc,
-                    device="cuda" if torch.cuda.is_available() else "cpu")
+                    decode_cfg=dc)
             except Exception:
                 _log.warning("transcriber construction failed",
                              exc_info=True)

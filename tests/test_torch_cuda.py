@@ -25,6 +25,12 @@ K10b bit for bit, K10a within (D + 1)·2^-23·Σ|q·nib|·scale per element
 (the two sum orders' error bound), with planted faults (a tile or the
 ragged edge left out, nibbles swapped or read unsigned, the row scale
 dropped) outside that band.
+
+The detector's opt-in kernels (K2 int8 dense, K3 fused attention, K4
+LayerNorm, K5 fused FFN) are held to their plain versions at the main
+path's shapes through misinfo_tpu_torch/ops/kernel_checks.py: K2 bit for
+bit, K3-K5 within the bands that module derives, with its planted faults
+outside them.
 """
 
 import pytest
@@ -32,7 +38,11 @@ import torch
 
 from misinfo_tpu_torch.ops import cross_ffn_step as K7
 from misinfo_tpu_torch.ops import decode_checks as DC
+from misinfo_tpu_torch.ops import fused_attention as K3
+from misinfo_tpu_torch.ops import fused_ffn as K5
+from misinfo_tpu_torch.ops import int8_dense as K2
 from misinfo_tpu_torch.ops import int8_ffn as K1
+from misinfo_tpu_torch.ops import kernel_checks as KC
 from misinfo_tpu_torch.ops import self_attn_step as K6
 from misinfo_tpu_torch.ops.quant import quantize_dense
 from misinfo_tpu_torch.vault import int4 as K10
@@ -171,3 +181,84 @@ def test_int4_sims_kernels_refuse_what_they_cannot_run(card):
                scale)
         with pytest.raises(ValueError):                # D not a multiple of 32
             fn(q[:, :496].contiguous(), packed[:, :248].contiguous(), scale)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,bias", [(32 * 512, 768, 768, True),
+                                        (32 * 77, 512, 512, True),
+                                        (32 * 50, 768, 768, True),
+                                        (300, 768, 768, False)])
+def test_int8_dense_kernel_matches_plain(card, x_dtype, M, K, N, bias):
+    before = K2.launches
+    res = KC.check_int8_dense(KC.int8_dense_case(M, K, N, x_dtype, bias))
+    torch.cuda.synchronize()
+    assert K2.launches == before + 2 and res["fault_elements"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,mask,causal", [(32, 512, 12, True, False),
+                                               (32, 77, 8, True, True),
+                                               (32, 50, 12, False, False)])
+def test_fused_attention_kernel_matches_plain(card, dtype, B, S, H, mask,
+                                              causal):
+    before = K3.launches
+    KC.check_attention(KC.attention_case(B, S, H, mask, causal, dtype))
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernel_matches_plain(card, dtype):
+    before = K3.ln_launches
+    KC.check_layer_norm(KC.layer_norm_case(32 * 512, 768, dtype))
+    torch.cuda.synchronize()
+    assert K3.ln_launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,mode", [(32 * 512, 768, 3072, "tanh"),
+                                        (32 * 77, 512, 2048, "quick"),
+                                        (32 * 50, 768, 3072, "quick"),
+                                        (4, 512, 2048, "tanh"),
+                                        (32, 384, 1536, "tanh"),
+                                        (32, 1024, 4096, "erf"),
+                                        (32, 1280, 5120, "tanh"),
+                                        (300, 1280, 5120, "tanh")])
+def test_fused_ffn_kernel_matches_plain(card, dtype, M, K, N, mode):
+    before = K5.launches
+    KC.check_ffn(KC.ffn_case(M, K, N, mode, dtype))
+    torch.cuda.synchronize()
+    assert K5.launches == before + 1
+
+
+def test_opt_in_kernels_refuse_what_they_cannot_run(card):
+    att = KC.attention_case(2, 16, 4, True, False)
+    q, k, v, m = att["q"], att["k"], att["v"], att["mask"]
+    with pytest.raises(ValueError):                   # head dim 32
+        K3.fused_attention(q.reshape(2, 16, 8, 32), k.reshape(2, 16, 8, 32),
+                           v.reshape(2, 16, 8, 32), m)
+    with pytest.raises(ValueError):                   # f16
+        K3.fused_attention(q.half(), k.half(), v.half(), m)
+    with pytest.raises(ValueError):                   # 513 keys
+        big = torch.zeros(2, 513, 4, 64, dtype=q.dtype, device=q.device)
+        K3.fused_attention(q, big, big)
+    raw = torch.zeros(4 * 768 + 8, dtype=torch.bfloat16, device="cuda")
+    s = torch.ones(768, device="cuda")
+    with pytest.raises(ValueError):                   # misaligned pointer
+        K3.fused_layer_norm(raw[1:4 * 768 + 1].view(4, 768), s, s)
+    d = KC.int8_dense_case(300, 768, 768)
+    with pytest.raises(ValueError):                   # f16 input
+        K2.int8_dense(d["x"].half(), d["wq"], d["w_scale"], d["bias"])
+    with pytest.raises(ValueError):                   # misaligned pointer
+        raw = torch.zeros(300 * 768 + 8, dtype=torch.bfloat16, device="cuda")
+        K2.int8_dense(raw[1:300 * 768 + 1].view(300, 768), d["wq"],
+                      d["w_scale"], d["bias"])
+    with pytest.raises(RuntimeError):                 # K not a multiple of 32
+        K2.int8_dense(d["x"][:, :760].contiguous(), d["wq"][:760].contiguous(),
+                      d["w_scale"], d["bias"])
+    f = KC.ffn_case(4, 512, 2048, "tanh")["args"]
+    with pytest.raises(ValueError):                   # int8 weights
+        K5.fused_ffn(f[0], f[1].to(torch.int8), *f[2:])
+    with pytest.raises(RuntimeError):                 # N not a multiple of 512
+        K5.fused_ffn(f[0], f[1][:, :1920].contiguous(), f[2][:1920],
+                     f[3][:1920].contiguous(), f[4])

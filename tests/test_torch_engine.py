@@ -53,12 +53,16 @@ def requests():
             + [{"image": _image(1)}, {"image": _image(2)}])
 
 
-def build_engines(tmp_path, precision: str, quant: str, quantize: bool):
-    """→ (JAX engine, port engine) over one tree, vault and config."""
+def build_engines(tmp_path, precision: str, quant: str, quantize,
+                  use_pallas=False):
+    """→ (JAX engine, port engine) over one tree, vault and config.
+    ``quantize``: False, True (``quantize_ffn_params(tree, 1)``) or a
+    transform of the tree."""
     det = TDetectorConfig.tiny()
     tree = jax.tree.map(lambda t: t.numpy(), detector_init(0, det))
     if quantize:
-        tree = jax.tree.map(np.asarray, quantize_ffn_params(tree, 1))
+        fn = quantize if callable(quantize) else quantize_ffn_params
+        tree = jax.tree.map(np.asarray, fn(tree, 1))
     rng = np.random.default_rng(5)
     d = det.clip.projection_dim
     emb = rng.normal(size=(6, d)).astype(np.float32)
@@ -79,7 +83,8 @@ def build_engines(tmp_path, precision: str, quant: str, quantize: bool):
             precision=dataclasses.replace(prec, quant=quant),
             paths=cfgmod.ModelPaths(vault_path=vpath),
             seq=cfgmod.SequenceConfig(roberta_max_len=32, image_size=64))
-        kw = {} if engine is JEngine else {"device": "cpu"}
+        kw = ({"use_pallas": use_pallas} if engine is JEngine
+              else {"use_pallas": use_pallas, "device": "cpu"})
         engines.append(engine(config=cfg, det_cfg=(
             JDetectorConfig.tiny() if engine is JEngine else det),
             params=params, **kw))
@@ -87,7 +92,10 @@ def build_engines(tmp_path, precision: str, quant: str, quantize: bool):
 
 
 def run_both(j_eng, t_eng, monkeypatch):
-    """analyze_batch on both engines; records the port's programs."""
+    """analyze_batch on both engines; records the port's programs. JAX's
+    programs trace in TPU interpret mode, so that its ``use_pallas``
+    kernels run on the CPU."""
+    from jax.experimental.pallas import tpu as pltpu
     seen = []
     prog = t_forensics.signals_program
 
@@ -96,7 +104,9 @@ def run_both(j_eng, t_eng, monkeypatch):
         return prog(params, batch, variant=variant, **kw)
     monkeypatch.setattr(t_forensics, "signals_program", spy)
     reqs = requests()
-    a, b = j_eng.analyze_batch(reqs), t_eng.analyze_batch(reqs)
+    with pltpu.force_tpu_interpret_mode():
+        a = j_eng.analyze_batch(reqs)
+    b = t_eng.analyze_batch(reqs)
     assert sorted(seen) == [("full", False), ("text_packed", True),
                             ("visual_only", False)]
     return a, b
@@ -163,3 +173,44 @@ def test_out_of_slice_requests_refused(f32_engines):
         t_eng.warmup()
     with pytest.raises(ValueError):
         t_eng.analyze(verbose=False)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``MisinfoForensics()`` and ``WhisperTranscriber()`` without a device
+    place their weights on CUDA; the CPU runs only when asked for. The
+    weight placement is intercepted, so nothing is allocated."""
+    from misinfo_tpu_torch.serve import transcript as t_transcript
+
+    class Placed(Exception):
+        pass
+
+    def place(tree, device):
+        raise Placed(torch.device(device))
+    for mod, init in ((t_forensics, "detector_init"),
+                      (t_transcript, "whisper_init")):
+        monkeypatch.setattr(mod, init, lambda seed, cfg: {})
+        monkeypatch.setattr(mod, "to_device", place)
+    with pytest.raises(Placed) as e:
+        t_forensics.MisinfoForensics(
+            config=t_config.ForensicsConfig(verbose=False))
+    assert e.value.args[0].type == "cuda"
+    with pytest.raises(Placed) as e:
+        t_transcript.WhisperTranscriber(size="tiny")
+    assert e.value.args[0].type == "cuda"
+
+
+@pytest.mark.parametrize("mode", ["off", "ffn", "dense"])
+def test_card_engine_refuses_a_mode_that_turns_a_kernel_off(mode,
+                                                            monkeypatch):
+    """On a CUDA device the int8 kernels always run: an engine that would
+    serve int8 weights there under MISINFO_TPU_INT8_PALLAS=off, ffn or
+    dense raises before any weight reaches the card."""
+    placed = []
+    monkeypatch.setattr(t_forensics, "detector_init", lambda seed, cfg: {})
+    monkeypatch.setattr(t_forensics, "to_device",
+                        lambda tree, device: placed.append(device))
+    monkeypatch.setenv("MISINFO_TPU_INT8_PALLAS", mode)
+    with pytest.raises(ValueError, match="CUDA device"):
+        t_forensics.MisinfoForensics(
+            config=t_config.ForensicsConfig(verbose=False))
+    assert placed == []

@@ -8,6 +8,7 @@ tests/test_pallas_int8.py) on Gaussian data and against the chunked
 Pallas kernel in interpret mode.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +19,11 @@ from misinfo_tpu.ops.pallas_int8 import _pick, int8_ffn_pallas, int8_ffn_xla
 from misinfo_tpu.ops.quant import quantize_dense
 
 from misinfo_tpu_torch.checkpoints.from_jax import tensor_from_numpy
+from misinfo_tpu_torch.core.config import PrecisionConfig as TPrecision
 from misinfo_tpu_torch.ops import int8_ffn as K1
+from misinfo_tpu_torch.ops.common import Policy as TPolicy
+
+T_F32 = TPolicy(TPrecision.highest())
 
 
 def _gauss(rng, k, n):
@@ -98,3 +103,29 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     _port(rng.normal(size=(4, 128)), _gauss(rng, 128, 128),
           _gauss(rng, 128, 128), "quick")
     assert calls == [1] and K1.launches == before
+
+
+@pytest.mark.parametrize("env,want_jc", [("off", 1024), ("dense", 1024),
+                                         ("ffn", 512), ("all", 512)])
+def test_apply_follows_quant_mode(env, want_jc, monkeypatch):
+    """``int8_ffn_apply`` with the FFN kernel off takes the single-chunk
+    chain (``jc = N``, JAX's ``int8_ffn_xla``: bit for bit on the integer
+    grid); with it on, the kernel's chunked form (its plain version on the
+    CPU, ``jc = 512``)."""
+    from misinfo_tpu_torch.checkpoints.from_jax import params_from_jax
+    monkeypatch.setenv("MISINFO_TPU_INT8_PALLAS", env)
+    seen = []
+    plain = K1.int8_ffn_plain
+    monkeypatch.setattr(K1, "int8_ffn_plain", lambda *a, **kw: seen.append(
+        kw["jc"]) or plain(*a, **kw))
+    rng = np.random.default_rng(9)
+    p_in, p_out = _int_grid(rng, 128, 1024), _int_grid(rng, 1024, 128)
+    x = rng.integers(-126, 127, (5, 128)).astype(np.float32)
+    x[:, 0] = 127.0
+    tp = [params_from_jax(jax.tree.map(np.asarray, p)) for p in (p_in, p_out)]
+    got = K1.int8_ffn_apply(*tp, torch.from_numpy(x), policy=T_F32,
+                            mode="tanh")
+    assert seen == [want_jc]
+    if want_jc == 1024:
+        want = int8_ffn_xla(p_in, p_out, jnp.asarray(x), F32_POLICY, "tanh")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

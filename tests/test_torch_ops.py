@@ -183,8 +183,12 @@ def test_serving_transforms():
     assert out["a"]["kernel"].dtype == torch.bfloat16
     assert out["a"]["bias"].dtype == torch.float32
     assert out["b"][0]["kernel"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        t_serving.optimize_for_serving(tree, tp_bf16, "int8")
+    out8 = t_serving.optimize_for_serving(tree, tp_bf16, "int8")
+    assert out8["a"]["kernel_q"].dtype == torch.int8
+    assert out8["a"]["bias"].dtype == torch.float32
+    assert out8["b"][0]["kernel"].dtype == torch.float32
+    with pytest.raises(ValueError):
+        t_serving.optimize_for_serving(tree, tp_bf16, "int4")
 
 
 def test_signal_output_pack_roundtrip():
@@ -208,11 +212,14 @@ def test_signal_output_pack_roundtrip():
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
-def test_int8_dense_below_kernel_rows_matches_jax(mode):
+def test_int8_dense_below_kernel_rows_matches_jax(mode, monkeypatch):
     """``dense`` on int8 params ({kernel_q, w_scale, bias}) at M = 4 rows
     takes the plain dense_int8, as JAX's dense_int8_dispatch does below
     256 rows: bitwise equal (integer products, IEEE scales). From 256 rows
-    JAX runs the TPU kernel K2, which the port refuses by name."""
+    it takes dense_int8 too while the dense kernel is off (the CPU's
+    "auto"), and the int8 dense kernel K2 (its plain version on the CPU)
+    once MISINFO_TPU_INT8_PALLAS enables it: bitwise equal to JAX's K2 in
+    interpret mode."""
     rng = np.random.default_rng(9)
     p = j_quant.quantize_dense(_dense_params(rng, 64, 48))
     jpol = (j_common.Policy(JPrecision.highest()) if mode == "f32"
@@ -225,6 +232,16 @@ def test_int8_dense_below_kernel_rows_matches_jax(mode):
                          torch.from_numpy(x), tpol)
     assert got.dtype == tpol.compute
     np.testing.assert_array_equal(_np(got), _np(want))
-    with pytest.raises(NotImplementedError, match="K2"):
-        t_common.dense(params_from_jax(jax.tree.map(np.asarray, p)),
-                       torch.zeros(2, 128, 64), tpol)
+    big = rng.normal(size=(2, 128, 64)).astype(np.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, p))
+    got = t_common.dense(tp, torch.from_numpy(big), tpol)
+    np.testing.assert_array_equal(_np(got), _np(j_quant.dense_int8(
+        p, jnp.asarray(big), jpol.compute)))
+    monkeypatch.setenv("MISINFO_TPU_INT8_PALLAS", "all")
+    from misinfo_tpu.ops.pallas_int8 import int8_dense_pallas
+    got = t_common.dense(tp, torch.from_numpy(big), tpol)
+    want = int8_dense_pallas(jnp.asarray(big), p["kernel_q"],
+                             p["w_scale"], p["bias"], out_dtype=jpol.compute,
+                             interpret=True)
+    assert got.shape == (2, 128, 48)
+    np.testing.assert_array_equal(_np(got), _np(want))

@@ -87,8 +87,8 @@ def test_ladder_and_silence_rule_match_jax():
     tr_j._fns = (lambda p, m: m, lambda p, e, pr: fake("jax"),
                  lambda p, e, pr, t, r: fake("jax"), None)
     tr_t = t_tr.WhisperTranscriber(
-        size="tiny", decode_cfg=dataclasses.replace(WhisperDecodeConfig(),
-                                                    **dc))
+        size="tiny", device="cpu",
+        decode_cfg=dataclasses.replace(WhisperDecodeConfig(), **dc))
     tr_t._encode = lambda mels: mels
     tr_t._decode = lambda enc, prompt, t=0.0, rng=None: tuple(
         torch.from_numpy(a) for a in fake("torch"))
@@ -100,7 +100,7 @@ def test_ladder_and_silence_rule_match_jax():
 
 
 def test_mode_resolution_on_the_cpu():
-    tr = t_tr.WhisperTranscriber(size="tiny")
+    tr = t_tr.WhisperTranscriber(size="tiny", device="cpu")
     assert (tr.pallas, tr.quant_kernels, tr.quant_embedding) == (False,) * 3
     assert not tr.has_weights and tr.transcribe("/nonexistent.wav") == ""
     dcfg = WhisperDecodeConfig()
@@ -108,11 +108,12 @@ def test_mode_resolution_on_the_cpu():
                     (dict(pallas="yes"), "WHISPER_PALLAS"),
                     (dict(pallas="on", quant="int8"), "pallas")):
         with pytest.raises(ValueError, match=err):
-            t_tr.WhisperTranscriber(size="tiny", decode_cfg=dataclasses.replace(
-                dcfg, **kw))
+            t_tr.WhisperTranscriber(size="tiny", device="cpu",
+                                    decode_cfg=dataclasses.replace(dcfg, **kw))
     with pytest.raises(NotImplementedError, match="M13"):
-        t_tr.WhisperTranscriber(size="tiny", decode_cfg=dataclasses.replace(
-            dcfg, quant="int8"))
+        t_tr.WhisperTranscriber(size="tiny", device="cpu",
+                                decode_cfg=dataclasses.replace(
+                                    dcfg, quant="int8"))
     with pytest.raises(NotImplementedError, match="M16"):
         t_tr.WhisperTranscriber(checkpoint_dir="ckpt")
 
@@ -121,8 +122,9 @@ def test_big_window_batches_decode_unfused(monkeypatch):
     """The fused-step kernels carry at most MAX_BATCH rows; a bigger
     window batch takes the unfused step, as the JAX transcriber's
     ``use_pallas`` sends big buckets to its XLA path."""
-    tr = t_tr.WhisperTranscriber(size="tiny", decode_cfg=dataclasses.replace(
-        WhisperDecodeConfig(), pallas="on"))
+    tr = t_tr.WhisperTranscriber(size="tiny", device="cpu",
+                                 decode_cfg=dataclasses.replace(
+                                     WhisperDecodeConfig(), pallas="on"))
     seen = []
     monkeypatch.setattr(t_tr, "decode_transcript", lambda *a, **kw: seen.append(
         (kw["pallas_self_attn"], kw["pallas_cross"])))
@@ -209,7 +211,7 @@ def trained(tmp_path_factory):
 def test_port_transcribes_the_jax_trained_model(trained, decode):
     params, cfg, wav, _ = trained
     tr = t_tr.WhisperTranscriber(
-        params, config=cfg,
+        params, config=cfg, device="cpu",
         decode_cfg=dataclasses.replace(WhisperDecodeConfig(), **decode))
     assert tr.has_weights and tr.tokenizer_compatible
     assert tr.pallas == (decode.get("pallas") == "on")
@@ -236,7 +238,7 @@ def test_port_transcribes_the_jax_trained_model(trained, decode):
 
 def test_port_transcribes_every_window_and_merges_caption(trained):
     params, cfg, wav, long_wav = trained
-    tr = t_tr.WhisperTranscriber(params, config=cfg)
+    tr = t_tr.WhisperTranscriber(params, config=cfg, device="cpu")
     assert tr.transcribe(long_wav) == " ".join([TEXT] * 3)
     assert (t_tr.merge_into_caption("user caption", wav, tr)
             == f"user caption\n\n{TEXT}")
@@ -247,16 +249,33 @@ def test_port_transcribes_every_window_and_merges_caption(trained):
 
 def test_module_transcriber_without_weights_keeps_the_caption(trained,
                                                              monkeypatch):
-    """The module-cached transcriber (reference _extract_transcript) has no
-    weights until checkpoint loading is ported, so it transcribes to ""
-    and the caption stays as it was — the reference's soft-fail."""
+    """The module-cached transcriber (reference _extract_transcript) is
+    built on the card and has no weights until checkpoint loading is
+    ported, so it transcribes to "" and the caption stays as it was — the
+    reference's soft-fail. Here it is built on the CPU in its place; with
+    no card at all its construction fails, and the caption stays too."""
     _, _, wav, _ = trained
     monkeypatch.setenv("WHISPER_MODEL", "tiny")
+    real = t_tr.WhisperTranscriber
+    asked = []
+
+    def on_cpu(**kw):
+        asked.append(kw.get("device", "cuda"))
+        return real(**{**kw, "device": "cpu"})
+    if not torch.cuda.is_available():
+        t_tr.reset_transcriber()
+        try:
+            assert t_tr._get_engine() is None
+            assert t_tr.merge_into_caption("caption", wav) == "caption"
+        finally:
+            t_tr.reset_transcriber()
+    monkeypatch.setattr(t_tr, "WhisperTranscriber", on_cpu)
     t_tr.reset_transcriber()
     try:
         assert t_tr.extract_transcript(wav) == ""
         assert t_tr.merge_into_caption("caption", wav) == "caption"
         assert t_tr._get_engine().has_weights is False
+        assert asked == ["cuda"]
         monkeypatch.setenv("WHISPER_CHECKPOINT", "ckpt")   # not ported: M16
         t_tr.reset_transcriber()
         assert t_tr._get_engine() is None

@@ -217,10 +217,47 @@ def test_options_not_carried_are_refused(model):
     for kw, item in ((dict(scan_layers=True), "M13"),
                      (dict(quant=True), "M13"),
                      (dict(cross_int8=True), "K8"),
-                     (dict(pallas_layer=True), "K9"),
-                     (dict(pallas_ffn=True), "K5")):
+                     (dict(pallas_layer=True), "K9")):
         with pytest.raises(NotImplementedError, match=item):
             tw.decode_transcript(tp, None, TCFG, TP, enc_out=e, max_len=4,
                                  **kw)
     with pytest.raises(ValueError, match="AFTER"):
         tw.fuse_whisper_decoder_qkv(t_serving.quantize_whisper_decoder(tp))
+
+
+def test_pallas_ffn_decode_matches_jax(model, monkeypatch):
+    """``pallas_ffn=True``: every decoder layer's FFN through the fused FFN
+    (K5; its plain version on the CPU, erf GELU in f32) against JAX's
+    Pallas FFN in interpret mode: tokens equal, avg_logprob within 1e-5."""
+    from jax.experimental.pallas import tpu as pltpu
+    from misinfo_tpu_torch.ops import fused_ffn as K5
+    calls = []
+    plain = K5.fused_ffn_plain
+    monkeypatch.setattr(K5, "fused_ffn_plain", lambda *a, **kw: calls.append(
+        kw["mode"]) or plain(*a, **kw))
+    jp, tp, _, enc = model
+    with pltpu.force_tpu_interpret_mode():
+        (tj, lj), (tt, lt) = _decodes(jp, tp, enc, max_len=10,
+                                      pallas_ffn=True)
+    np.testing.assert_array_equal(tt, tj)
+    np.testing.assert_allclose(lt, lj, atol=1e-5)
+    assert calls and set(calls) == {"erf"}
+    assert len(calls) % TCFG.decoder_layers == 0
+
+
+def test_pallas_ffn_refuses_what_jax_refuses(model):
+    jp, tp, _, enc = model
+    jq = j_serving.quantize_whisper_decoder(jw.fuse_whisper_decoder_qkv(jp))
+    tq = t_serving.quantize_whisper_decoder(tw.fuse_whisper_decoder_qkv(tp))
+    for (p_j, p_t), kw, msg in (((jp, tp), dict(pallas_cross=True),
+                                 "subsumes the FFN"),
+                                ((jp, tp), dict(quant=True), "composes only"),
+                                ((jq, tq), {}, "unquantized FFN")):
+        with pytest.raises(ValueError, match=msg):
+            jw.decode_transcript(p_j, None, JCFG, JP,
+                                 enc_out=jnp.asarray(enc), max_len=4,
+                                 pallas_ffn=True, **kw)
+        with pytest.raises(ValueError, match=msg):
+            tw.decode_transcript(p_t, None, TCFG, TP,
+                                 enc_out=torch.from_numpy(enc), max_len=4,
+                                 pallas_ffn=True, **kw)
