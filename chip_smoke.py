@@ -4,9 +4,10 @@
 
 Phases (any failure exits non-zero before the result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the eight kernel sources in parallel, one nvcc each
+  2. build the ten kernel sources in parallel, one nvcc each
      (misinfo_tpu_torch/csrc/{int8_ffn,int8_dense,fused_attention,
-     layer_norm,fused_ffn,self_attn_step,cross_ffn_step,int4_sims}.cu);
+     layer_norm,fused_ffn,self_attn_step,cross_ffn_step,
+     cross_ffn_step_i8cc,layer_step,int4_sims}.cu);
   3. K1 (fused int8 FFN) against its plain PyTorch version on the card at
      the main path's three shapes (RoBERTa, CLIP text, CLIP vision; B = 3,
      the kernel's split form) and at RoBERTa b32/S512 (its one-block-per-
@@ -29,19 +30,20 @@ Phases (any failure exits non-zero before the result line):
      off) fall outside that band, which the check also requires;
   6. the Whisper transcriber at whisper-base widths (byte tokenizer,
      seeded weights through the JAX-layout bridge, device="cuda"):
-     pallas on and quant="kernels" (K6/K7 int8 bodies), then
-     quant="embedding" (the bf16 bodies); each transcribes a 20 s
-     two-tone-plus-noise WAV, and K6 and K7 must each launch once per
-     decoder layer per fused decode step, every launch with the weight
-     type of that transcriber's body;
+     pallas on and quant="kernels" (K6/K7 int8 bodies, the whole
+     temperature ladder: 26 decodes), then quant="embedding" (the bf16
+     bodies, the ladder cut to its greedy rung); each transcribes a 20 s
+     two-tone-plus-noise WAV (wall time printed), and K6 and K7 must each
+     launch once per decoder layer per fused decode step, every launch
+     with the weight type of that transcriber's body;
   7. a teacher-forced comparison: the greedy tokens fed through the step
      with the kernels and with their plain versions, per-step logits
      within TF_BAND (argmax agreement printed: with random weights
      near-ties make free-running token equality a coin toss);
   8. merge_into_caption → engine.analyze(merged caption, image), report
-     checked; then the encoder's time for one 30 s window, decode ms per
-     step with the kernels and with the plain versions, and one
-     transcribe() wall time (printed only);
+     checked; then the encoder's time for one 30 s window and decode ms
+     per step with the kernels and with the plain versions (printed
+     only);
   9. the int4 vault similarity kernels K10a (bf16 query) and K10b (int8
      query) against their plain versions at 1,048,576 rows × 512 (B = 1,
      8, 32) and at a ragged row count (B = 3) through
@@ -86,7 +88,36 @@ Phases (any failure exits non-zero before the result line):
  18. (after phase 8) one whisper-base greedy decode_transcript(
      pallas_ffn=True) with bf16 weights and the fused steps off: K5 once
      per decoder layer per step, tokens equal to the plain version's,
-     teacher-forced logits within FFN_TF_BAND.
+     teacher-forced logits within FFN_TF_BAND;
+ 19. (after phase 5) K8, the cross-attention + FFN step over int8 cross
+     planes, against its plain version at whisper-base shapes, T = 1,500:
+     B = 1 and 4 (V tiles of 512 rows), 8 (256, t_actual 1,400) and 32
+     (128), and B = 3 at T = 300, t_actual 280 (one ragged tile), through
+     decode_checks.py: within the bf16-plane band plus one level of every
+     quantized probability that sits at a rounding boundary, with planted
+     faults outside (V scales applied after the quantization, K scales
+     dropped, the probabilities' scale per head, tiles of half the size,
+     a score chunk or a V piece left out, the mask one row off);
+ 20. K9, the whole-layer step in one cooperative launch, at B = 1, 4, 32
+     and pos = 0, 447: output and both caches torch.equal to K6b followed
+     by K7b on clones of the same inputs, inside the band of its plain
+     version with the faults of both steps outside, and exactly one
+     __global__ launch per call by the library's own count;
+ 21. (after phase 8) whisper-base greedy decode_transcript with int8
+     weights and the two fused steps, on bf16 cross planes and with
+     cross_int8=True: K8 launched once per decoder layer per step, K7
+     never, K6b once per layer per step; teacher-forced logits of the
+     kernels and the plain versions within I8CC_TF_BAND; ms per step of
+     both decodes;
+ 22. the same decode with pallas_layer=True: K9 once per layer per step
+     (and as many __global__ launches), K6 and K7 never; tokens,
+     avg_logprob and the no-speech probability equal to phase 21's
+     bf16-plane decode; ms per step of both;
+ 23. WhisperTranscriber(quant="int8") (the int8 streaming decode: plain
+     PyTorch, no decode kernel) on the 20 s WAV with the ladder cut to its
+     greedy rung: int8 token embedding, every kernel count unchanged, the
+     position-0 logits within 0.06·max|logit| of the unquantized step;
+     wall time and ms per step.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds. ``--profile FILE``
 also writes torch.profiler tables of the b32 batch (default engine and
@@ -252,6 +283,11 @@ TF_BAND = 0.135
 # phase 18: the same for K5 in the unfused step, three times the largest
 # measured on an H100 (0.0131)
 FFN_TF_BAND = 0.04
+# phase 21: the same for K6b + K8 over int8 cross planes (0.0412)
+I8CC_TF_BAND = 0.125
+# phase 23: |Δlogit| / max|logit| allowed between the int8 streaming step
+# and the unquantized step at position 0 (the JAX package's own bar)
+STREAM_BAND = 0.06
 
 
 def build_all(builds) -> None:
@@ -304,10 +340,11 @@ def check_decode_kernels(K6, K7):
     return rows
 
 
-def decode_bound(name, case, int8: bool):
-    """bound_ms of one decode-step body: each input read once (the weights,
-    the attended cache rows), the output written once; 2 operations per
-    weight per row and 4·D per attended cache row."""
+def decode_work(name, case, scales=()):
+    """(bytes moved, operations) of one decode-step body: each input read
+    once (the weights, the attended cache rows and, over int8 planes,
+    their ``scales``), the output written once; 2 operations per weight
+    per row and 4·D per attended cache row."""
     args = case["args"]
     x = args[0]
     B, D = x.shape
@@ -318,9 +355,108 @@ def decode_bound(name, case, int8: bool):
     caches = [t for t in tensors if t.dim() == 3]
     rows = args[-1] + (1 if name == "self_attn_step" else 0)
     moved = (nbytes(*[t for t in tensors if t.dim() < 3]) + nbytes(x)
-             + sum(B * rows * D * c.element_size() for c in caches))
-    return bound(moved, 2 * B * weights + 4 * B * rows * D,
-                 "int8" if int8 else "bf16")
+             + sum(B * rows * D * c.element_size() for c in caches)
+             + sum(B * rows * s.element_size() for s in scales))
+    return moved, 2 * B * weights + 4 * B * rows * D
+
+
+def decode_bound(name, case, int8: bool, scales=()):
+    """bound_ms of one decode-step body from ``decode_work``."""
+    return bound(*decode_work(name, case, scales), "int8" if int8 else "bf16")
+
+
+I8CC_CASES = ((1, 1500, 1500), (4, 1500, 1500), (8, 1400, 1500),
+              (32, 1500, 1500), (3, 280, 300))      # B, t_actual, T
+I8CC_TILES = {1: 512, 4: 512, 8: 256, 32: 128, 3: 384}
+
+
+def check_i8cc_kernel(K7, card):
+    """Phase 19: K8 against its plain version (decode_checks.py) at the
+    three V tile widths and a ragged single tile; returns the kernels
+    line's row, timed at B = 4."""
+    from misinfo_tpu_torch.ops import decode_checks as DC
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = None
+    for B, ta, T in I8CC_CASES:
+        case = DC.cross_i8cc_case(B, ta, T=T)
+        if case["tile"] != I8CC_TILES[B]:
+            raise AssertionError(f"v_tile({B}, 512, {T}) = {case['tile']}, "
+                                 f"want {I8CC_TILES[B]}")
+        before = (K7.launches, K7.launches_i8cc)
+        res = DC.check_cross_i8cc(case, sms)        # raises if out of band
+        torch.cuda.synchronize()
+        if (K7.launches, K7.launches_i8cc) != (before[0], before[1] + 1):
+            raise AssertionError("the int8-plane call did not count as K8")
+        args, H, sc = case["args"], case["n_heads"], case["scales"]
+        ms = cuda_ms(lambda: K7.fused_cross_ffn_step(*args, n_heads=H, **sc),
+                     50)
+        plain_ms = cuda_ms(lambda: K7.cross_ffn_step_i8cc_plain(
+            *args, n_heads=H, **sc), 5)
+        print(f"cross_ffn_step_i8cc B={B} T={T} t_actual={ta} tile="
+              f"{case['tile']}: max_abs_err={res['err']} (band up to "
+              f"{res['band']}; {res['equal']:.4f} of the outputs bit for bit; "
+              f"{res['edges']} probabilities at a rounding boundary; "
+              f"{res['faults']} planted faults, nearest at "
+              f"{res['nearest_fault']:.2f} bands) kernel_ms={ms} "
+              f"plain_ms={plain_ms} [{card}]", flush=True)
+        if B == 4:
+            row = {"err": res["err"], "ms": ms, "plain_ms": plain_ms,
+                   **decode_bound("cross_ffn_step", case, True,
+                                  sc.values())}
+    return row
+
+
+def check_layer_kernel(K6, K7, K9, card):
+    """Phase 20: K9 against K6b → K7b (bit for bit) and against its plain
+    version (decode_checks.py), one __global__ launch per call; returns
+    the kernels line's row, timed at B = 4, pos 447, beside the two-call
+    route's time."""
+    from misinfo_tpu_torch.ops import decode_checks as DC
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = None
+    for B in (1, 4, 32):
+        for pos in (0, 447):
+            case = DC.layer_case(B, pos)
+            before = (K9.launches, K9.kernel_launches())
+            res = DC.check_layer(case, sms)         # raises on any difference
+            torch.cuda.synchronize()
+            calls = K9.launches - before[0]
+            per_call = K9.kernel_launches() - before[1]
+            if (calls, per_call) != (1, 1):
+                raise AssertionError(
+                    f"layer_step B={B} pos={pos}: {per_call} __global__ "
+                    f"launches in {calls} calls, want 1 in 1")
+            x, blk, ck, cv, xk, xv, _, ta = case["args"]
+            H = case["n_heads"]
+            sa, ca = blk["self_attn"], blk["cross_attn"]
+
+            def two_call():
+                x1 = K6.fused_self_attn_step(x, blk["ln1"], sa["qkv"],
+                                             sa["o"], ck, cv, pos,
+                                             n_heads=H)[0]
+                return K7.fused_cross_ffn_step(
+                    x1, blk["ln_cross"], ca["q"], ca["o"], blk["ln2"],
+                    blk["mlp_in"], blk["mlp_out"], xk, xv, ta, n_heads=H)
+            ms = cuda_ms(lambda: K9.fused_layer_step(
+                x, blk, ck, cv, xk, xv, pos, ta, n_heads=H), 50)
+            two_ms = cuda_ms(two_call, 50)
+            plain_ms = cuda_ms(lambda: K9.layer_step_plain(
+                x, blk, ck, cv, xk, xv, pos, ta, n_heads=H), 5)
+            print(f"layer_step B={B} pos={pos}: output and caches equal to "
+                  f"K6b → K7b; {per_call} __global__ launch per call; "
+                  f"against the plain version max_abs_err={res['err']} (band "
+                  f"up to {res['band']}; {res['faults']} planted faults, "
+                  f"nearest at {res['nearest_fault']:.2f} bands) kernel_ms="
+                  f"{ms} two_call_ms={two_ms} plain_ms={plain_ms} [{card}]",
+                  flush=True)
+            if B == 4 and pos == 447:
+                m6, o6 = decode_work("self_attn_step", case["self"])
+                m7, o7 = decode_work("cross_ffn_step", case["cross"])
+                # x1 stays inside the kernel: neither written nor read
+                row = {"err": res["err"], "ms": ms, "plain_ms": plain_ms,
+                       "two_call_ms": two_ms,
+                       **bound(m6 + m7 - 2 * nbytes(x), o6 + o7, "int8")}
+    return row
 
 
 def write_wav(path: str, seconds: float = 20.0, sr: int = 16000) -> None:
@@ -365,9 +501,15 @@ def counting_steps(W):
 
 def plain_decode_steps(W, K6, K7):
     """The fused decode step with the kernels' plain versions (on the
-    card) for the duration of the block."""
+    card) for the duration of the block; the cross step's for either kind
+    of planes."""
+    def plain_cross(*a, k_scale=None, v_scale=None, **kw):
+        if k_scale is None:
+            return K7.cross_ffn_step_plain(*a, **kw)
+        return K7.cross_ffn_step_i8cc_plain(*a, k_scale=k_scale,
+                                            v_scale=v_scale, **kw)
     return swapped((W, "fused_self_attn_step", K6.self_attn_step_plain),
-                   (W, "fused_cross_ffn_step", K7.cross_ffn_step_plain))
+                   (W, "fused_cross_ffn_step", plain_cross))
 
 
 def transcribe_counted(tr, wav, W, K6, K7, int8: bool):
@@ -386,9 +528,9 @@ def transcribe_counted(tr, wav, W, K6, K7, int8: bool):
         counts = (K6.launches, K6.launches_i8, K7.launches,
                   K7.launches_i8)           # read just after the path
     l6, l6_i8, l7, l7_i8 = counts
-    print(f"transcribe ({what}): {sec} s, {seen['fused']} fused decode "
-          f"steps, K6 launches {l6} (int8 {l6_i8}), K7 launches {l7} (int8 "
-          f"{l7_i8}) (want {layers * seen['fused']} each); transcript "
+    print(f"transcribe ({what}) wall time: {sec} s, {seen['fused']} fused "
+          f"decode steps, K6 launches {l6} (int8 {l6_i8}), K7 launches {l7} "
+          f"(int8 {l7_i8}) (want {layers * seen['fused']} each); transcript "
           f"{len(text)} chars: {text[:60]!r}", flush=True)
     if text.startswith("[transcript error"):
         raise AssertionError(f"transcribe ({what}) failed: {text}")
@@ -474,7 +616,7 @@ def transcript_timings(tr, wav, W, K6, K7, profile):
 
 
 def transcript_phases(engine, image, card, profile):
-    """Phases 6-8; returns the K6/K7 kernel rows' launches."""
+    """Phases 6-8, 18 and 21-23; returns the decode kernels' launches."""
     from misinfo_tpu_torch.core.config import WhisperDecodeConfig
     from misinfo_tpu_torch.models import whisper as W
     from misinfo_tpu_torch.ops import cross_ffn_step as K7
@@ -492,10 +634,12 @@ def transcript_phases(engine, image, card, profile):
     write_wav(wav)
     launches = {}
     trs = {}
-    for quant in ("auto", "embedding"):
+    for quant, cut in (("auto", {}),
+                       ("embedding", {"fallback_temperatures": (0.0,)})):
         tr = WhisperTranscriber(weights, config=cfg, device="cuda",
                                 decode_cfg=dataclasses.replace(
-                                    WhisperDecodeConfig(), quant=quant))
+                                    WhisperDecodeConfig(), quant=quant,
+                                    **cut))
         want = "kernels" if quant == "auto" else "embedding"
         if not (tr.pallas and getattr(tr, f"quant_{want}")):
             raise AssertionError(f"quant={quant!r} resolved to pallas="
@@ -516,14 +660,11 @@ def transcript_phases(engine, image, card, profile):
                   "analyze(merged caption)")
     print(f"merged caption: {len(merged)} chars; analyze report ok",
           flush=True)
-    t0 = time.perf_counter()
-    tr.transcribe(wav)
-    torch.cuda.synchronize()
-    print(f"one transcribe() wall time: {time.perf_counter() - t0} s "
-          f"[{card}]", flush=True)
     transcript_timings(tr, wav, W, K6, K7, profile)
     launches["fused_ffn_whisper"] = whisper_pallas_ffn(weights, cfg, wav,
                                                        card)
+    launches.update(whisper_int8_modes(tr, weights, cfg, wav,   # 21-23
+                                       card))
     return launches
 
 
@@ -1249,6 +1390,189 @@ def whisper_pallas_ffn(weights, cfg, wav, card):
     return launches
 
 
+def whisper_int8_modes(tr, weights, cfg, wav, card):
+    """Phases 21-23 on the quant="kernels" transcriber's weights (int8
+    blocks, fused QKV): greedy decode_transcript over bf16 cross planes
+    (K6b + K7b), with cross_int8=True (K6b + K8) and with
+    pallas_layer=True (K9), each with exact launch counts; K8's decode
+    teacher-forced against the plain versions; K9's outputs equal to the
+    two-call decode's; then the quant="int8" transcriber (no decode
+    kernel). Returns the launches of K8 and K9."""
+    from misinfo_tpu_torch.core.config import WhisperDecodeConfig
+    from misinfo_tpu_torch.models import whisper as W
+    from misinfo_tpu_torch.ops import cross_ffn_step as K7
+    from misinfo_tpu_torch.ops import fused_ffn as K5
+    from misinfo_tpu_torch.ops import layer_step as K9
+    from misinfo_tpu_torch.ops import self_attn_step as K6
+    from misinfo_tpu_torch.preprocess.audio import prep_mel_windows
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    mels, _ = prep_mel_windows(wav, 2 * cfg.max_source_positions, 1)
+    sp = tr.tokenizer.specials
+    prompt = torch.tensor([tr.tokenizer.sot_sequence(language="en")[1:]],
+                          device=tr.device)
+    layers = cfg.decoder_layers
+    real_step = W._cached_decoder_step
+    steps = []
+
+    def step(*a, **kw):
+        steps.append(1)
+        return real_step(*a, **kw)
+
+    def counts():
+        return {"K5": K5.launches, "K6": K6.launches,
+                "K6 int8": K6.launches_i8, "K7": K7.launches, "K7 int8": K7.launches_i8,
+                "K8": K7.launches_i8cc, "K9": K9.launches}
+
+    def counted(**kw):
+        """One warm decode, then one with the counts set to 0 just before
+        and read just after: (outputs, steps, counts, ms per step)."""
+        def decode():
+            return W.decode_transcript(
+                tr.params, None, tr.cfg, tr.policy, enc_out=enc,
+                prompt_tokens=prompt, nospeech_id=sp.no_speech, **kw)
+        decode()
+        torch.cuda.synchronize()
+        del steps[:]
+        with swapped((W, "_cached_decoder_step", step)):
+            K5.launches = K6.launches = K6.launches_i8 = 0
+            K7.launches = K7.launches_i8 = K7.launches_i8cc = 0
+            K9.launches = 0             # this path's run starts here
+            globals_before = K9.kernel_launches()
+            t0 = time.perf_counter()
+            out = decode()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            seen = counts()             # read just after the path
+            seen["K9 __global__"] = K9.kernel_launches() - globals_before
+        n = len(steps)
+        if n == 0:
+            raise AssertionError(f"decode_transcript({kw}) took no step")
+        return out, n, {k: v for k, v in seen.items() if v}, sec * 1e3 / n
+
+    with torch.inference_mode():
+        enc = tr._encode(mels)
+        two = dict(pallas_self_attn=True, pallas_cross=True)
+        out2, n2, c2, ms2 = counted(**two)
+        out8, n8, c8, ms8 = counted(**two, cross_int8=True)
+        out9, n9, c9, ms9 = counted(pallas_layer=True)
+        two_again = counted(**two)[3]
+
+        # phase 21: exact counts, then kernels against plain versions
+        for what, n, got, want in (
+                ("bf16 planes", n2, c2, {"K6": layers * n2,
+                                         "K6 int8": layers * n2,
+                                         "K7": layers * n2,
+                                         "K7 int8": layers * n2}),
+                ("cross_int8", n8, c8, {"K6": layers * n8,
+                                        "K6 int8": layers * n8,
+                                        "K8": layers * n8}),
+                ("pallas_layer", n9, c9, {"K9": layers * n9,
+                                          "K9 __global__": layers * n9})):
+            print(f"whisper int8-weight decode, {what}: {n} steps, launches "
+                  f"{got} (want {want})", flush=True)
+            if got != want:
+                raise AssertionError(f"{what}: launch counts off")
+        tokens = out8[0]
+        n = tokens.shape[1]
+
+        def forced():
+            cache = W.init_kv_cache(tr.params, enc, n, tr.cfg, tr.policy,
+                                    merged_self=True, merged_cross=True,
+                                    cross_int8=True)
+            if cache["cross_k"][0].dtype != torch.int8:
+                raise AssertionError("cross_int8 cache is not int8")
+            return torch.cat([W._cached_decoder_step(
+                tr.params, tokens[:, i], i, enc, cache, tr.cfg, tr.policy,
+                **two)[0].float() for i in range(n - 1)])
+        got = forced()
+        with plain_decode_steps(W, K6, K7):
+            before = counts()
+            want = forced()
+            if counts() != before:
+                raise AssertionError("the plain decode launched a kernel")
+    diff = (got - want).abs().max().item()
+    spread = (want.max() - want.min()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    same_tokens = (out8[0] == out2[0]).float().mean().item()
+    print(f"cross_int8 decode teacher-forced {n - 1} steps: max |Δlogit| "
+          f"{diff} (band {I8CC_TF_BAND}; logit range {spread}); argmax "
+          f"agreement {agree}; tokens shared with the bf16-plane decode "
+          f"{same_tokens}; decode ms/step: bf16 planes {ms2}, cross_int8 "
+          f"{ms8}, bf16 planes again {two_again} [{card}]", flush=True)
+    if not (math.isfinite(diff) and diff <= I8CC_TF_BAND):
+        raise AssertionError(f"cross_int8 teacher-forced logits differ by "
+                             f"{diff}")
+
+    # phase 22: the whole-layer decode is the two-call decode
+    equal = [torch.equal(a, b) for a, b in zip(out9, out2)]
+    print(f"pallas_layer decode: tokens, avg_logprob, p(no speech) equal to "
+          f"the two-call decode's: {equal}; decode ms/step: pallas_layer "
+          f"{ms9}, two calls {ms2} and {two_again} [{card}]", flush=True)
+    if not (all(equal) and len(equal) == 3):
+        raise AssertionError("the pallas_layer decode differs from the "
+                             "two-call decode")
+    if not all(bool(torch.isfinite(t.float()).all()) for t in out9[1:]):
+        raise AssertionError("the pallas_layer decode is not finite")
+
+    # phase 23: the int8 streaming transcriber
+    trq = WhisperTranscriber(weights, config=cfg, device="cuda",
+                             decode_cfg=dataclasses.replace(
+                                 WhisperDecodeConfig(), quant="int8",
+                                 fallback_temperatures=(0.0,)))
+    emb = trq.params["decoder"].get("token_embedding_q")
+    if not (trq.quant and not trq.pallas and not trq.quant_kernels
+            and emb is not None and emb.dtype == torch.int8
+            and emb.is_cuda):
+        raise AssertionError("quant='int8' did not resolve to the int8 "
+                             "streaming decode on the card")
+    exact = WhisperTranscriber(weights, config=cfg, device="cuda",
+                               decode_cfg=dataclasses.replace(
+                                   WhisperDecodeConfig(), quant="none",
+                                   pallas="off"))
+    caches = []
+
+    def stream_step(*a, **kw):
+        steps.append(1)
+        caches.append(a[4].get("cross_k_scale") is not None
+                      and a[4]["cross_k"][0].dtype == torch.int8)
+        return real_step(*a, **kw)
+    del steps[:]
+    before = counts()
+    with swapped((W, "_cached_decoder_step", stream_step)):
+        t0 = time.perf_counter()
+        text = trq.transcribe(wav)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    if counts() != before:
+        raise AssertionError(f"the int8 streaming transcriber launched a "
+                             f"decode kernel: {before} → {counts()}")
+    if text.startswith("[transcript error"):
+        raise AssertionError(f"transcribe (quant=int8) failed: {text}")
+    # every decode step streams int8 caches; language detection's one SOT
+    # step has a cache of its own
+    if not (sum(caches) > 0 and sum(caches) >= len(caches) - 1):
+        raise AssertionError("a streaming decode step ran without int8 "
+                             "cross caches")
+    with torch.inference_mode():
+        sot = torch.full((1,), sp.sot, dtype=torch.int64, device="cuda")
+        lq = real_step(trq.params, sot, 0, enc, W.init_kv_cache(
+            trq.params, enc, 1, cfg, trq.policy, quant=True), cfg,
+            trq.policy)[0].float()
+        lx = real_step(exact.params, sot, 0, enc, W.init_kv_cache(
+            exact.params, enc, 1, cfg, exact.policy), cfg,
+            exact.policy)[0].float()
+    rel = ((lq - lx).abs().max() / lx.abs().max()).item()
+    print(f"transcribe (quant=int8, greedy rung only): {sec} s, "
+          f"{len(steps)} steps, {sec * 1e3 / len(steps)} ms per step, no "
+          f"decode kernel launched; transcript {len(text)} chars; position-0 "
+          f"logits within {rel} × max|logit| of the unquantized step (limit "
+          f"{STREAM_BAND}) [{card}]", flush=True)
+    if not (math.isfinite(rel) and rel <= STREAM_BAND):
+        raise AssertionError(f"int8 streaming logits off by {rel} × "
+                             f"max|logit|")
+    return {"cross_ffn_step_i8cc": c8["K8"], "layer_step": c9["K9"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1266,6 +1590,7 @@ def main() -> int:
     from misinfo_tpu_torch.ops import fused_ffn as K5
     from misinfo_tpu_torch.ops import int8_dense as K2
     from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.ops import layer_step as K9
     from misinfo_tpu_torch.ops import self_attn_step as K6
     from misinfo_tpu_torch.ops.quant import quantize_dense
     from misinfo_tpu_torch.vault import int4 as K10
@@ -1274,8 +1599,9 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)                                   # phase 1
     build_all([(m, "_library", "build_log")                   # phase 2
-               for m in (K1, K2, K3, K5, K6, K7, K10)]
-              + [(K3, "_ln_library", "ln_build_log")])
+               for m in (K1, K2, K3, K5, K6, K7, K9, K10)]
+              + [(K3, "_ln_library", "ln_build_log"),
+                 (K7, "_library_i8cc", "build_log_i8cc")])
     kernel_rows = check_kernel(K1, quantize_dense)            # phase 3
     opt_rows = check_opt_in_kernels(card)                     # phase 15
 
@@ -1348,12 +1674,14 @@ def main() -> int:
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
     decode_rows = check_decode_kernels(K6, K7)                # phase 5
+    decode_rows["cross_ffn_step_i8cc"] = check_i8cc_kernel(K7, card)    # 19
+    decode_rows["layer_step"] = check_layer_kernel(K6, K7, K9, card)    # 20
     if args.profile:
         append_profile(args.profile, "full b32/S512 analyze_batch",
                        lambda: engine.analyze_batch(b32), rows=40)
 
     decode_launches = transcript_phases(engine, image, card,  # phases 6-8,
-                                        args.profile)         # 18
+                                        args.profile)         # 18, 21-23
     del engine
     int4_rows = check_int4_kernels(K10, IC, card)             # phase 9
     int4_launches = vault_phases(card, vault_path,            # phases 10-14
@@ -1374,7 +1702,10 @@ def main() -> int:
     replaces = {"self_attn_step": "misinfo_tpu/ops/pallas_decode.py:52",
                 "self_attn_step_i8": "misinfo_tpu/ops/pallas_decode.py:148",
                 "cross_ffn_step": "misinfo_tpu/ops/pallas_cross_ffn.py:125",
-                "cross_ffn_step_i8": "misinfo_tpu/ops/pallas_cross_ffn.py:250"}
+                "cross_ffn_step_i8": "misinfo_tpu/ops/pallas_cross_ffn.py:250",
+                "cross_ffn_step_i8cc":
+                    "misinfo_tpu/ops/pallas_cross_ffn.py:373",
+                "layer_step": "misinfo_tpu/ops/pallas_layer.py:48"}
     for name, where in replaces.items():
         row = decode_rows[name]
         kernels.append({

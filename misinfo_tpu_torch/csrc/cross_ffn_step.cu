@@ -34,87 +34,36 @@
 //     TPU kernel's dense_q does.
 // Eleven launches from one C call; the wrapper counts one launch per call.
 
-#include "decode_common.cuh"
+#include "cross_ffn_phases.cuh"
 
 using namespace dec;
 
 namespace {
 
-constexpr int ATT = 128;   // threads of the attention kernels
-
-// Grid (H, B, chunks); scores [B, H, T] f32.
-__global__ void __launch_bounds__(ATT)
+// Grid (H, B, chunks), CROSS_ATT threads; scores [B, H, T] f32.
+__global__ void __launch_bounds__(CROSS_ATT)
 cross_scores(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ ck, float* __restrict__ sc,
              int D, int T, int t_actual, int tc) {
   __shared__ float qs[HD];
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x < HD) qs[threadIdx.x] = ld(q + (size_t)b * D + h * HD +
-                                             threadIdx.x);
-  __syncthreads();
-  const float root = sqrtf((float)HD);
-  const int t0 = blockIdx.z * tc, t1 = min(T, t0 + tc);
-  float* row = sc + ((size_t)b * H + h) * T;
-  for (int t = t0 + warp; t < t1; t += ATT / 32) {
-    const __nv_bfloat16* kr = ck + ((size_t)b * T + t) * D + h * HD;
-    float p = qs[2 * lane] * ld(kr + 2 * lane);
-    p = __fadd_rn(p, qs[2 * lane + 1] * ld(kr + 2 * lane + 1));
-    p = warp_sum(p);
-    if (lane == 0) row[t] = t < t_actual ? __fdiv_rn(p, root) : NEG;
-  }
+  cross_scores_body(qs, blockIdx.x, blockIdx.y, blockIdx.z, gridDim.x, q, ck,
+                    sc, D, T, t_actual, tc, whole_block());
 }
 
-// Grid (H, B, chunks); partial contexts pctx [chunks, B, D] f32. Dynamic
-// shared memory (tc + 2·ATT) floats.
-__global__ void __launch_bounds__(ATT)
+// Grid (H, B, chunks), CROSS_ATT threads; partial contexts pctx
+// [chunks, B, D] f32. Dynamic shared memory cross_pv_smem(tc).
+__global__ void __launch_bounds__(CROSS_ATT)
 cross_pv(const float* __restrict__ sc, const __nv_bfloat16* __restrict__ cv,
          float* __restrict__ pctx, int D, int T, int tc) {
   extern __shared__ float sm[];
-  float* scr = sm;          // [ATT] warp scratch, then context halves
-  float* p = sm + ATT;      // [tc]
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, B = gridDim.y;
-  const float* row = sc + ((size_t)b * H + h) * T;
-  float m = NEG;
-  for (int t = threadIdx.x; t < T; t += ATT) m = fmaxf(m, row[t]);
-  m = block_max(m, scr);
-  float l = 0.f;
-  for (int t = threadIdx.x; t < T; t += ATT)
-    l = __fadd_rn(l, expf(__fsub_rn(row[t], m)));
-  l = block_sum(l, scr);
-  const int t0 = blockIdx.z * tc, t1 = min(T, t0 + tc);
-  for (int t = t0 + threadIdx.x; t < t1; t += ATT)
-    p[t - t0] = bf(__fdiv_rn(expf(__fsub_rn(row[t], m)), l));
-  __syncthreads();
-  const int d = threadIdx.x & (HD - 1), half = threadIdx.x >> 6;
-  float acc = 0.f;
-  for (int t = t0 + half; t < t1; t += 2)
-    acc += p[t - t0] * ld(cv + ((size_t)b * T + t) * D + h * HD + d);
-  scr[threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.x < HD)
-    pctx[((size_t)blockIdx.z * B + b) * D + h * HD + d] =
-        __fadd_rn(scr[d], scr[d + HD]);
+  cross_pv_body(sm, blockIdx.x, blockIdx.y, blockIdx.z, gridDim.x, gridDim.y,
+                sc, cv, pctx, D, T, tc, whole_block());
 }
 
-// ctx [B, D] = bf16(Σ_j pctx[j], in chunk order)
 __global__ void combine(const float* __restrict__ pctx,
                         __nv_bfloat16* __restrict__ ctx, int n, int chunks) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int j = 0; j < chunks; ++j) s = __fadd_rn(s, pctx[(size_t)j * n + i]);
-  ctx[i] = __float2bfloat16_rn(s);
-}
-
-// T chunks: about two attention blocks per SM, at least 32 rows a chunk.
-int t_chunks(int B, int H, int T, int sms, int* tc_out) {
-  int ch = (2 * sms + B * H - 1) / (B * H);
-  const int hi = (T + 31) / 32;
-  ch = ch < 1 ? 1 : (ch > hi ? hi : ch);
-  const int tc = (T + ch - 1) / ch;
-  *tc_out = tc;
-  return (T + tc - 1) / tc;
+  if (i < n) combine_elem(i, pctx, ctx, n, chunks);
 }
 
 struct Work {
@@ -124,20 +73,12 @@ struct Work {
   float *sc, *pctx;
 };
 
-size_t part_bytes(int B, int D, int F, int sms) {
-  size_t m = gemm_part_bytes(B, D, D, sms);
-  const size_t a = gemm_part_bytes(B, D, F, sms);
-  const size_t c = gemm_part_bytes(B, F, D, sms);
-  m = a > m ? a : m;
-  return c > m ? c : m;
-}
-
 Work carve(void* ws, int B, int D, int F, int T, int sms) {
   Carve c(ws);
   int tc;
   const int ch = t_chunks(B, D / HD, T, sms, &tc);
   Work w;
-  w.part = c.take(part_bytes(B, D, F, sms));
+  w.part = c.take(cross_part_bytes(B, D, F, sms));
   w.rs = static_cast<float*>(c.take((size_t)B * 4));
   w.q = static_cast<__nv_bfloat16*>(c.take((size_t)B * D * 2));
   w.ctx = static_cast<__nv_bfloat16*>(c.take((size_t)B * D * 2));
@@ -167,36 +108,24 @@ cudaError_t run(const __nv_bfloat16* x, const float* lnc_g,
   e = run_epilogue<WT, EP_Q>(w.part, ks, sq, bq, w.rs, nullptr, w.q, B, D,
                              st);
   if (e != cudaSuccess) return e;
-  cross_scores<<<dim3(H, B, ch), ATT, 0, st>>>(w.q, ck, w.sc, D, T, t_actual,
-                                               tc);
+  cross_scores<<<dim3(H, B, ch), CROSS_ATT, 0, st>>>(w.q, ck, w.sc, D, T,
+                                                     t_actual, tc);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t smem = (size_t)(ATT + tc) * 4;
+  const size_t smem = cross_pv_smem(tc);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(cross_pv,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return e;
   }
-  cross_pv<<<dim3(H, B, ch), ATT, smem, st>>>(w.sc, cv, w.pctx, D, T, tc);
+  cross_pv<<<dim3(H, B, ch), CROSS_ATT, smem, st>>>(w.sc, cv, w.pctx, D, T,
+                                                    tc);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   combine<<<(B * D + 255) / 256, 256, 0, st>>>(w.pctx, w.ctx, B * D, ch);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  e = gemm<WT, IN_ROW>(w.ctx, nullptr, nullptr, wo, w.part, w.rs, B, D, D,
-                       sms, st, &ks);
-  if (e != cudaSuccess) return e;
-  e = run_epilogue<WT, EP_RESID>(w.part, ks, so, bo, w.rs, x, w.x2, B, D, st);
-  if (e != cudaSuccess) return e;
-  e = gemm<WT, IN_LN>(w.x2, ln2_g, ln2_b, w1, w.part, w.rs, B, D, F, sms, st,
-                      &ks);
-  if (e != cudaSuccess) return e;
-  e = run_epilogue<WT, EP_GELU>(w.part, ks, s1, b1, w.rs, nullptr, w.g, B, F,
-                                st);
-  if (e != cudaSuccess) return e;
-  e = gemm<WT, IN_ROW>(w.g, nullptr, nullptr, w2, w.part, w.rs, B, F, D, sms,
-                       st, &ks);
-  if (e != cudaSuccess) return e;
-  return run_epilogue<WT, EP_RESID>(w.part, ks, s2, b2, w.rs, w.x2, out, B, D,
-                                    st);
+  return after_attention<WT>(x, w.ctx, wo, so, bo, ln2_g, ln2_b, w1, s1, b1,
+                             w2, s2, b2, w.part, w.rs, w.x2, w.g, out, B, D,
+                             F, sms, st);
 }
 
 }  // namespace
@@ -207,7 +136,7 @@ extern "C" size_t cross_ffn_step_workspace(int B, int D, int F, int T,
   Carve c(nullptr);
   int tc;
   const int ch = t_chunks(B, D / HD, T, sms, &tc);
-  c.take(part_bytes(B, D, F, sms));
+  c.take(cross_part_bytes(B, D, F, sms));
   c.take((size_t)B * 4);
   for (int i = 0; i < 3; ++i) c.take((size_t)B * D * 2);
   c.take((size_t)B * F * 2);

@@ -1,5 +1,12 @@
 // Shared device code of the fused Whisper decode-step kernels
-// (self_attn_step.cu, cross_ffn_step.cu), Hopper sm_90a.
+// (self_attn_step.cu, cross_ffn_step.cu, cross_ffn_step_i8cc.cu,
+// layer_step.cu), Hopper sm_90a.
+//
+// Every kernel's work is a __device__ body over the block's indices, which
+// its __global__ kernel calls with blockIdx and the whole-layer kernel
+// (layer_step.cu) calls in a loop over the same indices: one source for
+// the arithmetic, so the same partial sums in the same order on both
+// routes.
 //
 // At decode shapes (B = 1..32 rows, D = 512, F = 2048) every matrix product
 // is skinny: a handful of FLOPs per weight byte, so the products are bound
@@ -78,26 +85,43 @@ __device__ __forceinline__ int quant(float v, float s) {
   return max(-127, min(127, q));
 }
 
-// Block-wide reductions; `scr` holds one float per warp. Every block that
+// The threads that work on one body together: a whole block (bar < 0,
+// __syncthreads), or `n` threads of it (whole warps) that meet at the named
+// barrier `bar` (1..15), so that a 256-thread block can run two 128-thread
+// bodies side by side.
+struct Team {
+  int tid, n, bar;
+};
+__device__ __forceinline__ Team whole_block() {
+  return Team{(int)threadIdx.x, (int)blockDim.x, -1};
+}
+__device__ __forceinline__ void team_sync(const Team& t) {
+  if (t.bar < 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(t.bar), "r"(t.n) : "memory");
+}
+
+// Team-wide reductions; `scr` holds one float per warp. Every team that
 // reduces the same values in the same layout gets the same bits.
-__device__ __forceinline__ float block_max(float v, float* scr) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
+__device__ __forceinline__ float block_max(float v, float* scr,
+                                           const Team& t) {
+  const int warp = t.tid >> 5, lane = t.tid & 31, nw = t.n >> 5;
   v = warp_max(v);
-  __syncthreads();
+  team_sync(t);
   if (lane == 0) scr[warp] = v;
-  __syncthreads();
+  team_sync(t);
   float r = scr[0];
   for (int w = 1; w < nw; ++w) r = fmaxf(r, scr[w]);
   return r;
 }
-__device__ __forceinline__ float block_sum(float v, float* scr) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
+__device__ __forceinline__ float block_sum(float v, float* scr,
+                                           const Team& t) {
+  const int warp = t.tid >> 5, lane = t.tid & 31, nw = t.n >> 5;
   v = warp_sum(v);
-  __syncthreads();
+  team_sync(t);
   if (lane == 0) scr[warp] = v;
-  __syncthreads();
+  team_sync(t);
   float r = scr[0];
   for (int w = 1; w < nw; ++w) r = __fadd_rn(r, scr[w]);
   return r;
@@ -136,23 +160,22 @@ __device__ __forceinline__ float in_val(const __nv_bfloat16* xr, int k,
 // the JAX [in, out] layout). Input: a [B, K] bf16, LayerNormed with
 // (ln_g, ln_b) when IN == IN_LN. int8 W: the input rows are quantized per
 // row and block (0, 0) writes their scales to rs_out [B]. Writes
-// part[blockIdx.y, b, n] (int32 for int8 W, f32 for bf16 W).
-// Grid (N / 32, ks), THREADS threads, dynamic shared memory
-// gemm_smem(B, kc).
+// part[by, b, n] (int32 for int8 W, f32 for bf16 W). The body of block
+// (bx, by) of a grid (N / 32, ks), for THREADS threads with gemm_smem(B, kc)
+// bytes of shared memory at `smem`; a caller that runs it again on the same
+// shared memory synchronizes the block in between.
 template <typename WT, int IN>
-__global__ void __launch_bounds__(THREADS)
-skinny_gemm(const __nv_bfloat16* __restrict__ a,
-            const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-            const WT* __restrict__ w,
-            typename Acc<WT>::T* __restrict__ part,
-            float* __restrict__ rs_out, int B, int K, int N, int kc) {
+__device__ __forceinline__ void skinny_gemm_body(
+    unsigned char* smem, int bx, int by, const __nv_bfloat16* a,
+    const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+    const WT* __restrict__ w, typename Acc<WT>::T* part,
+    float* rs_out, int B, int K, int N, int kc) {
   using AT = typename Acc<WT>::T;
   constexpr bool Q = std::is_same<WT, int8_t>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
   AT* as = reinterpret_cast<AT*>(smem);  // [B, kc]; later [WARPS, B, 32]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.y * kc, k1 = min(K, k0 + kc);
-  const int n = blockIdx.x * TILE_N + lane;
+  const int k0 = by * kc, k1 = min(K, k0 + kc);
+  const int n = bx * TILE_N + lane;
 
   for (int b = warp; b < B; b += WARPS) {
     const __nv_bfloat16* xr = a + (size_t)b * K;
@@ -163,7 +186,7 @@ skinny_gemm(const __nv_bfloat16* __restrict__ a,
       for (int k = lane; k < K; k += 32)
         amax = fmaxf(amax, fabsf(in_val<IN>(xr, k, mean, rstd, ln_g, ln_b)));
       const float s = row_scale(warp_max(amax));
-      if (lane == 0 && blockIdx.x == 0 && blockIdx.y == 0) rs_out[b] = s;
+      if (lane == 0 && bx == 0 && by == 0) rs_out[b] = s;
       for (int k = k0 + lane; k < k1; k += 32)
         as[b * kc + k - k0] =
             quant(in_val<IN>(xr, k, mean, rstd, ln_g, ln_b), s);
@@ -194,8 +217,22 @@ skinny_gemm(const __nv_bfloat16* __restrict__ a,
     const int b = i >> 5, l = i & 31;
     AT s = 0;
     for (int v = 0; v < WARPS; ++v) s += red[(v * B + b) * 32 + l];
-    part[((size_t)blockIdx.y * B + b) * N + blockIdx.x * TILE_N + l] = s;
+    part[((size_t)by * B + b) * N + bx * TILE_N + l] = s;
   }
+}
+
+// Grid (N / 32, ks), THREADS threads, dynamic shared memory
+// gemm_smem(B, kc).
+template <typename WT, int IN>
+__global__ void __launch_bounds__(THREADS)
+skinny_gemm(const __nv_bfloat16* __restrict__ a,
+            const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+            const WT* __restrict__ w,
+            typename Acc<WT>::T* __restrict__ part,
+            float* __restrict__ rs_out, int B, int K, int N, int kc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  skinny_gemm_body<WT, IN>(smem, blockIdx.x, blockIdx.y, a, ln_g, ln_b, w,
+                           part, rs_out, B, K, N, kc);
 }
 
 inline size_t gemm_smem(int B, int kc) {
@@ -253,16 +290,33 @@ __device__ __forceinline__ float dequant(const typename Acc<WT>::T* part,
   }
 }
 
-// GELU, tanh form, in f32 (PyTorch's formula)
+// GELU, tanh form, in f32 (PyTorch's formula; the one multiply-add that
+// the compiler would contract is written out)
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float kBeta = 0.7978845608028654f;  // sqrt(2/pi)
   const float kKappa = 0.044715f;
-  const float inner = kBeta * (x + kKappa * (x * x * x));
-  return 0.5f * x * (1.0f + tanhf(inner));
+  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(kBeta, __fmaf_rn(kKappa, x3, x));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
 }
 
-// Elementwise over [B, N]: EP_Q  out = bf16(y) with the q order;
+// Element i of [B, N]: EP_Q  out = bf16(y) with the q order;
 // EP_GELU out = bf16(gelu_tanh(bf16(y))); EP_RESID out = bf16(x + bf16(y)).
+template <typename WT, int EP>
+__device__ __forceinline__ void epilogue_elem(
+    int i, const typename Acc<WT>::T* part, int ks,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    const float* rs, const __nv_bfloat16* x,
+    __nv_bfloat16* out, int B, int N) {
+  const int b = i / N, n = i - b * N;
+  const float y = bf(dequant<WT>(part, ks, B, N, b, n, scale, bias, rs,
+                                 EP == EP_Q));
+  float r = y;
+  if constexpr (EP == EP_GELU) r = gelu_tanh(y);
+  if constexpr (EP == EP_RESID) r = __fadd_rn(ld(x + i), y);
+  out[i] = __float2bfloat16_rn(r);
+}
+
 template <typename WT, int EP>
 __global__ void epilogue(const typename Acc<WT>::T* __restrict__ part, int ks,
                          const float* __restrict__ scale,
@@ -271,14 +325,8 @@ __global__ void epilogue(const typename Acc<WT>::T* __restrict__ part, int ks,
                          const __nv_bfloat16* __restrict__ x,
                          __nv_bfloat16* __restrict__ out, int B, int N) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * N) return;
-  const int b = i / N, n = i - b * N;
-  const float y = bf(dequant<WT>(part, ks, B, N, b, n, scale, bias, rs,
-                                 EP == EP_Q));
-  float r = y;
-  if constexpr (EP == EP_GELU) r = gelu_tanh(y);
-  if constexpr (EP == EP_RESID) r = __fadd_rn(ld(x + i), y);
-  out[i] = __float2bfloat16_rn(r);
+  if (i < B * N)
+    epilogue_elem<WT, EP>(i, part, ks, scale, bias, rs, x, out, B, N);
 }
 
 template <typename WT, int EP>

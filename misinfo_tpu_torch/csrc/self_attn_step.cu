@@ -33,82 +33,23 @@
 //  5. an epilogue adding bias and residual.
 // Five launches from one C call; the wrapper counts one launch per call.
 
-#include "decode_common.cuh"
+#include "self_attn_phases.cuh"
 
 using namespace dec;
 
 namespace {
 
-constexpr int ATT = 256;   // threads of the attention kernel
-
-// 64 bf16 of one cache row (128 bytes, 16-byte aligned) dotted with q in
-// f32, in dimension order.
-__device__ __forceinline__ float row_dot(const __nv_bfloat16* row,
-                                         const float* q) {
-  const uint4* r = reinterpret_cast<const uint4*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    const uint4 u = r[c];
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h2[e]);
-      acc = __fadd_rn(acc, q[8 * c + 2 * e] * f.x);
-      acc = __fadd_rn(acc, q[8 * c + 2 * e + 1] * f.y);
-    }
-  }
-  return acc;
-}
-
-// Grid (H, B), ATT threads, one thread per cache row for the scores;
-// dynamic shared memory (HD + ATT + pos + 1) floats.
-__global__ void __launch_bounds__(ATT)
+// Grid (H, B), SELF_ATT threads; dynamic shared memory
+// self_attention_smem(pos).
+__global__ void __launch_bounds__(SELF_ATT)
 self_attention(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ ck,
                const __nv_bfloat16* __restrict__ cv,
                __nv_bfloat16* __restrict__ ctx, int D, int S, int pos) {
   extern __shared__ float sm[];
-  float* qs = sm;            // [HD]
-  float* scr = qs + HD;      // [ATT]: warp scratch, then context partials
-  float* sc = scr + ATT;     // [pos + 1]
-  const int h = blockIdx.x, b = blockIdx.y;
-  if (threadIdx.x < HD) qs[threadIdx.x] = ld(q + (size_t)b * D + h * HD +
-                                             threadIdx.x);
-  __syncthreads();
-  const float root = sqrtf((float)HD);
-  float m = NEG;
-  for (int s = threadIdx.x; s <= pos; s += ATT) {
-    sc[s] = __fdiv_rn(row_dot(ck + ((size_t)b * S + s) * D + h * HD, qs),
-                      root);
-    m = fmaxf(m, sc[s]);
-  }
-  m = block_max(m, scr);
-  float l = 0.f;
-  for (int s = threadIdx.x; s <= pos; s += ATT) {
-    const float e = expf(__fsub_rn(sc[s], m));
-    sc[s] = e;
-    l = __fadd_rn(l, e);
-  }
-  l = block_sum(l, scr);
-  for (int s = threadIdx.x; s <= pos; s += ATT)
-    sc[s] = bf(__fdiv_rn(sc[s], l));
-  __syncthreads();
-  constexpr int G = ATT / HD;                 // row groups of the PV sum
-  const int d = threadIdx.x & (HD - 1), grp = threadIdx.x / HD;
-  float acc = 0.f;
-  for (int s = grp; s <= pos; s += G)
-    acc += sc[s] * ld(cv + ((size_t)b * S + s) * D + h * HD + d);
-  scr[threadIdx.x] = acc;   // the warp scratch is no longer needed
-  __syncthreads();
-  if (threadIdx.x < HD) {
-    float c = scr[d];
-    for (int g = 1; g < G; ++g) c = __fadd_rn(c, scr[g * HD + d]);
-    ctx[(size_t)b * D + h * HD + d] = __float2bfloat16_rn(c);
-  }
+  self_attention_body(sm, blockIdx.x, blockIdx.y, q, ck, cv, ctx, D, S, pos);
 }
 
-// q → q_out [B, D]; k, v → row `pos` of the caches [B, S, D].
 template <typename WT>
 __global__ void qkv_epilogue(const typename Acc<WT>::T* __restrict__ part,
                              int ks, const float* __restrict__ scale,
@@ -118,18 +59,10 @@ __global__ void qkv_epilogue(const typename Acc<WT>::T* __restrict__ part,
                              __nv_bfloat16* __restrict__ ck,
                              __nv_bfloat16* __restrict__ cv, int B, int D,
                              int S, int pos) {
-  const int N = 3 * D;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * N) return;
-  const int b = i / N, n = i - b * N;
-  const __nv_bfloat16 y = __float2bfloat16_rn(
-      dequant<WT>(part, ks, B, N, b, n, scale, bias, rs, n < D));
-  if (n < D)
-    q_out[(size_t)b * D + n] = y;
-  else if (n < 2 * D)
-    ck[((size_t)b * S + pos) * D + n - D] = y;
-  else
-    cv[((size_t)b * S + pos) * D + n - 2 * D] = y;
+  if (i < B * 3 * D)
+    qkv_epilogue_elem<WT>(i, part, ks, scale, bias, rs, q_out, ck, cv, B, D,
+                          S, pos);
 }
 
 struct Work {
@@ -141,10 +74,8 @@ struct Work {
 
 Work carve(void* ws, int B, int D, int sms) {
   Carve c(ws);
-  const size_t p1 = gemm_part_bytes(B, D, 3 * D, sms);
-  const size_t p2 = gemm_part_bytes(B, D, D, sms);
   Work w;
-  w.part = c.take(p1 > p2 ? p1 : p2);
+  w.part = c.take(self_part_bytes(B, D, sms));
   w.rs = static_cast<float*>(c.take((size_t)B * 4));
   w.q = static_cast<__nv_bfloat16*>(c.take((size_t)B * D * 2));
   w.ctx = static_cast<__nv_bfloat16*>(c.take((size_t)B * D * 2));
@@ -168,15 +99,15 @@ cudaError_t run(const __nv_bfloat16* x, const float* ln_g, const float* ln_b,
       static_cast<const typename Acc<WT>::T*>(w.part), ks, sqkv, bqkv, w.rs,
       w.q, ck, cv, B, D, S, pos);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t smem = (size_t)(HD + ATT + pos + 1) * 4;
+  const size_t smem = self_attention_smem(pos);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(self_attention,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return e;
   }
-  self_attention<<<dim3(D / HD, B), ATT, smem, st>>>(w.q, ck, cv, w.ctx, D,
-                                                     S, pos);
+  self_attention<<<dim3(D / HD, B), SELF_ATT, smem, st>>>(w.q, ck, cv, w.ctx,
+                                                          D, S, pos);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   e = gemm<WT, IN_ROW>(w.ctx, nullptr, nullptr, wo, w.part, w.rs, B, D, D,
                        sms, st, &ks);
@@ -190,9 +121,7 @@ cudaError_t run(const __nv_bfloat16* x, const float* ln_g, const float* ln_b,
 // Workspace bytes for one call (the wrapper allocates them).
 extern "C" size_t self_attn_step_workspace(int B, int D, int sms) {
   Carve c(nullptr);
-  const size_t p1 = gemm_part_bytes(B, D, 3 * D, sms);
-  const size_t p2 = gemm_part_bytes(B, D, D, sms);
-  c.take(p1 > p2 ? p1 : p2);
+  c.take(self_part_bytes(B, D, sms));
   c.take((size_t)B * 4);
   c.take((size_t)B * D * 2);
   c.take((size_t)B * D * 2);

@@ -17,9 +17,18 @@ FFN step (ops/cross_ffn_step.py, K7a/K7b); the flags keep the JAX names
 (ops/fused_ffn.py, TPU kernel K5): erf GELU in f32 parity mode, tanh in
 bf16, as the JAX package does.
 
-Not carried yet, and refused by name: the stacked-layer scan decode
-(ROADMAP.md M13), the int8 streaming decode with int8 cross caches
-(``quant=True``), ``cross_int8`` (K8) and ``pallas_layer`` (K9).
+The other decode modes, with the JAX names and JAX's refusals:
+``quant=True`` is the int8 streaming decode (int8 head-major cross caches
+with a scale per (batch row, head, position); q and the probabilities
+quantized per (batch row, head) in the step; plain PyTorch with exact
+integer products, as it is XLA's work in JAX); ``cross_int8`` gives the
+fused cross step int8 merged planes with a scale per (batch row,
+position) (ops/cross_ffn_step.py, K8); ``pallas_layer`` runs each layer
+as one kernel (ops/layer_step.py, K9); ``unroll`` is accepted and
+validated, and changes nothing: the decode loop is Python and has nothing
+to unroll. ``scan_layers`` and stacked params (JAX's scan over [L, ...]
+block leaves, which runs no kernel) are refused by name: in eager PyTorch
+the loop over the blocks is that decode already.
 """
 
 from __future__ import annotations
@@ -40,7 +49,9 @@ from misinfo_tpu_torch.ops.common import (
     layer_norm_init, matmul_f32)
 from misinfo_tpu_torch.ops.cross_ffn_step import fused_cross_ffn_step
 from misinfo_tpu_torch.ops.fused_ffn import ffn_apply
-from misinfo_tpu_torch.ops.quant import int_matmul, quantize_rows
+from misinfo_tpu_torch.ops.layer_step import fused_layer_step
+from misinfo_tpu_torch.ops.quant import (
+    int_einsum, int_matmul, quantize_rows, quantize_rows_folded, times_r127)
 from misinfo_tpu_torch.ops.self_attn_step import fused_self_attn_step
 
 
@@ -189,83 +200,136 @@ def _attend(q, k, v, mask, policy: Policy, Dh: int):
     return ctx.to(policy.compute)
 
 
-def _cached_decoder_step(params: Dict, token: torch.Tensor, pos: int,
-                         enc_out: torch.Tensor, kv_cache: Dict,
-                         cfg: WhisperConfig, policy: Policy,
-                         pallas_ffn: bool = False,
-                         pallas_self_attn: bool = False,
-                         pallas_cross: bool = False):
-    """One decoder step with KV caching: token [B] → (logits [B, V] f32,
-    kv_cache). The self-attention caches are written in place at row
-    ``pos`` (JAX returns updated copies). Unfused caches are head-major
-    [B, H, S, Dh]; the fused kernels take merged [B, S, D] self caches
-    (``pallas_self_attn``) and merged [B, T, D] cross planes
-    (``pallas_cross``)."""
-    dec = params["decoder"]
-    B = token.shape[0]
-    D, H = cfg.d_model, cfg.num_heads
-    Dh = D // H
+def _attend_int8(q, k, v, sk, sv, policy: Policy, Dh: int):
+    """The int8 streaming cross-attention: int8 planes [B, H, T, Dh] with
+    row scales sk/sv [B, H, T]; q and the probabilities are quantized per
+    (batch row, head) here, both products are exact integer sums. The K
+    row scales multiply onto the scores; the V row scales fold into the
+    probabilities before their quantization. The scales multiply by
+    f32(1/127), JAX's ``/ 127.0`` under jit (``quant.times_r127``)."""
+    qq, sq = quantize_rows_folded(q.float())
+    si = int_einsum("bhd,bhsd->bhs", qq, k)
+    scores = (si * sq * sk) / math.sqrt(Dh)
+    pv = torch.softmax(scores, dim=-1) * sv
+    sp = times_r127(pv.amax(dim=-1, keepdim=True)).clamp_min(1e-30)
+    pq = torch.clamp(torch.round(pv / sp), 0, 127).to(torch.int8)
+    ci = int_einsum("bhs,bhsd->bhd", pq, v)
+    return (ci * sp).to(policy.compute)
+
+
+def _embed(dec: Dict, token: torch.Tensor, pos: int, policy: Policy):
     tok = token.long()
     if "token_embedding_q" in dec:
         emb = (dec["token_embedding_q"][tok].float()
                * dec["emb_scale"][tok][:, None])
     else:
         emb = dec["token_embedding"][tok]
-    x = (emb + dec["positions"][pos]).to(policy.compute)       # [B, D]
+    return (emb + dec["positions"][pos]).to(policy.compute)       # [B, D]
 
-    S_max = kv_cache["self_k"][0].shape[1 if pallas_self_attn else 2]
+
+def _logits(dec: Dict, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+    x = layer_norm(dec["final_ln"], x, policy=policy)
+    if "token_embedding_q" in dec:
+        xq, sx = quantize_rows(x.float())
+        return (int_matmul(xq, dec["token_embedding_q"].T) * sx
+                * dec["emb_scale"][None, :])
+    return matmul_f32(x, dec["token_embedding"].to(policy.compute).T)
+
+
+def _self_attn_unfused(blk: Dict, x, ck, cv, pos: int, mask, H: int,
+                       policy: Policy):
+    """x + o(attn(LN(x))) over head-major caches [B, H, S, Dh], row ``pos``
+    written in place."""
+    B, D = x.shape
+    Dh = D // H
+    h = layer_norm(blk["ln1"], x, policy=policy)
+    sa = blk["self_attn"]
+    if "qkv" in sa:
+        q, k_new, v_new = dense(sa["qkv"], h, policy).split(D, -1)
+    else:
+        q, k_new, v_new = (dense(sa[n], h, policy) for n in ("q", "k", "v"))
+    ck[:, :, pos] = k_new.reshape(B, H, Dh).to(ck.dtype)
+    cv[:, :, pos] = v_new.reshape(B, H, Dh).to(cv.dtype)
+    ctx = _attend(q.reshape(B, H, Dh), ck, cv, mask, policy, Dh)
+    return x + dense(sa["o"], ctx.reshape(B, D), policy)
+
+
+def _cross_ffn_unfused(blk: Dict, x, ck_x, cv_x, H: int, policy: Policy,
+                       pallas_ffn: bool = False, sk=None, sv=None):
+    """The unfused second half of a layer over head-major cross planes
+    (int8 with row scales sk/sv in the streaming mode)."""
+    B, D = x.shape
+    Dh = D // H
+    h = layer_norm(blk["ln_cross"], x, policy=policy)
+    q = dense(blk["cross_attn"]["q"], h, policy).reshape(B, H, Dh)
+    if sk is not None:
+        ctx = _attend_int8(q, ck_x, cv_x, sk, sv, policy, Dh)
+    else:
+        ctx = _attend(q, ck_x, cv_x, None, policy, Dh)
+    x = x + dense(blk["cross_attn"]["o"], ctx.reshape(B, D), policy)
+    h = layer_norm(blk["ln2"], x, policy=policy)
+    if pallas_ffn:
+        mode = "erf" if policy.compute == torch.float32 else "tanh"
+        return x + ffn_apply(blk["mlp_in"], blk["mlp_out"], h,
+                             policy=policy, mode=mode)
+    return x + dense(blk["mlp_out"],
+                     gelu_exact(dense(blk["mlp_in"], h, policy)), policy)
+
+
+def _cached_decoder_step(params: Dict, token: torch.Tensor, pos: int,
+                         enc_out: torch.Tensor, kv_cache: Dict,
+                         cfg: WhisperConfig, policy: Policy,
+                         pallas_ffn: bool = False,
+                         pallas_self_attn: bool = False,
+                         pallas_cross: bool = False,
+                         pallas_layer: bool = False):
+    """One decoder step with KV caching: token [B] → (logits [B, V] f32,
+    kv_cache). The self-attention caches are written in place at row
+    ``pos`` (JAX returns updated copies). Unfused caches are head-major
+    [B, H, S, Dh]; the fused kernels take merged [B, S, D] self caches
+    (``pallas_self_attn``, ``pallas_layer``) and merged [B, T, D] cross
+    planes (``pallas_cross``, ``pallas_layer``). A cache with
+    ``cross_k_scale`` holds the streaming mode's int8 cross planes, one
+    with ``cross_k_mscale`` the fused cross step's."""
+    dec = params["decoder"]
+    H = cfg.num_heads
+    x = _embed(dec, token, pos, policy)
+
+    merged = pallas_self_attn or pallas_layer
+    S_max = kv_cache["self_k"][0].shape[1 if merged else 2]
     mask = ((torch.arange(S_max, device=x.device) > pos).float()
             * -1e9)                                            # [S]
+    T = enc_out.shape[1]
+    msc = kv_cache.get("cross_k_mscale")
     for li, blk in enumerate(dec["blocks"]):
+        ck, cv = kv_cache["self_k"][li], kv_cache["self_v"][li]
+        ck_x, cv_x = kv_cache["cross_k"][li], kv_cache["cross_v"][li]
+        if pallas_layer:
+            x, _, _ = fused_layer_step(x, blk, ck, cv, ck_x, cv_x, pos, T,
+                                       n_heads=H, policy=policy)
+            continue
         if pallas_self_attn and "qkv" in blk["self_attn"]:
             x, _, _ = fused_self_attn_step(
                 x, blk["ln1"], blk["self_attn"]["qkv"], blk["self_attn"]["o"],
-                kv_cache["self_k"][li], kv_cache["self_v"][li], pos,
-                n_heads=H, policy=policy)
+                ck, cv, pos, n_heads=H, policy=policy)
         else:
-            h = layer_norm(blk["ln1"], x, policy=policy)
-            sa = blk["self_attn"]
-            if "qkv" in sa:
-                q, k_new, v_new = dense(sa["qkv"], h, policy).split(D, -1)
-            else:
-                q, k_new, v_new = (dense(sa[n], h, policy)
-                                   for n in ("q", "k", "v"))
-            ck, cv = kv_cache["self_k"][li], kv_cache["self_v"][li]
-            ck[:, :, pos] = k_new.reshape(B, H, Dh).to(ck.dtype)
-            cv[:, :, pos] = v_new.reshape(B, H, Dh).to(cv.dtype)
-            ctx = _attend(q.reshape(B, H, Dh), ck, cv, mask, policy, Dh)
-            x = x + dense(sa["o"], ctx.reshape(B, D), policy)
+            x = _self_attn_unfused(blk, x, ck, cv, pos, mask, H, policy)
 
         if pallas_cross:
             x = fused_cross_ffn_step(
                 x, blk["ln_cross"], blk["cross_attn"]["q"],
                 blk["cross_attn"]["o"], blk["ln2"], blk["mlp_in"],
-                blk["mlp_out"], kv_cache["cross_k"][li],
-                kv_cache["cross_v"][li], enc_out.shape[1], n_heads=H,
-                policy=policy)
+                blk["mlp_out"], ck_x, cv_x, T, n_heads=H, policy=policy,
+                k_scale=None if msc is None else msc[li],
+                v_scale=(None if msc is None
+                         else kv_cache["cross_v_mscale"][li]))
             continue
-        h = layer_norm(blk["ln_cross"], x, policy=policy)
-        q = dense(blk["cross_attn"]["q"], h, policy).reshape(B, H, Dh)
-        ctx = _attend(q, kv_cache["cross_k"][li], kv_cache["cross_v"][li],
-                      None, policy, Dh)
-        x = x + dense(blk["cross_attn"]["o"], ctx.reshape(B, D), policy)
-        h = layer_norm(blk["ln2"], x, policy=policy)
-        if pallas_ffn:
-            mode = "erf" if policy.compute == torch.float32 else "tanh"
-            x = x + ffn_apply(blk["mlp_in"], blk["mlp_out"], h,
-                              policy=policy, mode=mode)
-        else:
-            x = x + dense(blk["mlp_out"],
-                          gelu_exact(dense(blk["mlp_in"], h, policy)), policy)
-
-    x = layer_norm(dec["final_ln"], x, policy=policy)
-    if "token_embedding_q" in dec:
-        xq, sx = quantize_rows(x.float())
-        logits = (int_matmul(xq, dec["token_embedding_q"].T) * sx
-                  * dec["emb_scale"][None, :])
-    else:
-        logits = matmul_f32(x, dec["token_embedding"].to(policy.compute).T)
-    return logits, kv_cache
+        streaming = "cross_k_scale" in kv_cache
+        x = _cross_ffn_unfused(
+            blk, x, ck_x, cv_x, H, policy, pallas_ffn,
+            sk=kv_cache["cross_k_scale"][li] if streaming else None,
+            sv=kv_cache["cross_v_scale"][li] if streaming else None)
+    return _logits(dec, x, policy), kv_cache
 
 
 def fuse_whisper_decoder_qkv(params: Dict) -> Dict:
@@ -295,6 +359,10 @@ def fuse_whisper_decoder_qkv(params: Dict) -> Dict:
     return {**params, "decoder": dec}
 
 
+def _refuse_scan():
+    not_ported("the stacked-layer scan decode (scan_layers)", "M13")
+
+
 def init_kv_cache(params: Dict, enc_out: torch.Tensor, max_len: int,
                   cfg: WhisperConfig, policy: Policy,
                   merged_self: bool = False, quant: bool = False,
@@ -304,15 +372,17 @@ def init_kv_cache(params: Dict, enc_out: torch.Tensor, max_len: int,
     decoder layer. Head-major [B, H, S, Dh] by default; ``merged_self``
     keeps the self caches [B, S, D] and ``merged_cross`` the cross planes
     [B, T, D] (the fused kernels' layouts; unpadded, where the TPU padded T
-    to its tile)."""
-    if quant:
-        not_ported("the int8 streaming decode (quant=True, int8 cross caches)",
-                   "M13")
-    if cross_int8:
-        not_ported("int8 merged cross caches (cross_int8)", "queue 2, K8")
+    to its tile). Stacked params are refused (``scan_layers``).
+
+    ``quant`` stores the head-major cross planes int8 with one f32 scale
+    per (batch row, head, position) (``cross_k_scale``/``cross_v_scale``
+    [B, H, T]), the streaming decode's caches. ``cross_int8`` (merged
+    cross planes only) stores the merged planes int8 with one scale per
+    (batch row, position) over all D lanes (``cross_k_mscale``/
+    ``cross_v_mscale``), the fused cross step's cache quantization; the
+    port keeps these scales [B, T] and the planes unpadded, where the TPU
+    kept [Tp, B] and padded T to its tile."""
     dec = params["decoder"]
-    if "blocks_stacked" in dec:
-        not_ported("stacked decoder params (the scan decode)", "M13")
     B, T = enc_out.shape[0], enc_out.shape[1]
     H, Dh = cfg.num_heads, cfg.d_model // cfg.num_heads
 
@@ -322,15 +392,35 @@ def init_kv_cache(params: Dict, enc_out: torch.Tensor, max_len: int,
             return y.contiguous()
         return y.reshape(B, T, H, Dh).transpose(1, 2).contiguous()
 
+    if "blocks_stacked" in dec:
+        _refuse_scan()
+    if quant and (merged_self or merged_cross):
+        raise ValueError("quant=True supports only the unstacked, "
+                         "unmerged cache layout (no scan_layers / "
+                         "pallas_self_attn / pallas_cross)")
+    if cross_int8 and not merged_cross:
+        raise ValueError("cross_int8 requires the merged_cross layout "
+                         "(it is the fused kernel's cache quantization)")
+    dev = enc_out.device
     shape = ((B, max_len, cfg.d_model) if merged_self
              else (B, H, max_len, Dh))
     cache = {"self_k": [], "self_v": [], "cross_k": [], "cross_v": []}
+    scales = ("mscale" if cross_int8 else "scale" if quant else None)
+    if scales:
+        cache[f"cross_k_{scales}"] = []
+        cache[f"cross_v_{scales}"] = []
     for blk in dec["blocks"]:
         for n in ("self_k", "self_v"):
             cache[n].append(torch.zeros(shape, dtype=policy.compute,
-                                        device=enc_out.device))
-        cache["cross_k"].append(cross_kv(blk, "k"))
-        cache["cross_v"].append(cross_kv(blk, "v"))
+                                        device=dev))
+        for which in ("k", "v"):
+            y = cross_kv(blk, which)
+            if scales:
+                # one scale per row over the last axis (jitted JAX's)
+                y, sc = quantize_rows_folded(y.float())
+                cache[f"cross_{which}_{scales}"].append(
+                    sc[..., 0].contiguous())
+            cache[f"cross_{which}"].append(y)
     return cache
 
 
@@ -362,6 +452,7 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
                       pallas_layer: bool = False,
                       quant: bool = False,
                       cross_int8: bool = False,
+                      unroll: int = 1,
                       gumbel: Optional[Callable[[int], torch.Tensor]] = None):
     """KV-cached transcript decoding with an early exit once every row has
     emitted EOS (post-EOS rows stay EOS and stop scoring, so the outputs
@@ -373,15 +464,30 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
     ``gumbel(i)`` when given (tests hand in JAX's draws), else drawn from
     ``rng``. Returns ``(tokens [B, max_len], avg_logprob [B])``, plus
     ``p(<|nospeech|>)`` [B] from the position-0 step when ``nospeech_id``
-    is set."""
-    if scan_layers or "blocks_stacked" in params["decoder"]:
-        not_ported("the stacked-layer scan decode (scan_layers)", "M13")
-    if pallas_layer:
-        not_ported("the whole-layer decode kernel (pallas_layer)",
-                   "queue 2, K9")
-    blocks_q = bool(params["decoder"].get("blocks")) and any(
+    is set.
+
+    The step variants and what they refuse are the JAX package's (module
+    docstring). ``unroll`` (1..4) is validated and changes nothing."""
+    if not 1 <= unroll <= 4:
+        raise ValueError(f"unroll must be in [1, 4], got {unroll}")
+    dec_p = params["decoder"]
+    if scan_layers or "blocks_stacked" in dec_p:
+        _refuse_scan()
+    blocks_q = bool(dec_p.get("blocks")) and any(
         isinstance(v, dict) and "kernel_q" in v
-        for v in params["decoder"]["blocks"][0]["self_attn"].values())
+        for v in dec_p["blocks"][0]["self_attn"].values())
+    if pallas_layer:
+        if not blocks_q:
+            raise ValueError("pallas_layer needs int8 decode weights "
+                             "(quant='kernels') — the bf16 layer does not "
+                             "fit the VMEM budget")
+        if pallas_ffn or pallas_self_attn or pallas_cross:
+            raise ValueError("pallas_layer subsumes pallas_self_attn / "
+                             "pallas_cross / pallas_ffn — drop them")
+        if quant:
+            raise ValueError("pallas_layer reads bf16 merged caches — it "
+                             "does not compose with quant=True cache "
+                             "streaming")
     if quant and (pallas_ffn or pallas_self_attn or pallas_cross):
         raise ValueError("int8 streaming decode (quant=True) composes only "
                          "with the default unrolled step — drop pallas_ffn "
@@ -390,12 +496,12 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
         raise ValueError("pallas_ffn reads unquantized FFN kernels — with "
                          "int8 decode weights use pallas_cross (its fused "
                          "step carries the int8 FFN)")
+    if cross_int8 and not (pallas_cross and blocks_q):
+        raise ValueError("cross_int8 is the fused kernel's cache "
+                         "quantization — it requires pallas_cross AND "
+                         "int8 decode weights (quant='kernels')")
     if pallas_cross and pallas_ffn:
         raise ValueError("pallas_cross subsumes the FFN — drop pallas_ffn")
-    if quant:
-        not_ported("the int8 streaming decode (quant=True)", "M13")
-    if cross_int8:
-        not_ported("int8 merged cross caches (cross_int8)", "queue 2, K8")
     max_len = max_len or cfg.max_target_positions
     if enc_out is None:
         enc_out = whisper_encode(params, mel, cfg, policy)
@@ -412,16 +518,18 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
         P = prompt_tokens.shape[1]
         tokens[:, 1:1 + P] = prompt_tokens.to(device=dev, dtype=torch.int64)
         start = 1 + P
-    cache = init_kv_cache(params, enc_out, max_len, cfg, policy,
-                          merged_self=pallas_self_attn,
-                          merged_cross=pallas_cross)
+    cache = init_kv_cache(
+        params, enc_out, max_len, cfg, policy,
+        merged_self=pallas_self_attn or pallas_layer, quant=quant,
+        merged_cross=pallas_cross or pallas_layer,
+        cross_int8=cross_int8)
 
     def step(tok, pos):
         # looked up by name on every call, so a caller can wrap the step
         logits, _ = _cached_decoder_step(
             params, tok, pos, enc_out, cache, cfg, policy,
             pallas_ffn=pallas_ffn, pallas_self_attn=pallas_self_attn,
-            pallas_cross=pallas_cross)
+            pallas_cross=pallas_cross, pallas_layer=pallas_layer)
         return logits.float()
 
     done = torch.zeros(B, dtype=torch.bool, device=dev)

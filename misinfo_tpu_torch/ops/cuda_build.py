@@ -24,9 +24,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _local_headers(src: Path):
-    return [CSRC / h for h in
-            re.findall(r'#include "([^"]+)"', src.read_text())]
+def _local_headers(src: Path, seen=None):
+    """The headers of ``csrc/`` that `src` includes, directly or through
+    one of them, each once, in a fixed order."""
+    seen = [] if seen is None else seen
+    for h in re.findall(r'#include "([^"]+)"', src.read_text()):
+        if CSRC / h not in seen:
+            seen.append(CSRC / h)
+            _local_headers(CSRC / h, seen)
+    return seen
 
 
 def build(name: str) -> Tuple[ctypes.CDLL, str]:

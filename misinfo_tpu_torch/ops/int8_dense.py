@@ -29,23 +29,14 @@ from typing import Optional
 import torch
 
 from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
-from misinfo_tpu_torch.ops.quant import int_matmul
+from misinfo_tpu_torch.ops.quant import (
+    int_matmul, quantize_rows_folded)
 
 _IN_DTYPES = (torch.bfloat16, torch.float32)
-R127 = 0.007874015718698502         # f32(1/127), exactly representable
 
 launches = 0                        # kernel launches since import (or reset)
 build_log = ""                      # nvcc's output of the last build
 _lib = None
-
-
-def quantize_rows_folded(xf: torch.Tensor):
-    """Per-row int8 of an f32 [M, K]: (xq int8, sx f32 [M, 1]) with the
-    scale max(amax · f32(1/127), 1e-8) and an IEEE division x / sx."""
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    sx = (amax * amax.new_full((), R127)).clamp_min(1e-8)
-    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
-    return xq, sx
 
 
 def int8_dense_rows(xq, sx, wq, w_scale, bias, out_dtype) -> torch.Tensor:

@@ -73,6 +73,25 @@ def quantize_ffn_params(tree, min_elems: int = MIN_KERNEL_ELEMS):
     return tree
 
 
+R127 = 0.007874015718698502         # f32(1/127), exactly representable
+
+
+def times_r127(t: torch.Tensor) -> torch.Tensor:
+    """t · f32(1/127): what ``t / 127.0`` is in a jitted JAX function,
+    where XLA folds the division (also inside an interpret-mode Pallas
+    kernel). The decode modes that are held to jitted JAX take their
+    scales so; ``int8_scale`` is the eager function's division."""
+    return t * t.new_full((), R127)
+
+
+def quantize_rows_folded(xf: torch.Tensor):
+    """Per-row int8 of an f32 [..., K]: (xq int8, sx f32 [..., 1]) with the
+    scale max(amax · f32(1/127), 1e-8) and an IEEE division x / sx."""
+    sx = times_r127(xf.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-8)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
 def int8_scale(amax: torch.Tensor) -> torch.Tensor:
     """max(amax / 127, 1e-8) with an IEEE division on every device."""
     return (amax / amax.new_full((), 127.0)).clamp_min(1e-8)
@@ -91,6 +110,13 @@ def int_matmul(aq: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
     if aq.is_cuda:
         return (aq.double() @ bq.double()).float()
     return (aq.to(torch.int32) @ bq.to(torch.int32)).float()
+
+
+def int_einsum(eq: str, aq: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
+    """``int_matmul`` in batched form: an exact int8 × int8 einsum as f32,
+    by the same device rule (int32 on the CPU, float64 on the card)."""
+    wide = torch.float64 if aq.is_cuda else torch.int32
+    return torch.einsum(eq, aq.to(wide), bq.to(wide)).float()
 
 
 def dense_int8(params: Dict, x: torch.Tensor, out_dtype) -> torch.Tensor:

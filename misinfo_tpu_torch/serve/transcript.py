@@ -13,6 +13,9 @@ probability captured from the first rung's position-0 step → byte-level
 BPE decode. On a CUDA device the decode runs each decoder layer as the two
 fused step kernels with int8 weights (``pallas="auto"`` → on,
 ``quant="auto"`` → ``"kernels"``); on the CPU both resolve off.
+``quant="int8"`` is the int8 streaming decode: int8 decoder weights and
+token embedding, int8 cross caches, the unfused step (``pallas="auto"``
+resolves off with it, and ``pallas="on"`` refuses it).
 
 Weights come as a JAX-layout parameter tree of numpy arrays
 (checkpoints/from_jax.py); orbax checkpoints and HF ``.pt`` conversion
@@ -134,14 +137,16 @@ class WhisperTranscriber:
             pallas = quant_req != "int8" and on_card
         if quant_req in ("auto", ""):
             quant_req = "kernels" if pallas and on_card else "none"
-        if quant_req == "int8":
-            if pallas:
-                raise ValueError("WhisperDecodeConfig: pallas='on' does not "
-                                 "compose with quant='int8' (pick one)")
-            not_ported("the int8 streaming decode (quant='int8')", "M13")
+        # "int8": the streaming decode, int8 weights, embedding and (at
+        # cache init) cross K/V; "kernels": the same weights inside the
+        # fused kernels, bf16 caches, and the decode flag stays off
+        self.quant = quant_req == "int8"
+        if self.quant and pallas:
+            raise ValueError("WhisperDecodeConfig: pallas='on' does not "
+                             "compose with quant='int8' (pick one)")
         self.quant_embedding = quant_req == "embedding"
         self.quant_kernels = quant_req == "kernels"
-        if self.quant_kernels:
+        if self.quant or self.quant_kernels:
             params = quantize_whisper_decoder(params)
         elif self.quant_embedding:
             params = quantize_whisper_embedding(params)
@@ -169,7 +174,7 @@ class WhisperTranscriber:
         return decode_transcript(
             self.params, None, self.cfg, self.policy, prompt_tokens=prompt,
             temperature=temperature, rng=rng, enc_out=enc,
-            nospeech_id=self.tokenizer.specials.no_speech,
+            nospeech_id=self.tokenizer.specials.no_speech, quant=self.quant,
             pallas_self_attn=fused, pallas_cross=fused)
 
     # -------------------------------------------------------- transcribe

@@ -19,6 +19,16 @@ plus one bf16 step of the residual per rounding, with planted keys that
 make each head attend to one row and emulated wrong kernels (rows or a T
 chunk left out, the mask one row off) that must fall outside that band.
 
+K8 (the cross step over int8 cross planes) is held to its plain version
+through the same module at the three V tile widths and a ragged single
+tile: the bf16-plane band plus one level of every quantized probability
+that sits at a rounding boundary, with planted faults (V scales applied
+late, K scales dropped, the probabilities' scale per head, half-size
+tiles, a score chunk or a V piece left out, the mask one row off)
+outside. K9 (the whole-layer step) must equal K6b followed by K7b bit
+for bit, output and caches, in one ``__global__`` launch per call, and
+keep the band of its plain version.
+
 The int4 vault similarity kernels (K10a bf16 query, K10b int8 query) are
 held to their plain versions through misinfo_tpu_torch/vault/int4_checks.py:
 K10b bit for bit, K10a within (D + 1)·2^-23·Σ|q·nib|·scale per element
@@ -43,6 +53,7 @@ from misinfo_tpu_torch.ops import fused_ffn as K5
 from misinfo_tpu_torch.ops import int8_dense as K2
 from misinfo_tpu_torch.ops import int8_ffn as K1
 from misinfo_tpu_torch.ops import kernel_checks as KC
+from misinfo_tpu_torch.ops import layer_step as K9
 from misinfo_tpu_torch.ops import self_attn_step as K6
 from misinfo_tpu_torch.ops.quant import quantize_dense
 from misinfo_tpu_torch.vault import int4 as K10
@@ -117,6 +128,67 @@ def test_cross_ffn_step_kernel_matches_plain(card, int8, B, t_actual):
     torch.cuda.synchronize()
     assert (K7.launches, K7.launches_i8) == (before[0] + 1,
                                              before[1] + int8)
+
+
+@pytest.mark.parametrize("B,t_actual,T,tile", [
+    (1, 1500, 1500, 512), (4, 1500, 1500, 512), (8, 1400, 1500, 256),
+    (32, 1500, 1500, 128), (3, 280, 300, 384)])
+def test_cross_ffn_step_i8cc_kernel_matches_plain(card, B, t_actual, T, tile):
+    case = DC.cross_i8cc_case(B, t_actual, T=T)
+    assert case["tile"] == tile
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    before = (K7.launches, K7.launches_i8, K7.launches_i8cc)
+    res = DC.check_cross_i8cc(case, sms)     # band, planted faults
+    torch.cuda.synchronize()
+    assert (K7.launches, K7.launches_i8, K7.launches_i8cc) == (
+        before[0], before[1], before[2] + 1)
+    assert res["faults"] >= 9
+
+
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("pos", [0, 5, 447])
+def test_layer_step_kernel_is_the_two_call_route(card, B, pos):
+    case = DC.layer_case(B, pos)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    before = (K9.launches, K9.kernel_launches())
+    DC.check_layer(case, sms)    # bitwise K6b → K7b; plain band; cache rows
+    torch.cuda.synchronize()
+    assert (K9.launches, K9.kernel_launches()) == (before[0] + 1,
+                                                   before[1] + 1)
+
+
+def test_int8_plane_and_layer_kernels_refuse_what_they_cannot_run(card):
+    case = DC.cross_i8cc_case(2, 300, T=300)
+    args, sc = case["args"], case["scales"]
+    bf16 = DC.cross_ffn_case(2, 300, False, T=300)["args"]
+    with pytest.raises(ValueError, match="int8 cross caches require int8"):
+        K7.fused_cross_ffn_step(*bf16[:7], *args[7:], n_heads=H, **sc)
+    with pytest.raises(ValueError):                   # scales one column short
+        K7.fused_cross_ffn_step(*args, n_heads=H, k_scale=sc["k_scale"],
+                                v_scale=sc["v_scale"][:, :-1])
+    with pytest.raises(ValueError):                   # bf16 planes with scales
+        K7.fused_cross_ffn_step(*args[:7], *bf16[7:], n_heads=H, **sc)
+    x, blk, ck, cv, xk, xv, pos, ta = DC.layer_case(2, 3)["args"]
+    plain_blk = {**blk, "self_attn": {
+        **blk["self_attn"], "qkv": DC.self_attn_case(2, 3, False)["args"][2]}}
+    with pytest.raises(ValueError, match="needs int8 decode weights"):
+        K9.fused_layer_step(x, plain_blk, ck, cv, xk, xv, pos, ta, n_heads=H)
+    with pytest.raises(ValueError):                   # pos past the cache
+        K9.fused_layer_step(x, blk, ck, cv, xk, xv, S, ta, n_heads=H)
+    with pytest.raises(ValueError):                   # f32 cross planes
+        K9.fused_layer_step(x, blk, ck, cv, xk.float(), xv.float(), pos, ta,
+                            n_heads=H)
+    with pytest.raises(ValueError):                   # int8 cross planes
+        K9.fused_layer_step(x, blk, ck, cv, xk.to(torch.int8),
+                            xv.to(torch.int8), pos, ta, n_heads=H)
+    big = K9.MAX_BATCH + 1
+    with pytest.raises(ValueError):
+        K9.fused_layer_step(x[:1].expand(big, D).contiguous(), blk,
+                            ck[:1].expand(big, S, D).contiguous(),
+                            cv[:1].expand(big, S, D).contiguous(),
+                            xk[:1].expand(big, T, D).contiguous(),
+                            xv[:1].expand(big, T, D).contiguous(), pos, ta,
+                            n_heads=H)
 
 
 def test_decode_step_kernels_refuse_what_they_cannot_run(card):

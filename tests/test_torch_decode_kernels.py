@@ -147,9 +147,20 @@ def test_cpu_tensors_take_the_plain_versions():
                             torch.ones(B, T, D), torch.ones(B, T, D), T,
                             n_heads=H, policy=T_F32)
     assert (K6.launches, K7.launches) == before
-    with pytest.raises(NotImplementedError, match="K8"):
-        K7.fused_cross_ffn_step(x, None, None, None, None, None, None, None,
-                                None, T, n_heads=H, k_scale=torch.ones(1))
+    # int8 planes take their plain version too, and need int8 weights
+    d = lambda k, n, q: P(_dense(rng, k, n, q))  # noqa: E731
+    planes = torch.ones(B, T, D, dtype=torch.int8)
+    before = K7.launches_i8cc
+    K7.fused_cross_ffn_step(x, P(_ln(rng)), d(D, D, True), d(D, D, True),
+                            P(_ln(rng)), d(D, F, True), d(F, D, True), planes,
+                            planes, T, n_heads=H, policy=T_F32,
+                            k_scale=torch.ones(B, T), v_scale=torch.ones(B, T))
+    assert K7.launches_i8cc == before
+    with pytest.raises(ValueError, match="int8 cross caches require int8"):
+        K7.fused_cross_ffn_step(x, P(_ln(rng)), d(D, D, False), None, None,
+                                None, None, planes, planes, T, n_heads=H,
+                                k_scale=torch.ones(B, T),
+                                v_scale=torch.ones(B, T))
 
 
 H100_SMS = 132          # sets the kernel's T chunks that the faults drop

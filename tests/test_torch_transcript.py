@@ -7,7 +7,9 @@
   two-tone WAV (as tests/test_transcript_e2e.py:43-109 trains it) crosses
   into the port through checkpoints/from_jax.py, and the port's
   ``transcribe(wav)`` returns exactly "hello world" — in the CPU default,
-  through the fused-step plain kernels, and with int8 decoder weights.
+  through the fused-step plain kernels, with int8 decoder weights, and in
+  the int8 streaming mode (``quant="int8"``: int8 weights, embedding and
+  cross caches through the unfused step).
 """
 
 import dataclasses
@@ -110,10 +112,12 @@ def test_mode_resolution_on_the_cpu():
         with pytest.raises(ValueError, match=err):
             t_tr.WhisperTranscriber(size="tiny", device="cpu",
                                     decode_cfg=dataclasses.replace(dcfg, **kw))
-    with pytest.raises(NotImplementedError, match="M13"):
-        t_tr.WhisperTranscriber(size="tiny", device="cpu",
-                                decode_cfg=dataclasses.replace(
-                                    dcfg, quant="int8"))
+    # the int8 streaming mode: "auto" kernels resolve off beside it
+    tr = t_tr.WhisperTranscriber(size="tiny", device="cpu",
+                                 decode_cfg=dataclasses.replace(
+                                     dcfg, quant="int8"))
+    assert (tr.quant, tr.pallas, tr.quant_kernels) == (True, False, False)
+    assert tr.params["decoder"]["token_embedding_q"].dtype == torch.int8
     with pytest.raises(NotImplementedError, match="M16"):
         t_tr.WhisperTranscriber(checkpoint_dir="ckpt")
 
@@ -207,7 +211,8 @@ def trained(tmp_path_factory):
 
 @pytest.mark.parametrize("decode", [
     {}, {"pallas": "on"}, {"pallas": "on", "quant": "kernels"},
-    {"quant": "kernels"}, {"quant": "embedding", "pallas": "on"}])
+    {"quant": "kernels"}, {"quant": "embedding", "pallas": "on"},
+    {"quant": "int8"}])
 def test_port_transcribes_the_jax_trained_model(trained, decode):
     params, cfg, wav, _ = trained
     tr = t_tr.WhisperTranscriber(
@@ -216,14 +221,17 @@ def test_port_transcribes_the_jax_trained_model(trained, decode):
     assert tr.has_weights and tr.tokenizer_compatible
     assert tr.pallas == (decode.get("pallas") == "on")
     assert tr.quant_kernels == (decode.get("quant") == "kernels")
-    if tr.quant_kernels:
+    assert tr.quant == (decode.get("quant") == "int8")
+    if tr.quant_kernels or tr.quant:
         blk = tr.params["decoder"]["blocks"][0]
         assert blk["self_attn"]["qkv"]["kernel_q"].dtype == torch.int8
-    seen = []
+    seen, int8_caches = [], []
     real = tw._cached_decoder_step
 
     def spy(*a, **kw):
         seen.append(kw.get("pallas_cross", False))
+        int8_caches.append("cross_k_scale" in a[4]
+                           and a[4]["cross_k"][0].dtype == torch.int8)
         return real(*a, **kw)
     tw._cached_decoder_step = spy
     try:
@@ -234,6 +242,9 @@ def test_port_transcribes_the_jax_trained_model(trained, decode):
     assert tr.last_language == "en"
     assert (K6.launches, K7.launches) == before     # CPU: plain versions
     assert any(seen) == tr.pallas
+    # the first call is detect_language's SOT step, on a cache of its own
+    assert all(int8_caches[1:]) == any(int8_caches) == tr.quant
+    assert not int8_caches[0] and len(int8_caches) > 1
 
 
 def test_port_transcribes_every_window_and_merges_caption(trained):

@@ -7,7 +7,8 @@ numpy arrays from a seed. Tolerances: encoder and decoder activations
 and logits within 1e-4 (f32 sums in another order); decoded tokens equal,
 avg_logprob within 1e-5 and p(nospeech) within 1e-6 (the JAX tests' own
 bars, tests/test_whisper_parity.py:447-449); with int8 decoder weights
-tokens equal and avg_logprob within 2e-3 (:518-519).
+tokens equal and avg_logprob within 2e-3 (:518-519). The stacked-layer scan
+decode is refused by name, with the flag or with stacked params.
 """
 
 import jax
@@ -212,17 +213,97 @@ def test_weight_bridge_whisper_tree(transform):
 
 
 def test_options_not_carried_are_refused(model):
+    """What the port still refuses by name, and JAX's order rule for the
+    qkv fuse. (``quant``, ``cross_int8`` and ``pallas_layer`` were
+    refused here once; their parity cases are in
+    tests/test_torch_whisper_quant.py and tests/test_torch_layer_step.py.)"""
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
     _, tp, _, enc = model
-    e = torch.from_numpy(enc)
-    for kw, item in ((dict(scan_layers=True), "M13"),
-                     (dict(quant=True), "M13"),
-                     (dict(cross_int8=True), "K8"),
-                     (dict(pallas_layer=True), "K9")):
+    for kw, item in ((dict(checkpoint_dir="ckpt"), "M16"),
+                     (dict(mesh=object()), "M17")):
         with pytest.raises(NotImplementedError, match=item):
-            tw.decode_transcript(tp, None, TCFG, TP, enc_out=e, max_len=4,
-                                 **kw)
+            WhisperTranscriber(size="tiny", device="cpu", **kw)
     with pytest.raises(ValueError, match="AFTER"):
         tw.fuse_whisper_decoder_qkv(t_serving.quantize_whisper_decoder(tp))
+
+
+def stacked_like(tp):
+    """Port params in the stacked layout's shape: ``blocks_stacked`` in
+    place of ``blocks`` (what the refusal looks at)."""
+    dec = {k: v for k, v in tp["decoder"].items() if k != "blocks"}
+    return {**tp, "decoder": {**dec, "blocks_stacked": {}}}
+
+
+@pytest.mark.parametrize("how", ["flag", "stacked_params", "stacked_cache"])
+def test_scan_layers_is_refused_by_name(model, how):
+    """JAX's scan over stacked [L, ...] leaves runs no kernel, and the
+    port's Python loop over the blocks is that decode already."""
+    _, tp, _, enc = model
+    e = torch.from_numpy(enc)
+    with pytest.raises(NotImplementedError, match="scan_layers.*M13"):
+        if how == "flag":
+            tw.decode_transcript(tp, None, TCFG, TP, enc_out=e, max_len=4,
+                                 scan_layers=True)
+        elif how == "stacked_params":
+            tw.decode_transcript(stacked_like(tp), None, TCFG, TP, enc_out=e,
+                                 max_len=4)
+        else:
+            tw.init_kv_cache(stacked_like(tp), e, 4, TCFG, TP)
+    assert not hasattr(tw, "stack_whisper_decoder")
+
+
+@pytest.mark.parametrize("kw,msg", [
+    (dict(scan_layers=True, pallas_cross=True), "scan_layers decoding does"),
+    (dict(scan_layers=True, pallas_self_attn=True), "scan_layers decoding"),
+    (dict(scan_layers=True, pallas_ffn=True), "scan_layers decoding does"),
+    (dict(scan_layers=True, quant=True), "drop scan_layers"),
+    (dict(scan_layers=True, int8=True), "drop scan_layers"),
+    (dict(scan_layers=True, int8="embedding"), "int8 token embedding"),
+    (dict(unroll=0), "unroll must be in"),
+    (dict(unroll=5), "unroll must be in")])
+def test_scan_and_unroll_refuse_what_jax_refuses(model, kw, msg):
+    """Where JAX refuses a combination with ``scan_layers``, the port
+    refuses too (it refuses ``scan_layers`` itself, by name); ``unroll``
+    out of range raises JAX's ValueError."""
+    jp, tp, _, enc = model
+    kw = dict(kw)
+    int8 = kw.pop("int8", False)
+    if int8 == "embedding":
+        jp = j_serving.quantize_whisper_embedding(jp)
+        tp = t_serving.quantize_whisper_embedding(tp)
+    elif int8:
+        jp = j_serving.quantize_whisper_decoder(jw.fuse_whisper_decoder_qkv(jp))
+        tp = t_serving.quantize_whisper_decoder(tw.fuse_whisper_decoder_qkv(tp))
+    with pytest.raises(ValueError, match=msg):
+        jw.decode_transcript(jp, None, JCFG, JP, enc_out=jnp.asarray(enc),
+                             max_len=4, **kw)
+    exc, match = port_refusal(kw, msg)
+    with pytest.raises(exc, match=match):
+        tw.decode_transcript(tp, None, TCFG, TP,
+                             enc_out=torch.from_numpy(enc), max_len=4, **kw)
+
+
+def port_refusal(kw, msg):
+    """(exception, match) of the port for a combination JAX refuses with
+    ``msg``: JAX's ValueError, except that ``scan_layers`` is refused by
+    name before anything else."""
+    if kw.get("scan_layers"):
+        return NotImplementedError, "scan_layers"
+    return ValueError, msg
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4])
+def test_unroll_is_accepted_and_changes_nothing(model, unroll):
+    """JAX's contract for ``unroll`` is bit-identical outputs; the port's
+    loop is Python, so the argument is validated and nothing else."""
+    jp, tp, _, enc = model
+    (tj, lj), (tt, lt) = _decodes(jp, tp, enc, max_len=9, unroll=unroll)
+    np.testing.assert_array_equal(tt, tj)
+    np.testing.assert_allclose(lt, lj, atol=1e-5)
+    base = tw.decode_transcript(tp, None, TCFG, TP, max_len=9,
+                                enc_out=torch.from_numpy(enc))
+    np.testing.assert_array_equal(tt, base[0].numpy())
+    np.testing.assert_array_equal(lt, base[1].numpy())
 
 
 def test_pallas_ffn_decode_matches_jax(model, monkeypatch):
