@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--profile FILE]
+    python3 chip_smoke.py --times    # the redesigned kernels' times only
 
 Phases (any failure exits non-zero before the result line):
   1. the card's name and power limit (nvidia-smi);
@@ -22,12 +23,17 @@ Phases (any failure exits non-zero before the result line):
      with the plain FFN (printed only);
   5. the decode-step kernels K6 (self-attention) and K7 (cross-attention +
      FFN), each with bf16 and with int8 weights, against their plain
-     versions at whisper-base shapes (B = 1 and 4; pos = 3 and 447;
+     versions at whisper-base shapes (B = 1, 4 and 32; pos = 3 and 447;
      T = 1,500) through misinfo_tpu_torch/ops/decode_checks.py: within
      2^-5·max|y − x| plus one bf16 step per residual rounding (the
      kernels sum in another order than cuBLAS), with keys planted so that
      emulated wrong kernels (rows or a T chunk left out, the mask one row
-     off) fall outside that band, which the check also requires;
+     off) fall outside that band, which the check also requires; then at
+     pos 447 / T = 1,500 and B = 1, 4, 32 each kernel's CUDA-event ms per
+     call over back-to-back calls, its device µs per call (CUDA-event
+     time with the host out of the way: the calls enqueued behind a
+     sleeping kernel) and its __global__ launches per call by the
+     library's own count (K6 3, K7 5, K8 9, K9 1);
   6. the Whisper transcriber at whisper-base widths (byte tokenizer,
      seeded weights through the JAX-layout bridge, device="cuda"):
      pallas on and quant="kernels" (K6/K7 int8 bodies, the whole
@@ -78,7 +84,9 @@ Phases (any failure exits non-zero before the result line):
      large decode widths) within that module's bands with its planted
      faults outside; CUDA-event times at the RoBERTa shape, with
      the bound and, for K3 and K4, scaled_dot_product_attention and
-     layer_norm as the library's time;
+     layer_norm as the library's time; K3 also timed beside SDPA and its
+     plain version at the CLIP text (causal, S = 77) and vision (S = 50)
+     shapes;
  16. (after phase 4) engine I at full width, quant="int8" and
      use_pallas=True (phase 4's weights, vault and b32 requests): one
      analyze() and the b32/S512 batch with exact K2/K1/K3 launch counts
@@ -117,7 +125,20 @@ Phases (any failure exits non-zero before the result line):
      PyTorch, no decode kernel) on the 20 s WAV with the ladder cut to its
      greedy rung: int8 token embedding, every kernel count unchanged, the
      position-0 logits within 0.06·max|logit| of the unquantized step;
-     wall time and ms per step.
+     wall time and ms per step;
+ 24. (after phase 4) the engine's other entry points on phase 4's engine:
+     analyze_batch_async(...)() and analyze_stream over the mixed batch
+     equal analyze_batch (every score, in order); analyze_text,
+     analyze_image, analyze_consistency, search_vault and fusion_verdict
+     answer once each; the host prep of the b32 batch's 32 images (and of
+     32 photo-sized ones where cv2 or PIL is installed) with the engine's
+     thread pool and with a serial map swapped in (printed only).
+``--times`` prints only the redesigned kernels' times (K3 at its three
+shapes beside SDPA and its plain version; K6, K7, K8 and K9 at B = 1, 4,
+32) as JSON lines, with whatever misinfo_tpu_torch is first on sys.path:
+run from another tree's root with ``python -c "import runpy, sys;
+sys.argv = ['chip_smoke.py', '--times']; runpy.run_path(PATH,
+run_name='__main__')"`` it times that tree's kernels.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds. ``--profile FILE``
 also writes torch.profiler tables of the b32 batch (default engine and
@@ -128,6 +149,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -171,6 +193,45 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SLEEP_CYCLES = 20_000_000      # ~10 ms of the card's clock: the host's head start
+
+
+def device_us(fn, calls: int = 50):
+    """(device µs per call, CUDA kernels per call) of ``fn``. Device time:
+    CUDA events around ``calls`` calls enqueued behind a sleeping kernel,
+    so that the card runs them back to back without waiting for the host
+    (kernels of a call that start early and overlap count once); None if
+    the host took longer to enqueue them than the card slept. Kernels per
+    call: torch.profiler's CUDA kernel events over five calls (copies and
+    fills not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    t0 = time.perf_counter()
+    slept.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    us = (start.elapsed_time(end) / calls * 1e3
+          if host_ms < slept.elapsed_time(start) else None)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset"))
+                  for e in prof.events())
+    return us, kernels / 5
 
 
 def append_profile(path: str, title: str, fn, rows: int = 30) -> None:
@@ -314,7 +375,7 @@ def check_decode_kernels(K6, K7):
     rows = {}
     for int8 in (False, True):
         sfx = "_i8" if int8 else ""
-        for B in (1, 4):
+        for B in (1, 4, 32):
             cases = [("self_attn_step", f"pos={pos}", DC.check_self_attn,
                       DC.self_attn_case(B, pos, int8)) for pos in (3, 447)]
             cases.append(("cross_ffn_step", "T=1500",
@@ -363,6 +424,73 @@ def decode_work(name, case, scales=()):
 def decode_bound(name, case, int8: bool, scales=()):
     """bound_ms of one decode-step body from ``decode_work``."""
     return bound(*decode_work(name, case, scales), "int8" if int8 else "bf16")
+
+
+# __global__ launches per call of each decode-step library
+GLOBAL_LAUNCHES = {"self_attn_step": 3, "cross_ffn_step": 5,
+                   "cross_ffn_step_i8cc": 9, "layer_step": 1}
+
+
+def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True):
+    """Phase 5's timing half (and ``--times``): K6 and K7 with both weight
+    types, K8 and K9, at pos 447 / T = 1,500 for each B: CUDA-event ms per
+    call over ``reps`` back-to-back calls (host-bound where the host takes
+    longer to enqueue a call than the card to run it), device µs per call
+    and CUDA kernels per call (``device_us``), and __global__ launches per call
+    by the library's own count where it keeps one, and a digest of the
+    first call's output (seeded inputs: two trees whose kernels agree bit
+    for bit print the same digest). ``strict``: raise
+    unless those counts are GLOBAL_LAUNCHES. Returns {(name, B): row}."""
+    from misinfo_tpu_torch.ops import cross_ffn_step as K7
+    from misinfo_tpu_torch.ops import decode_checks as DC
+    from misinfo_tpu_torch.ops import layer_step as K9
+    from misinfo_tpu_torch.ops import self_attn_step as K6
+    rows = {}
+    for B in batches:
+        runs = []
+        for int8 in (False, True):
+            sfx = "_i8" if int8 else ""
+            sc, cc = DC.self_attn_case(B, 447, int8), DC.cross_ffn_case(
+                B, 1500, int8)
+            runs += [(f"self_attn_step{sfx}", "self_attn_step",
+                      getattr(K6, "kernel_launches", None),
+                      lambda a=sc["args"]: K6.fused_self_attn_step(
+                          *a, n_heads=8)),
+                     (f"cross_ffn_step{sfx}", "cross_ffn_step",
+                      getattr(K7, "kernel_launches", None),
+                      lambda a=cc["args"]: K7.fused_cross_ffn_step(
+                          *a, n_heads=8))]
+        ic, lc = DC.cross_i8cc_case(B, 1500), DC.layer_case(B, 447)
+        runs += [("cross_ffn_step_i8cc", "cross_ffn_step_i8cc",
+                  getattr(K7, "kernel_launches_i8cc", None),
+                  lambda: K7.fused_cross_ffn_step(*ic["args"], n_heads=8,
+                                                  **ic["scales"])),
+                 ("layer_step", "layer_step", K9.kernel_launches,
+                  lambda: K9.fused_layer_step(*lc["args"], n_heads=8))]
+        for name, lib, count, fn in runs:
+            y = fn()
+            y = (y[0] if isinstance(y, tuple) else y).cpu()
+            per_call = None
+            if count is not None:
+                before = count()
+                fn()
+                torch.cuda.synchronize()
+                per_call = count() - before
+            ms = cuda_ms(fn, reps)
+            us, kernels = device_us(fn)
+            row = {"kernel": name, "B": B, "ms": ms, "device_us": us,
+                   "profiled_kernels_per_call": kernels,
+                   "global_launches_per_call": per_call,
+                   "output_sha256": hashlib.sha256(
+                       y.view(torch.int16).numpy().tobytes()).hexdigest(),
+                   "card": card}
+            print(json.dumps(row), flush=True)
+            if strict and per_call != GLOBAL_LAUNCHES[lib]:
+                raise AssertionError(f"{name} B={B}: {per_call} __global__ "
+                                     f"launches per call, want "
+                                     f"{GLOBAL_LAUNCHES[lib]}")
+            rows[name, B] = row
+    return rows
 
 
 I8CC_CASES = ((1, 1500, 1500), (4, 1500, 1500), (8, 1400, 1500),
@@ -1142,6 +1270,43 @@ def _timed(name, fn, plain, library, moved, ops, kind, card, reps=20):
     return row
 
 
+def attention_times(card, reps=20):
+    """K3 (bf16) beside scaled_dot_product_attention and its plain version
+    at the three main-path shapes (the library call gets the same
+    additive mask: padding and, for CLIP text, causal), CUDA-event ms and
+    the kernel's device µs; printed, and returned by shape with the
+    bound (all operations counted, causal or not)."""
+    import torch.nn.functional as F
+    from misinfo_tpu_torch.ops import fused_attention as K3
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    rows = {}
+    for name, B, S, H, m, causal in OPT_SHAPES["fused_attention"]:
+        c = KC.attention_case(B, S, H, m, causal, torch.bfloat16)
+        q, k, v, mask = c["q"], c["k"], c["v"], c["mask"]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        add = torch.zeros(B, 1, S, S, device=q.device)
+        if mask is not None:
+            add += ((1.0 - mask) * -1e9)[:, None, None, :]
+        if causal:
+            add += torch.full((S, S), -1e9, device=q.device).triu(1)
+        add = add.to(torch.bfloat16)
+        kernel = (lambda q=q, k=k, v=v, mask=mask, causal=causal:
+                  K3.fused_attention(q, k, v, mask, causal))
+        row = {"ms": cuda_ms(kernel, reps),
+               "plain_ms": cuda_ms(lambda: K3.fused_attention_plain(
+                   q, k, v, mask, causal), 3),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=add), reps),
+               "device_us": device_us(kernel, 10)[0],
+               **bound(nbytes(q, k, v, q) + (nbytes(mask) if m else 0),
+                       4 * B * H * S * S * q.shape[-1], "bf16")}
+        print(json.dumps({"kernel": "fused_attention", "shape": name,
+                          "B": B, "S": S, "H": H, "causal": causal, **row,
+                          "card": card}), flush=True)
+        rows[name] = row
+    return rows
+
+
 def check_opt_in_kernels(card):
     """Phase 15: K2-K5 against their plain versions on the card at the
     main path's shapes (ops/kernel_checks.py), bf16 and f32; CUDA-event
@@ -1176,17 +1341,11 @@ def check_opt_in_kernels(card):
             errs.append(res["err"])
             _report(f"fused_attention {name} B={B} S={S} H={H} {dt}", res,
                     card)
-    _, B, S, H, m, causal = OPT_SHAPES["fused_attention"][0]
-    c = KC.attention_case(B, S, H, m, causal, bf16)
-    q, k, v, mask = c["q"], c["k"], c["v"], c["mask"]
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    add = ((1.0 - mask) * -1e9)[:, None, None, :].to(bf16)
-    rows["fused_attention"] = {"err": max(errs), **_timed(
-        "fused_attention roberta", lambda: K3.fused_attention(q, k, v, mask),
-        lambda: K3.fused_attention_plain(q, k, v, mask),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add),
-        nbytes(q, k, v, q, mask), 4 * B * H * S * S * q.shape[-1], "bf16",
-        card)}
+    rows["fused_attention"] = {"err": max(errs),
+                               **attention_times(card)["roberta"]}
+    if not (rows["fused_attention"]["ms"]
+            < rows["fused_attention"]["plain_ms"]):
+        raise AssertionError("K3 is slower than its plain version")
 
     errs = []
     for dt in (bf16, f32):
@@ -1220,6 +1379,65 @@ def check_opt_in_kernels(card):
         lambda: K5.fused_ffn_plain(*a, mode=mode), None,
         nbytes(*a) + M * K * 2, 2 * M * N * 2 * K, "bf16", card, reps=10)}
     return rows
+
+
+def engine_surface(engine, batch, image, rng, card) -> None:
+    """Phase 24: on phase 4's engine, analyze_batch_async(...)() and
+    analyze_stream over the mixed batch give analyze_batch's reports (every
+    score equal, in order); the five per-signal conveniences answer once
+    each; the host prep of the b32 batch's 32 images (and of 32
+    photo-sized ones where cv2 or PIL is installed) with the engine's
+    thread pool and with a serial map swapped in (printed only)."""
+    def key(reports):
+        return [(r["scores"], r["vault_matches"]) for r in reports]
+    want = key(engine.analyze_batch(batch))
+    for what, got in (("analyze_batch_async",
+                       engine.analyze_batch_async(batch)()),
+                      ("analyze_stream", list(engine.analyze_stream(batch)))):
+        if key(got) != want:
+            raise AssertionError(f"{what} differs from analyze_batch")
+    text = words(rng, 40)
+    answers = {
+        "analyze_text": engine.analyze_text(text),
+        "analyze_image": engine.analyze_image(image),
+        "analyze_consistency": engine.analyze_consistency(text, image),
+        "search_vault": engine.search_vault(image, text),
+        "fusion_verdict": engine.fusion_verdict(want[0][0])}
+    for name, a in answers.items():
+        nums = [v for v in a.values() if isinstance(v, (int, float))]
+        if not nums or not all(math.isfinite(v) for v in nums):
+            raise AssertionError(f"{name} answered {a}")
+    if not answers["search_vault"]["matches"]:
+        raise AssertionError("search_vault found no match in the vault")
+    import importlib.util
+    sets = {"the b32 batch's 224x224 images": [image] * 32}
+    if any(importlib.util.find_spec(m) for m in ("cv2", "PIL")):
+        sets["1280x720 images"] = [
+            rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+            for _ in range(32)]
+
+    def prep_ms(images, reps=3):
+        engine._image_batch(images, 32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine._image_batch(images, 32)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+    prep = []
+    for what, images in sets.items():
+        pooled = prep_ms(images)
+        with swapped((engine, "_prep_map",
+                      lambda fn, items: [fn(x) for x in items])):
+            serial = prep_ms(images)
+        prep.append(f"{what}: pool {pooled} ms, serial {serial} ms, pool "
+                    f"again {prep_ms(images)} ms")
+    print(f"engine surface: analyze_batch_async and analyze_stream equal "
+          f"analyze_batch over {len(batch)} requests; "
+          + "; ".join(f"{k} {v}" for k, v in answers.items())
+          + f"; host prep of 32 images, thread pool of "
+          f"{engine._pool()._max_workers}: " + "; ".join(prep)
+          + f" [{card}]", flush=True)
 
 
 @contextlib.contextmanager
@@ -1578,10 +1796,18 @@ def main() -> int:
     ap.add_argument("--profile", metavar="FILE",
                     help="write torch.profiler tables of the b32 batch and "
                     "of one greedy transcript decode here")
+    ap.add_argument("--times", action="store_true",
+                    help="print only the redesigned kernels' times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.times:
+        card = card_line()
+        print(card, flush=True)
+        attention_times(card)
+        decode_step_times(card, strict=False)
+        return 0
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
     from misinfo_tpu_torch.models.detector import DetectorConfig
@@ -1671,9 +1897,11 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
         open(args.profile, "w").close()
+    engine_surface(engine, batch, image, rng, card)           # phase 24
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
     decode_rows = check_decode_kernels(K6, K7)                # phase 5
+    decode_step_times(card)
     decode_rows["cross_ffn_step_i8cc"] = check_i8cc_kernel(K7, card)    # 19
     decode_rows["layer_step"] = check_layer_kernel(K6, K7, K9, card)    # 20
     if args.profile:

@@ -16,7 +16,8 @@
 // then the int8 weights (2.6 MB for whisper-base) and 8·B·T bytes of
 // scales: a streaming problem of a few MB, so launches and the number of
 // SMs sharing each stream decide the time. The design:
-//  1. q = W_q·LN(x) with skinny_gemm; one block per batch row dequantizes
+//  1. q = W_q·LN(x) with skinny_gemm (its partials left for the next
+//     launch); one block per batch row dequantizes
 //     the row in f32 in the q order (acc·s_chan)·s_row + b (it is not
 //     rounded to bf16 here), takes s_q = max(amax, 1e-30)·f32(1/127) over
 //     the whole row and quantizes it;
@@ -33,13 +34,15 @@
 //     wrapper's (the wrapper passes ops/cross_ffn_step.py::v_tile); pieces
 //     of a tile only split its integer sum, which is exact in any order;
 //  5. ctx = bf16(Σ_tiles float(s32)·s_p), in tile order;
-//  6. x2 = x + o(ctx) and the FFN as in cross_ffn_step.cu.
+//  6. x2 = x + o(ctx) and the FFN as in cross_ffn_step.cu (three
+//     launches, each product's epilogue in its last blocks).
 // The f32(1/127) multiplies are how XLA evaluates the TPU kernel's
 // `/ 127.0` under jit; the plain version does the same. Up to the scores
 // the arithmetic is integer or a fixed sequence of single f32 roundings;
 // against the plain version only LayerNorm's and the softmax's summation
 // order and expf differ.
-// Twelve launches from one C call; the wrapper counts one launch per call.
+// Nine launches from one C call; the wrapper counts one launch per call,
+// the library its __global__ launches (cross_ffn_step_i8cc_kernel_launches).
 
 #include "cross_ffn_phases.cuh"
 
@@ -62,8 +65,8 @@ quantize_q(const int* __restrict__ part, int ks,
   const int b = blockIdx.x;
   float amax = 0.f;
   for (int n = threadIdx.x; n < D; n += THREADS) {
-    const float v = dequant<int8_t>(part, ks, B, D, b, n, scale, bias, rs,
-                                    true);
+    const float v = dequant<int8_t>(sum_parts<int8_t>(part, ks, B, D, b, n),
+                                    n, rs[b], scale, bias, true);
     qf[n] = v;
     amax = fmaxf(amax, fabsf(v));
   }
@@ -256,12 +259,25 @@ extern "C" size_t cross_ffn_step_i8cc_workspace(int B, int D, int F, int T,
   return used;
 }
 
+// Tickets (ints) for one call: a zeroed buffer that each call leaves
+// zeroed, so calls in one stream's order share it.
+extern "C" int cross_ffn_step_i8cc_tickets(int D, int F) {
+  return gemm_tickets(D > F ? D : F);
+}
+
+// __global__ launches made by cross_ffn_step_i8cc_launch since the library
+// was loaded (nine per call that reached its last launch).
+extern "C" long long cross_ffn_step_i8cc_kernel_launches() {
+  return g_launches;
+}
+
 // C entry: x bf16 [B, D]; LayerNorm parameters f32 [D]; wq, wo [D, D],
 // w1 [D, F], w2 [F, D] int8 with f32 per-channel scales; biases f32; merged
 // cross K/V int8 [B, T, D] with f32 row scales k_scale, v_scale [B, T];
 // positions ≥ t_actual are masked; `tile` the V-pass tile in rows; out bf16
-// [B, D]; ws from cross_ffn_step_i8cc_workspace. All contiguous, 16-byte
-// aligned. Returns a cudaError_t (0 = launched). Needs 1 ≤ B ≤ 32,
+// [B, D]; ws from cross_ffn_step_i8cc_workspace; tickets
+// cross_ffn_step_i8cc_tickets ints, zero (and left zero). All contiguous,
+// 16-byte aligned. Returns a cudaError_t (0 = launched). Needs 1 ≤ B ≤ 32,
 // D % 64 == 0, F % 32 == 0, 1 ≤ t_actual ≤ T, tile ≥ 1.
 extern "C" int cross_ffn_step_i8cc_launch(
     const void* x_, const void* lnc_g_, const void* lnc_b_, const void* wq_,
@@ -269,8 +285,9 @@ extern "C" int cross_ffn_step_i8cc_launch(
     const void* bo_, const void* ln2_g_, const void* ln2_b_, const void* w1_,
     const void* s1_, const void* b1_, const void* w2_, const void* s2_,
     const void* b2_, const void* cache_k, const void* cache_v,
-    const void* k_scale_, const void* v_scale_, void* out_, void* ws, int B,
-    int D, int F, int T, int t_actual, int tile, int sms, void* stream) {
+    const void* k_scale_, const void* v_scale_, void* out_, void* ws,
+    void* tickets_, int B, int D, int F, int T, int t_actual, int tile,
+    int sms, void* stream) {
   if (B < 1 || B > MAXB || D <= 0 || D % HD || F <= 0 || F % TILE_N ||
       t_actual < 1 || t_actual > T || tile < 1)
     return cudaErrorInvalidValue;
@@ -279,35 +296,37 @@ extern "C" int cross_ffn_step_i8cc_launch(
   auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
   const auto* x = static_cast<const __nv_bfloat16*>(x_);
   auto* out = static_cast<__nv_bfloat16*>(out_);
+  auto* tickets = static_cast<int*>(tickets_);
   const Work w = carve(ws, B, D, F, T, tile, sms);
   const int H = D / HD, nt = (T + tile - 1) / tile;
   int ks, tc, pc;
   const int ch = t_chunks(B, H, T, sms, &tc);
   const int pp = tile_pieces(B, H, tile, nt, sms, &pc);
-  cudaError_t e = gemm<int8_t, IN_LN>(x, f(lnc_g_), f(lnc_b_), i8(wq_), w.part,
-                                      w.rs, B, D, D, sms, st, &ks);
+  cudaError_t e = gemm<int8_t, IN_LN, EP_NONE>(
+      In{x, f(lnc_g_), f(lnc_b_)}, i8(wq_), w.part, w.rs, nullptr, Ep{}, B, D,
+      D, sms, st, &ks);
   if (e != cudaSuccess) return e;
   quantize_q<<<B, THREADS, (size_t)(D + WARPS) * 4, st>>>(
       static_cast<const int*>(w.part), ks, f(sq_), f(bq_), w.rs, w.qq, w.sq, B,
       D);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launched()) != cudaSuccess) return e;
   scores_i8<<<dim3(H, B, ch), CROSS_ATT, 0, st>>>(
       w.qq, w.sq, i8(cache_k), f(k_scale_), w.sc, D, T, t_actual, tc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launched()) != cudaSuccess) return e;
   fold_probs<<<dim3(H, B), PROB, 0, st>>>(w.sc, f(v_scale_), w.tmax, T, tile,
                                           nt);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launched()) != cudaSuccess) return e;
   pv_i8<<<dim3(H, B, nt * pp), CROSS_ATT, (size_t)(pc + CROSS_ATT * 4) * 4,
           st>>>(w.sc, w.tmax, i8(cache_v), w.pint, w.sp, D, T, tile, nt, pc,
                 pp);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launched()) != cudaSuccess) return e;
   combine_i8<<<(B * D + 255) / 256, 256, 0, st>>>(w.pint, w.sp, w.ctx, B, D,
                                                   nt, pp);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return after_attention<int8_t>(x, w.ctx, i8(wo_), f(so_), f(bo_), f(ln2_g_),
-                                 f(ln2_b_), i8(w1_), f(s1_), f(b1_), i8(w2_),
-                                 f(s2_), f(b2_), w.part, w.rs, w.x2, w.g, out,
-                                 B, D, F, sms, st);
+  if ((e = launched()) != cudaSuccess) return e;
+  return after_attention<int8_t>(
+      x, w.ctx, i8(wo_), f(so_), f(bo_), f(ln2_g_), f(ln2_b_), i8(w1_),
+      f(s1_), f(b1_), i8(w2_), f(s2_), f(b2_), w.part, tickets, w.x2, w.g, out,
+      B, D, F, sms, st);
 }
 
 extern "C" const char* cross_ffn_step_i8cc_error_string(int err) {

@@ -12,18 +12,35 @@
 // is skinny: a handful of FLOPs per weight byte, so the products are bound
 // by the weight stream, not by the tensor cores. `skinny_gemm` spreads one
 // weight matrix over many blocks: block (i, j) owns 32 output columns and
-// rows [j·kc, (j+1)·kc) of W, each warp walks every 8th of those rows with
-// its 32 lanes on 32 neighbouring columns (coalesced), and every thread keeps
-// one accumulator per batch row. The block's partial sums go to a workspace
-// [ks, B, N]; an epilogue kernel adds the ks partials in chunk order and
-// applies scales, bias, activation or residual. With int8 weights the
-// partials are int32 and the sum is exact, as on the TPU's int8 MXU.
+// rows [j·kc, (j+1)·kc) of W. It first stages its [kc, 32] weight tile in
+// shared memory with cp.async, 16 bytes a lane (16 int8 or 8 bf16
+// columns), then walks it with each warp on every 8th row and its 32 lanes
+// on the 32 columns, every thread keeping one accumulator per batch row.
+// The block's partial sums go to a workspace [ks, B, N]. The last of the
+// ks blocks of a column tile to finish (an atomic ticket per tile, taken
+// after a __threadfence, reset by that block) adds the ks partials in
+// chunk order and applies the epilogue: scales, bias, activation,
+// residual. With int8 weights the partials are int32 and the sum is exact,
+// as on the TPU's int8 MXU.
 //
 // The input rows are prepared by every block in its prologue: LayerNorm
 // (single-pass variance, the bf16 serving formula of ops/common.layer_norm)
 // and, for int8 weights, the per-row abs-max quantization of
 // ops/quant.quantize_rows (IEEE division, round half to even). Redundant
 // across blocks, but it is B·K values read from L2 against a launch.
+// (Staging the rows in shared memory first, one more round trip after the
+// wait, measured slower on the H100.)
+//
+// Launches: every kernel of a step is launched with Hopper's programmatic
+// dependent launch (launch_early). Its blocks may start as the kernel
+// before it finishes (as that kernel's blocks exit); each stages what does
+// not depend on the kernel before (the weight tile) and waits for that
+// kernel's completion (wait_prior_grid) before it reads an activation,
+// takes a ticket or writes anything. In a kernel launched without the
+// attribute (layer_step.cu's cooperative launch) the wait is a no-op.
+// (Letting dependents start at a block's start, griddepcontrol.
+// launch_dependents, measured slower on the H100: their waiting blocks
+// then share the SMs with the kernel they wait for.)
 //
 // Numerics: __fdiv_rn/__fmul_rn/__fadd_rn wherever a contracted FMA or an
 // approximate division would move a rounding. Never build with
@@ -48,12 +65,53 @@ constexpr int HD = 64;         // head width of every Whisper size
 constexpr float LN_EPS = 1e-5f;
 constexpr float NEG = -1e9f;   // masked score, as the JAX package
 
-enum { IN_LN = 0, IN_ROW = 1 };              // skinny_gemm input
-enum { EP_Q = 0, EP_GELU = 1, EP_RESID = 2 };  // epilogue kinds
+// skinny_gemm inputs: a LayerNormed bf16 row, a bf16 row as it is
+enum { IN_LN = 0, IN_ROW = 1 };
+// epilogues: none (the partials stay for the caller), q (the TPU kernel's
+// q order), GELU, residual, and the fused QKV projection of the
+// self-attention step (q out, k and v into cache row `pos`)
+enum { EP_NONE = 0, EP_Q = 1, EP_GELU = 2, EP_RESID = 3, EP_QKV = 4 };
 
 template <typename WT> struct Acc;
 template <> struct Acc<int8_t> { using T = int; };
 template <> struct Acc<__nv_bfloat16> { using T = float; };
+
+// __global__ launches made by this library since it was loaded: internal
+// linkage, so that each library (one translation unit each) counts its own
+// (an inline variable would be one symbol shared by every loaded library)
+static long long g_launches = 0;
+static inline cudaError_t launched() {
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++g_launches;
+  return e;
+}
+
+// Programmatic dependent launch, device side: wait until the kernel before
+// this one has finished and its writes are visible.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Launches `kernel` on `st` with programmatic stream serialization: it may
+// start before the kernel ahead of it ends, and must wait_prior_grid()
+// before it touches that kernel's results. Counted as one launch.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_early(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                         size_t smem, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+  return e != cudaSuccess ? e : launched();
+}
 
 __device__ __forceinline__ float bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -61,10 +119,10 @@ __device__ __forceinline__ float bf(float v) {
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ float wval(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float wval(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
-__device__ __forceinline__ int wval(const int8_t* p) { return (int)*p; }
+__device__ __forceinline__ int wval(int8_t v) { return (int)v; }
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -76,6 +134,15 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
 // max(amax / 127, 1e-8) and clip(round(v / s)), as ops/quant.quantize_rows
 __device__ __forceinline__ float row_scale(float amax) {
   return fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
@@ -83,6 +150,26 @@ __device__ __forceinline__ float row_scale(float amax) {
 __device__ __forceinline__ int quant(float v, float s) {
   const int q = __float2int_rn(__fdiv_rn(v, s));
   return max(-127, min(127, q));
+}
+
+// 64 bf16 of one cache row (128 bytes, 16-byte aligned) dotted with q in
+// f32, in dimension order.
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* row,
+                                         const float* q) {
+  const uint4* r = reinterpret_cast<const uint4*>(row);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const uint4 u = r[c];
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      acc = __fadd_rn(acc, __fmul_rn(q[8 * c + 2 * e], f.x));
+      acc = __fadd_rn(acc, __fmul_rn(q[8 * c + 2 * e + 1], f.y));
+    }
+  }
+  return acc;
 }
 
 // The threads that work on one body together: a whole block (bar < 0,
@@ -145,67 +232,207 @@ __device__ __forceinline__ void ln_stats(const __nv_bfloat16* x, int K,
   rstd = rsqrtf(__fadd_rn(var, LN_EPS));
 }
 
+// A product's input rows [B, K] bf16, LayerNormed with ln_g/ln_b for
+// IN_LN.
+struct In {
+  const __nv_bfloat16* a;
+  const float *ln_g, *ln_b;
+};
+
+// What the last block of a column tile writes (see finish).
+struct Ep {
+  const float *scale, *bias;    // int8 per-channel scales (else unused), bias
+  const __nv_bfloat16* x;       // EP_RESID: the residual [B, N]
+  __nv_bfloat16* out;           // [B, N]; EP_QKV: q [B, N / 3]
+  __nv_bfloat16 *ck, *cv;       // EP_QKV: self caches [B, S, N / 3]
+  int S, pos;                   // EP_QKV: their length, the row written
+};
+
+// Shared memory of skinny_gemm_body: the weight tile, then the input rows
+// (later the warps' partials). 16-byte aligned pieces.
+template <typename WT>
+__host__ __device__ inline int gemm_w_bytes(int kc) {
+  return (kc * TILE_N * (int)sizeof(WT) + 15) / 16 * 16;
+}
+template <typename WT>
+__host__ __device__ inline size_t gemm_smem(int B, int kc) {
+  const int n = B * kc > WARPS * B * 32 ? B * kc : WARPS * B * 32;
+  return gemm_w_bytes<WT>(kc) + (size_t)n * 4;
+}
+
 template <int IN>
-__device__ __forceinline__ float in_val(const __nv_bfloat16* xr, int k,
-                                        float mean, float rstd,
-                                        const float* g, const float* bb) {
+__device__ __forceinline__ float in_val(const In& in, int b, int k, int K,
+                                        float mean, float rstd) {
+  const __nv_bfloat16* xr = in.a + (size_t)b * K;
   if constexpr (IN == IN_LN)
     return bf(__fadd_rn(
-        __fmul_rn(__fmul_rn(__fsub_rn(ld(xr + k), mean), rstd), g[k]), bb[k]));
+        __fmul_rn(__fmul_rn(__fsub_rn(ld(xr + k), mean), rstd), in.ln_g[k]),
+        in.ln_b[k]));
   else
     return ld(xr + k);
 }
 
+// max |input value| of row b (a whole warp; K % 8 == 0): 16 bytes of the
+// row per lane and step, the values as in_val computes them. The max does
+// not depend on the order.
+template <int IN>
+__device__ __forceinline__ float row_amax(const In& in, int b, int K,
+                                          float mean, float rstd, int lane) {
+  const uint4* xr = reinterpret_cast<const uint4*>(in.a + (size_t)b * K);
+  float amax = 0.f;
+  for (int c = lane; c < K / 8; c += 32) {
+    const uint4 u = xr[c];
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+    if constexpr (IN == IN_LN) {
+      const float4* g4 = reinterpret_cast<const float4*>(in.ln_g) + 2 * c;
+      const float4* b4 = reinterpret_cast<const float4*>(in.ln_b) + 2 * c;
+      const float4 ga = g4[0], gb = g4[1], ba = b4[0], bb = b4[1];
+      const float g[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+      const float o[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = bf(__fadd_rn(
+            __fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rstd), g[i]), o[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  }
+  return warp_max(amax);
+}
+
+// y = dequantized sum + bias, before the rounding to bf16. int8:
+// (acc·s_row)·s_chan + b as ops/quant.dense_int8, or with q_order
+// (acc·s_chan)·s_row + b as the TPU kernels derive q.
+template <typename WT>
+__device__ __forceinline__ float dequant(typename Acc<WT>::T s, int n,
+                                         float s_row, const float* scale,
+                                         const float* bias, bool q_order) {
+  if constexpr (std::is_same<WT, int8_t>::value) {
+    const float v = (float)s;
+    const float t = q_order ? __fmul_rn(__fmul_rn(v, scale[n]), s_row)
+                            : __fmul_rn(__fmul_rn(v, s_row), scale[n]);
+    return __fadd_rn(t, bias[n]);
+  } else {
+    return __fadd_rn(s, bias[n]);
+  }
+}
+
+// Σ_j part[j, b, n] in chunk order
+template <typename WT>
+__device__ __forceinline__ typename Acc<WT>::T sum_parts(
+    const typename Acc<WT>::T* part, int ks, int B, int N, int b, int n) {
+  typename Acc<WT>::T s = 0;
+  for (int j = 0; j < ks; ++j) s += __ldcg(part + ((size_t)j * B + b) * N + n);
+  return s;
+}
+
+// GELU, tanh form, in f32 (PyTorch's formula; the one multiply-add that
+// the compiler would contract is written out)
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float kBeta = 0.7978845608028654f;  // sqrt(2/pi)
+  const float kKappa = 0.044715f;
+  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(kBeta, __fmaf_rn(kKappa, x3, x));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
+}
+
+// Element (b, n) of [B, N] from its summed partials s: EP_Q out = bf16(y)
+// in the q order; EP_GELU out = bf16(gelu_tanh(bf16(y))); EP_RESID
+// out = bf16(x + bf16(y)); EP_QKV bf16(y), q in the q order, to q, or to
+// row `pos` of the caches (k, v in place).
+template <typename WT, int EP>
+__device__ __forceinline__ void finish(typename Acc<WT>::T s, int b, int n,
+                                       int N, float s_row, const Ep& ep) {
+  if constexpr (EP == EP_QKV) {
+    const int D = N / 3;
+    const __nv_bfloat16 y = __float2bfloat16_rn(
+        dequant<WT>(s, n, s_row, ep.scale, ep.bias, n < D));
+    if (n < D)
+      ep.out[(size_t)b * D + n] = y;
+    else if (n < 2 * D)
+      ep.ck[((size_t)b * ep.S + ep.pos) * D + n - D] = y;
+    else
+      ep.cv[((size_t)b * ep.S + ep.pos) * D + n - 2 * D] = y;
+  } else {
+    const size_t i = (size_t)b * N + n;
+    const float y = bf(dequant<WT>(s, n, s_row, ep.scale, ep.bias,
+                                   EP == EP_Q));
+    float r = y;
+    if constexpr (EP == EP_GELU) r = gelu_tanh(y);
+    if constexpr (EP == EP_RESID) r = __fadd_rn(ld(ep.x + i), y);
+    ep.out[i] = __float2bfloat16_rn(r);
+  }
+}
+
 // Partial products Y[B, N] over rows [k0, k0 + kc) of W [K, N] (row-major,
-// the JAX [in, out] layout). Input: a [B, K] bf16, LayerNormed with
-// (ln_g, ln_b) when IN == IN_LN. int8 W: the input rows are quantized per
-// row and block (0, 0) writes their scales to rs_out [B]. Writes
-// part[by, b, n] (int32 for int8 W, f32 for bf16 W). The body of block
-// (bx, by) of a grid (N / 32, ks), for THREADS threads with gemm_smem(B, kc)
-// bytes of shared memory at `smem`; a caller that runs it again on the same
-// shared memory synchronizes the block in between.
-template <typename WT, int IN>
+// the JAX [in, out] layout) of the input `in` (see In). int8 W: the input
+// rows are quantized per row, and block (0, 0) writes their scales to
+// rs_out [B] where given. Writes part[by, b, n] (int32 for int8 W, f32 for
+// bf16 W); then, unless EP == EP_NONE, the last of the ks blocks of column
+// tile bx (ticket tickets[bx], zero on entry and left zero) applies the
+// epilogue to the tile. The body of block (bx, by) of a grid (N / 32, ks),
+// for THREADS threads with gemm_smem bytes of shared memory at `smem`; a
+// caller that runs it again on the same shared memory synchronizes the
+// block in between.
+template <typename WT, int IN, int EP>
 __device__ __forceinline__ void skinny_gemm_body(
-    unsigned char* smem, int bx, int by, const __nv_bfloat16* a,
-    const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-    const WT* __restrict__ w, typename Acc<WT>::T* part,
-    float* rs_out, int B, int K, int N, int kc) {
+    unsigned char* smem, int bx, int by, const In& in,
+    const WT* __restrict__ w, typename Acc<WT>::T* part, float* rs_out,
+    int* tickets, const Ep& ep, int B, int K, int N, int kc, int ks) {
   using AT = typename Acc<WT>::T;
   constexpr bool Q = std::is_same<WT, int8_t>::value;
-  AT* as = reinterpret_cast<AT*>(smem);  // [B, kc]; later [WARPS, B, 32]
+  constexpr int CH = 16 / (int)sizeof(WT);   // columns per 16-byte chunk
+  constexpr int RC = TILE_N / CH;            // chunks per tile row
+  __shared__ float rs_s[MAXB];
+  __shared__ int last;
+  WT* ws = reinterpret_cast<WT*>(smem);                    // [kc, TILE_N]
+  AT* as = reinterpret_cast<AT*>(smem + gemm_w_bytes<WT>(kc));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = by * kc, k1 = min(K, k0 + kc);
-  const int n = bx * TILE_N + lane;
+  const int k0 = by * kc, k1 = min(K, k0 + kc), n0 = bx * TILE_N;
 
+  // the weight tile in flight while the kernel before finishes and the
+  // input rows are prepared
+  for (int i = threadIdx.x; i < (k1 - k0) * RC; i += THREADS) {
+    const int r = i / RC, c = i - r * RC;
+    cp_async16(ws + r * TILE_N + c * CH, w + (size_t)(k0 + r) * N + n0 + c * CH);
+  }
+  wait_prior_grid();
   for (int b = warp; b < B; b += WARPS) {
-    const __nv_bfloat16* xr = a + (size_t)b * K;
     float mean = 0.f, rstd = 1.f;
-    if constexpr (IN == IN_LN) ln_stats(xr, K, lane, mean, rstd);
+    if constexpr (IN == IN_LN) ln_stats(in.a + (size_t)b * K, K, lane, mean,
+                                        rstd);
     if constexpr (Q) {
-      float amax = 0.f;
-      for (int k = lane; k < K; k += 32)
-        amax = fmaxf(amax, fabsf(in_val<IN>(xr, k, mean, rstd, ln_g, ln_b)));
-      const float s = row_scale(warp_max(amax));
-      if (lane == 0 && bx == 0 && by == 0) rs_out[b] = s;
+      const float s = row_scale(row_amax<IN>(in, b, K, mean, rstd, lane));
+      if (lane == 0) {
+        rs_s[b] = s;
+        if (rs_out && bx == 0 && by == 0) rs_out[b] = s;
+      }
       for (int k = k0 + lane; k < k1; k += 32)
-        as[b * kc + k - k0] =
-            quant(in_val<IN>(xr, k, mean, rstd, ln_g, ln_b), s);
+        as[b * kc + k - k0] = quant(in_val<IN>(in, b, k, K, mean, rstd), s);
     } else {
       for (int k = k0 + lane; k < k1; k += 32)
-        as[b * kc + k - k0] = in_val<IN>(xr, k, mean, rstd, ln_g, ln_b);
+        as[b * kc + k - k0] = in_val<IN>(in, b, k, K, mean, rstd);
     }
   }
+  cp_async_wait_all();
   __syncthreads();
 
   AT acc[MAXB];
 #pragma unroll
   for (int b = 0; b < MAXB; ++b) acc[b] = 0;
   for (int k = k0 + warp; k < k1; k += WARPS) {
-    const AT wv = wval(w + (size_t)k * N + n);
+    const AT wa = wval(ws[(k - k0) * TILE_N + lane]);
     const AT* ar = as + (k - k0);
 #pragma unroll
     for (int b = 0; b < MAXB; ++b)
-      if (b < B) acc[b] += ar[b * kc] * wv;   // bf16·bf16 is exact in f32
+      if (b < B) acc[b] += ar[b * kc] * wa;   // bf16·bf16 is exact in f32
   }
   __syncthreads();
   AT* red = as;
@@ -217,27 +444,36 @@ __device__ __forceinline__ void skinny_gemm_body(
     const int b = i >> 5, l = i & 31;
     AT s = 0;
     for (int v = 0; v < WARPS; ++v) s += red[(v * B + b) * 32 + l];
-    part[((size_t)by * B + b) * N + bx * TILE_N + l] = s;
+    part[((size_t)by * B + b) * N + n0 + l] = s;
+  }
+  if constexpr (EP != EP_NONE) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(tickets + bx, 1) == ks - 1;
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      for (int i = threadIdx.x; i < B * 32; i += THREADS) {
+        const int b = i >> 5, n = n0 + (i & 31);
+        finish<WT, EP>(sum_parts<WT>(part, ks, B, N, b, n), b, n, N,
+                       Q ? rs_s[b] : 1.f, ep);
+      }
+      if (threadIdx.x == 0) tickets[bx] = 0;
+    }
   }
 }
 
-// Grid (N / 32, ks), THREADS threads, dynamic shared memory
-// gemm_smem(B, kc).
-template <typename WT, int IN>
+// Grid (N / 32, ks), THREADS threads, dynamic shared memory gemm_smem.
+// Launched early (launch_early).
+template <typename WT, int IN, int EP>
 __global__ void __launch_bounds__(THREADS)
-skinny_gemm(const __nv_bfloat16* __restrict__ a,
-            const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-            const WT* __restrict__ w,
-            typename Acc<WT>::T* __restrict__ part,
-            float* __restrict__ rs_out, int B, int K, int N, int kc) {
+skinny_gemm(const In in, const WT* __restrict__ w,
+            typename Acc<WT>::T* __restrict__ part, float* __restrict__ rs_out,
+            int* __restrict__ tickets, const Ep ep, int B, int K, int N,
+            int kc, int ks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  skinny_gemm_body<WT, IN>(smem, blockIdx.x, blockIdx.y, a, ln_g, ln_b, w,
-                           part, rs_out, B, K, N, kc);
-}
-
-inline size_t gemm_smem(int B, int kc) {
-  const int n = B * kc > WARPS * B * 32 ? B * kc : WARPS * B * 32;
-  return (size_t)n * 4;
+  skinny_gemm_body<WT, IN, EP>(smem, blockIdx.x, blockIdx.y, in, w, part,
+                               rs_out, tickets, ep, B, K, N, kc, ks);
 }
 
 // K split of a skinny product: about two blocks per SM, at most MAX_KC and
@@ -252,17 +488,26 @@ inline int split_k(int K, int N, int sms, int* kc_out) {
   return (K + kc - 1) / kc;
 }
 
-template <typename WT, int IN>
-cudaError_t gemm(const __nv_bfloat16* a, const float* ln_g, const float* ln_b,
-                 const WT* w, void* part, float* rs, int B, int K, int N,
-                 int sms, cudaStream_t st, int* ks_out) {
+// One product in one launch; *ks_out gets the K split (for EP_NONE, whose
+// caller reads the partials).
+template <typename WT, int IN, int EP>
+cudaError_t gemm(const In& in, const WT* w, void* part, float* rs,
+                 int* tickets, const Ep& ep, int B, int K, int N, int sms,
+                 cudaStream_t st, int* ks_out = nullptr) {
   int kc;
   const int ks = split_k(K, N, sms, &kc);
-  *ks_out = ks;
-  skinny_gemm<WT, IN><<<dim3(N / TILE_N, ks), THREADS, gemm_smem(B, kc), st>>>(
-      a, ln_g, ln_b, w, static_cast<typename Acc<WT>::T*>(part), rs, B, K, N,
-      kc);
-  return cudaGetLastError();
+  if (ks_out) *ks_out = ks;
+  const size_t smem = gemm_smem<WT>(B, kc);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        skinny_gemm<WT, IN, EP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  return launch_early(skinny_gemm<WT, IN, EP>, dim3(N / TILE_N, ks),
+                      dim3(THREADS), smem, st, in, w,
+                      static_cast<typename Acc<WT>::T*>(part), rs, tickets,
+                      ep, B, K, N, kc, ks);
 }
 
 inline size_t gemm_part_bytes(int B, int K, int N, int sms) {
@@ -270,76 +515,8 @@ inline size_t gemm_part_bytes(int B, int K, int N, int sms) {
   return (size_t)split_k(K, N, sms, &kc) * B * N * 4;
 }
 
-// y = dequantized partial sum + bias, before the rounding to bf16.
-// int8: (acc·s_row)·s_chan + b as ops/quant.dense_int8, or with q_order
-// (acc·s_chan)·s_row + b as the TPU kernels derive q.
-template <typename WT>
-__device__ __forceinline__ float dequant(const typename Acc<WT>::T* part,
-                                         int ks, int B, int N, int b, int n,
-                                         const float* scale, const float* bias,
-                                         const float* rs, bool q_order) {
-  typename Acc<WT>::T s = 0;
-  for (int j = 0; j < ks; ++j) s += part[((size_t)j * B + b) * N + n];
-  if constexpr (std::is_same<WT, int8_t>::value) {
-    const float v = (float)s;
-    const float t = q_order ? __fmul_rn(__fmul_rn(v, scale[n]), rs[b])
-                            : __fmul_rn(__fmul_rn(v, rs[b]), scale[n]);
-    return __fadd_rn(t, bias[n]);
-  } else {
-    return __fadd_rn(s, bias[n]);
-  }
-}
-
-// GELU, tanh form, in f32 (PyTorch's formula; the one multiply-add that
-// the compiler would contract is written out)
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float kBeta = 0.7978845608028654f;  // sqrt(2/pi)
-  const float kKappa = 0.044715f;
-  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
-  const float inner = __fmul_rn(kBeta, __fmaf_rn(kKappa, x3, x));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
-}
-
-// Element i of [B, N]: EP_Q  out = bf16(y) with the q order;
-// EP_GELU out = bf16(gelu_tanh(bf16(y))); EP_RESID out = bf16(x + bf16(y)).
-template <typename WT, int EP>
-__device__ __forceinline__ void epilogue_elem(
-    int i, const typename Acc<WT>::T* part, int ks,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    const float* rs, const __nv_bfloat16* x,
-    __nv_bfloat16* out, int B, int N) {
-  const int b = i / N, n = i - b * N;
-  const float y = bf(dequant<WT>(part, ks, B, N, b, n, scale, bias, rs,
-                                 EP == EP_Q));
-  float r = y;
-  if constexpr (EP == EP_GELU) r = gelu_tanh(y);
-  if constexpr (EP == EP_RESID) r = __fadd_rn(ld(x + i), y);
-  out[i] = __float2bfloat16_rn(r);
-}
-
-template <typename WT, int EP>
-__global__ void epilogue(const typename Acc<WT>::T* __restrict__ part, int ks,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ rs,
-                         const __nv_bfloat16* __restrict__ x,
-                         __nv_bfloat16* __restrict__ out, int B, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B * N)
-    epilogue_elem<WT, EP>(i, part, ks, scale, bias, rs, x, out, B, N);
-}
-
-template <typename WT, int EP>
-cudaError_t run_epilogue(const void* part, int ks, const float* scale,
-                         const float* bias, const float* rs,
-                         const __nv_bfloat16* x, __nv_bfloat16* out, int B,
-                         int N, cudaStream_t st) {
-  const int n = B * N;
-  epilogue<WT, EP><<<(n + 255) / 256, 256, 0, st>>>(
-      static_cast<const typename Acc<WT>::T*>(part), ks, scale, bias, rs, x,
-      out, B, N);
-  return cudaGetLastError();
-}
+// Tickets a product needs: one per column tile.
+inline int gemm_tickets(int N) { return N / TILE_N; }
 
 // Carves 256-byte aligned pieces off a workspace.
 struct Carve {

@@ -11,29 +11,31 @@
 // the place of two; its numerics are theirs by construction. The same here:
 // the phases are the device bodies of self_attn_step.cu and
 // cross_ffn_step.cu (self_attn_phases.cuh, cross_ffn_phases.cuh,
-// decode_common.cuh), which those files launch as sixteen kernels, walked
-// by one persistent grid launched with cudaLaunchCooperativeKernel, with a
-// grid-wide barrier between phases. Each phase loops over the block indices
-// of the corresponding launch ("virtual blocks"), with the partitions
-// (K split, T chunks) derived from the SM count exactly as there, so every
-// partial sum is formed over the same elements in the same order and the
-// output and the written cache rows are bit for bit those of
-// self_attn_step_launch followed by cross_ffn_step_launch.
+// decode_common.cuh), which those files launch as three and five kernels,
+// walked by one persistent grid launched with cudaLaunchCooperativeKernel,
+// with a grid-wide barrier between phases. Each phase loops over the block
+// indices of the corresponding launch ("virtual blocks"), with the
+// partitions (K split, T chunks) derived from the SM count exactly as
+// there, so every partial sum is formed over the same elements in the same
+// order, each product's last virtual block of a column tile applies the
+// same epilogue (its atomic ticket works across virtual blocks as across
+// blocks), and the output and the written cache rows are bit for bit those
+// of self_attn_step_launch followed by cross_ffn_step_launch.
 //
 // What bounds it on this card: the two steps' bytes (the int8 weights
 // 4·D² + 2·D·F, cache rows 0..pos, the bf16 cross planes 2·B·T·D·2), a few
 // MB that the card streams in microseconds; what this kernel removes is
-// fifteen of sixteen launches and the host work between the two calls.
-// What it pays is fifteen grid barriers.
+// seven of eight launches and the host work between the two calls. What
+// it pays is seven grid barriers.
 //
 // The grid is sized from the occupancy of this kernel (at most two blocks
 // per SM, as the partitions aim at two blocks per SM), never from the
 // problem; the whole grid must be resident for the barriers. Blocks have
 // 256 threads, the width of skinny_gemm and of the self-attention body; the
-// cross-attention bodies are written for 128 threads (their reduction
-// order), so each block runs two of them side by side as teams that meet
-// at named barriers. The row `pos` of the self caches is written by the
-// QKV epilogue phase and read by the attention phase after a grid barrier.
+// cross-attention body is written for 128 threads (its reduction order),
+// so each block runs two of them side by side as teams that meet at named
+// barriers (each team takes its own ticket for the chunk combine). The row `pos` of the self caches is written by the QKV
+// product's epilogue and read by the attention phase after a grid barrier.
 // A refused cooperative launch is returned as its error; nothing falls
 // back to the two-call route.
 
@@ -70,38 +72,30 @@ struct Params {
   __nv_bfloat16 *ck, *cv;
   const __nv_bfloat16 *xk, *xv;
   __nv_bfloat16* out;
+  int* tickets;
   // workspace
   int* part;
-  float* rs;
   __nv_bfloat16 *q, *ctx, *x1, *x2, *g;
-  float *sc, *pctx;
+  float *po, *pm, *pl;
   int B, D, F, S, pos, T, t_actual;
   // partitions, from the SM count
   int ks_qkv, kc_qkv, ks_dd, kc_dd, ks_df, kc_df, ks_fd, kc_fd, ch, tc;
 };
 
-// One skinny product as a phase: virtual blocks (N / 32, ks).
-template <int IN>
-__device__ __forceinline__ void gemm_phase(
-    unsigned char* smem, const __nv_bfloat16* a, const float* ln_g,
-    const float* ln_b, const int8_t* w, int* part, float* rs, int B, int K,
-    int N, int ks, int kc) {
+// One skinny product with its epilogue as a phase: virtual blocks
+// (N / 32, ks).
+template <int IN, int EP>
+__device__ __forceinline__ void gemm_phase(unsigned char* smem, const In& in,
+                                           const int8_t* w, const Ep& ep,
+                                           const Params& p, int K, int N,
+                                           int ks, int kc) {
   const int tiles = N / TILE_N;
   for (int vb = blockIdx.x; vb < tiles * ks; vb += gridDim.x) {
     __syncthreads();            // the shared memory of the last round
-    skinny_gemm_body<int8_t, IN>(smem, vb % tiles, vb / tiles, a, ln_g, ln_b,
-                                 w, part, rs, B, K, N, kc);
+    skinny_gemm_body<int8_t, IN, EP>(smem, vb % tiles, vb / tiles, in, w,
+                                     p.part, nullptr, p.tickets, ep, p.B, K,
+                                     N, kc, ks);
   }
-}
-
-template <int EP>
-__device__ __forceinline__ void epilogue_phase(
-    const int* part, int ks, const float* scale, const float* bias,
-    const float* rs, const __nv_bfloat16* x, __nv_bfloat16* out, int B,
-    int N) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B * N;
-       i += gridDim.x * blockDim.x)
-    epilogue_elem<int8_t, EP>(i, part, ks, scale, bias, rs, x, out, B, N);
 }
 
 __global__ void __launch_bounds__(THREADS) layer_step(const Params p) {
@@ -109,14 +103,11 @@ __global__ void __launch_bounds__(THREADS) layer_step(const Params p) {
   cg::grid_group grid = cg::this_grid();
   const int B = p.B, D = p.D, F = p.F, H = p.D / HD;
 
-  // ---- the self-attention step (self_attn_step.cu's five launches)
-  gemm_phase<IN_LN>(smem, p.x, p.ln1_g, p.ln1_b, p.wqkv, p.part, p.rs, B, D,
-                    3 * D, p.ks_qkv, p.kc_qkv);
-  grid.sync();
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B * 3 * D;
-       i += gridDim.x * blockDim.x)
-    qkv_epilogue_elem<int8_t>(i, p.part, p.ks_qkv, p.sqkv, p.bqkv, p.rs, p.q,
-                              p.ck, p.cv, B, D, p.S, p.pos);
+  // ---- the self-attention step (self_attn_step.cu's three launches)
+  gemm_phase<IN_LN, EP_QKV>(smem, In{p.x, p.ln1_g, p.ln1_b}, p.wqkv,
+                            Ep{p.sqkv, p.bqkv, nullptr, p.q, p.ck, p.cv, p.S,
+                               p.pos},
+                            p, D, 3 * D, p.ks_qkv, p.kc_qkv);
   grid.sync();                  // row `pos` is visible to every block
   for (int vb = blockIdx.x; vb < H * B; vb += gridDim.x) {
     __syncthreads();
@@ -124,60 +115,42 @@ __global__ void __launch_bounds__(THREADS) layer_step(const Params p) {
                         p.ck, p.cv, p.ctx, D, p.S, p.pos);
   }
   grid.sync();
-  gemm_phase<IN_ROW>(smem, p.ctx, nullptr, nullptr, p.wo1, p.part, p.rs, B, D,
-                     D, p.ks_dd, p.kc_dd);
-  grid.sync();
-  epilogue_phase<EP_RESID>(p.part, p.ks_dd, p.so1, p.bo1, p.rs, p.x, p.x1, B,
-                           D);
+  gemm_phase<IN_ROW, EP_RESID>(smem, In{p.ctx}, p.wo1,
+                               Ep{p.so1, p.bo1, p.x, p.x1}, p, D, D, p.ks_dd,
+                               p.kc_dd);
   grid.sync();
 
-  // ---- the cross-attention + FFN step (cross_ffn_step.cu's eleven)
-  gemm_phase<IN_LN>(smem, p.x1, p.lnc_g, p.lnc_b, p.wq, p.part, p.rs, B, D, D,
-                    p.ks_dd, p.kc_dd);
-  grid.sync();
-  epilogue_phase<EP_Q>(p.part, p.ks_dd, p.sq, p.bq, p.rs, nullptr, p.q, B, D);
+  // ---- the cross-attention + FFN step (cross_ffn_step.cu's five)
+  gemm_phase<IN_LN, EP_Q>(smem, In{p.x1, p.lnc_g, p.lnc_b}, p.wq,
+                          Ep{p.sq, p.bq, nullptr, p.q}, p, D, D, p.ks_dd,
+                          p.kc_dd);
   grid.sync();
   {
     // two teams of CROSS_ATT threads, each on its own virtual block
     const int team = threadIdx.x / CROSS_ATT;
     const Team tm{(int)threadIdx.x % CROSS_ATT, CROSS_ATT, 1 + team};
     float* sm = reinterpret_cast<float*>(smem) +
-                team * (cross_pv_smem_floats(p.tc));
+                team * cross_att_smem_floats(p.tc);
     const int nvb = H * B * p.ch;
     for (int vb = 2 * blockIdx.x + team; vb < nvb; vb += 2 * gridDim.x) {
       team_sync(tm);
-      cross_scores_body(sm, vb % H, (vb / H) % B, vb / (H * B), H, p.q, p.xk,
-                        p.sc, D, p.T, p.t_actual, p.tc, tm);
-    }
-    grid.sync();
-    for (int vb = 2 * blockIdx.x + team; vb < nvb; vb += 2 * gridDim.x) {
-      team_sync(tm);
-      cross_pv_body(sm, vb % H, (vb / H) % B, vb / (H * B), H, B, p.sc, p.xv,
-                    p.pctx, D, p.T, p.tc, tm);
+      cross_attn_body(sm, vb % H, (vb / H) % B, vb / (H * B), H, B, p.ch, p.q,
+                      p.xk, p.xv, p.po, p.pm, p.pl, p.tickets, p.ctx, D, p.T,
+                      p.t_actual, p.tc, tm);
     }
   }
   grid.sync();
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B * D;
-       i += gridDim.x * blockDim.x)
-    combine_elem(i, p.pctx, p.ctx, B * D, p.ch);
+  gemm_phase<IN_ROW, EP_RESID>(smem, In{p.ctx}, p.wo2,
+                               Ep{p.so2, p.bo2, p.x1, p.x2}, p, D, D, p.ks_dd,
+                               p.kc_dd);
   grid.sync();
-  gemm_phase<IN_ROW>(smem, p.ctx, nullptr, nullptr, p.wo2, p.part, p.rs, B, D,
-                     D, p.ks_dd, p.kc_dd);
+  gemm_phase<IN_LN, EP_GELU>(smem, In{p.x2, p.ln2_g, p.ln2_b}, p.w1,
+                             Ep{p.s1, p.b1, nullptr, p.g}, p, D, F, p.ks_df,
+                             p.kc_df);
   grid.sync();
-  epilogue_phase<EP_RESID>(p.part, p.ks_dd, p.so2, p.bo2, p.rs, p.x1, p.x2, B,
-                           D);
-  grid.sync();
-  gemm_phase<IN_LN>(smem, p.x2, p.ln2_g, p.ln2_b, p.w1, p.part, p.rs, B, D, F,
-                    p.ks_df, p.kc_df);
-  grid.sync();
-  epilogue_phase<EP_GELU>(p.part, p.ks_df, p.s1, p.b1, p.rs, nullptr, p.g, B,
-                          F);
-  grid.sync();
-  gemm_phase<IN_ROW>(smem, p.g, nullptr, nullptr, p.w2, p.part, p.rs, B, F, D,
-                     p.ks_fd, p.kc_fd);
-  grid.sync();
-  epilogue_phase<EP_RESID>(p.part, p.ks_fd, p.s2, p.b2, p.rs, p.x2, p.out, B,
-                           D);
+  gemm_phase<IN_ROW, EP_RESID>(smem, In{p.g}, p.w2,
+                               Ep{p.s2, p.b2, p.x2, p.out}, p, F, D, p.ks_fd,
+                               p.kc_fd);
 }
 
 size_t part_bytes(int B, int D, int F, int sms) {
@@ -190,20 +163,18 @@ size_t part_bytes(int B, int D, int F, int sms) {
 size_t carve(void* ws, Params& p, int B, int D, int F, int T, int sms) {
   Carve c(ws);
   int tc;
-  const int ch = t_chunks(B, D / HD, T, sms, &tc);
+  const int H = D / HD, ch = t_chunks(B, H, T, sms, &tc);
   p.part = static_cast<int*>(c.take(part_bytes(B, D, F, sms)));
-  p.rs = static_cast<float*>(c.take((size_t)B * 4));
   p.q = static_cast<__nv_bfloat16*>(c.take((size_t)B * D * 2));
   p.ctx = static_cast<__nv_bfloat16*>(c.take((size_t)B * D * 2));
   p.x1 = static_cast<__nv_bfloat16*>(c.take((size_t)B * D * 2));
   p.x2 = static_cast<__nv_bfloat16*>(c.take((size_t)B * D * 2));
   p.g = static_cast<__nv_bfloat16*>(c.take((size_t)B * F * 2));
-  p.sc = static_cast<float*>(c.take((size_t)B * (D / HD) * T * 4));
-  p.pctx = static_cast<float*>(c.take((size_t)ch * B * D * 4));
+  p.po = static_cast<float*>(c.take((size_t)ch * B * D * 4));
+  p.pm = static_cast<float*>(c.take((size_t)ch * B * H * 4));
+  p.pl = static_cast<float*>(c.take((size_t)ch * B * H * 4));
   return c.used;
 }
-
-long long g_kernel_launches = 0;
 
 // Blocks of layer_step that one SM holds with `smem` bytes of dynamic shared
 // memory, after raising the kernel's limit to it. Both answers depend only
@@ -238,16 +209,23 @@ extern "C" size_t layer_step_workspace(int B, int D, int F, int T, int sms) {
   return carve(nullptr, p, B, D, F, T, sms);
 }
 
+// Tickets (ints) for one call: a zeroed buffer that each call leaves
+// zeroed, so calls in one stream's order share it.
+extern "C" int layer_step_tickets(int D, int F) {
+  const int a = gemm_tickets(3 * D), c = cross_tickets(D, F);
+  return a > c ? a : c;
+}
+
 // __global__ launches made by layer_step_launch since the library was
 // loaded (one per call that reached its launch).
-extern "C" long long layer_step_kernel_launches() { return g_kernel_launches; }
+extern "C" long long layer_step_kernel_launches() { return g_launches; }
 
 // C entry. x bf16 [B, D]; LayerNorm parameters f32 [D]; the int8 weights
 // wqkv [D, 3D], wo1, wq, wo2 [D, D], w1 [D, F], w2 [F, D], each followed by
 // its f32 per-channel scales and its f32 bias; self caches bf16 [B, S, D],
 // row `pos` written in place; cross planes bf16 [B, T, D] whose positions
-// ≥ t_actual are masked; out bf16 [B, D]; ws from layer_step_workspace.
-// All contiguous. Returns a cudaError_t (0 = launched). Needs 1 ≤ B ≤ 32,
+// ≥ t_actual are masked; out bf16 [B, D]; ws from layer_step_workspace;
+// tickets layer_step_tickets ints, zero (and left zero). All contiguous. Returns a cudaError_t (0 = launched). Needs 1 ≤ B ≤ 32,
 // D % 64 == 0, F % 32 == 0, 0 ≤ pos < S, 1 ≤ t_actual ≤ T.
 extern "C" int layer_step_launch(
     const void* x, const void* ln1_g, const void* ln1_b, const void* wqkv,
@@ -257,8 +235,8 @@ extern "C" int layer_step_launch(
     const void* bo2, const void* ln2_g, const void* ln2_b, const void* w1,
     const void* s1, const void* b1, const void* w2, const void* s2,
     const void* b2, void* cache_k, void* cache_v, const void* cross_k,
-    const void* cross_v, void* out, void* ws, int B, int D, int F, int S,
-    int pos, int T, int t_actual, int sms, void* stream) {
+    const void* cross_v, void* out, void* ws, void* tickets, int B, int D,
+    int F, int S, int pos, int T, int t_actual, int sms, void* stream) {
   if (B < 1 || B > MAXB || D <= 0 || D % HD || F <= 0 || F % TILE_N ||
       pos < 0 || pos >= S || t_actual < 1 || t_actual > T || sms < 1)
     return cudaErrorInvalidValue;
@@ -280,6 +258,7 @@ extern "C" int layer_step_launch(
   p.cv = static_cast<__nv_bfloat16*>(cache_v);
   p.xk = h(cross_k), p.xv = h(cross_v);
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.tickets = static_cast<int*>(tickets);
   carve(ws, p, B, D, F, T, sms);
   p.B = B, p.D = D, p.F = F, p.S = S, p.pos = pos, p.T = T;
   p.t_actual = t_actual;
@@ -289,13 +268,13 @@ extern "C" int layer_step_launch(
   p.ks_fd = split_k(F, D, sms, &p.kc_fd);
   p.ch = t_chunks(B, D / HD, T, sms, &p.tc);
 
-  size_t smem = gemm_smem(B, p.kc_qkv);
-  for (int kc : {p.kc_dd, p.kc_df, p.kc_fd})
-    smem = gemm_smem(B, kc) > smem ? gemm_smem(B, kc) : smem;
+  size_t smem = 0;
+  for (const int kc : {p.kc_qkv, p.kc_dd, p.kc_df, p.kc_fd})
+    smem = gemm_smem<int8_t>(B, kc) > smem ? gemm_smem<int8_t>(B, kc) : smem;
   // sized for the last position, so that a decode's steps share one
   // shared-memory size (and with it the grid)
   const size_t att = self_attention_smem(S - 1);
-  const size_t cross = 2 * cross_pv_smem_floats(p.tc) * sizeof(float);
+  const size_t cross = 2 * cross_att_smem(p.tc);
   smem = att > smem ? att : smem;
   smem = cross > smem ? cross : smem;
   int per_sm = 0;
@@ -308,8 +287,7 @@ extern "C" int layer_step_launch(
                                   dim3(blocks), dim3(THREADS), args, smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
-  ++g_kernel_launches;
-  return cudaGetLastError();
+  return launched();
 }
 
 extern "C" const char* layer_step_error_string(int err) {

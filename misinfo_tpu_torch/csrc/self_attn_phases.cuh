@@ -9,26 +9,6 @@ namespace dec {
 
 constexpr int SELF_ATT = 256;   // threads of the self-attention body
 
-// 64 bf16 of one cache row (128 bytes, 16-byte aligned) dotted with q in
-// f32, in dimension order.
-__device__ __forceinline__ float row_dot(const __nv_bfloat16* row,
-                                         const float* q) {
-  const uint4* r = reinterpret_cast<const uint4*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    const uint4 u = r[c];
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h2[e]);
-      acc = __fadd_rn(acc, __fmul_rn(q[8 * c + 2 * e], f.x));
-      acc = __fadd_rn(acc, __fmul_rn(q[8 * c + 2 * e + 1], f.y));
-    }
-  }
-  return acc;
-}
-
 inline size_t self_attention_smem(int pos) {
   return (size_t)(HD + SELF_ATT + pos + 1) * 4;
 }
@@ -45,6 +25,7 @@ __device__ __forceinline__ void self_attention_body(
   float* qs = sm;                 // [HD]
   float* scr = qs + HD;           // [SELF_ATT]: warp scratch, then partials
   float* sc = scr + SELF_ATT;     // [pos + 1]
+  wait_prior_grid();              // q and row `pos` of the caches
   if (threadIdx.x < HD) qs[threadIdx.x] = ld(q + (size_t)b * D + h * HD +
                                              threadIdx.x);
   __syncthreads();
@@ -79,27 +60,6 @@ __device__ __forceinline__ void self_attention_body(
     for (int g = 1; g < G; ++g) c = __fadd_rn(c, scr[g * HD + d]);
     ctx[(size_t)b * D + h * HD + d] = __float2bfloat16_rn(c);
   }
-}
-
-// Element i of [B, 3D]: q → q_out [B, D]; k, v → row `pos` of the caches
-// [B, S, D].
-template <typename WT>
-__device__ __forceinline__ void qkv_epilogue_elem(
-    int i, const typename Acc<WT>::T* part, int ks,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    const float* rs, __nv_bfloat16* q_out,
-    __nv_bfloat16* ck, __nv_bfloat16* cv, int B,
-    int D, int S, int pos) {
-  const int N = 3 * D;
-  const int b = i / N, n = i - b * N;
-  const __nv_bfloat16 y = __float2bfloat16_rn(
-      dequant<WT>(part, ks, B, N, b, n, scale, bias, rs, n < D));
-  if (n < D)
-    q_out[(size_t)b * D + n] = y;
-  else if (n < 2 * D)
-    ck[((size_t)b * S + pos) * D + n - D] = y;
-  else
-    cv[((size_t)b * S + pos) * D + n - 2 * D] = y;
 }
 
 inline size_t self_part_bytes(int B, int D, int sms) {

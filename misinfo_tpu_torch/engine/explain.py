@@ -23,6 +23,7 @@ import logging
 from typing import Dict, List, Optional
 
 from misinfo_tpu_torch.core.config import Thresholds
+from misinfo_tpu_torch.utils.tracing import GLOBAL_TRACER
 
 logger = logging.getLogger("misinfo_tpu_torch.explain")
 
@@ -32,17 +33,6 @@ try:
 except ImportError:
     _genai = None
     GEMINI_AVAILABLE = False
-
-
-class _Counters:
-    """Outcome counters when no tracer is given (the JAX package's
-    utils/tracing is not ported yet)."""
-
-    def __init__(self):
-        self.counts: Dict[str, int] = {}
-
-    def incr(self, name: str) -> None:
-        self.counts[name] = self.counts.get(name, 0) + 1
 
 
 def build_llm_prompt(all_scores: Dict, vault_matches: List[Dict],
@@ -193,7 +183,7 @@ class Explainer:
         self.thresholds = thresholds
         self.available = False
         self._model = None
-        self.tracer = tracer if tracer is not None else _Counters()
+        self.tracer = tracer if tracer is not None else GLOBAL_TRACER
         self.last_error: Optional[Dict] = None
         if GEMINI_AVAILABLE and api_key:
             try:

@@ -7,6 +7,13 @@ scores, vault_matches, explanation}``. Requests are grouped per variant
 (full / text_only / visual_only), padded to batch buckets, text to length
 buckets 64/128/256/512 or packed into shared rows (``pack_text="auto"``),
 and each group runs as one signal program on the device.
+``analyze_batch_async`` enqueues a batch and returns its ``finalize()``
+(the device programs run asynchronously on the card; the one host sync is
+the result's copy back), ``analyze_stream`` keeps one batch in flight, and
+``analyze_text`` / ``analyze_image`` / ``analyze_consistency`` /
+``search_vault`` / ``fusion_verdict`` are the reference's per-signal
+conveniences over one batched call. Image host prep runs on a thread pool
+for more than one image.
 
 The Truth Vault takes every ``ServingConfig.vault_dtype`` (float32,
 bfloat16, int8, int4 with its ``<vault>.int4.npz`` sidecar) and
@@ -19,14 +26,19 @@ fused int8 FFN K1), ``use_pallas=True`` (the fused attention kernel K3
 on unpacked rows) and ``use_pallas="ffn"`` (the fused FFN kernel K5).
 
 Not carried yet, and refused with NotImplementedError: video, meshes,
-warmup and the AOT cache, on-device resize and ``use_pallas="flash"``
-(JAX's library TPU kernel).
+warmup and the AOT cache, on-device resize, ``use_pallas="flash"`` (JAX's
+library TPU kernel) and the reference ``.pth`` checkpoints (an engine
+built without ``params`` refuses to start when one of ``ModelPaths``'
+checkpoint files exists, rather than serve random weights in its place).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import itertools
 import logging
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -42,6 +54,7 @@ from misinfo_tpu_torch.engine.signals import (
     SignalOutput, pack_signal_output, signals_program, unpack_signal_output)
 from misinfo_tpu_torch.models.clip import clip_text_features
 from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
+from misinfo_tpu_torch.models.fusion import fusion_apply
 from misinfo_tpu_torch.ops.common import Policy, l2_normalize, set_exact_f32
 from misinfo_tpu_torch.ops.serving import (
     optimize_for_serving, quant_mode, resolve_quant)
@@ -55,6 +68,7 @@ from misinfo_tpu_torch.vault.int4 import Int4Vault, pad_int4_vault
 from misinfo_tpu_torch.vault import ivf as vault_ivf
 from misinfo_tpu_torch.vault.prepack import get_or_build
 from misinfo_tpu_torch.vault.search import quantize_rows_int8
+from misinfo_tpu_torch.utils.tracing import GLOBAL_TRACER, stage_timer
 from misinfo_tpu_torch.vault.store import TruthVault
 
 _UNSET = object()  # distinguishes "default to self.vault" from vault=None
@@ -118,18 +132,34 @@ class MisinfoForensics:
         self.clip_tokenizer = load_clip_tokenizer(
             self.cfg.paths.clip_tokenizer_dir,
             vocab_size=self.det_cfg.clip.vocab_size)
-        self.tokenizer_parity = all(
-            bool(getattr(t, "parity_grade", False))
-            for t in (self.roberta_tokenizer, self.clip_tokenizer))
+        # hash-fallback serving works, but its scores are not comparable
+        # to the reference's: surfaced in load_report and the banner
+        self.tokenizer_grades = {
+            "roberta": bool(getattr(self.roberta_tokenizer, "parity_grade",
+                                    False)),
+            "clip": bool(getattr(self.clip_tokenizer, "parity_grade", False)),
+        }
+        self.tokenizer_parity = all(self.tokenizer_grades.values())
 
         if params is None:
-            # no reference .pth loading yet: seeded random init, as the
-            # JAX engine serves when no checkpoint files are present
+            paths = self.cfg.paths
+            found = [f for f in (paths.fusion_weights, paths.ai_head_weights,
+                                 paths.misinfo_head_weights,
+                                 paths.efficientnet_weights,
+                                 paths.clip_weights) if os.path.exists(f)]
+            if found:
+                # JAX loads these; serving random weights beside them
+                # would pass for a trained deployment
+                not_ported(f"loading the reference checkpoints "
+                           f"{', '.join(found)}", "M16")
+            # seeded random init, as the JAX engine serves when no
+            # checkpoint files are present
             params = detector_init(self.cfg.seed, self.det_cfg)
             self.load_report = {"mode": "init"}
         else:
             self.load_report = {"mode": "provided"}
         self.load_report["tokenizer_parity"] = self.tokenizer_parity
+        self.load_report["tokenizer_grades"] = dict(self.tokenizer_grades)
         self.quant = resolve_quant(self.cfg.precision.quant, self.policy,
                                    self.device)
         if self.quant != "none":
@@ -142,22 +172,50 @@ class MisinfoForensics:
         self._vault_device = self._prepare_vault()
         self._warn_vault_capacity(self._vault_device)
         self._reload_lock = threading.Lock()  # serializes reload_vault
+        self._prep_pool = None  # lazy image-prep thread pool (_prep_map)
         self.explainer = Explainer(self.cfg.gemini_api_key,
                                    self.cfg.gemini_model,
                                    self.cfg.thresholds)
+        self.gemini_available = self.explainer.available
         self.init_seconds = time.perf_counter() - t0
         if self.cfg.verbose:
+            tok = ("parity" if self.tokenizer_parity else
+                   "HASH-FALLBACK (scores not reference-comparable; "
+                   "fetch vocab assets via serve/download.py)")
             print(f"MisinfoForensics ready in {self.init_seconds:.1f}s "
                   f"(device={self.device}, quant={self.quant}, "
                   f"use_pallas={self.use_pallas}, "
                   f"vault={'loaded' if self.vault_loaded else 'absent'}, "
                   f"vault_dtype={sv.vault_dtype}, "
-                  f"ckpt={self.load_report['mode']})")
+                  f"ckpt={self.load_report['mode']}, tokenizer={tok})")
 
     # ----------------------------------------------------------- helpers
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _stage(self, a) -> torch.Tensor:
+        """A request input on the device. On the card it goes through
+        pinned host memory without a sync (PyTorch's pinned-memory cache
+        keeps the buffer until the copy has run), so that a batch's inputs
+        and programs are all enqueued before anything waits."""
+        if self.device.type != "cuda":
+            return self._tensor(a)
+        host = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    def _pool(self) -> concurrent.futures.ThreadPoolExecutor:
+        """Lazy shared host-prep thread pool (cv2/PIL release the GIL, so
+        decode/resize scale with host cores)."""
+        if self._prep_pool is None:
+            self._prep_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(16, os.cpu_count() or 1))
+        return self._prep_pool
+
+    def _prep_map(self, fn, items: List) -> List:
+        if len(items) > 1:
+            return list(self._pool().map(fn, items))
+        return [fn(x) for x in items]
 
     def _prepare_vault(self, vault=_UNSET,
                        vault_path=_UNSET) -> Dict[str, torch.Tensor]:
@@ -387,12 +445,12 @@ class MisinfoForensics:
         _, _, packed, rows = plan
         packed = pad_packed_rows(packed, rows,
                                  self.det_cfg.roberta.pad_token_id)
-        return {"roberta_ids": self._tensor(packed.ids),
-                "roberta_mask": self._tensor(packed.mask),
-                "roberta_pos": self._tensor(packed.position_ids),
-                "roberta_seg": self._tensor(packed.segment_ids),
-                "cls_rows": self._tensor(packed.cls_rows),
-                "cls_cols": self._tensor(packed.cls_cols)}
+        return {"roberta_ids": self._stage(packed.ids),
+                "roberta_mask": self._stage(packed.mask),
+                "roberta_pos": self._stage(packed.position_ids),
+                "roberta_seg": self._stage(packed.segment_ids),
+                "cls_rows": self._stage(packed.cls_rows),
+                "cls_cols": self._stage(packed.cls_cols)}
 
     def _image_batch(self, images: List, bucket: int) -> Dict:
         """Host decode once, resize to both 224px flavors, zero-fill pads."""
@@ -404,12 +462,63 @@ class MisinfoForensics:
             return (image_to_array(arr, "effnet", size),
                     image_to_array(arr, "clip", size))
 
-        pairs = [prep(im) for im in images]
+        pairs = self._prep_map(prep, images)
         pad = [None] * (bucket - len(images))
-        return {"image_effnet": self._tensor(
+        return {"image_effnet": self._stage(
                     batch_images([p[0] for p in pairs] + pad, size)),
-                "image_clip": self._tensor(
+                "image_clip": self._stage(
                     batch_images([p[1] for p in pairs] + pad, size))}
+
+    # ------------------------------------------------- per-signal methods
+    # The reference's per-signal API; each rides the batched engine (these
+    # are conveniences, the fused program is the hot path).
+
+    def analyze_text(self, text: str) -> Dict[str, float]:
+        """Reference analyze_text: the two RoBERTa heads' scores."""
+        out = self._analyze_batch_internal([{"text": text}])[0]
+        return {"ai_score": out["scores"]["ai_score"],
+                "misinfo_score": out["scores"]["misinfo_score"]}
+
+    def analyze_image(self, image_path) -> Dict[str, float]:
+        """Reference analyze_image: the deepfake score."""
+        out = self._analyze_batch_internal([{"image": image_path}])[0]
+        return {"deepfake_score": out["scores"]["deepfake_score"]}
+
+    def analyze_consistency(self, text: str, image_path) -> Dict[str, float]:
+        """Reference analyze_consistency: the CLIP caption-image cosine."""
+        out = self._analyze_batch_internal(
+            [{"text": text, "image": image_path}])[0]
+        return {"clip_similarity": out["scores"]["clip_similarity"]}
+
+    def search_vault(self, image_path, user_caption: Optional[str] = None,
+                     top_k: Optional[int] = None) -> Dict:
+        """Reference search_vault: discrepancy and matches of one image
+        (and its caption) against the Truth Vault."""
+        if not self.vault_loaded:
+            return TruthVault.empty_result()
+        req = {"image": image_path}
+        if user_caption:
+            req["text"] = user_caption
+        out = self._analyze_batch_internal([req])[0]
+        return {"vault_discrepancy": out["scores"]["vault_discrepancy"],
+                "matches": out["vault_matches"],
+                "vault_available": True,
+                "text_similarity": out["scores"]["text_similarity"]}
+
+    def fusion_verdict(self, scores: Dict[str, float]) -> Dict:
+        """Reference fusion_verdict: the fusion MLP over five signals."""
+        vec = torch.tensor([[scores.get(k, 0.0) for k in (
+            "ai_score", "misinfo_score", "deepfake_score", "clip_similarity",
+            "vault_discrepancy")]], dtype=torch.float32, device=self.device)
+        with torch.inference_mode():
+            probs = torch.softmax(fusion_apply(self.params["fusion"], vec),
+                                  dim=-1)[0].cpu().numpy()
+        real_p, fake_p = float(probs[0]), float(probs[1])
+        verdict = 1 if fake_p > self.cfg.thresholds.fake_decision else 0
+        return {"verdict": verdict,
+                "confidence": fake_p if verdict == 1 else real_p,
+                "fake_probability": fake_p,
+                "real_probability": real_p}
 
     # --------------------------------------------------------- analyze()
 
@@ -428,7 +537,7 @@ class MisinfoForensics:
             req["image"] = image_path
         if video_path is not None:
             req["video"] = video_path
-        report = self.analyze_batch([req], explanations=True)[0]
+        report = self._analyze_batch_internal([req], explanations=True)[0]
         if verbose:
             self._print_report(req, report)
         return report
@@ -437,6 +546,54 @@ class MisinfoForensics:
                       explanations: bool = False) -> List[Dict]:
         """Batched analyze over {text?, image?} dicts: one program call per
         variant group of at most the largest batch bucket."""
+        return self._analyze_batch_internal(requests, explanations)
+
+    def analyze_stream(self, requests, batch_size: Optional[int] = None,
+                       explanations: bool = False):
+        """Pipelined bulk analyze: iterate ``requests`` (any iterable of
+        request dicts) in ``batch_size`` groups with one batch in flight,
+        yielding report dicts in input order. While batch N runs on the
+        device, batch N+1's host prep and dispatch proceed."""
+        batch_size = batch_size or max(self.cfg.serving.batch_buckets)
+        it = iter(requests)
+        pending = None
+        while True:
+            chunk = list(itertools.islice(it, batch_size))
+            nxt = (self.analyze_batch_async(chunk, explanations)
+                   if chunk else None)
+            if pending is not None:
+                yield from pending()
+            pending = nxt
+            if nxt is None:
+                return
+
+    def _analyze_batch_internal(self, requests: List[Dict],
+                                explanations: bool = False) -> List[Dict]:
+        with stage_timer("analyze", n_requests=len(requests)):
+            return self._finalize_batch(self._dispatch_batch(requests),
+                                        requests, explanations)
+
+    def analyze_batch_async(self, requests: List[Dict],
+                            explanations: bool = False):
+        """Pipelined form of analyze_batch: enqueues every device program
+        without a sync and returns a zero-argument ``finalize()`` that waits
+        for the results and returns the report list. On the card the
+        programs run asynchronously; the results' copy back is the only
+        sync."""
+        t0 = time.perf_counter()
+        dispatches = self._dispatch_batch(requests)
+
+        def finalize() -> List[Dict]:
+            out = self._finalize_batch(dispatches, requests, explanations)
+            # the async path feeds the same analyze counters as the sync one
+            GLOBAL_TRACER.event("analyze", time.perf_counter() - t0,
+                                n_requests=len(requests))
+            return out
+
+        return finalize
+
+    def _dispatch_batch(self, requests: List[Dict]):
+        """Group → prep → enqueue the device programs (no host sync)."""
         groups: Dict[str, List[int]] = {}
         for i, r in enumerate(requests):
             if "video" in r:
@@ -451,10 +608,9 @@ class MisinfoForensics:
                 raise ValueError(f"request {i} has no modality")
             groups.setdefault(v, []).append(i)
         maxb = self.cfg.serving.batch_buckets[-1]
-        dispatches = [self._dispatch_group(requests, variant, idxs[lo:lo + maxb])
-                      for variant, idxs in groups.items()
-                      for lo in range(0, len(idxs), maxb)]
-        return self._finalize_batch(dispatches, requests, explanations)
+        return [self._dispatch_group(requests, variant, idxs[lo:lo + maxb])
+                for variant, idxs in groups.items()
+                for lo in range(0, len(idxs), maxb)]
 
     def _dispatch_group(self, requests: List[Dict], variant: str,
                         idxs: List[int]):
@@ -488,11 +644,11 @@ class MisinfoForensics:
                         self.det_cfg.roberta.pad_token_id)
                 else:
                     rb_ids, rb_mask = self._tokenize_batch(texts, bucket)
-                batch.update(roberta_ids=self._tensor(rb_ids),
-                             roberta_mask=self._tensor(rb_mask))
+                batch.update(roberta_ids=self._stage(rb_ids),
+                             roberta_mask=self._stage(rb_mask))
             if variant == "full":
-                batch.update(clip_ids=self._tensor(cl_ids),
-                             clip_mask=self._tensor(cl_mask))
+                batch.update(clip_ids=self._stage(cl_ids),
+                             clip_mask=self._stage(cl_mask))
         if variant in ("full", "visual_only"):
             batch.update(self._image_batch([r["image"] for r in reqs],
                                            bucket))

@@ -39,10 +39,11 @@ probability 0, so the ragged last tile gives the same scales).
 launches ``csrc/cross_ffn_step.cu`` (``csrc/cross_ffn_step_i8cc.cu`` for
 int8 planes; bf16 activations only) or raises; a CPU tensor runs
 ``cross_ffn_step_plain`` (``cross_ffn_step_i8cc_plain``). ``launches``
-counts kernel calls on bf16 planes (one per call; the C entry runs eleven
-kernels), ``launches_i8`` the calls among them with int8 weights,
-``launches_i8cc`` the calls on int8 planes (twelve kernels each). A call
-carries at most ``MAX_BATCH`` rows.
+counts kernel calls on bf16 planes (one per call), ``launches_i8`` the
+calls among them with int8 weights, ``launches_i8cc`` the calls on int8
+planes; ``kernel_launches`` and ``kernel_launches_i8cc`` read the two
+libraries' own counts of ``__global__`` launches (five per call on bf16
+planes, nine on int8 planes). A call carries at most ``MAX_BATCH`` rows.
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ import torch.nn.functional as F
 
 from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, dense, layer_norm)
-from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
+from misinfo_tpu_torch.ops.cuda_build import (
+    build, check_tensor, multiprocessors, tickets, weight_pointers, workspace)
 from misinfo_tpu_torch.ops.quant import (
     int_einsum, int_matmul, quantize_rows, times_r127)
 
@@ -221,9 +223,13 @@ def _library():
     lib, build_log = build("cross_ffn_step")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cross_ffn_step_launch.restype = i
-    lib.cross_ffn_step_launch.argtypes = [p] * 21 + [i] * 7 + [p]
+    lib.cross_ffn_step_launch.argtypes = [p] * 22 + [i] * 7 + [p]
     lib.cross_ffn_step_workspace.restype = ctypes.c_size_t
     lib.cross_ffn_step_workspace.argtypes = [i] * 5
+    lib.cross_ffn_step_tickets.restype = i
+    lib.cross_ffn_step_tickets.argtypes = [i, i]
+    lib.cross_ffn_step_kernel_launches.restype = ctypes.c_longlong
+    lib.cross_ffn_step_kernel_launches.argtypes = []
     lib.cross_ffn_step_error_string.restype = ctypes.c_char_p
     lib.cross_ffn_step_error_string.argtypes = [i]
     _lib = lib
@@ -238,13 +244,59 @@ def _library_i8cc():
     lib, build_log_i8cc = build("cross_ffn_step_i8cc")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cross_ffn_step_i8cc_launch.restype = i
-    lib.cross_ffn_step_i8cc_launch.argtypes = [p] * 23 + [i] * 7 + [p]
+    lib.cross_ffn_step_i8cc_launch.argtypes = [p] * 24 + [i] * 7 + [p]
     lib.cross_ffn_step_i8cc_workspace.restype = ctypes.c_size_t
     lib.cross_ffn_step_i8cc_workspace.argtypes = [i] * 6
+    lib.cross_ffn_step_i8cc_tickets.restype = i
+    lib.cross_ffn_step_i8cc_tickets.argtypes = [i, i]
+    lib.cross_ffn_step_i8cc_kernel_launches.restype = ctypes.c_longlong
+    lib.cross_ffn_step_i8cc_kernel_launches.argtypes = []
     lib.cross_ffn_step_i8cc_error_string.restype = ctypes.c_char_p
     lib.cross_ffn_step_i8cc_error_string.argtypes = [i]
     _lib_i8cc = lib
     return lib
+
+
+def kernel_launches() -> int:
+    """``__global__`` launches of the bf16-plane library (K7) since it was
+    loaded."""
+    return int(_library().cross_ffn_step_kernel_launches())
+
+
+def kernel_launches_i8cc() -> int:
+    """The same for the int8-plane library (K8)."""
+    return int(_library_i8cc().cross_ffn_step_i8cc_kernel_launches())
+
+
+def _weight_leaves(ln_cross, q, o, ln2, mlp_in, mlp_out, D: int, Fd: int,
+                   int8: bool, device):
+    """The C entry's weight arguments, ``weight_pointers``' leaves, each
+    checked: the TPU wrapper's casts, bf16 (or int8) weights and f32
+    LayerNorm parameters, biases and scales."""
+    f32, wdt = torch.float32, (torch.int8 if int8 else torch.bfloat16)
+    leaves = []
+
+    def leaf(i, p, name, dtype, shape, what):
+        if name == "w_scale" and not int8:
+            leaves.append((i, name, None, None))    # bf16 weights: no scale
+            return
+        t = p[name].to(dtype)
+        check_tensor(t, f"cross_ffn_step: {what}", dtype, shape, device)
+        leaves.append((i, name, p[name], t))
+
+    for i, (what, p, shape) in enumerate((
+            ("ln_cross", ln_cross, None), ("q", q, (D, D)), ("o", o, (D, D)),
+            ("ln2", ln2, None), ("mlp_in", mlp_in, (D, Fd)),
+            ("mlp_out", mlp_out, (Fd, D)))):
+        if shape is None:
+            leaf(i, p, "scale", f32, (D,), f"{what} scale")
+            leaf(i, p, "bias", f32, (D,), f"{what} bias")
+            continue
+        leaf(i, p, "kernel_q" if int8 else "kernel", wdt, shape,
+             f"{what} kernel")
+        leaf(i, p, "w_scale", f32, (shape[1],), f"{what} w_scale")
+        leaf(i, p, "bias", f32, (shape[1],), f"{what} bias")
+    return leaves
 
 
 def _launch(x, ln_cross, q, o, ln2, mlp_in, mlp_out, cache_k, cache_v,
@@ -264,59 +316,45 @@ def _launch(x, ln_cross, q, o, ln2, mlp_in, mlp_out, cache_k, cache_v,
     if not 1 <= t_actual <= T:
         raise ValueError(f"cross_ffn_step: t_actual {t_actual} outside the "
                          f"cross cache ({T})")
-    f32, wdt = torch.float32, (torch.int8 if int8 else torch.bfloat16)
-    cdt = torch.int8 if i8cc else torch.bfloat16
-    mats = {"q": (q, (D, D)), "o": (o, (D, D)), "mlp_in": (mlp_in, (D, Fd)),
-            "mlp_out": (mlp_out, (Fd, D))}
-    # the TPU wrapper's casts: bf16 weights, f32 LayerNorm/bias/scales
-    args = {"x": (x, torch.bfloat16, (B, D)),
-            "cache_k": (cache_k, cdt, (B, T, D)),
-            "cache_v": (cache_v, cdt, (B, T, D))}
+    dev, cdt = x.device, (torch.int8 if i8cc else torch.bfloat16)
+    weights, keep = weight_pointers(
+        "cross_ffn_step", (ln_cross, q, o, ln2, mlp_in, mlp_out), dev,
+        lambda: _weight_leaves(ln_cross, q, o, ln2, mlp_in, mlp_out, D, Fd,
+                               int8, dev))
+    check_tensor(x, "cross_ffn_step: x", torch.bfloat16, (B, D), dev)
+    planes = [cache_k, cache_v]
     if i8cc:
-        args["k_scale"] = (k_scale.float(), f32, (B, T))
-        args["v_scale"] = (v_scale.float(), f32, (B, T))
-    for name, ln in (("ln_cross", ln_cross), ("ln2", ln2)):
-        args[f"{name} scale"] = (ln["scale"].float(), f32, (D,))
-        args[f"{name} bias"] = (ln["bias"].float(), f32, (D,))
-    for name, (p, shape) in mats.items():
-        w = p["kernel_q"] if int8 else p["kernel"].to(torch.bfloat16)
-        args[f"{name} kernel"] = (w, wdt, shape)
-        args[f"{name} bias"] = (p["bias"].float(), f32, (shape[1],))
-        if int8:
-            args[f"{name} w_scale"] = (p["w_scale"].float(), f32,
-                                       (shape[1],))
-    for name, (t, dt, shape) in args.items():
-        check_tensor(t, f"cross_ffn_step: {name}", dt, shape, x.device)
-    a = {k: v[0].data_ptr() for k, v in args.items()}
-    s = (lambda name: a.get(f"{name} w_scale"))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    out = torch.empty(B, D, dtype=torch.bfloat16, device=x.device)
-    weights = (a["x"], a["ln_cross scale"], a["ln_cross bias"],
-               a["q kernel"], s("q"), a["q bias"],
-               a["o kernel"], s("o"), a["o bias"],
-               a["ln2 scale"], a["ln2 bias"],
-               a["mlp_in kernel"], s("mlp_in"), a["mlp_in bias"],
-               a["mlp_out kernel"], s("mlp_out"), a["mlp_out bias"],
-               a["cache_k"], a["cache_v"])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+        planes += [k_scale.float(), v_scale.float()]
+    for name, t in zip(("cache_k", "cache_v", "k_scale", "v_scale"), planes):
+        check_tensor(t, f"cross_ffn_step: {name}",
+                     cdt if t.dim() == 3 else torch.float32,
+                     (B, T, D) if t.dim() == 3 else (B, T), dev)
+    sms = multiprocessors(dev.index)
+    out = torch.empty(B, D, dtype=torch.bfloat16, device=dev)
+    ptrs = (x.data_ptr(), *weights, *(t.data_ptr() for t in planes),
+            out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if i8cc:
         lib = _library_i8cc()
         tile = v_tile(B, D, T)
-        ws = torch.empty(
-            lib.cross_ffn_step_i8cc_workspace(B, D, Fd, T, tile, sms),
-            dtype=torch.uint8, device=x.device)
+        ws = workspace(
+            lib.cross_ffn_step_i8cc_workspace(B, D, Fd, T, tile, sms), dev,
+            stream)
+        tk = tickets(lib.cross_ffn_step_i8cc_tickets(D, Fd), dev, stream)
         err = lib.cross_ffn_step_i8cc_launch(
-            *weights, a["k_scale"], a["v_scale"], out.data_ptr(),
-            ws.data_ptr(), B, D, Fd, T, t_actual, tile, sms, stream)
+            *ptrs, ws.data_ptr(), tk.data_ptr(), B, D, Fd, T, t_actual, tile,
+            sms, stream)
         what = lib.cross_ffn_step_i8cc_error_string
     else:
         lib = _library()
-        ws = torch.empty(lib.cross_ffn_step_workspace(B, D, Fd, T, sms),
-                         dtype=torch.uint8, device=x.device)
+        ws = workspace(lib.cross_ffn_step_workspace(B, D, Fd, T, sms), dev,
+                       stream)
+        tk = tickets(lib.cross_ffn_step_tickets(D, Fd), dev, stream)
         err = lib.cross_ffn_step_launch(
-            *weights, out.data_ptr(), ws.data_ptr(), B, D, Fd, T, t_actual,
+            *ptrs, ws.data_ptr(), tk.data_ptr(), B, D, Fd, T, t_actual,
             int(int8), sms, stream)
         what = lib.cross_ffn_step_error_string
+    del keep                    # the casts lived until the launch
     if err:
         raise RuntimeError(
             f"cross_ffn_step kernel launch failed (B={B} D={D} F={Fd} T={T} "

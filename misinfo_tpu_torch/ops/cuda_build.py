@@ -5,21 +5,37 @@ first use, keyed by a hash of the source and of the headers it includes
 from ``csrc/``, and loaded with ctypes (a plain C interface, no PyTorch
 headers: a build takes seconds, not minutes). Never add
 ``--use_fast_math``: the kernels' quantization scales need IEEE division.
+
+``tickets`` keeps the zeroed counters that the decode-step kernels use to
+find the last block of each column tile (or batch row), ``workspace``
+their scratch, one each per stream;
+``weight_pointers`` validates a decode step's weights once per weight set
+and keeps their pointers, so that a step's host work is its activations.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
+import weakref
+from collections import OrderedDict
 from pathlib import Path
-from typing import Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "misinfo_tpu_torch"
+_PER_STREAM: Dict[tuple, torch.Tensor] = {}
+_WEIGHTS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_WEIGHTS_LOCK = threading.Lock()
+WEIGHT_SETS = 64        # weight sets whose pointers are kept (LRU)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,3 +85,67 @@ def check_tensor(t, what: str, dtype, shape, device) -> None:
                          f"got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{what} must be contiguous, 16-B aligned")
+
+
+def _per_stream(kind: str, n: int, dtype, device, stream: int):
+    key = (kind, device.index, stream)
+    t = _PER_STREAM.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(n, dtype=dtype, device=device)
+        _PER_STREAM[key] = t
+    return t
+
+
+def tickets(n: int, device, stream: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` tickets on ``device``, one
+    per stream. A kernel call takes tickets and leaves them at zero again,
+    so the calls in one stream's order share it."""
+    return _per_stream("tickets", n, torch.int32, device, stream)
+
+
+def workspace(nbytes: int, device, stream: int) -> torch.Tensor:
+    """A scratch buffer of at least ``nbytes`` on ``device``, one per
+    stream: the calls in one stream's order run one after the other (a
+    kernel launched early writes nothing before the kernel ahead of it
+    has finished), so they share it."""
+    return _per_stream("workspace", nbytes, torch.uint8, device, stream)
+
+
+@functools.lru_cache(maxsize=None)
+def multiprocessors(index: int) -> int:
+    """The SM count of CUDA device ``index``, which sets the kernels'
+    partitions."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _absent():
+    return None
+
+
+def weight_pointers(tag: str, dicts: Sequence[Dict], device,
+                    prepare: Callable[[], List[tuple]]) -> Tuple[tuple, list]:
+    """The kernel-side pointers of one call's weights, and the tensors the
+    caller must hold until its launch. ``prepare()`` returns ``(i, name,
+    source, tensor)`` per leaf: the leaf ``name`` of ``dicts[i]`` and the
+    tensor the kernel reads (``source`` itself or a cast of it), after
+    checking each; an absent leaf (None, None) passes a null pointer. Where no leaf needed a cast, the pointers are kept per
+    (tag, device, the dicts' ids) while every dict still holds the same
+    leaf objects, so a decode runs the checks once per layer; a weight set
+    with casts is prepared anew at every call."""
+    key = (tag, device, *map(id, dicts))
+    with _WEIGHTS_LOCK:
+        hit = _WEIGHTS.get(key)
+        if hit is not None and all(dicts[i].get(name) is ref()
+                                   for i, name, ref in hit[0]):
+            _WEIGHTS.move_to_end(key)
+            return hit[1], []
+    leaves = prepare()
+    ptrs = tuple(None if t is None else t.data_ptr() for *_, t in leaves)
+    if all(src is t for _, _, src, t in leaves):
+        with _WEIGHTS_LOCK:
+            _WEIGHTS[key] = ([(i, name, _absent if src is None
+                               else weakref.ref(src))
+                              for i, name, src, _ in leaves], ptrs)
+            while len(_WEIGHTS) > WEIGHT_SETS:
+                _WEIGHTS.popitem(last=False)
+    return ptrs, [t for *_, t in leaves]

@@ -245,6 +245,41 @@ def t_chunks(B: int, H: int, T: int, sms: int) -> Tuple[int, int]:
     return tc, -(-T // tc)
 
 
+def cross_ffn_flash(case: Dict, sms: int) -> torch.Tensor:
+    """The CUDA cross step's arithmetic for the attention, in PyTorch f32
+    (``csrc/cross_ffn_phases.cuh::cross_attn_body``): per T chunk of the
+    kernel's split the scores' max m_z, the exp-sum l_z and
+    o_z = Σ exp(s − m_z)·v, then ctx = bf16(Σ_z exp(m_z − m)·o_z /
+    Σ_z exp(m_z − m)·l_z); the probabilities are never rounded to bf16,
+    where the plain version rounds them. The rest is the plain version's.
+    The CPU tests hold it to the band, so that the kernel's design is
+    tried against the band before the card sees it."""
+    x, lnc, q, o, ln2, w1, w2, ck, cv, t_actual = case["args"]
+    B, D = x.shape
+    H, T = case["n_heads"], ck.shape[1]
+    Dh = D // H
+    qv = K7._q_proj(q, layer_norm(lnc, x), DEFAULT_POLICY).float()
+    s = torch.einsum("bhd,bthd->bht", qv.reshape(B, H, Dh),
+                     ck.float().reshape(B, T, H, Dh)) / math.sqrt(Dh)
+    s = s.masked_fill(torch.arange(T, device=x.device) >= t_actual, -1e9)
+    v = cv.float().reshape(B, T, H, Dh)
+    tc, n = t_chunks(B, H, T, sms)
+    chunks = []
+    for z in range(n):
+        sz = s[..., z * tc:(z + 1) * tc]
+        mz = sz.amax(-1, keepdim=True)
+        e = torch.exp(sz - mz)
+        chunks.append((mz[..., 0], e.sum(-1), torch.einsum(
+            "bht,bthd->bhd", e, v[:, z * tc:(z + 1) * tc])))
+    m = torch.stack([c[0] for c in chunks]).amax(0)
+    num, den = 0.0, 0.0
+    for mz, lz, oz in chunks:
+        f = torch.exp(mz - m)
+        num, den = num + f[..., None] * oz, den + f * lz
+    ctx = (num / den[..., None]).reshape(B, D).to(x.dtype)
+    return K7._after_attention(x, ctx, o, ln2, w1, w2, DEFAULT_POLICY)
+
+
 def cross_ffn_faults(case: Dict, sms: int) -> List[Tuple[str, torch.Tensor]]:
     """Plain outputs of wrong cross kernels: each of the kernel's T chunks
     that holds a planted row left out; the mask one row short; one row

@@ -33,7 +33,8 @@ import torch
 from misinfo_tpu_torch.ops import cross_ffn_step as _cross
 from misinfo_tpu_torch.ops import self_attn_step as _self
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, Policy
-from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
+from misinfo_tpu_torch.ops.cuda_build import (
+    build, check_tensor, multiprocessors, tickets, weight_pointers, workspace)
 
 HEAD_DIM = 64                   # the kernel's head width (every Whisper size)
 MAX_BATCH = 32                  # decode_common.cuh MAXB
@@ -64,7 +65,7 @@ def layer_step_plain(x, blk: Dict, cache_k, cache_v, cross_k, cross_v,
     return x, cache_k, cache_v
 
 
-_N_POINTERS, _N_INTS = 31, 8
+_N_POINTERS, _N_INTS = 32, 8
 
 
 def _library():
@@ -78,6 +79,8 @@ def _library():
     lib.layer_step_launch.argtypes = [p] * _N_POINTERS + [i] * _N_INTS + [p]
     lib.layer_step_workspace.restype = ctypes.c_size_t
     lib.layer_step_workspace.argtypes = [i] * 5
+    lib.layer_step_tickets.restype = i
+    lib.layer_step_tickets.argtypes = [i, i]
     lib.layer_step_kernel_launches.restype = ctypes.c_longlong
     lib.layer_step_kernel_launches.argtypes = []
     lib.layer_step_error_string.restype = ctypes.c_char_p
@@ -108,45 +111,49 @@ def _launch(x, blk, cache_k, cache_v, cross_k, cross_v, pos: int,
     if not 1 <= t_actual <= T:
         raise ValueError(f"layer_step: t_actual {t_actual} outside the "
                          f"cross cache ({T})")
-    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    f32, bf16, dev = torch.float32, torch.bfloat16, x.device
     sa, ca = blk["self_attn"], blk["cross_attn"]
-    args = [(x, "x", bf16, (B, D))]
+    dicts = (blk["ln1"], sa["qkv"], sa["o"], blk["ln_cross"], ca["q"],
+             ca["o"], blk["ln2"], blk["mlp_in"], blk["mlp_out"])
 
-    def ln(name):
-        args.append((blk[name]["scale"].float(), f"{name} scale", f32, (D,)))
-        args.append((blk[name]["bias"].float(), f"{name} bias", f32, (D,)))
+    def leaves():
+        out = []
 
-    def mat(p, name, shape):
-        args.append((p["kernel_q"], f"{name} kernel", i8, shape))
-        args.append((p["w_scale"].float(), f"{name} w_scale", f32,
-                     (shape[1],)))
-        args.append((p["bias"].float(), f"{name} bias", f32, (shape[1],)))
-
-    ln("ln1")
-    mat(sa["qkv"], "self qkv", (D, 3 * D))
-    mat(sa["o"], "self o", (D, D))
-    ln("ln_cross")
-    mat(ca["q"], "cross q", (D, D))
-    mat(ca["o"], "cross o", (D, D))
-    ln("ln2")
-    mat(blk["mlp_in"], "mlp_in", (D, Fd))
-    mat(blk["mlp_out"], "mlp_out", (Fd, D))
-    args += [(cache_k, "cache_k", bf16, (B, S, D)),
-             (cache_v, "cache_v", bf16, (B, S, D)),
-             (cross_k, "cross_k", bf16, (B, T, D)),
-             (cross_v, "cross_v", bf16, (B, T, D))]
-    for t, name, dt, shape in args:
-        check_tensor(t, f"layer_step: {name}", dt, shape, x.device)
+        def leaf(i, name, dtype, shape, what):
+            t = dicts[i][name].to(dtype)
+            check_tensor(t, f"layer_step: {what}", dtype, shape, dev)
+            out.append((i, name, dicts[i][name], t))
+        for i, what, shape in ((0, "ln1", None), (1, "self qkv", (D, 3 * D)),
+                               (2, "self o", (D, D)), (3, "ln_cross", None),
+                               (4, "cross q", (D, D)), (5, "cross o", (D, D)),
+                               (6, "ln2", None), (7, "mlp_in", (D, Fd)),
+                               (8, "mlp_out", (Fd, D))):
+            if shape is None:
+                leaf(i, "scale", f32, (D,), f"{what} scale")
+                leaf(i, "bias", f32, (D,), f"{what} bias")
+            else:
+                leaf(i, "kernel_q", torch.int8, shape, f"{what} kernel")
+                leaf(i, "w_scale", f32, (shape[1],), f"{what} w_scale")
+                leaf(i, "bias", f32, (shape[1],), f"{what} bias")
+        return out
+    weights, keep = weight_pointers("layer_step", dicts, dev, leaves)
+    acts = [(x, "x", (B, D)), (cache_k, "cache_k", (B, S, D)),
+            (cache_v, "cache_v", (B, S, D)), (cross_k, "cross_k", (B, T, D)),
+            (cross_v, "cross_v", (B, T, D))]
+    for t, name, shape in acts:
+        check_tensor(t, f"layer_step: {name}", bf16, shape, dev)
     lib = _library()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ws = torch.empty(lib.layer_step_workspace(B, D, Fd, T, sms),
-                     dtype=torch.uint8, device=x.device)
-    out = torch.empty(B, D, dtype=bf16, device=x.device)
-    ptrs = [t.data_ptr() for t, *_ in args] + [out.data_ptr(), ws.data_ptr()]
+    sms = multiprocessors(dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = workspace(lib.layer_step_workspace(B, D, Fd, T, sms), dev, stream)
+    tk = tickets(lib.layer_step_tickets(D, Fd), dev, stream)
+    out = torch.empty(B, D, dtype=bf16, device=dev)
+    ptrs = (x.data_ptr(), *weights, *(t.data_ptr() for t, *_ in acts[1:]),
+            out.data_ptr(), ws.data_ptr(), tk.data_ptr())
     assert len(ptrs) == _N_POINTERS
-    err = lib.layer_step_launch(
-        *ptrs, B, D, Fd, S, pos, T, t_actual, sms,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    err = lib.layer_step_launch(*ptrs, B, D, Fd, S, pos, T, t_actual, sms,
+                                stream)
+    del keep                    # the casts lived until the launch
     if err:
         raise RuntimeError(
             f"layer_step kernel launch failed (B={B} D={D} F={Fd} S={S} "

@@ -23,9 +23,10 @@ function returns ``(out, cache_k, cache_v)`` with the same cache tensors.
 ``fused_self_attn_step`` dispatches on where x lies: a CUDA tensor
 launches ``csrc/self_attn_step.cu`` (bf16 activations only) or raises; a
 CPU tensor runs ``self_attn_step_plain``. ``launches`` counts kernel
-calls (one per call; the C entry runs five kernels), ``launches_i8`` the
-calls among them with int8 weights. A call carries at most ``MAX_BATCH``
-rows.
+calls (one per call), ``launches_i8`` the calls among them with int8
+weights; ``kernel_launches`` reads the library's own count of
+``__global__`` launches (three per call). A call carries at most
+``MAX_BATCH`` rows.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ import torch
 
 from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, dense, layer_norm)
-from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
+from misinfo_tpu_torch.ops.cuda_build import (
+    build, check_tensor, multiprocessors, tickets, weight_pointers, workspace)
 from misinfo_tpu_torch.ops.quant import int_matmul, quantize_rows
 
 HEAD_DIM = 64                   # the kernel's head width (every Whisper size)
@@ -97,13 +99,47 @@ def _library():
     lib, build_log = build("self_attn_step")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.self_attn_step_launch.restype = i
-    lib.self_attn_step_launch.argtypes = [p] * 13 + [i] * 6 + [p]
+    lib.self_attn_step_launch.argtypes = [p] * 14 + [i] * 6 + [p]
     lib.self_attn_step_workspace.restype = ctypes.c_size_t
     lib.self_attn_step_workspace.argtypes = [i, i, i]
+    lib.self_attn_step_tickets.restype = i
+    lib.self_attn_step_tickets.argtypes = [i]
+    lib.self_attn_step_kernel_launches.restype = ctypes.c_longlong
+    lib.self_attn_step_kernel_launches.argtypes = []
     lib.self_attn_step_error_string.restype = ctypes.c_char_p
     lib.self_attn_step_error_string.argtypes = [i]
     _lib = lib
     return lib
+
+
+def kernel_launches() -> int:
+    """``__global__`` launches the library has made since it was loaded."""
+    return int(_library().self_attn_step_kernel_launches())
+
+
+def _weight_leaves(ln, qkv, o, D: int, int8: bool, device):
+    """The C entry's weight arguments, ``weight_pointers``' leaves, each
+    checked: the TPU wrapper's casts, bf16 (or int8) weights and f32
+    LayerNorm parameters, biases and scales."""
+    f32, wdt = torch.float32, (torch.int8 if int8 else torch.bfloat16)
+    leaves = []
+
+    def leaf(i, p, name, dtype, shape, what):
+        if name == "w_scale" and not int8:
+            leaves.append((i, name, None, None))    # bf16 weights: no scale
+            return
+        t = p[name].to(dtype)
+        check_tensor(t, f"self_attn_step: {what}", dtype, shape, device)
+        leaves.append((i, name, p[name], t))
+
+    leaf(0, ln, "scale", f32, (D,), "ln scale")
+    leaf(0, ln, "bias", f32, (D,), "ln bias")
+    for i, (what, p, n) in enumerate((("qkv", qkv, 3 * D), ("o", o, D)), 1):
+        leaf(i, p, "kernel_q" if int8 else "kernel", wdt, (D, n),
+             f"{what} kernel")
+        leaf(i, p, "w_scale", f32, (n,), f"{what} w_scale")
+        leaf(i, p, "bias", f32, (n,), f"{what} bias")
+    return leaves
 
 
 def _launch(x, ln, qkv, o, cache_k, cache_v, pos: int, n_heads: int):
@@ -119,42 +155,25 @@ def _launch(x, ln, qkv, o, cache_k, cache_v, pos: int, n_heads: int):
     if not 0 <= pos < S:
         raise ValueError(f"self_attn_step: pos {pos} outside the cache ({S})")
     int8 = "kernel_q" in qkv
-    f32 = torch.float32
-    # the TPU wrapper's casts: bf16 weights, f32 LayerNorm/bias/scales
-    if int8:
-        wqkv, wo = qkv["kernel_q"], o["kernel_q"]
-        sqkv, so = qkv["w_scale"].float(), o["w_scale"].float()
-    else:
-        wqkv, wo = (qkv["kernel"].to(torch.bfloat16),
-                    o["kernel"].to(torch.bfloat16))
-        sqkv = so = None
-    lns, lnb = ln["scale"].float(), ln["bias"].float()
-    bqkv, bo = qkv["bias"].float(), o["bias"].float()
-    wdt = torch.int8 if int8 else torch.bfloat16
-    checks = [(x, "x", torch.bfloat16, (B, D)),
-              (lns, "ln scale", f32, (D,)), (lnb, "ln bias", f32, (D,)),
-              (wqkv, "qkv kernel", wdt, (D, 3 * D)),
-              (bqkv, "qkv bias", f32, (3 * D,)),
-              (wo, "o kernel", wdt, (D, D)), (bo, "o bias", f32, (D,)),
-              (cache_k, "cache_k", torch.bfloat16, (B, S, D)),
-              (cache_v, "cache_v", torch.bfloat16, (B, S, D))]
-    if int8:
-        checks += [(sqkv, "qkv w_scale", f32, (3 * D,)),
-                   (so, "o w_scale", f32, (D,))]
-    for t, name, dt, shape in checks:
-        check_tensor(t, f"self_attn_step: {name}", dt, shape, x.device)
+    dev = x.device
+    weights, keep = weight_pointers(
+        "self_attn_step", (ln, qkv, o), dev,
+        lambda: _weight_leaves(ln, qkv, o, D, int8, dev))
+    for t, name, shape in ((x, "x", (B, D)), (cache_k, "cache_k", (B, S, D)),
+                           (cache_v, "cache_v", (B, S, D))):
+        check_tensor(t, f"self_attn_step: {name}", torch.bfloat16, shape,
+                     dev)
     lib = _library()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ws = torch.empty(lib.self_attn_step_workspace(B, D, sms),
-                     dtype=torch.uint8, device=x.device)
-    out = torch.empty(B, D, dtype=torch.bfloat16, device=x.device)
-    ptr = (lambda t: None if t is None else t.data_ptr())
+    sms = multiprocessors(dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = workspace(lib.self_attn_step_workspace(B, D, sms), dev, stream)
+    tk = tickets(lib.self_attn_step_tickets(D), dev, stream)
+    out = torch.empty(B, D, dtype=torch.bfloat16, device=dev)
     err = lib.self_attn_step_launch(
-        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), wqkv.data_ptr(),
-        ptr(sqkv), bqkv.data_ptr(), wo.data_ptr(), ptr(so), bo.data_ptr(),
-        cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), B, D, S, pos, int(int8), sms,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), *weights, cache_k.data_ptr(), cache_v.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), tk.data_ptr(), B, D, S, pos,
+        int(int8), sms, stream)
+    del keep                    # the casts lived until the launch
     if err:
         raise RuntimeError(
             f"self_attn_step kernel launch failed (B={B} D={D} S={S} "

@@ -158,3 +158,9 @@ class TruthVault:
                 match["image_path"] = m["image_path"]
             out.append(match)
         return out
+
+    @staticmethod
+    def empty_result() -> Dict:
+        """Vault-unavailable result (reference misinfo_forensics.py:422-428)."""
+        return {"vault_discrepancy": 0.0, "matches": [],
+                "vault_available": False, "text_similarity": 0.0}

@@ -157,6 +157,26 @@ def test_layer_step_kernel_is_the_two_call_route(card, B, pos):
                                                    before[1] + 1)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [1, 4, 32])
+def test_decode_step_kernels_global_launches(card, int8, B):
+    """By the libraries' own counts: K6 three ``__global__`` launches per
+    call, K7 five (from eleven), K8 nine."""
+    sc, cc = DC.self_attn_case(B, 447, int8), DC.cross_ffn_case(B, T, int8)
+    before = (K6.kernel_launches(), K7.kernel_launches())
+    K6.fused_self_attn_step(*sc["args"], n_heads=H)
+    K7.fused_cross_ffn_step(*cc["args"], n_heads=H)
+    torch.cuda.synchronize()
+    assert (K6.kernel_launches() - before[0],
+            K7.kernel_launches() - before[1]) == (3, 5)
+    if int8:
+        ic = DC.cross_i8cc_case(B, T)
+        before = K7.kernel_launches_i8cc()
+        K7.fused_cross_ffn_step(*ic["args"], n_heads=H, **ic["scales"])
+        torch.cuda.synchronize()
+        assert K7.kernel_launches_i8cc() - before == 9
+
+
 def test_int8_plane_and_layer_kernels_refuse_what_they_cannot_run(card):
     case = DC.cross_i8cc_case(2, 300, T=300)
     args, sc = case["args"], case["scales"]
@@ -275,6 +295,20 @@ def test_fused_attention_kernel_matches_plain(card, dtype, B, S, H, mask,
                                               causal):
     before = K3.launches
     KC.check_attention(KC.attention_case(B, S, H, mask, causal, dtype))
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,causal", [(77, True), (77, False), (200, True)])
+def test_fused_attention_kernel_on_a_padding_row(card, dtype, S, causal):
+    """A batch row whose keys are all masked (bucket padding) still has
+    the plain version's softmax over −1e9 + s; with causal masking the
+    kernel must then walk the tiles it otherwise skips."""
+    case = KC.attention_case(3, S, 4, True, causal, dtype, seed=1)
+    case["mask"][1] = 0.0
+    before = K3.launches
+    KC.check_attention(case)
     torch.cuda.synchronize()
     assert K3.launches == before + 1
 

@@ -191,6 +191,21 @@ def test_cross_ffn_band_rejects_planted_faults(int8, B, t_actual):
     assert res["nearest_fault"] > 4.0
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,t_actual", [(1, 1500), (4, 1500), (20, 1000)])
+def test_flash_cross_attention_holds_the_band(int8, B, t_actual):
+    """The redesigned K7 (flash-decoding over the kernel's T chunks, the
+    chunks combined in the o-product's prologue, probabilities never
+    rounded) keeps the unchanged band of its plain version at the card's
+    split, with every planted fault outside it."""
+    case = DC.cross_ffn_case(B, t_actual, int8, device="cpu")
+    want = K7.cross_ffn_step_plain(*case["args"], n_heads=8)
+    res = DC.hold(DC.cross_ffn_flash(case, H100_SMS), want, case["args"][0],
+                  2, DC.cross_ffn_faults(case, H100_SMS),
+                  f"flash cross step B={B}")
+    assert res["err"] <= res["band"] and res["nearest_fault"] > 4.0
+
+
 # ------------------------------------------------------------ whole decode
 
 TINY = j_whisper.WhisperConfig.tiny()
@@ -228,3 +243,32 @@ def test_fused_decode_matches_jax_fused_decode(decode_setup, int8):
     np.testing.assert_allclose(lp_b.numpy(), np.asarray(lp_a), atol=atol)
     np.testing.assert_allclose(ns_b.numpy(), np.asarray(ns_a),
                                atol=atol if int8 else 1e-6)
+
+
+def test_weight_pointers_checks_a_weight_set_once():
+    """The decode wrappers' weight pointers are prepared once per weight
+    set, prepared anew when a dict holds another leaf, and never kept for
+    a set that needed a cast (a cast's memory lives only for its call)."""
+    from misinfo_tpu_torch.ops import cuda_build as CB
+    a = {"w": torch.zeros(4), "b": torch.ones(2)}
+    calls = []
+
+    def prepare():
+        calls.append("as is")
+        return [(0, "w", a["w"], a["w"]), (0, "b", a["b"], a["b"]),
+                (0, "s", None, None)]
+    p1, keep = CB.weight_pointers("test", (a,), "cpu", prepare)
+    p2, _ = CB.weight_pointers("test", (a,), "cpu", prepare)
+    assert p1 == p2 == (a["w"].data_ptr(), a["b"].data_ptr(), None)
+    assert calls == ["as is"] and len(keep) == 3
+    a["w"] = torch.zeros(4)
+    p3, _ = CB.weight_pointers("test", (a,), "cpu", prepare)
+    assert len(calls) == 2 and p3[0] == a["w"].data_ptr()
+
+    def cast():
+        calls.append("cast")
+        return [(0, "w", a["w"], a["w"].double())]
+    for _ in range(2):
+        _, keep = CB.weight_pointers("cast", (a,), "cpu", cast)
+        assert keep[0].dtype == torch.float64
+    assert calls.count("cast") == 2

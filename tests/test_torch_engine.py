@@ -13,6 +13,7 @@ and bf16 settings are in test_torch_engine_int8.py / _bf16.py.
 """
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -214,3 +215,134 @@ def test_card_engine_refuses_a_mode_that_turns_a_kernel_off(mode,
         t_forensics.MisinfoForensics(
             config=t_config.ForensicsConfig(verbose=False))
     assert placed == []
+
+
+# ------------------------------------------- the rest of the public surface
+
+def test_per_signal_methods_match_jax(f32_engines):
+    """analyze_text / analyze_image / analyze_consistency / search_vault /
+    fusion_verdict, each a convenience over one batched call, against the
+    JAX engine's (f32: scores within 1e-4, verdicts and matches equal)."""
+    j_eng, t_eng = f32_engines
+    text, image = "Breaking news: shocking claim", _image(3)
+    for name, args in (("analyze_text", (text,)),
+                       ("analyze_image", (image,)),
+                       ("analyze_consistency", (text, image))):
+        a, b = getattr(j_eng, name)(*args), getattr(t_eng, name)(*args)
+        assert set(a) == set(b), name
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4, (name, k, a[k], b[k])
+    a, b = j_eng.search_vault(image, text), t_eng.search_vault(image, text)
+    assert set(a) == set(b) and b["vault_available"]
+    for k in ("vault_discrepancy", "text_similarity"):
+        assert abs(a[k] - b[k]) <= 1e-4, (k, a[k], b[k])
+    assert ([m["title"] for m in a["matches"]]
+            == [m["title"] for m in b["matches"]])
+    for scores in ({"ai_score": 0.9, "misinfo_score": 0.8,
+                    "deepfake_score": 0.1, "clip_similarity": 0.3,
+                    "vault_discrepancy": 0.0},
+                   {"deepfake_score": 0.95}):
+        a, b = j_eng.fusion_verdict(scores), t_eng.fusion_verdict(scores)
+        assert a["verdict"] == b["verdict"] and set(a) == set(b)
+        for k in ("confidence", "fake_probability", "real_probability"):
+            assert abs(a[k] - b[k]) <= 1e-4, (k, a[k], b[k])
+
+
+def test_async_and_stream_equal_the_batch(f32_engines, monkeypatch):
+    """analyze_batch_async(...)() is analyze_batch; analyze_stream yields
+    the same reports in input order with one batch in flight (batch N + 1
+    dispatched before batch N is finalized); both paths feed the analyze
+    counters."""
+    from misinfo_tpu_torch.utils.tracing import GLOBAL_TRACER
+    _, t_eng = f32_engines
+    reqs = requests()
+    want = t_eng.analyze_batch(reqs)
+    before = GLOBAL_TRACER.summary()
+    got = t_eng.analyze_batch_async(reqs)()
+    after = GLOBAL_TRACER.summary()
+    assert after["analyze_count"] == before["analyze_count"] + 1
+    assert (after["analyze_n_requests"]
+            == before["analyze_n_requests"] + len(reqs))
+    assert [r["scores"] for r in got] == [r["scores"] for r in want]
+    order = []
+    dispatch, finalize = t_eng._dispatch_batch, t_eng._finalize_batch
+
+    def spy_dispatch(rs):
+        order.append(("dispatch", len(rs)))
+        return dispatch(rs)
+
+    def spy_finalize(d, rs, explanations=False):
+        order.append(("finalize", len(rs)))
+        return finalize(d, rs, explanations)
+    monkeypatch.setattr(t_eng, "_dispatch_batch", spy_dispatch)
+    monkeypatch.setattr(t_eng, "_finalize_batch", spy_finalize)
+    streamed = list(t_eng.analyze_stream(iter(reqs), batch_size=5))
+    assert order == [("dispatch", 5), ("dispatch", 5), ("finalize", 5),
+                     ("dispatch", 3), ("finalize", 5), ("finalize", 3)]
+    assert len(streamed) == len(reqs)
+    # other batch compositions, other padding: the same reports up to the
+    # order of f32 sums
+    assert_close(want, streamed, 1e-5)
+
+
+def test_image_prep_pool_equals_serial(f32_engines, monkeypatch):
+    """More than one image is prepared on the engine's thread pool of
+    min(16, cpu_count) workers, one image inline; the batch equals the
+    serial one."""
+    _, t_eng = f32_engines
+    images = [_image(s) for s in (4, 5, 6)]
+    used = []
+    pool = t_eng._pool
+
+    def spy():
+        used.append(True)
+        return pool()
+    monkeypatch.setattr(t_eng, "_pool", spy)
+    pooled = t_eng._image_batch(images, 4)
+    assert used and t_eng._pool()._max_workers == min(16, os.cpu_count())
+    used.clear()
+    t_eng._image_batch(images[:1], 1)
+    assert not used
+    monkeypatch.setattr(t_eng, "_prep_map",
+                        lambda fn, items: [fn(x) for x in items])
+    serial = t_eng._image_batch(images, 4)
+    for k in pooled:
+        assert torch.equal(pooled[k], serial[k]), k
+
+
+def test_engine_attributes_match_jax(f32_engines, tmp_path, capsys):
+    """tokenizer_grades, load_report (keys and grades) and
+    gemini_available as the JAX engine has them; the boot banner names
+    the hash-fallback tokenizer."""
+    j_eng, t_eng = f32_engines
+    assert set(t_eng.load_report) == set(j_eng.load_report)
+    assert t_eng.tokenizer_grades == j_eng.tokenizer_grades
+    assert (t_eng.load_report["tokenizer_grades"]
+            == j_eng.load_report["tokenizer_grades"])
+    assert t_eng.gemini_available == j_eng.gemini_available is False
+    cfg = dataclasses.replace(t_eng.cfg, verbose=True)
+    t_forensics.MisinfoForensics(config=cfg, det_cfg=t_eng.det_cfg,
+                                 params=params_from_jax(jax.tree.map(
+                                     lambda t: t.numpy(),
+                                     detector_init(0, t_eng.det_cfg))),
+                                 device="cpu")
+    assert "tokenizer=HASH-FALLBACK" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["forensics_master_final.pth",
+                                  "clip_detective_best.pth"])
+def test_reference_checkpoints_are_refused(tmp_path, monkeypatch, name):
+    """Without ``params`` the JAX engine loads ModelPaths' reference .pth
+    files; until the port loads them too, it refuses to start beside one
+    (naming ROADMAP.md M16) instead of serving random weights. With none
+    present it serves its seeded init."""
+    monkeypatch.chdir(tmp_path)
+    cfg = t_config.ForensicsConfig(verbose=False)
+    det = TDetectorConfig.tiny()
+    engine = t_forensics.MisinfoForensics(config=cfg, det_cfg=det,
+                                          device="cpu")
+    assert engine.load_report["mode"] == "init"
+    (tmp_path / name).write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="M16") as e:
+        t_forensics.MisinfoForensics(config=cfg, det_cfg=det, device="cpu")
+    assert name in str(e.value)

@@ -174,6 +174,42 @@ def test_explanation_text_identical(scores):
             == j_explain.Explainer(None).explain(scores, matches))
 
 
+def test_tracer_identical():
+    """The tracing copy against its original: the same events, counts
+    and durations past the rolling windows give the same counters,
+    percentiles, rates, summary and sink records (timestamps aside);
+    stage_timer feeds the tracer it is given."""
+    from misinfo_tpu.utils import tracing as j_tr
+    from misinfo_tpu_torch.utils import tracing as t_tr
+    assert (t_tr.MAX_EVENTS, t_tr.RESERVOIR) == (j_tr.MAX_EVENTS,
+                                                 j_tr.RESERVOIR)
+    sinks = ([], [])
+    tracers = [m.Tracer(sink=s.append) for m, s in zip((j_tr, t_tr), sinks)]
+    rng = np.random.default_rng(0)
+    for i in range(2 * t_tr.RESERVOIR + 37):
+        sec = float(rng.exponential(0.01))
+        stage = ("analyze", "prep", "transcribe")[i % 3]
+        for t in tracers:
+            t.event(stage, sec, n_requests=i % 7, note="x")
+            if i % 50 == 0:
+                t.incr("gemini_ok_count")
+    j, t = tracers
+    assert j.summary() == t.summary()
+    for stage in ("analyze", "prep", "transcribe", "absent"):
+        assert j.quantiles(stage) == t.quantiles(stage)
+        assert j.rate(stage) == t.rate(stage)
+    assert len(j.events) == len(t.events)
+
+    def strip(lines):
+        return [{k: v for k, v in json.loads(x).items() if k != "ts"}
+                for x in lines]
+    assert strip(sinks[0]) == strip(sinks[1])
+    with t_tr.stage_timer("prep", t, n=3):
+        pass
+    assert t.counters["prep_n"] == 3
+    assert t.counters["prep_count"] == j.counters["prep_count"] + 1
+
+
 def test_port_imports_no_jax():
     code = ("import misinfo_tpu_torch.engine.forensics, sys; "
             "import misinfo_tpu_torch.serve.transcript; "

@@ -244,3 +244,17 @@ def test_layer_band_rejects_planted_faults(B, pos):
     assert res["err"] == 0.0
     assert res["faults"] >= 3 + (pos > 0)
     assert res["nearest_fault"] > 3.0
+
+
+@pytest.mark.parametrize("B,pos", [(1, 447), (4, 447), (32, 0)])
+def test_flash_layer_step_holds_the_band(B, pos):
+    """The CUDA whole-layer step's arithmetic (the self-attention step's,
+    then the cross step's flash-decoding attention over the card's T
+    chunks, ops/decode_checks.py::cross_ffn_flash) keeps the band of the
+    plain version with every planted fault outside it."""
+    case = DC.layer_case(B, pos, device="cpu")
+    cc, H = case["cross"], case["n_heads"]
+    want = K9.layer_step_plain(*case["args"], n_heads=H)[0]
+    res = DC.hold(DC.cross_ffn_flash(cc, H100_SMS), want, case["args"][0], 3,
+                  DC.layer_faults(case, H100_SMS), f"flash layer B={B}")
+    assert res["err"] <= res["band"] and res["nearest_fault"] > 3.0
