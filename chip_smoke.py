@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--profile FILE]
-    python3 chip_smoke.py --times    # the redesigned kernels' times only
+    python3 chip_smoke.py --times [--parent DIR]   # kernel times only
 
 Phases (any failure exits non-zero before the result line):
   1. the card's name and power limit (nvidia-smi);
@@ -27,13 +27,17 @@ Phases (any failure exits non-zero before the result line):
      T = 1,500) through misinfo_tpu_torch/ops/decode_checks.py: within
      2^-5·max|y − x| plus one bf16 step per residual rounding (the
      kernels sum in another order than cuBLAS), with keys planted so that
-     emulated wrong kernels (rows or a T chunk left out, the mask one row
-     off) fall outside that band, which the check also requires; then at
-     pos 447 / T = 1,500 and B = 1, 4, 32 each kernel's CUDA-event ms per
-     call over back-to-back calls, its device µs per call (CUDA-event
-     time with the host out of the way: the calls enqueued behind a
-     sleeping kernel) and its __global__ launches per call by the
-     library's own count (K6 3, K7 5, K8 9, K9 1);
+     emulated wrong kernels (rows, one of K6's cache-row chunks or one of
+     K7's T chunks left out, the mask one row off) fall outside that
+     band, which the check also requires; then at B = 1, 4, 32, K6 at
+     pos 32, 224 and 447 and the others at pos 447 / T = 1,500, each
+     kernel's CUDA-event ms per call over back-to-back calls, its device
+     µs per call (CUDA-event time with the host out of the way: the calls
+     enqueued behind a sleeping kernel), the device µs of each of its
+     CUDA kernels (torch.profiler, the same head start) and its
+     __global__ launches per call by the library's own count (K6 2 with
+     its o product folded into the attention launch, at B = 1 and 4, else
+     3; K7 5, K8 9, K9 1);
   6. the Whisper transcriber at whisper-base widths (byte tokenizer,
      seeded weights through the JAX-layout bridge, device="cuda"):
      pallas on and quant="kernels" (K6/K7 int8 bodies, the whole
@@ -80,13 +84,16 @@ Phases (any failure exits non-zero before the result line):
      versions at the main path's b32/S512 shapes, bf16 and f32, through
      misinfo_tpu_torch/ops/kernel_checks.py: K2 (int8 dense) bit for bit,
      K3 (fused attention), K4 (LayerNorm, driven once on its own: no model
-     calls it) and K5 (fused FFN; also at the Whisper tiny, medium and
+     calls it; also at D = 512, 1,024, 1,280 and at 1,000 and 1,001, its
+     general loop) and K5 (fused FFN; also at the Whisper tiny, medium and
      large decode widths) within that module's bands with its planted
      faults outside; CUDA-event times at the RoBERTa shape, with
      the bound and, for K3 and K4, scaled_dot_product_attention and
      layer_norm as the library's time; K3 also timed beside SDPA and its
      plain version at the CLIP text (causal, S = 77) and vision (S = 50)
-     shapes;
+     shapes; K4 also as medians of per-call times, cold L2, interleaved
+     with F.layer_norm on bf16 copies of scale and bias and on the f32
+     ones;
  16. (after phase 4) engine I at full width, quant="int8" and
      use_pallas=True (phase 4's weights, vault and b32 requests): one
      analyze() and the b32/S512 batch with exact K2/K1/K3 launch counts
@@ -134,11 +141,14 @@ Phases (any failure exits non-zero before the result line):
      32 photo-sized ones where cv2 or PIL is installed) with the engine's
      thread pool and with a serial map swapped in (printed only).
 ``--times`` prints only the redesigned kernels' times (K3 at its three
-shapes beside SDPA and its plain version; K6, K7, K8 and K9 at B = 1, 4,
-32) as JSON lines, with whatever misinfo_tpu_torch is first on sys.path:
-run from another tree's root with ``python -c "import runpy, sys;
-sys.argv = ['chip_smoke.py', '--times']; runpy.run_path(PATH,
-run_name='__main__')"`` it times that tree's kernels.
+shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
+pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
+kernel's device µs) as JSON lines, with whatever misinfo_tpu_torch is
+first on sys.path: run from another tree's root with ``python -c "import
+runpy, sys; sys.argv = ['chip_smoke.py', '--times']; runpy.run_path(PATH,
+run_name='__main__')"`` it times that tree's kernels. ``--parent DIR``
+also times the K4 source of the tree at DIR, interleaved with this
+tree's.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds. ``--profile FILE``
 also writes torch.profiler tables of the b32 batch (default engine and
@@ -232,6 +242,60 @@ def device_us(fn, calls: int = 50):
                   and not e.name.startswith(("Memcpy", "Memset"))
                   for e in prof.events())
     return us, kernels / 5
+
+
+def _kernel_label(name: str) -> str:
+    """A CUDA kernel's name as the profiler gives it, without its return
+    type, namespaces and parameter list."""
+    name = name.replace("(anonymous namespace)::", "").replace("dec::", "")
+    return name.removeprefix("void ").split("(")[0][:60]
+
+
+def kernel_split_us(fn, calls: int = 30):
+    """Device µs per call of each CUDA kernel of ``fn``, by kernel: the
+    profiler's kernel intervals over ``calls`` calls queued behind a
+    sleeping kernel (the host kept ahead of the card), each kernel charged
+    from the later of its start and the end of the kernel before it to
+    its end, so that a kernel launched early is not charged its wait and
+    the parts add up to the union of the intervals. The profiler loses
+    kernel records now and then on the card's machine, so a kernel is
+    charged only where the record before it is that of the kernel that
+    precedes it in most calls, and each part is the median over those
+    charges. None if the host took longer to enqueue the calls than the
+    card slept, or no part could be charged."""
+    from collections import Counter
+    from statistics import median
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for _ in range(calls):
+            fn()
+        host_us = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset")))
+    spin = ([e for e in events if "spin" in e[2]]
+            or [e for e in events if e[1] - e[0] > 2000])      # the sleep
+    if not spin or host_us > spin[0][1] - spin[0][0]:
+        return None
+    after = [(a, b, _kernel_label(n)) for a, b, n in events
+             if a >= spin[0][0] and (a, b, n) != spin[0]]
+    pairs = Counter((p[2], e[2]) for p, e in zip(after, after[1:]))
+    before = {}
+    for (p, e), k in pairs.most_common():
+        before.setdefault(e, p)
+    charged = {}
+    for p, e in zip(after, after[1:]):
+        if before.get(e[2]) == p[2]:
+            charged.setdefault(e[2], []).append(e[1] - max(e[0], p[1]))
+    return {k: median(v) for k, v in charged.items()} or None
 
 
 def append_profile(path: str, title: str, fn, rows: int = 30) -> None:
@@ -376,7 +440,8 @@ def check_decode_kernels(K6, K7):
     for int8 in (False, True):
         sfx = "_i8" if int8 else ""
         for B in (1, 4, 32):
-            cases = [("self_attn_step", f"pos={pos}", DC.check_self_attn,
+            cases = [("self_attn_step", f"pos={pos}",
+                      lambda c: DC.check_self_attn(c, sms),
                       DC.self_attn_case(B, pos, int8)) for pos in (3, 447)]
             cases.append(("cross_ffn_step", "T=1500",
                           lambda c: DC.check_cross_ffn(c, sms),
@@ -426,21 +491,38 @@ def decode_bound(name, case, int8: bool, scales=()):
     return bound(*decode_work(name, case, scales), "int8" if int8 else "bf16")
 
 
-# __global__ launches per call of each decode-step library
-GLOBAL_LAUNCHES = {"self_attn_step": 3, "cross_ffn_step": 5,
+# __global__ launches per call of each decode-step library; the
+# self-attention step's where its o product is folded into the attention
+# launch (decode_checks.self_split), one more where it is not
+GLOBAL_LAUNCHES = {"self_attn_step": 2, "cross_ffn_step": 5,
                    "cross_ffn_step_i8cc": 9, "layer_step": 1}
 
 
+def global_launches(lib: str, B: int, pos: int, int8: bool) -> int:
+    """The exact __global__ launches per call of ``lib`` at whisper-base."""
+    if lib != "self_attn_step":
+        return GLOBAL_LAUNCHES[lib]
+    from misinfo_tpu_torch.ops import decode_checks as DC
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fold = DC.self_split(B, 8, pos, sms, 1 if int8 else 2)[2]
+    return GLOBAL_LAUNCHES[lib] + (0 if fold else 1)
+
+
+SELF_POSITIONS = (32, 224, 447)   # where K6 is timed
+
+
 def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True):
-    """Phase 5's timing half (and ``--times``): K6 and K7 with both weight
-    types, K8 and K9, at pos 447 / T = 1,500 for each B: CUDA-event ms per
-    call over ``reps`` back-to-back calls (host-bound where the host takes
-    longer to enqueue a call than the card to run it), device µs per call
-    and CUDA kernels per call (``device_us``), and __global__ launches per call
-    by the library's own count where it keeps one, and a digest of the
-    first call's output (seeded inputs: two trees whose kernels agree bit
-    for bit print the same digest). ``strict``: raise
-    unless those counts are GLOBAL_LAUNCHES. Returns {(name, B): row}."""
+    """Phase 5's timing half (and ``--times``): K6 with both weight types
+    at pos 32, 224 and 447, K7 with both, K8 and K9 at pos 447 / T =
+    1,500, for each B: CUDA-event ms per call over ``reps`` back-to-back
+    calls (host-bound where the host takes longer to enqueue a call than
+    the card to run it), device µs per call and CUDA kernels per call
+    (``device_us``), device µs per call of each kernel
+    (``kernel_split_us``), __global__ launches per call by the library's
+    own count where it keeps one, and a digest of the first call's output
+    (seeded inputs: two trees whose kernels agree bit for bit print the
+    same digest). ``strict``: raise unless those counts are
+    GLOBAL_LAUNCHES. Returns {(name, B, pos): row}."""
     from misinfo_tpu_torch.ops import cross_ffn_step as K7
     from misinfo_tpu_torch.ops import decode_checks as DC
     from misinfo_tpu_torch.ops import layer_step as K9
@@ -450,24 +532,26 @@ def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True):
         runs = []
         for int8 in (False, True):
             sfx = "_i8" if int8 else ""
-            sc, cc = DC.self_attn_case(B, 447, int8), DC.cross_ffn_case(
-                B, 1500, int8)
-            runs += [(f"self_attn_step{sfx}", "self_attn_step",
-                      getattr(K6, "kernel_launches", None),
-                      lambda a=sc["args"]: K6.fused_self_attn_step(
-                          *a, n_heads=8)),
-                     (f"cross_ffn_step{sfx}", "cross_ffn_step",
-                      getattr(K7, "kernel_launches", None),
-                      lambda a=cc["args"]: K7.fused_cross_ffn_step(
-                          *a, n_heads=8))]
+            for pos in SELF_POSITIONS:
+                sc = DC.self_attn_case(B, pos, int8)
+                runs.append((f"self_attn_step{sfx}", pos, int8,
+                             "self_attn_step",
+                             getattr(K6, "kernel_launches", None),
+                             lambda a=sc["args"]: K6.fused_self_attn_step(
+                                 *a, n_heads=8)))
+            cc = DC.cross_ffn_case(B, 1500, int8)
+            runs.append((f"cross_ffn_step{sfx}", 447, int8, "cross_ffn_step",
+                         getattr(K7, "kernel_launches", None),
+                         lambda a=cc["args"]: K7.fused_cross_ffn_step(
+                             *a, n_heads=8)))
         ic, lc = DC.cross_i8cc_case(B, 1500), DC.layer_case(B, 447)
-        runs += [("cross_ffn_step_i8cc", "cross_ffn_step_i8cc",
+        runs += [("cross_ffn_step_i8cc", 447, True, "cross_ffn_step_i8cc",
                   getattr(K7, "kernel_launches_i8cc", None),
                   lambda: K7.fused_cross_ffn_step(*ic["args"], n_heads=8,
                                                   **ic["scales"])),
-                 ("layer_step", "layer_step", K9.kernel_launches,
+                 ("layer_step", 447, True, "layer_step", K9.kernel_launches,
                   lambda: K9.fused_layer_step(*lc["args"], n_heads=8))]
-        for name, lib, count, fn in runs:
+        for name, pos, int8, lib, count, fn in runs:
             y = fn()
             y = (y[0] if isinstance(y, tuple) else y).cpu()
             per_call = None
@@ -478,18 +562,20 @@ def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True):
                 per_call = count() - before
             ms = cuda_ms(fn, reps)
             us, kernels = device_us(fn)
-            row = {"kernel": name, "B": B, "ms": ms, "device_us": us,
+            row = {"kernel": name, "B": B, "pos": pos, "ms": ms,
+                   "device_us": us,
+                   "kernels_us": kernel_split_us(fn),
                    "profiled_kernels_per_call": kernels,
                    "global_launches_per_call": per_call,
                    "output_sha256": hashlib.sha256(
                        y.view(torch.int16).numpy().tobytes()).hexdigest(),
                    "card": card}
             print(json.dumps(row), flush=True)
-            if strict and per_call != GLOBAL_LAUNCHES[lib]:
+            want = global_launches(lib, B, pos, int8) if strict else None
+            if strict and per_call != want:
                 raise AssertionError(f"{name} B={B}: {per_call} __global__ "
-                                     f"launches per call, want "
-                                     f"{GLOBAL_LAUNCHES[lib]}")
-            rows[name, B] = row
+                                     f"launches per call, want {want}")
+            rows[name, B, pos] = row
     return rows
 
 
@@ -1307,6 +1393,101 @@ def attention_times(card, reps=20):
     return rows
 
 
+LN_ROWS, LN_D = 32 * 512, 768       # K4's drive: RoBERTa b32/S512 rows
+# K4's checks (rows, D): the drive's shape, the other Whisper and RoBERTa
+# widths (the kernel's compiled row widths) and two others (its general
+# loop; 1,001 bf16 rows are not 16-byte aligned)
+LN_CHECKS = ((LN_ROWS, LN_D), (4096, 512), (4096, 1024), (4096, 1280),
+             (4096, 1000), (4096, 1001))
+
+
+def _parent_layer_norm(root: str):
+    """The K4 library of the tree at ``root`` (its csrc/layer_norm.cu built
+    beside this tree's libraries), as a callable with fused_layer_norm's
+    arguments."""
+    import ctypes
+    from misinfo_tpu_torch.ops import cuda_build as CB
+    src = os.path.join(root, "misinfo_tpu_torch", "csrc", "layer_norm.cu")
+    so = CB.BUILD_DIR / "parent_layer_norm.so"
+    CB.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, *CB.NVCC_FLAGS, "-I", os.path.dirname(src), "-o",
+                    str(so), src], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.layer_norm_launch.restype = ctypes.c_int
+    lib.layer_norm_launch.argtypes = ([ctypes.c_void_p] * 4
+                                      + [ctypes.c_int] * 2
+                                      + [ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_void_p])
+
+    def run(x, scale, bias, eps=1e-5):
+        out = torch.empty_like(x)
+        err = lib.layer_norm_launch(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            x.shape[0], x.shape[1], eps, int(x.dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent layer_norm launch failed: {err}")
+        return out
+    return run
+
+
+def layer_norm_times(card, parent=None, rounds=50):
+    """K4 at 16,384 × 768 bf16 as medians of per-call CUDA-event times over
+    ``rounds`` rounds, one call of each contender per round in turn, the
+    L2 flushed (a 128 MB fill) before every call: K4, F.layer_norm with
+    bf16 copies of scale and bias (the library time of earlier runs),
+    F.layer_norm with the f32 scale and bias themselves (the same function,
+    where PyTorch takes a bf16 input with f32 parameters) and, with
+    ``parent`` (another tree's root), that tree's K4. Printed as one JSON
+    line, with the card's clocks, temperature and power draw read just
+    after, and returned."""
+    import torch.nn.functional as F
+    from misinfo_tpu_torch.ops import fused_attention as K3
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    c = KC.layer_norm_case(LN_ROWS, LN_D, torch.bfloat16)
+    x, sc, bi = c["x"], c["scale"], c["bias"]
+    sc16, bi16 = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
+    runs = {"kernel": lambda: K3.fused_layer_norm(x, sc, bi),
+            "library_bf16_params": lambda: F.layer_norm(x, (LN_D,), sc16,
+                                                        bi16)}
+    note = None
+    try:
+        F.layer_norm(x, (LN_D,), sc, bi)
+        runs["library_f32_params"] = lambda: F.layer_norm(x, (LN_D,), sc, bi)
+    except RuntimeError as e:     # a yardstick only: the port never calls it
+        note = f"F.layer_norm refuses f32 parameters with a bf16 input: {e}"
+    if parent:
+        prev = _parent_layer_norm(parent)
+        runs["parent_kernel"] = lambda: prev(x, sc, bi)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    times = {k: [] for k in runs}
+    for fn in runs.values():
+        fn()
+    for _ in range(rounds):
+        for name, fn in runs.items():
+            flush.zero_()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    row = {"kernel": "layer_norm", "rows": LN_ROWS, "D": LN_D,
+           "rounds": rounds, "clocks_after": clocks,
+           **{f"{k}_median_ms": sorted(v)[len(v) // 2]
+              for k, v in times.items()},
+           **bound(2 * nbytes(x) + nbytes(sc, bi), 8 * x.numel(), "f32"),
+           "note": note, "card": card}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def check_opt_in_kernels(card):
     """Phase 15: K2-K5 against their plain versions on the card at the
     main path's shapes (ops/kernel_checks.py), bf16 and f32; CUDA-event
@@ -1349,20 +1530,25 @@ def check_opt_in_kernels(card):
 
     errs = []
     for dt in (bf16, f32):
-        res = KC.check_layer_norm(KC.layer_norm_case(32 * 512, 768, dt))
-        errs.append(res["err"])
-        _report(f"layer_norm rows={32 * 512} D=768 {dt}", res, card)
-    c = KC.layer_norm_case(32 * 512, 768, bf16)
+        for rws, D in LN_CHECKS:
+            res = KC.check_layer_norm(KC.layer_norm_case(rws, D, dt))
+            errs.append(res["err"])
+            _report(f"layer_norm rows={rws} D={D} {dt}", res, card)
+    c = KC.layer_norm_case(LN_ROWS, LN_D, bf16)
     x, sc, bi = c["x"], c["scale"], c["bias"]
-    sc16, bi16 = sc.to(bf16), bi.to(bf16)
     K3.ln_launches = 0      # K4's own drive (no model calls it) starts here
     K3.fused_layer_norm(x, sc, bi)
     torch.cuda.synchronize()
     ln_launches = K3.ln_launches        # read just after it
+    if ln_launches != 1:
+        raise AssertionError(f"K4: {ln_launches} launches for one call")
+    medians = layer_norm_times(card)
+    lib_params = ((sc, bi) if "library_f32_params_median_ms" in medians
+                  else (sc.to(bf16), bi.to(bf16)))
     rows["layer_norm"] = {"err": max(errs), "launches": ln_launches, **_timed(
         "layer_norm", lambda: K3.fused_layer_norm(x, sc, bi),
         lambda: K3.fused_layer_norm_plain(x, sc, bi),
-        lambda: F.layer_norm(x, (768,), sc16, bi16),
+        lambda: F.layer_norm(x, (LN_D,), *lib_params),
         2 * nbytes(x) + nbytes(sc, bi), 8 * x.numel(), "f32", card)}
 
     errs = []
@@ -1798,6 +1984,9 @@ def main() -> int:
                     "of one greedy transcript decode here")
     ap.add_argument("--times", action="store_true",
                     help="print only the redesigned kernels' times")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="with --times: also time the K4 of the tree at "
+                    "DIR, interleaved with this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1806,6 +1995,7 @@ def main() -> int:
         card = card_line()
         print(card, flush=True)
         attention_times(card)
+        layer_norm_times(card, args.parent)
         decode_step_times(card, strict=False)
         return 0
     from misinfo_tpu_torch.core.config import ForensicsConfig

@@ -215,14 +215,24 @@ __device__ __forceinline__ float block_sum(float v, float* scr,
 }
 
 // Mean and 1/sqrt(var + eps) of one bf16 row, single-pass variance
-// E[x²] − E[x]² floored at 0; called by a whole warp.
+// E[x²] − E[x]² floored at 0; called by a whole warp. Each lane sums
+// elements lane, lane + 32, ... in that order; their loads go out eight at
+// a time.
 __device__ __forceinline__ void ln_stats(const __nv_bfloat16* x, int K,
                                          int lane, float& mean, float& rstd) {
   float s = 0.f, ss = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    const float v = ld(x + k);
-    s = __fadd_rn(s, v);
-    ss = __fadd_rn(ss, __fmul_rn(v, v));
+  constexpr int U = 8;
+  for (int k0 = lane; k0 < K; k0 += 32 * U) {
+    float v[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+      v[i] = k0 + 32 * i < K ? ld(x + k0 + 32 * i) : 0.f;
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+      if (k0 + 32 * i < K) {
+        s = __fadd_rn(s, v[i]);
+        ss = __fadd_rn(ss, __fmul_rn(v[i], v[i]));
+      }
   }
   s = warp_sum(s);
   ss = warp_sum(ss);
@@ -371,6 +381,35 @@ __device__ __forceinline__ void finish(typename Acc<WT>::T s, int b, int n,
   }
 }
 
+// The block's products over its weight tile ws [kc, TILE_N] into the
+// warps' partials as [WARPS, B, 32] (overwriting the input rows as [B,
+// kc]): each warp over rows k0 + warp, k0 + warp + WARPS, ... in that
+// order, one accumulator per batch row (bf16·bf16 is exact in f32). NB ≥ B
+// bounds the unrolled loop over the batch rows: unrolled over all MAXB
+// rows it issued 32 predicated steps per weight row whatever B was, which
+// set a product's time at decode sizes (device timestamps, H100).
+template <int NB, typename WT>
+__device__ __forceinline__ void tile_product(const WT* ws,
+                                             typename Acc<WT>::T* as, int k0,
+                                             int k1, int kc, int B, int warp,
+                                             int lane) {
+  using AT = typename Acc<WT>::T;
+  AT acc[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = 0;
+  for (int k = k0 + warp; k < k1; k += WARPS) {
+    const AT wa = wval(ws[(k - k0) * TILE_N + lane]);
+    const AT* ar = as + (k - k0);
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b < B) acc[b] += ar[b * kc] * wa;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+    if (b < B) as[(warp * B + b) * 32 + lane] = acc[b];
+}
+
 // Partial products Y[B, N] over rows [k0, k0 + kc) of W [K, N] (row-major,
 // the JAX [in, out] layout) of the input `in` (see In). int8 W: the input
 // rows are quantized per row, and block (0, 0) writes their scales to
@@ -414,31 +453,45 @@ __device__ __forceinline__ void skinny_gemm_body(
         rs_s[b] = s;
         if (rs_out && bx == 0 && by == 0) rs_out[b] = s;
       }
-      for (int k = k0 + lane; k < k1; k += 32)
-        as[b * kc + k - k0] = quant(in_val<IN>(in, b, k, K, mean, rstd), s);
+      for (int k = k0 + lane; k < k1; k += 32 * 4) {   // loads 4 at a time
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[i] = k + 32 * i < k1 ? in_val<IN>(in, b, k + 32 * i, K, mean,
+                                              rstd) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k + 32 * i < k1) as[b * kc + k + 32 * i - k0] = quant(v[i], s);
+      }
     } else {
-      for (int k = k0 + lane; k < k1; k += 32)
-        as[b * kc + k - k0] = in_val<IN>(in, b, k, K, mean, rstd);
+      for (int k = k0 + lane; k < k1; k += 32 * 4) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[i] = k + 32 * i < k1 ? in_val<IN>(in, b, k + 32 * i, K, mean,
+                                              rstd) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k + 32 * i < k1) as[b * kc + k + 32 * i - k0] = v[i];
+      }
     }
   }
   cp_async_wait_all();
   __syncthreads();
 
-  AT acc[MAXB];
-#pragma unroll
-  for (int b = 0; b < MAXB; ++b) acc[b] = 0;
-  for (int k = k0 + warp; k < k1; k += WARPS) {
-    const AT wa = wval(ws[(k - k0) * TILE_N + lane]);
-    const AT* ar = as + (k - k0);
-#pragma unroll
-    for (int b = 0; b < MAXB; ++b)
-      if (b < B) acc[b] += ar[b * kc] * wa;   // bf16·bf16 is exact in f32
-  }
-  __syncthreads();
+  if (B <= 1)
+    tile_product<1>(ws, as, k0, k1, kc, B, warp, lane);
+  else if (B <= 2)
+    tile_product<2>(ws, as, k0, k1, kc, B, warp, lane);
+  else if (B <= 4)
+    tile_product<4>(ws, as, k0, k1, kc, B, warp, lane);
+  else if (B <= 8)
+    tile_product<8>(ws, as, k0, k1, kc, B, warp, lane);
+  else if (B <= 16)
+    tile_product<16>(ws, as, k0, k1, kc, B, warp, lane);
+  else
+    tile_product<MAXB>(ws, as, k0, k1, kc, B, warp, lane);
   AT* red = as;
-#pragma unroll
-  for (int b = 0; b < MAXB; ++b)
-    if (b < B) red[(warp * B + b) * 32 + lane] = acc[b];
   __syncthreads();
   for (int i = threadIdx.x; i < B * 32; i += THREADS) {
     const int b = i >> 5, l = i & 31;

@@ -17,7 +17,11 @@
 // indices of the corresponding launch ("virtual blocks"), with the
 // partitions (K split, T chunks) derived from the SM count exactly as
 // there, so every partial sum is formed over the same elements in the same
-// order, each product's last virtual block of a column tile applies the
+// order (the self-attention's chunks, which self_attn_step.cu spreads over
+// a thread-block cluster, are walked by one virtual block per (batch row,
+// head) one after another: a cooperative launch takes no cluster, and the
+// chunk functions are the same), each product's last virtual block of a
+// column tile applies the
 // same epilogue (its atomic ticket works across virtual blocks as across
 // blocks), and the output and the written cache rows are bit for bit those
 // of self_attn_step_launch followed by cross_ffn_step_launch.
@@ -80,6 +84,7 @@ struct Params {
   int B, D, F, S, pos, T, t_actual;
   // partitions, from the SM count
   int ks_qkv, kc_qkv, ks_dd, kc_dd, ks_df, kc_df, ks_fd, kc_fd, ch, tc;
+  int sc, src;      // the self-attention's chunks and rows per chunk
 };
 
 // One skinny product with its epilogue as a phase: virtual blocks
@@ -111,8 +116,9 @@ __global__ void __launch_bounds__(THREADS) layer_step(const Params p) {
   grid.sync();                  // row `pos` is visible to every block
   for (int vb = blockIdx.x; vb < H * B; vb += gridDim.x) {
     __syncthreads();
-    self_attention_body(reinterpret_cast<float*>(smem), vb % H, vb / H, p.q,
-                        p.ck, p.cv, p.ctx, D, p.S, p.pos);
+    self_attention_serial(reinterpret_cast<float*>(smem), vb % H, vb / H,
+                          p.q, p.ck, p.cv, p.ctx, D, p.S, p.pos, p.sc,
+                          p.src);
   }
   grid.sync();
   gemm_phase<IN_ROW, EP_RESID>(smem, In{p.ctx}, p.wo1,
@@ -267,13 +273,15 @@ extern "C" int layer_step_launch(
   p.ks_df = split_k(D, F, sms, &p.kc_df);
   p.ks_fd = split_k(F, D, sms, &p.kc_fd);
   p.ch = t_chunks(B, D / HD, T, sms, &p.tc);
+  const SelfSplit sp = self_split(B, D / HD, pos, sms, 1);   // int8 W_o
+  p.sc = sp.C, p.src = sp.rc;
 
   size_t smem = 0;
   for (const int kc : {p.kc_qkv, p.kc_dd, p.kc_df, p.kc_fd})
     smem = gemm_smem<int8_t>(B, kc) > smem ? gemm_smem<int8_t>(B, kc) : smem;
   // sized for the last position, so that a decode's steps share one
   // shared-memory size (and with it the grid)
-  const size_t att = self_attention_smem(S - 1);
+  const size_t att = self_serial_smem(S);
   const size_t cross = 2 * cross_att_smem(p.tc);
   smem = att > smem ? att : smem;
   smem = cross > smem ? cross : smem;

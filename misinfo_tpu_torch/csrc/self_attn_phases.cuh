@@ -1,64 +1,289 @@
 // Device bodies and host helpers of the self-attention decode step
 // (self_attn_step.cu), shared with the whole-layer kernel (layer_step.cu).
+//
+// The attention of one (batch row, head) over cache rows 0..pos is split
+// into C chunks of consecutive rows (self_split: C from pos + 1 and the SM
+// count, so that B·H·C blocks fill the card). Each chunk is walked by one
+// block of SELF_ATT threads with the chunk functions below, straight from
+// the caches (a copy through shared memory first measured slower):
+//  - chunk_scores: s = q·K_r / √64 in f32, eight lanes per cache row (the
+//    row's 128 bytes in 16-byte loads, 32 rows per block and pass, the
+//    loads of up to BATCH passes issued before their arithmetic), the
+//    eight partial dots added by a butterfly; the chunk's max m_z;
+//  - chunk_sum: the chunk's l_z = Σ exp(s − m_z);
+//  - merge_chunks: the global max m = max_z m_z and the exp-sum
+//    l = Σ_z exp(m_z − m)·l_z, in chunk order;
+//  - chunk_pv: p = bf16(exp(s − m) / l), rounded after the global max
+//    and sum as the TPU kernel and the plain version round each
+//    probability before the PV product; then o_z = Σ_r p_r·V_r over the
+//    chunk, eight lanes per V row (eight dims a lane from one 16-byte
+//    load), the 32 row groups' sums added in a fixed order.
+// ctx = bf16(Σ_z o_z) in chunk order. The chunks exchange (m_z, l_z) and
+// o_z between them: in self_attn_step.cu the chunks of one (row, head)
+// belong to one thread-block cluster and the exchange goes through
+// distributed shared memory; in layer_step.cu (a cooperative launch, which
+// takes no cluster) one block walks the chunks of its (row, head) one
+// after another and keeps them in its own shared memory. The same
+// functions over the same rows in the same order: the same bits on both
+// routes.
+//
+// Rows past pos are never read: the TPU kernel masks them to −1e9 before
+// an f32 softmax, and exp(−1e9 − max) is exactly 0 in f32. A one-row query
+// (M = 1) gives the tensor cores nothing to do; the work is the cache's
+// bytes, and at decode sizes the latency of the chain of dependent steps.
 
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "decode_common.cuh"
 
 namespace dec {
 
-constexpr int SELF_ATT = 256;   // threads of the self-attention body
+constexpr int SELF_ATT = 256;                 // threads of a chunk's block
+constexpr int ROW_LANES = 8;                  // lanes per cache row
+constexpr int ROW_GROUPS = SELF_ATT / ROW_LANES;   // rows in flight
+constexpr int MAX_CHUNKS = 8;                 // the portable cluster size
+constexpr int MIN_CHUNK_ROWS = 64;
 
-inline size_t self_attention_smem(int pos) {
-  return (size_t)(HD + SELF_ATT + pos + 1) * 4;
+constexpr int MAX_CLUSTER = 16;   // with the non-portable cluster size
+constexpr size_t MAX_SMEM = 232448;   // dynamic shared memory of a block
+
+// Chunks of rows 0..pos: about one block per SM over B·H (batch row, head)
+// pairs, at most `most` chunks, at least MIN_CHUNK_ROWS rows a chunk (but
+// one chunk at least). Returns C; *rc_out gets the rows per chunk (the
+// last chunk may have fewer).
+inline int self_chunks(int B, int H, int pos, int sms, int most,
+                       int* rc_out) {
+  const int n = pos + 1;
+  int c = (sms + B * H - 1) / (B * H);
+  int hi = (n + MIN_CHUNK_ROWS - 1) / MIN_CHUNK_ROWS;
+  hi = hi < most ? hi : most;
+  c = c < 1 ? 1 : (c > hi ? hi : c);
+  const int rc = (n + c - 1) / c;
+  *rc_out = rc;
+  return (n + rc - 1) / rc;
 }
 
-// Head h of batch row b: one thread per cache row for the scores, over
-// rows 0..pos; `sm` holds self_attention_smem(pos) bytes. For a whole
-// block of SELF_ATT threads.
-__device__ __forceinline__ void self_attention_body(
-    float* sm, int h, int b, const __nv_bfloat16* q,
-    const __nv_bfloat16* ck,
-    const __nv_bfloat16* cv, __nv_bfloat16* ctx,
-    int D, int S, int pos) {
-  const Team tm = whole_block();
-  float* qs = sm;                 // [HD]
-  float* scr = qs + HD;           // [SELF_ATT]: warp scratch, then partials
-  float* sc = scr + SELF_ATT;     // [pos + 1]
-  wait_prior_grid();              // q and row `pos` of the caches
+// Shared memory of self_attn_step.cu's attention block for chunks of rc
+// rows: the scores, q, the row groups' PV partials, the warps' scratch,
+// what the cluster reads (m_z, l_z, o_z); with the o product folded in
+// (fold_w columns of W_o per block, w_bytes a weight), the context row and
+// the W_o tile.
+inline size_t self_cluster_smem(int rc, int D, int fold_w, int w_bytes) {
+  size_t f = (size_t)rc + HD + ROW_GROUPS * HD + SELF_ATT / 32 + 2 + HD;
+  if (fold_w) f += D;
+  return (f * 4 + 15) / 16 * 16 + (size_t)D * fold_w * w_bytes;
+}
+
+// The attention's split for one call: chunks C of rc rows, and whether the
+// o product is folded into the attention launch (fold_w > 0: that many
+// output columns per block). The fold makes each batch row's H·C blocks
+// one cluster, so it needs H ≤ 16 (C ≤ 16 / H). Measured on the H100, it
+// pays only for int8 W_o (whose separate product quantizes the context
+// in every block), with a head split into C ≥ 2 chunks (with one chunk
+// the row's H blocks each carry 64 columns of W_o) and the B·H·C blocks
+// in one wave (past it every batch row's blocks stage all of W_o).
+// Otherwise C ≤ 8 and the o product is a launch of its own. One function
+// for self_attn_step.cu and layer_step.cu, so that both split the rows
+// alike.
+struct SelfSplit {
+  int C, rc, fold_w;
+};
+inline SelfSplit self_split(int B, int H, int pos, int sms, int w_bytes) {
+  SelfSplit sp;
+  const int D = H * HD;
+  if (H <= MAX_CLUSTER && w_bytes == 1) {
+    sp.C = self_chunks(B, H, pos, sms, MAX_CLUSTER / H, &sp.rc);
+    sp.fold_w = D / (H * sp.C);
+    if (sp.C > 1 && B * H * sp.C <= sms &&
+        self_cluster_smem(sp.rc, D, sp.fold_w, w_bytes) <= MAX_SMEM)
+      return sp;
+  }
+  sp.C = self_chunks(B, H, pos, sms, MAX_CHUNKS, &sp.rc);
+  sp.fold_w = 0;
+  return sp;
+}
+
+constexpr int BATCH = 8;   // cache rows in flight per row group
+
+// Scores of a chunk's n rows, k[r·ks .. r·ks + 64) (16-byte aligned rows),
+// against qs [HD] f32: sc[r] = (q·k_r)/√64. Returns the chunk's max to
+// every thread. `scr` holds a float per warp. The loads of BATCH rows per
+// row group are issued before their arithmetic.
+__device__ __forceinline__ float chunk_scores(float* sc, const float* qs,
+                                              const __nv_bfloat16* k, int ks,
+                                              int n, float* scr) {
+  const int grp = threadIdx.x / ROW_LANES;
+  const int c8 = (threadIdx.x % ROW_LANES) * 8;
+  const float root = sqrtf((float)HD);
+  float qv[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) qv[e] = qs[c8 + e];
+  float m = NEG;
+  for (int r0 = 0; r0 < n; r0 += ROW_GROUPS * BATCH) {
+    uint4 u[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int r = r0 + j * ROW_GROUPS + grp;
+      u[j] = r < n ? *reinterpret_cast<const uint4*>(k + (size_t)r * ks + c8)
+                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      if (r0 + j * ROW_GROUPS >= n) break;        // uniform: the shuffles
+      const int r = r0 + j * ROW_GROUPS + grp;
+      const __nv_bfloat162* h2 =
+          reinterpret_cast<const __nv_bfloat162*>(&u[j]);
+      float acc = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        acc = __fadd_rn(acc, __fmul_rn(qv[2 * e], f.x));
+        acc = __fadd_rn(acc, __fmul_rn(qv[2 * e + 1], f.y));
+      }
+      // the eight lanes of a row: every lane gets the same bits
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 4));
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 2));
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
+      if (r < n) {
+        const float s = __fdiv_rn(acc, root);
+        if (threadIdx.x % ROW_LANES == 0) sc[r] = s;
+        m = fmaxf(m, s);
+      }
+    }
+  }
+  return block_max(m, scr, whole_block());   // its barriers publish sc
+}
+
+// l_z = Σ exp(s − m_z) over the chunk's n scores (to every thread).
+__device__ __forceinline__ float chunk_sum(const float* sc, int n, float mz,
+                                           float* scr) {
+  float l = 0.f;
+  for (int r = threadIdx.x; r < n; r += SELF_ATT)
+    l = __fadd_rn(l, expf(__fsub_rn(sc[r], mz)));
+  return block_sum(l, scr, whole_block());
+}
+
+// The global max m and exp-sum l of C chunks, get(z) giving (m_z, l_z),
+// in chunk order.
+template <typename Get>
+__device__ __forceinline__ void merge_chunks(int C, Get get, float& m,
+                                             float& l) {
+  m = NEG;
+  for (int z = 0; z < C; ++z) m = fmaxf(m, get(z).x);
+  l = 0.f;
+  for (int z = 0; z < C; ++z) {
+    const float2 c = get(z);
+    l = __fadd_rn(l, __fmul_rn(expf(__fsub_rn(c.x, m)), c.y));
+  }
+}
+
+// p = bf16(exp(s − m) / l) in place, then o[d] = Σ_r p_r·v_r[d] over the
+// chunk's n rows v[r·vs .. r·vs + 64) into o [HD] (by threads 0..63; the
+// caller synchronizes before reading it): each row group's rows in order
+// (the loads of BATCH rows issued first), a warp's four groups by a
+// butterfly, then the eight warps in order. `red` holds ROW_GROUPS·HD
+// floats.
+__device__ __forceinline__ void chunk_pv(float* sc, const __nv_bfloat16* v,
+                                         int vs, int n, float m, float l,
+                                         float* red, float* o) {
+  for (int r = threadIdx.x; r < n; r += SELF_ATT)
+    sc[r] = bf(__fdiv_rn(expf(__fsub_rn(sc[r], m)), l));
+  __syncthreads();
+  const int grp = threadIdx.x / ROW_LANES;
+  const int c8 = (threadIdx.x % ROW_LANES) * 8;
+  float acc[8] = {};
+  for (int r0 = grp; r0 < n; r0 += ROW_GROUPS * BATCH) {
+    uint4 u[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int r = r0 + j * ROW_GROUPS;
+      u[j] = r < n ? *reinterpret_cast<const uint4*>(v + (size_t)r * vs + c8)
+                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int r = r0 + j * ROW_GROUPS;
+      if (r >= n) break;
+      const __nv_bfloat162* v2 =
+          reinterpret_cast<const __nv_bfloat162*>(&u[j]);
+      const float p = sc[r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(v2[i]);
+        acc[2 * i] = __fmaf_rn(p, f.x, acc[2 * i]);
+        acc[2 * i + 1] = __fmaf_rn(p, f.y, acc[2 * i + 1]);
+      }
+    }
+  }
+  // a warp's four row groups by a butterfly (the same bits on each lane),
+  // then the warps in order
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[i] = __fadd_rn(acc[i], __shfl_xor_sync(0xffffffffu, acc[i], 8));
+    acc[i] = __fadd_rn(acc[i], __shfl_xor_sync(0xffffffffu, acc[i], 16));
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane < ROW_LANES) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[warp * HD + c8 + i] = acc[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < HD) {
+    float t = red[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < SELF_ATT / 32; ++w)
+      t = __fadd_rn(t, red[w * HD + threadIdx.x]);
+    o[threadIdx.x] = t;
+  }
+}
+
+// Shared memory of self_attention_serial for caches of S rows.
+inline size_t self_serial_smem(int S) {
+  return (size_t)((S + 3) / 4 * 4 + HD + ROW_GROUPS * HD + SELF_ATT / 32 +
+                  MAX_CHUNKS * (HD + 2)) * 4;
+}
+
+// Head h of batch row b, its C chunks of rc rows walked one after the
+// other by one block: the cluster kernel's arithmetic, bit for bit, with
+// the chunks' values kept in this block's shared memory (`sm`,
+// self_serial_smem(S) bytes).
+__device__ __forceinline__ void self_attention_serial(
+    float* sm, int h, int b, const __nv_bfloat16* q, const __nv_bfloat16* ck,
+    const __nv_bfloat16* cv, __nv_bfloat16* ctx, int D, int S, int pos,
+    int C, int rc) {
+  float* sc = sm;                             // [pos + 1]
+  float* qs = sc + (S + 3) / 4 * 4;           // [HD]
+  float* red = qs + HD;                       // [ROW_GROUPS, HD]
+  float* scr = red + ROW_GROUPS * HD;         // [SELF_ATT / 32]
+  float* oz = scr + SELF_ATT / 32;            // [C, HD]
+  float2* ml = reinterpret_cast<float2*>(oz + MAX_CHUNKS * HD);   // [C]
+  wait_prior_grid();
   if (threadIdx.x < HD) qs[threadIdx.x] = ld(q + (size_t)b * D + h * HD +
                                              threadIdx.x);
   __syncthreads();
-  const float root = sqrtf((float)HD);
-  float m = NEG;
-  for (int s = threadIdx.x; s <= pos; s += SELF_ATT) {
-    sc[s] = __fdiv_rn(row_dot(ck + ((size_t)b * S + s) * D + h * HD, qs),
-                      root);
-    m = fmaxf(m, sc[s]);
+  const size_t base = (size_t)b * S * D + h * HD;
+  for (int z = 0; z < C; ++z) {
+    const int r0 = z * rc, n = min(rc, pos + 1 - r0);
+    const float mz = chunk_scores(sc + r0, qs, ck + base + (size_t)r0 * D,
+                                  D, n, scr);
+    const float lz = chunk_sum(sc + r0, n, mz, scr);
+    if (threadIdx.x == 0) ml[z] = make_float2(mz, lz);
   }
-  m = block_max(m, scr, tm);
-  float l = 0.f;
-  for (int s = threadIdx.x; s <= pos; s += SELF_ATT) {
-    const float e = expf(__fsub_rn(sc[s], m));
-    sc[s] = e;
-    l = __fadd_rn(l, e);
+  __syncthreads();
+  float m, l;
+  merge_chunks(C, [&](int z) { return ml[z]; }, m, l);
+  for (int z = 0; z < C; ++z) {
+    const int r0 = z * rc, n = min(rc, pos + 1 - r0);
+    chunk_pv(sc + r0, cv + base + (size_t)r0 * D, D, n, m, l, red,
+             oz + z * HD);
+    __syncthreads();          // red is the next chunk's
   }
-  l = block_sum(l, scr, tm);
-  for (int s = threadIdx.x; s <= pos; s += SELF_ATT)
-    sc[s] = bf(__fdiv_rn(sc[s], l));
-  __syncthreads();
-  constexpr int G = SELF_ATT / HD;            // row groups of the PV sum
-  const int d = threadIdx.x & (HD - 1), grp = threadIdx.x / HD;
-  float acc = 0.f;
-  for (int s = grp; s <= pos; s += G)
-    acc = __fmaf_rn(sc[s], ld(cv + ((size_t)b * S + s) * D + h * HD + d),
-                    acc);
-  scr[threadIdx.x] = acc;   // the warp scratch is no longer needed
-  __syncthreads();
   if (threadIdx.x < HD) {
-    float c = scr[d];
-    for (int g = 1; g < G; ++g) c = __fadd_rn(c, scr[g * HD + d]);
-    ctx[(size_t)b * D + h * HD + d] = __float2bfloat16_rn(c);
+    float s = 0.f;
+    for (int z = 0; z < C; ++z) s = __fadd_rn(s, oz[z * HD + threadIdx.x]);
+    ctx[(size_t)b * D + h * HD + threadIdx.x] = __float2bfloat16_rn(s);
   }
 }
 

@@ -13,10 +13,11 @@
 // int8, twice that in bf16) and the cache rows 0..pos of one layer
 // (2·B·(pos+1)·D·2 bytes) for a few FLOPs per byte; all of it is a few MB,
 // which the card streams in microseconds, so launch count and how many SMs
-// share the streams decide the time. The design, three launches from one
-// C call, each launched early (Hopper's programmatic dependent launch: a
-// kernel's blocks stage their weight tiles while the kernel before it
-// finishes, decode_common.cuh):
+// share the streams decide the time. The design, two launches from one
+// C call where the o product is folded into the attention launch, three
+// where it is not, each launched early (Hopper's programmatic dependent
+// launch: a kernel's blocks stage what does not depend on the kernel
+// before it while that one finishes, decode_common.cuh):
 //  1. skinny_gemm (decode_common.cuh): LN (and int8 row quantization) in
 //     every block's prologue, the [D, 3D] product split over ~2 blocks per
 //     SM by output columns and weight rows, each block's weight tile
@@ -27,16 +28,31 @@
 //     and k, v into row `pos` of the caches, in place (the TPU kernel's
 //     masked full-plane select was a Mosaic workaround; JAX aliased the
 //     buffers);
-//  2. attention, one block per (head, batch row), one thread per cache
-//     row for the scores (16-byte loads), over cache rows 0..pos only:
-//     the TPU kernel masks rows > pos to −1e9 before an f32 softmax, and
-//     exp(−1e9 − max) is exactly 0 in f32, so skipping them changes no
-//     bit. Probabilities are rounded to bf16 before the PV product, the
-//     context to bf16 before the output projection;
-//  3. skinny_gemm over the context (quantized per row for int8 W), its
-//     last blocks adding bias and residual.
-// The wrapper counts one launch per call; the library counts its
+//  2. attention (self_attn_phases.cuh): the rows 0..pos of each (batch
+//     row, head) split into C chunks, one block each, where one block per
+//     (row, head) left most SMs idle; the chunks of a (row, head) are one
+//     thread-block cluster that exchanges their maxima and exp-sums, then
+//     their PV partials, through distributed shared memory. Every block
+//     has the global max and exp-sum before it rounds a probability to
+//     bf16, as the TPU kernel and the plain version do; rows > pos are
+//     never read (masked to −1e9 there, and exp(−1e9 − max) is exactly 0
+//     in f32). Eight lanes per cache row for the scores and for the PV
+//     sum, 8 rows per row group in flight. The context is rounded to bf16
+//     before the output projection. With int8 W_o, C ≥ 2 chunks and the
+//     B·H·C blocks in one wave (self_split), all H·C ≤ 16 blocks of a
+//     batch row are one cluster and the o product is folded in: each
+//     block computes D / (H·C) output columns over all D rows of W_o, its
+//     W_o tile staged with cp.async before the wait, the context
+//     quantized by its whole-row abs-max as the o product's prologue does
+//     (the int32 sums are exact: the bits of the separate product).
+//     Otherwise the context goes to a workspace and
+//  3. skinny_gemm over the context (quantized per row for int8 W) adds
+//     bias and residual in its last blocks.
+// A one-row query (M = 1) gives the tensor cores nothing to do: the work
+// is bytes. The wrapper counts one launch per call; the library counts its
 // __global__ launches (self_attn_step_kernel_launches).
+
+#include <mutex>
 
 #include "self_attn_phases.cuh"
 
@@ -44,15 +60,184 @@ using namespace dec;
 
 namespace {
 
-// Grid (H, B), SELF_ATT threads; dynamic shared memory
-// self_attention_smem(pos). Launched early.
+// Chunk z of head h of batch row b over rows [z·rc, min((z + 1)·rc,
+// pos + 1)), one block of a cluster: (C, 1, 1), the chunks of one (row,
+// head); with FOLD (C, H, 1), every chunk of every head of batch row b.
+// Grid (C, H, B), SELF_ATT threads, dynamic shared memory
+// self_cluster_smem. Before the wait for the QKV product, with FOLD, the
+// block stages its W_o tile (columns [j·W, (j + 1)·W), j its rank in the
+// cluster, W = D / (H·C)) with cp.async. Without FOLD the head's context
+// lanes go to ctx; with FOLD every block sums the batch row's whole
+// context from the cluster's partials, quantizes it by its abs-max (as
+// the int8 o product's prologue does), and writes its W output columns of
+// x + o(ctx): int8 sums are exact, so these are the bits of the separate
+// o product. FOLD is for int8 W_o only (self_split).
+// Launched early.
+template <typename WT, bool FOLD>
 __global__ void __launch_bounds__(SELF_ATT)
 self_attention(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ ck,
                const __nv_bfloat16* __restrict__ cv,
-               __nv_bfloat16* __restrict__ ctx, int D, int S, int pos) {
-  extern __shared__ float sm[];
-  self_attention_body(sm, blockIdx.x, blockIdx.y, q, ck, cv, ctx, D, S, pos);
+               __nv_bfloat16* __restrict__ ctx,
+               const __nv_bfloat16* __restrict__ x, const WT* __restrict__ wo,
+               const float* __restrict__ so, const float* __restrict__ bo,
+               __nv_bfloat16* __restrict__ out, int D, int S, int pos,
+               int rc) {
+  namespace cg = cooperative_groups;
+  static_assert(!FOLD || std::is_same<WT, int8_t>::value,
+                "the o product is folded for int8 W_o only");
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int z = blockIdx.x, C = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  const int H = D / HD, W = FOLD ? D / (H * C) : 0;
+  // the cluster rank of chunk zz of head hh
+  auto rank = [&](int hh, int zz) { return FOLD ? hh * C + zz : zz; };
+  float* sc = reinterpret_cast<float*>(smem);   // [rc]
+  float* qs = sc + rc;                          // [HD]
+  float* red = qs + HD;                         // [ROW_GROUPS, HD]
+  float* scr = red + ROW_GROUPS * HD;           // [SELF_ATT / 32]
+  float* xch = scr + SELF_ATT / 32;             // m_z, l_z, o_z [HD]
+  float* row = xch + 2 + HD;                    // FOLD: the context [D]
+  const size_t f = (size_t)rc + HD + ROW_GROUPS * HD + SELF_ATT / 32 + 2 +
+                   HD + (FOLD ? D : 0);
+  WT* wt = reinterpret_cast<WT*>(smem + (f * 4 + 15) / 16 * 16);  // [D, W]
+  const int r0 = z * rc;
+  const int n = min(rc, pos + 1 - r0);
+  const size_t base = ((size_t)b * S + r0) * D + h * HD;
+  const int n0 = FOLD ? rank(h, z) * W : 0;
+  // FOLD: the epilogue's residual, scale and bias of this thread's column
+  float x_n = 0.f, s_n = 1.f, b_n = 0.f;
+  if constexpr (FOLD) {
+    constexpr int CH = 16 / (int)sizeof(WT);  // weights per 16 bytes
+    const int rcs = W / CH;                   // 16-byte pieces per row
+    for (int i = threadIdx.x; i < D * rcs; i += SELF_ATT) {
+      const int r = i / rcs, c = (i % rcs) * CH;
+      cp_async16(wt + r * W + c, wo + (size_t)r * D + n0 + c);
+    }
+    if (threadIdx.x < W) {    // x is the QKV product's input: final
+      x_n = __bfloat162float(__ldcg(x + (size_t)b * D + n0 + threadIdx.x));
+      b_n = bo[n0 + threadIdx.x];
+      s_n = so[n0 + threadIdx.x];
+    }
+  }
+  wait_prior_grid();                          // q and row `pos`
+  if (threadIdx.x < HD) qs[threadIdx.x] = ld(q + (size_t)b * D + h * HD +
+                                             threadIdx.x);
+  __syncthreads();
+
+  const float mz = chunk_scores(sc, qs, ck + base, D, n, scr);
+  const float lz = chunk_sum(sc, n, mz, scr);
+  float m, l;
+  if (C > 1) {                // a head's chunks meet in the cluster
+    if (threadIdx.x == 0) xch[0] = mz, xch[1] = lz;
+    cl.sync();
+    merge_chunks(C, [&](int zz) {
+      const float* o = cl.map_shared_rank(xch, rank(h, zz));
+      return make_float2(o[0], o[1]);
+    }, m, l);
+  } else {                    // every thread has its block's own
+    merge_chunks(1, [&](int) { return make_float2(mz, lz); }, m, l);
+  }
+  chunk_pv(sc, cv + base, D, n, m, l, red, xch + 2);
+  if (FOLD || C > 1) cl.sync();   // (one chunk: a thread reads its own)
+  if constexpr (!FOLD) {
+    // the head's 64 lanes, dim d by its chunk d % C, in chunk order
+    if (threadIdx.x < HD && threadIdx.x % C == z) {
+      float s = 0.f;
+      for (int zz = 0; zz < C; ++zz)
+        s = __fadd_rn(s, C > 1 ? *cl.map_shared_rank(xch + 2 + threadIdx.x,
+                                                     zz)
+                               : xch[2 + threadIdx.x]);
+      ctx[(size_t)b * D + h * HD + threadIdx.x] = __float2bfloat16_rn(s);
+    }
+  } else {
+    // the whole context row of batch row b, in chunk order per lane
+#pragma unroll 4
+    for (int d = threadIdx.x; d < D; d += SELF_ATT) {
+      float s = 0.f;
+      for (int zz = 0; zz < C; ++zz)
+        s = __fadd_rn(s, *cl.map_shared_rank(xch + 2 + d % HD,
+                                             rank(d / HD, zz)));
+      row[d] = bf(s);
+    }
+    cp_async_wait_all();      // the W_o tile
+    __syncthreads();
+    // max(amax / 127, 1e-8) and the levels, as quantize_rows
+    float amax = 0.f;
+    for (int d = threadIdx.x; d < D; d += SELF_ATT)
+      amax = fmaxf(amax, fabsf(row[d]));
+    const float s_row = row_scale(block_max(amax, scr, whole_block()));
+    for (int d = threadIdx.x; d < D; d += SELF_ATT)
+      row[d] = (float)quant(row[d], s_row);
+    __syncthreads();
+    // W columns; SELF_ATT / W slices of the rows, each over four
+    // interleaved sums, slices and sums added in a fixed order
+    const int col = threadIdx.x % W, slice = threadIdx.x / W;
+    const int slices = SELF_ATT / W;
+    int acc[4] = {};
+    for (int k = slice; k < D; k += 4 * slices) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int kk = k + a * slices;
+        if (kk < D) acc[a] += (int)row[kk] * wval(wt[kk * W + col]);
+      }
+    }
+    int* part = reinterpret_cast<int*>(red);
+    part[slice * W + col] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    __syncthreads();
+    if (threadIdx.x < W) {
+      int s = part[threadIdx.x];
+      for (int i = 1; i < slices; ++i) s += part[i * W + threadIdx.x];
+      // finish<int8_t, EP_RESID> with the values loaded before the wait
+      const float y = bf(__fadd_rn(
+          __fmul_rn(__fmul_rn((float)s, s_row), s_n), b_n));
+      out[(size_t)b * D + n0 + threadIdx.x] =
+          __float2bfloat16_rn(__fadd_rn(x_n, y));
+    }
+  }
+  if (FOLD || C > 1) cl.sync();   // no block leaves while another reads it
+}
+
+// launch_early with the blocks in clusters of (cx, cy, 1), or alone
+template <typename... KArgs, typename... Args>
+cudaError_t launch_early_clusters(void (*kernel)(KArgs...), dim3 grid,
+                                  dim3 block, size_t smem, int cx, int cy,
+                                  cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cx;
+  attr[1].val.clusterDim.y = cy;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cx * cy > 1 ? 2 : 1;   // a lone block needs no cluster
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+  return e != cudaSuccess ? e : launched();
+}
+
+// Raises self_attention<WT, FOLD>'s dynamic shared memory limit to `smem`
+// (and lets it take clusters of more than 8 blocks), once per size.
+template <typename WT, bool FOLD>
+cudaError_t prepare(size_t smem) {
+  static std::mutex mu;
+  static size_t done = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  if (smem <= done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      self_attention<WT, FOLD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(self_attention<WT, FOLD>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) done = smem;
+  return e;
 }
 
 struct Work {
@@ -84,15 +269,25 @@ cudaError_t run(const __nv_bfloat16* x, const float* ln_g, const float* ln_b,
       In{x, ln_g, ln_b}, wqkv, w.part, nullptr, tickets,
       Ep{sqkv, bqkv, nullptr, w.q, ck, cv, S, pos}, B, D, 3 * D, sms, st);
   if (e != cudaSuccess) return e;
-  const size_t smem = self_attention_smem(pos);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(self_attention,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return e;
+  const int H = D / HD;
+  const SelfSplit sp = self_split(B, H, pos, sms, (int)sizeof(WT));
+  const size_t smem = self_cluster_smem(sp.rc, D, sp.fold_w,
+                                        (int)sizeof(WT));
+  if constexpr (std::is_same<WT, int8_t>::value) {
+    if (sp.fold_w) {
+      e = prepare<WT, true>(smem);
+      if (e != cudaSuccess) return e;
+      return launch_early_clusters(
+          self_attention<WT, true>, dim3(sp.C, H, B), dim3(SELF_ATT), smem,
+          sp.C, H, st, w.q, ck, cv, w.ctx, x, wo, so, bo, out, D, S, pos,
+          sp.rc);
+    }
   }
-  e = launch_early(self_attention, dim3(D / HD, B), dim3(SELF_ATT), smem, st,
-                   w.q, ck, cv, w.ctx, D, S, pos);
+  e = prepare<WT, false>(smem);
+  if (e != cudaSuccess) return e;
+  e = launch_early_clusters(self_attention<WT, false>, dim3(sp.C, H, B),
+                            dim3(SELF_ATT), smem, sp.C, 1, st, w.q, ck, cv,
+                            w.ctx, x, wo, so, bo, out, D, S, pos, sp.rc);
   if (e != cudaSuccess) return e;
   return gemm<WT, IN_ROW, EP_RESID>(In{w.ctx}, wo, w.part, nullptr, tickets,
                                     Ep{so, bo, x, out}, B, D, D, sms, st);
@@ -112,7 +307,7 @@ extern "C" size_t self_attn_step_workspace(int B, int D, int sms) {
 extern "C" int self_attn_step_tickets(int D) { return gemm_tickets(3 * D); }
 
 // __global__ launches made by self_attn_step_launch since the library was
-// loaded (three per call that reached its last launch).
+// loaded (two per call with the o product folded, three without).
 extern "C" long long self_attn_step_kernel_launches() { return g_launches; }
 
 // C entry: x bf16 [B, D]; ln_g/ln_b f32 [D]; wqkv [D, 3D] and wo [D, D],

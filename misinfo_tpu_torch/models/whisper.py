@@ -26,9 +26,10 @@ fused cross step int8 merged planes with a scale per (batch row,
 position) (ops/cross_ffn_step.py, K8); ``pallas_layer`` runs each layer
 as one kernel (ops/layer_step.py, K9); ``unroll`` is accepted and
 validated, and changes nothing: the decode loop is Python and has nothing
-to unroll. ``scan_layers`` and stacked params (JAX's scan over [L, ...]
-block leaves, which runs no kernel) are refused by name: in eager PyTorch
-the loop over the blocks is that decode already.
+to unroll. ``scan_layers`` (or params stacked by ``stack_whisper_decoder``)
+decodes over [L, ...] block leaves and [L, B, H, S, Dh] self caches with
+the unrolled step's math, as JAX's ``lax.scan`` does; here the scan is a
+Python loop over the layer slices. It runs no kernel, in JAX or here.
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.ops.attention import (
     attention_init, multi_head_attention)
 from misinfo_tpu_torch.ops.common import (
@@ -359,8 +359,49 @@ def fuse_whisper_decoder_qkv(params: Dict) -> Dict:
     return {**params, "decoder": dec}
 
 
-def _refuse_scan():
-    not_ported("the stacked-layer scan decode (scan_layers)", "M13")
+def stack_whisper_decoder(params: Dict) -> Dict:
+    """Stack the decoder's per-layer blocks along a leading layer axis
+    (``blocks`` list → ``blocks_stacked`` with [L, ...] leaves), the layout
+    of the stacked-layer scan decode. Idempotent."""
+    dec = params["decoder"]
+    if "blocks_stacked" in dec:
+        return params
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(t[k] for t in leaves)) for k in leaves[0]}
+        return torch.stack(leaves)
+    dec = {k: v for k, v in dec.items() if k != "blocks"}
+    dec["blocks_stacked"] = stack(*params["decoder"]["blocks"])
+    return {**params, "decoder": dec}
+
+
+def _layer(tree: Dict, li: int) -> Dict:
+    """Layer ``li`` of stacked block leaves (views, no copies)."""
+    return {k: _layer(v, li) if isinstance(v, dict) else v[li]
+            for k, v in tree.items()}
+
+
+def _scan_decoder_step(params: Dict, token: torch.Tensor, pos: int,
+                       enc_out: torch.Tensor, kv_cache: Dict,
+                       cfg: WhisperConfig, policy: Policy):
+    """``_cached_decoder_step`` over stacked params: the same math, layer
+    by layer over the [L, ...] block leaves, with stacked [L, B, H, S, Dh]
+    self caches written in place at row ``pos`` and stacked head-major
+    cross planes (JAX's ``_scan_decoder_step``)."""
+    dec = params["decoder"]
+    H = cfg.num_heads
+    x = _embed(dec, token, pos, policy)
+    self_k, self_v = kv_cache["self_k"], kv_cache["self_v"]
+    mask = ((torch.arange(self_k.shape[3], device=x.device) > pos).float()
+            * -1e9)                                            # [S]
+    for li in range(self_k.shape[0]):
+        blk = _layer(dec["blocks_stacked"], li)
+        x = _self_attn_unfused(blk, x, self_k[li], self_v[li], pos, mask, H,
+                               policy)
+        x = _cross_ffn_unfused(blk, x, kv_cache["cross_k"][li],
+                               kv_cache["cross_v"][li], H, policy)
+    return _logits(dec, x, policy), kv_cache
 
 
 def init_kv_cache(params: Dict, enc_out: torch.Tensor, max_len: int,
@@ -372,7 +413,9 @@ def init_kv_cache(params: Dict, enc_out: torch.Tensor, max_len: int,
     decoder layer. Head-major [B, H, S, Dh] by default; ``merged_self``
     keeps the self caches [B, S, D] and ``merged_cross`` the cross planes
     [B, T, D] (the fused kernels' layouts; unpadded, where the TPU padded T
-    to its tile). Stacked params are refused (``scan_layers``).
+    to its tile). Stacked params (``stack_whisper_decoder``) get stacked
+    [L, B, H, S, Dh] self caches and [L, B, H, T, Dh] cross planes, the
+    scan decode's.
 
     ``quant`` stores the head-major cross planes int8 with one f32 scale
     per (batch row, head, position) (``cross_k_scale``/``cross_v_scale``
@@ -392,9 +435,7 @@ def init_kv_cache(params: Dict, enc_out: torch.Tensor, max_len: int,
             return y.contiguous()
         return y.reshape(B, T, H, Dh).transpose(1, 2).contiguous()
 
-    if "blocks_stacked" in dec:
-        _refuse_scan()
-    if quant and (merged_self or merged_cross):
+    if quant and (merged_self or merged_cross or "blocks_stacked" in dec):
         raise ValueError("quant=True supports only the unstacked, "
                          "unmerged cache layout (no scan_layers / "
                          "pallas_self_attn / pallas_cross)")
@@ -402,6 +443,16 @@ def init_kv_cache(params: Dict, enc_out: torch.Tensor, max_len: int,
         raise ValueError("cross_int8 requires the merged_cross layout "
                          "(it is the fused kernel's cache quantization)")
     dev = enc_out.device
+    if "blocks_stacked" in dec:
+        stacked = dec["blocks_stacked"]
+        L = stacked["ln1"]["scale"].shape[0]
+        layers = [_layer(stacked, li) for li in range(L)]
+        return {
+            **{n: torch.zeros((L, B, H, max_len, Dh), dtype=policy.compute,
+                              device=dev) for n in ("self_k", "self_v")},
+            **{f"cross_{w}": torch.stack([cross_kv(blk, w)
+                                          for blk in layers])
+               for w in ("k", "v")}}
     shape = ((B, max_len, cfg.d_model) if merged_self
              else (B, H, max_len, Dh))
     cache = {"self_k": [], "self_v": [], "cross_k": [], "cross_v": []}
@@ -471,11 +522,13 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
     if not 1 <= unroll <= 4:
         raise ValueError(f"unroll must be in [1, 4], got {unroll}")
     dec_p = params["decoder"]
-    if scan_layers or "blocks_stacked" in dec_p:
-        _refuse_scan()
+    scan = scan_layers or "blocks_stacked" in dec_p
     blocks_q = bool(dec_p.get("blocks")) and any(
         isinstance(v, dict) and "kernel_q" in v
         for v in dec_p["blocks"][0]["self_attn"].values())
+    if (quant or blocks_q) and scan:
+        raise ValueError("int8 decode weights do not compose with the "
+                         "stacked-layer scan decode — drop scan_layers")
     if pallas_layer:
         if not blocks_q:
             raise ValueError("pallas_layer needs int8 decode weights "
@@ -500,12 +553,22 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
         raise ValueError("cross_int8 is the fused kernel's cache "
                          "quantization — it requires pallas_cross AND "
                          "int8 decode weights (quant='kernels')")
+    if "token_embedding_q" in dec_p and scan:
+        raise ValueError("int8 token embedding does not compose with the "
+                         "stacked-layer scan decode")
     if pallas_cross and pallas_ffn:
         raise ValueError("pallas_cross subsumes the FFN — drop pallas_ffn")
     max_len = max_len or cfg.max_target_positions
     if enc_out is None:
         enc_out = whisper_encode(params, mel, cfg, policy)
-    if pallas_self_attn:
+    if scan:
+        if pallas_ffn or pallas_self_attn or pallas_cross:
+            # the scanned step has no kernel variants
+            raise ValueError(
+                "scan_layers decoding does not implement pallas_ffn / "
+                "pallas_self_attn / pallas_cross — drop one of the flags")
+        params = stack_whisper_decoder(params)
+    elif pallas_self_attn:
         params = fuse_whisper_decoder_qkv(params)      # the kernel's layout
     dev = enc_out.device
     B = enc_out.shape[0]
@@ -526,10 +589,14 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
 
     def step(tok, pos):
         # looked up by name on every call, so a caller can wrap the step
-        logits, _ = _cached_decoder_step(
-            params, tok, pos, enc_out, cache, cfg, policy,
-            pallas_ffn=pallas_ffn, pallas_self_attn=pallas_self_attn,
-            pallas_cross=pallas_cross, pallas_layer=pallas_layer)
+        if scan:
+            logits, _ = _scan_decoder_step(params, tok, pos, enc_out, cache,
+                                           cfg, policy)
+        else:
+            logits, _ = _cached_decoder_step(
+                params, tok, pos, enc_out, cache, cfg, policy,
+                pallas_ffn=pallas_ffn, pallas_self_attn=pallas_self_attn,
+                pallas_cross=pallas_cross, pallas_layer=pallas_layer)
         return logits.float()
 
     done = torch.zeros(B, dtype=torch.bool, device=dev)

@@ -41,7 +41,7 @@ import torch
 from misinfo_tpu_torch.ops import cross_ffn_step as K7
 from misinfo_tpu_torch.ops import layer_step as K9
 from misinfo_tpu_torch.ops import self_attn_step as K6
-from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, layer_norm
+from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, dense, layer_norm
 from misinfo_tpu_torch.ops.quant import (
     int_einsum, quantize_dense, quantize_rows_folded, times_r127)
 
@@ -165,9 +165,92 @@ def _drop(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     return torch.cat([t[:, :lo], t[:, hi:]], dim=1)
 
 
-def self_attn_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
+MAX_SMEM = 232448      # dynamic shared memory of a block on an H100
+
+
+def _chunks(B: int, H: int, pos: int, sms: int, most: int):
+    n = pos + 1
+    c = min(max(-(-sms // (B * H)), 1), min(-(-n // 64), most))
+    rc = -(-n // c)
+    return rc, -(-n // rc)
+
+
+def self_split(B: int, H: int, pos: int, sms: int,
+               w_bytes: int) -> Tuple[int, int, int]:
+    """The kernel's split of cache rows 0..pos
+    (``self_attn_phases.cuh::self_split``): rows per chunk, chunks, and
+    the output columns per block where the o product is folded into the
+    attention launch (0 where it is not). About one attention block per
+    SM, at least 64 rows a chunk; folded (each batch row's H·C blocks one
+    cluster of at most 16) for int8 W_o (``w_bytes`` 1) where H ≤ 16,
+    C ≥ 2, the B·H·C blocks fit one wave and a block's W_o tile fits its
+    shared memory, else at most 8 chunks."""
+    D = 64 * H
+    if H <= 16 and w_bytes == 1:
+        rc, c = _chunks(B, H, pos, sms, 16 // H)
+        w = D // (H * c)
+        floats = rc + 64 + 32 * 64 + 8 + 2 + 64 + D
+        if c > 1 and B * H * c <= sms and (
+                (floats * 4 + 15) // 16 * 16 + D * w * w_bytes <= MAX_SMEM):
+            return rc, c, w
+    rc, c = _chunks(B, H, pos, sms, 8)
+    return rc, c, 0
+
+
+def self_chunks(B: int, H: int, pos: int, sms: int,
+                w_bytes: int = 1) -> Tuple[int, int]:
+    """Rows per chunk and chunk count of ``self_split``."""
+    return self_split(B, H, pos, sms, w_bytes)[:2]
+
+
+def self_attn_chunked(case: Dict, sms: int) -> torch.Tensor:
+    """The CUDA self-attention step's arithmetic for the attention, in
+    PyTorch f32 (``csrc/self_attn_phases.cuh``): per chunk of the kernel's
+    split the scores' max m_z and l_z = Σ exp(s − m_z), the global max m
+    and l = Σ_z exp(m_z − m)·l_z in chunk order, p = bf16(exp(s − m) / l)
+    (every probability rounded after the global max and sum, as the plain
+    version rounds them), each chunk's o_z = Σ p·v, ctx = bf16(Σ_z o_z)
+    in chunk order. The rest is the plain version's. The CPU tests hold it
+    to the band, so that the exchange the card's clusters run is tried
+    against the band first."""
+    x, ln, qkv, o, ck, cv, pos = case["args"]
+    B, D = x.shape
+    H = case["n_heads"]
+    Dh = D // H
+    y, ck1, cv1 = K6.self_attn_step_plain(x, ln, qkv, o, ck.clone(),
+                                          cv.clone(), pos, n_heads=H)
+    h = layer_norm(ln, x)
+    q = (K6._qkv_int8(h, qkv, x.dtype, D)[0] if "kernel_q" in qkv
+         else dense(qkv, h, DEFAULT_POLICY)[:, :D])
+    k = ck1[:, :pos + 1].float().reshape(B, pos + 1, H, Dh)
+    v = cv1[:, :pos + 1].float().reshape(B, pos + 1, H, Dh)
+    s = torch.einsum("bhd,bshd->bhs", q.float().reshape(B, H, Dh),
+                     k) / math.sqrt(Dh)
+    rc, n = self_chunks(B, H, pos, sms, 1 if "kernel_q" in qkv else 2)
+    spans = [(z * rc, min(pos + 1, (z + 1) * rc)) for z in range(n)]
+    mz = [s[..., lo:hi].amax(-1) for lo, hi in spans]
+    lz = [torch.exp(s[..., lo:hi] - m[..., None]).sum(-1)
+          for (lo, hi), m in zip(spans, mz)]
+    m = torch.stack(mz).amax(0)
+    l = 0.0
+    for mi, li in zip(mz, lz):
+        l = l + torch.exp(mi - m) * li
+    p = (torch.exp(s - m[..., None]) / l[..., None]).to(
+        torch.bfloat16).float()
+    ctx = 0.0
+    for lo, hi in spans:
+        ctx = ctx + torch.einsum("bhs,bshd->bhd", p[..., lo:hi],
+                                 v[:, lo:hi])
+    ctx = ctx.reshape(B, D).to(x.dtype)
+    return x + dense(o, ctx, DEFAULT_POLICY)
+
+
+def self_attn_faults(case: Dict,
+                     sms=None) -> List[Tuple[str, torch.Tensor]]:
     """Plain outputs of wrong self-attention kernels: a block of old
-    cache rows left out; the row past ``pos`` attended."""
+    cache rows left out; with ``sms``, each chunk of the kernel's split
+    that holds a planted row left out (its old rows: the new row is the
+    step's own); the row past ``pos`` attended."""
     x, ln, qkv, o, ck, cv, pos = case["args"]
     H, S = case["n_heads"], ck.shape[1]
 
@@ -181,6 +264,14 @@ def self_attn_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
         out.append((f"cache rows {lo}..{hi - 1} left out",
                     plain(_drop(ck, lo, hi), _drop(cv, lo, hi),
                           pos - (hi - lo))))
+    rc, n = (self_chunks(x.shape[0], H, pos, sms,
+                         1 if "kernel_q" in qkv else 2) if sms else (0, 1))
+    for j in range(n if n > 1 else 0):
+        lo, hi = j * rc, min(pos, (j + 1) * rc)
+        if lo < hi and any(lo <= r < hi for r in case["planted"]):
+            out.append((f"chunk {j} (rows {lo}..{hi - 1}) left out",
+                        plain(_drop(ck, lo, hi), _drop(cv, lo, hi),
+                              pos - (hi - lo))))
     if pos + 1 < S:
         # rows 0..pos-1, the stale row pos+1 and the new row: the plain
         # version at pos+1 over caches whose row pos holds row pos+1
@@ -190,17 +281,18 @@ def self_attn_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
     return out
 
 
-def check_self_attn(case: Dict) -> Dict:
+def check_self_attn(case: Dict, sms=None) -> Dict:
     """The wrapper (the kernel on CUDA tensors) against the plain version:
-    the output in the band, every fault outside it, the written cache row
-    in the band and every other row untouched."""
+    the output in the band, every fault outside it (with ``sms``, the
+    SM count that sets the kernel's chunks, also each dropped chunk), the
+    written cache row in the band and every other row untouched."""
     x, ln, qkv, o, ck, cv, pos = case["args"]
     H = case["n_heads"]
     y, ck1, cv1 = K6.fused_self_attn_step(x, ln, qkv, o, ck.clone(),
                                           cv.clone(), pos, n_heads=H)
     want, ck2, cv2 = K6.self_attn_step_plain(x, ln, qkv, o, ck.clone(),
                                              cv.clone(), pos, n_heads=H)
-    res = hold(y, want, x, 1, self_attn_faults(case),
+    res = hold(y, want, x, 1, self_attn_faults(case, sms),
                f"self_attn_step B={x.shape[0]} pos={pos}")
     keep = torch.arange(ck.shape[1], device=ck.device) != pos
     for name, got, ref, orig in (("cache_k", ck1, ck2, ck),
@@ -599,7 +691,7 @@ def layer_faults(case: Dict, sms: int) -> List[Tuple[str, torch.Tensor]]:
     step's faults carried through the cross step, and the cross step's."""
     cc, H = case["cross"], case["n_heads"]
     out = [(name, K7.cross_ffn_step_plain(x1, *cc["args"][1:], n_heads=H))
-           for name, x1 in self_attn_faults(case["self"])]
+           for name, x1 in self_attn_faults(case["self"], sms)]
     return out + cross_ffn_faults(cc, sms)
 
 

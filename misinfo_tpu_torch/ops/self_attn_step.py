@@ -25,7 +25,9 @@ launches ``csrc/self_attn_step.cu`` (bf16 activations only) or raises; a
 CPU tensor runs ``self_attn_step_plain``. ``launches`` counts kernel
 calls (one per call), ``launches_i8`` the calls among them with int8
 weights; ``kernel_launches`` reads the library's own count of
-``__global__`` launches (three per call). A call carries at most
+``__global__`` launches (two per call where the o product is folded into
+the attention launch: int8 weights, a head split into two or more chunks,
+the blocks in one wave; three else). A call carries at most
 ``MAX_BATCH`` rows.
 """
 

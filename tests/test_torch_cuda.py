@@ -107,15 +107,40 @@ def test_int8_ffn_kernel_refuses_what_it_cannot_run(card):
         K1.int8_ffn(*odd, mode="tanh")
 
 
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("B,pos", [(1, 3), (4, 447), (20, 100)])
+@pytest.mark.parametrize("B,pos", [(1, 3), (4, 447), (20, 100), (1, 447),
+                                   (4, 3), (32, 3), (32, 447), (1, 32),
+                                   (4, 224)])
 def test_self_attn_step_kernel_matches_plain(card, int8, B, pos):
+    """Within the band, with every planted fault outside it: a dropped
+    chunk of the kernel's split (cluster) among them."""
     case = DC.self_attn_case(B, pos, int8)
     before = (K6.launches, K6.launches_i8)
-    DC.check_self_attn(case)                 # output, faults, cache rows
+    DC.check_self_attn(case, _sms())         # output, faults, cache rows
     torch.cuda.synchronize()
     assert (K6.launches, K6.launches_i8) == (before[0] + 1,
                                              before[1] + int8)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("H", [6, 8, 12, 16, 20])
+@pytest.mark.parametrize("B", [1, 4])
+def test_self_attn_step_kernel_at_every_head_count(card, int8, H, B):
+    """The cluster path at every Whisper width (tiny, base, small,
+    medium, large: D = 64·H), at pos 447: clusters of the row's heads and
+    chunks with the o product folded in (tiny to medium), of a head's
+    chunks without (large)."""
+    case = DC.self_attn_case(B, 447, int8, D=64 * H, H=H)
+    _, C, fold = DC.self_split(B, H, 447, _sms(), 1 if int8 else 2)
+    assert (C * H if fold else C) > 1
+    before = K6.kernel_launches()
+    DC.check_self_attn(case, _sms())
+    torch.cuda.synchronize()
+    assert K6.kernel_launches() - before == (2 if fold else 3)
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -160,15 +185,18 @@ def test_layer_step_kernel_is_the_two_call_route(card, B, pos):
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B", [1, 4, 32])
 def test_decode_step_kernels_global_launches(card, int8, B):
-    """By the libraries' own counts: K6 three ``__global__`` launches per
-    call, K7 five (from eleven), K8 nine."""
+    """By the libraries' own counts: K6 two ``__global__`` launches per
+    call at whisper-base where the o product is folded into the attention
+    (B = 1, 4), three where it is not (B = 32), K7 five (from eleven), K8
+    nine."""
     sc, cc = DC.self_attn_case(B, 447, int8), DC.cross_ffn_case(B, T, int8)
+    fold = DC.self_split(B, H, 447, _sms(), 1 if int8 else 2)[2]
     before = (K6.kernel_launches(), K7.kernel_launches())
     K6.fused_self_attn_step(*sc["args"], n_heads=H)
     K7.fused_cross_ffn_step(*cc["args"], n_heads=H)
     torch.cuda.synchronize()
     assert (K6.kernel_launches() - before[0],
-            K7.kernel_launches() - before[1]) == (3, 5)
+            K7.kernel_launches() - before[1]) == (2 if fold else 3, 5)
     if int8:
         ic = DC.cross_i8cc_case(B, T)
         before = K7.kernel_launches_i8cc()
@@ -314,9 +342,15 @@ def test_fused_attention_kernel_on_a_padding_row(card, dtype, S, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_layer_norm_kernel_matches_plain(card, dtype):
+@pytest.mark.parametrize("rows,D", [(32 * 512, 768), (4096, 512),
+                                    (4096, 1280), (4096, 1000), (333, 1001),
+                                    (5, 1024)])
+def test_layer_norm_kernel_matches_plain(card, dtype, rows, D):
+    """The compiled row widths (512, 768, 1024, 1280) and the general loop
+    (1,000; 1,001, whose bf16 rows are not 16-byte aligned), fewer rows
+    than warps among them."""
     before = K3.ln_launches
-    KC.check_layer_norm(KC.layer_norm_case(32 * 512, 768, dtype))
+    KC.check_layer_norm(KC.layer_norm_case(rows, D, dtype))
     torch.cuda.synchronize()
     assert K3.ln_launches == before + 1
 

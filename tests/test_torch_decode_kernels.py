@@ -4,7 +4,9 @@ interpret mode on the CPU, and the fused decode held to JAX's. The CUDA
 kernels are held to these plain versions on the card by
 tests/test_torch_cuda.py, through ops/decode_checks.py; here that
 module's planted faults are shown to fall outside its band at the card
-tests' and the chip smoke's shapes.
+tests' and the chip smoke's shapes, and the arithmetic of the card's
+designs, emulated in PyTorch at the card's split (K7's flash-decoding T
+chunks, K6's cache-row chunks exchanged in a cluster), is held to it.
 
 Tolerances, on the same numpy inputs:
 - f32 compute: 2e-6 absolute on outputs of magnitude ~5 (sums run in
@@ -163,7 +165,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                 v_scale=torch.ones(B, T))
 
 
-H100_SMS = 132          # sets the kernel's T chunks that the faults drop
+H100_SMS = 132          # sets the kernels' chunks that the faults drop
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -171,10 +173,52 @@ H100_SMS = 132          # sets the kernel's T chunks that the faults drop
                                    (20, 100)])
 def test_self_attn_band_rejects_planted_faults(int8, B, pos):
     """On the CPU the wrapper is the plain version (error 0); what this
-    shows is that every emulated wrong kernel leaves the band."""
-    res = DC.check_self_attn(DC.self_attn_case(B, pos, int8, device="cpu"))
+    shows is that every emulated wrong kernel leaves the band, each of
+    the kernel's chunks left out among them."""
+    res = DC.check_self_attn(DC.self_attn_case(B, pos, int8, device="cpu"),
+                             H100_SMS)
     assert res["err"] == 0.0 and res["faults"] >= 1
     assert res["nearest_fault"] > 4.0
+
+
+@pytest.mark.parametrize("B,H,pos,w_bytes,split", [
+    (1, 8, 0, 1, (1, 1, 0)), (1, 8, 32, 1, (33, 1, 0)),
+    (1, 8, 447, 1, (224, 2, 32)), (4, 8, 447, 1, (224, 2, 32)),
+    (4, 6, 447, 1, (224, 2, 32)), (4, 8, 224, 2, (57, 4, 0)),
+    (4, 8, 447, 2, (90, 5, 0)), (16, 8, 447, 1, (224, 2, 0)),
+    (32, 8, 447, 2, (448, 1, 0)), (1, 16, 447, 1, (64, 7, 0)),
+    (4, 20, 447, 1, (224, 2, 0)), (1, 20, 447, 2, (64, 7, 0))])
+def test_self_split(B, H, pos, w_bytes, split):
+    """The kernel's split of rows 0..pos on 132 SMs (rows per chunk,
+    chunks, W_o columns per block where the o product is folded in):
+    about one block per SM over B·H (row, head) pairs, at least 64 rows a
+    chunk; with int8 W_o, C ≥ 2 chunks of at most 16 / H and the B·H·C
+    blocks in one wave, each batch row's blocks one cluster with the o
+    product folded in; else C ≤ 8 and a separate o product."""
+    assert DC.self_split(B, H, pos, H100_SMS, w_bytes) == split
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("pos", [0, 3, 447])
+def test_chunked_self_attention_holds_the_band(int8, B, pos):
+    """The redesigned K6 attention (the rows split into the kernel's
+    chunks, the chunks' maxima, exp-sums and PV partials exchanged in a
+    cluster, every probability rounded after the global max and sum)
+    keeps the unchanged band of its plain version, with every planted
+    fault outside it: each chunk left out (every chunk holds a planted
+    row), a block of rows left out, the row past pos attended."""
+    case = DC.self_attn_case(B, pos, int8, device="cpu")
+    x, ln, qkv, o, ck, cv, _ = case["args"]
+    want = K6.self_attn_step_plain(x, ln, qkv, o, ck.clone(), cv.clone(),
+                                   pos, n_heads=8)[0]
+    faults = DC.self_attn_faults(case, H100_SMS)
+    _, n = DC.self_chunks(B, 8, pos, H100_SMS, 1 if int8 else 2)
+    assert sum(f[0].startswith("chunk ") for f in faults) == (
+        n if n > 1 else 0)
+    res = DC.hold(DC.self_attn_chunked(case, H100_SMS), want, x, 1, faults,
+                  f"chunked self-attention B={B} pos={pos}")
+    assert res["err"] <= res["band"] and res["nearest_fault"] > 4.0
 
 
 @pytest.mark.parametrize("int8", [False, True])

@@ -222,10 +222,7 @@ def test_pallas_layer_refuses_what_jax_refuses(model, int8, kw, msg):
         jw.decode_transcript(jparams, None, JCFG, JP,
                              enc_out=jnp.asarray(enc), max_len=4,
                              pallas_layer=True, **kw)
-    # the port refuses scan_layers itself, by name, before anything else
-    exc, match = ((NotImplementedError, "scan_layers")
-                  if kw.get("scan_layers") else (ValueError, msg))
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=msg):
         tw.decode_transcript(tparams, None, TCFG, TP,
                              enc_out=torch.from_numpy(enc), max_len=4,
                              pallas_layer=True, **kw)

@@ -8,7 +8,10 @@ and logits within 1e-4 (f32 sums in another order); decoded tokens equal,
 avg_logprob within 1e-5 and p(nospeech) within 1e-6 (the JAX tests' own
 bars, tests/test_whisper_parity.py:447-449); with int8 decoder weights
 tokens equal and avg_logprob within 2e-3 (:518-519). The stacked-layer scan
-decode is refused by name, with the flag or with stacked params.
+decode (``scan_layers=True`` or params stacked by ``stack_whisper_decoder``)
+gives JAX's scan decode's greedy tokens exactly, in f32 and bf16, and the
+port's own unrolled decode's, and refuses what JAX refuses with JAX's
+messages.
 """
 
 import jax
@@ -227,29 +230,63 @@ def test_options_not_carried_are_refused(model):
         tw.fuse_whisper_decoder_qkv(t_serving.quantize_whisper_decoder(tp))
 
 
-def stacked_like(tp):
-    """Port params in the stacked layout's shape: ``blocks_stacked`` in
-    place of ``blocks`` (what the refusal looks at)."""
-    dec = {k: v for k, v in tp["decoder"].items() if k != "blocks"}
-    return {**tp, "decoder": {**dec, "blocks_stacked": {}}}
-
-
 @pytest.mark.parametrize("how", ["flag", "stacked_params", "stacked_cache"])
 def test_scan_layers_is_refused_by_name(model, how):
-    """JAX's scan over stacked [L, ...] leaves runs no kernel, and the
-    port's Python loop over the blocks is that decode already."""
-    _, tp, _, enc = model
+    """Once refused by name, the stacked-layer scan decode now runs: the
+    flag and pre-stacked params decode as JAX's scan decode does (f32),
+    ``stack_whisper_decoder`` gives JAX's stacked tree and is idempotent,
+    and ``init_kv_cache`` takes stacked params as JAX's does."""
+    jp, tp, _, enc = model
+    js, ts = jw.stack_whisper_decoder(jp), tw.stack_whisper_decoder(tp)
+    if how == "stacked_cache":
+        jc = jw.init_kv_cache(js, jnp.asarray(enc), 5, JCFG, JP)
+        tc = tw.init_kv_cache(ts, torch.from_numpy(enc), 5, TCFG, TP)
+        assert sorted(tc) == sorted(jc)
+        for n in jc:
+            assert tuple(tc[n].shape) == jc[n].shape, n
+            np.testing.assert_allclose(_np(tc[n]), np.asarray(jc[n]),
+                                       atol=TOL)
+        return
+    if how == "stacked_params":
+        assert tw.stack_whisper_decoder(ts) is ts
+        leaves = jax.tree_util.tree_leaves_with_path(
+            js["decoder"]["blocks_stacked"])
+        for path, leaf in leaves:
+            got = ts["decoder"]["blocks_stacked"]
+            for k in path:
+                got = got[k.key]
+            np.testing.assert_array_equal(got.numpy(), np.asarray(leaf))
+        jp, tp, kw = js, ts, {}
+    else:
+        kw = dict(scan_layers=True)
+    (tj, lj, nj), (tt, lt, nt) = _decodes(jp, tp, enc, max_len=14,
+                                          nospeech_id=7, **kw)
+    np.testing.assert_array_equal(tt, tj)
+    np.testing.assert_allclose(lt, lj, atol=1e-5)
+    np.testing.assert_allclose(nt, nj, atol=1e-6)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_scan_decode_matches_jax_scan_and_unrolled(model, mode, stacked):
+    """Greedy tokens of the scan decode, with the flag on unstacked params
+    or with pre-stacked params, equal JAX's ``scan_layers=True`` decode's
+    exactly and the port's unrolled decode's; avg_logprob within the
+    bars of the module docstring (f32) or 2e-3 (bf16, the int8 bar)."""
+    jp, tp, _, enc = model
+    jpol, tpol = (JP, TP) if mode == "f32" else (J_BF16, T_BF16)
+    tq = tw.stack_whisper_decoder(tp) if stacked else tp
+    jt, jl = jw.decode_transcript(jp, None, JCFG, jpol, max_len=14,
+                                  enc_out=jnp.asarray(enc), scan_layers=True)
     e = torch.from_numpy(enc)
-    with pytest.raises(NotImplementedError, match="scan_layers.*M13"):
-        if how == "flag":
-            tw.decode_transcript(tp, None, TCFG, TP, enc_out=e, max_len=4,
-                                 scan_layers=True)
-        elif how == "stacked_params":
-            tw.decode_transcript(stacked_like(tp), None, TCFG, TP, enc_out=e,
-                                 max_len=4)
-        else:
-            tw.init_kv_cache(stacked_like(tp), e, 4, TCFG, TP)
-    assert not hasattr(tw, "stack_whisper_decoder")
+    tt, tl = tw.decode_transcript(tq, None, TCFG, tpol, max_len=14,
+                                  enc_out=e, scan_layers=not stacked)
+    ut, ul = tw.decode_transcript(tp, None, TCFG, tpol, max_len=14, enc_out=e)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tt.numpy(), ut.numpy())
+    atol = 1e-5 if mode == "f32" else 2e-3
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=atol)
+    np.testing.assert_allclose(tl.numpy(), ul.numpy(), atol=atol)
 
 
 @pytest.mark.parametrize("kw,msg", [
@@ -263,8 +300,7 @@ def test_scan_layers_is_refused_by_name(model, how):
     (dict(unroll=5), "unroll must be in")])
 def test_scan_and_unroll_refuse_what_jax_refuses(model, kw, msg):
     """Where JAX refuses a combination with ``scan_layers``, the port
-    refuses too (it refuses ``scan_layers`` itself, by name); ``unroll``
-    out of range raises JAX's ValueError."""
+    refuses it with JAX's ValueError; so ``unroll`` out of range."""
     jp, tp, _, enc = model
     kw = dict(kw)
     int8 = kw.pop("int8", False)
@@ -277,19 +313,9 @@ def test_scan_and_unroll_refuse_what_jax_refuses(model, kw, msg):
     with pytest.raises(ValueError, match=msg):
         jw.decode_transcript(jp, None, JCFG, JP, enc_out=jnp.asarray(enc),
                              max_len=4, **kw)
-    exc, match = port_refusal(kw, msg)
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=msg):
         tw.decode_transcript(tp, None, TCFG, TP,
                              enc_out=torch.from_numpy(enc), max_len=4, **kw)
-
-
-def port_refusal(kw, msg):
-    """(exception, match) of the port for a combination JAX refuses with
-    ``msg``: JAX's ValueError, except that ``scan_layers`` is refused by
-    name before anything else."""
-    if kw.get("scan_layers"):
-        return NotImplementedError, "scan_layers"
-    return ValueError, msg
 
 
 @pytest.mark.parametrize("unroll", [1, 2, 4])

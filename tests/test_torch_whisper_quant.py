@@ -204,10 +204,7 @@ def test_decode_refuses_what_jax_refuses(model, int8, kw, msg):
     with pytest.raises(ValueError, match=msg):
         jw.decode_transcript(jparams, None, JCFG, JP,
                              enc_out=jnp.asarray(enc), max_len=4, **kw)
-    # the port refuses scan_layers itself, by name, before anything else
-    exc, match = ((NotImplementedError, "scan_layers")
-                  if kw.get("scan_layers") else (ValueError, msg))
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=msg):
         tw.decode_transcript(tparams, None, TCFG, TP,
                              enc_out=torch.from_numpy(enc), max_len=4, **kw)
 
@@ -219,15 +216,11 @@ def test_decode_refuses_what_jax_refuses(model, int8, kw, msg):
     (False, dict(cross_int8=True), "requires the merged_cross layout")])
 def test_init_kv_cache_refuses_what_jax_refuses(model, stacked, kw, msg):
     jp, tp, _, _, enc = model
-    exc, match = ValueError, msg
-    if stacked:         # the port refuses stacked params themselves, by name
-        jp = jw.stack_whisper_decoder(jp)
-        dec = {k: v for k, v in tp["decoder"].items() if k != "blocks"}
-        tp = {**tp, "decoder": {**dec, "blocks_stacked": {}}}
-        exc, match = NotImplementedError, "scan_layers"
+    if stacked:
+        jp, tp = jw.stack_whisper_decoder(jp), tw.stack_whisper_decoder(tp)
     with pytest.raises(ValueError, match=msg):
         jw.init_kv_cache(jp, jnp.asarray(enc), 4, JCFG, JP, **kw)
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=msg):
         tw.init_kv_cache(tp, torch.from_numpy(enc), 4, TCFG, TP, **kw)
 
 
