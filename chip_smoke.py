@@ -9,11 +9,16 @@ Phases (any failure exits non-zero before the result line):
      (misinfo_tpu_torch/csrc/{int8_ffn,int8_dense,fused_attention,
      layer_norm,fused_ffn,self_attn_step,cross_ffn_step,
      cross_ffn_step_i8cc,layer_step,int4_sims}.cu);
-  3. K1 (fused int8 FFN) against its plain PyTorch version on the card at
-     the main path's three shapes (RoBERTa, CLIP text, CLIP vision; B = 3,
-     the kernel's split form) and at RoBERTa b32/S512 (its one-block-per-
-     row-tile form), within 3 int8 levels of the plain output, and bit for
-     bit on an integer grid where every quantization scale is 1;
+  3. K1 (int8 FFN) against its plain PyTorch version on the card through
+     misinfo_tpu_torch/ops/kernel_checks.py at the main path's three
+     shapes (RoBERTa, CLIP text, CLIP vision; B = 3, the kernel's split
+     form) and at RoBERTa b32/S512 (one block per output tile), within 3
+     int8 levels of the plain output with the planted faults (a chunk
+     left out, the intermediate's scale per row, the next chunk's scale,
+     the ragged last tile dropped) outside that band, and bit for bit on
+     an integer grid where every scale of x and the weights is 1, at
+     M = 37 and 16,384 (both forms); CUDA-event times with the bound and
+     torch._int_mm of the two integer products as a yardstick;
   4. the engine at full width (RoBERTa-base, CLIP ViT-B/32,
      EfficientNet-B0; seeded random weights, bf16, quant="auto" →
      int8_ffn) with a 2,176-row vault: one analyze() and one mixed
@@ -98,7 +103,9 @@ Phases (any failure exits non-zero before the result line):
      use_pallas=True (phase 4's weights, vault and b32 requests): one
      analyze() and the b32/S512 batch with exact K2/K1/K3 launch counts
      (144/36/36 for the batch), scores within 0.05 of the plain versions,
-     verdicts/s beside the default engine's, params bytes;
+     verdicts/s beside the default engine's, params bytes, which must
+     equal the bytes of the storages the tree holds (the K-major int8
+     kernels stored once) with every int8 kernel's transpose contiguous;
  17. engine II likewise with use_pallas="ffn": K5 36 times per batch;
  18. (after phase 8) one whisper-base greedy decode_transcript(
      pallas_ffn=True) with bf16 weights and the fused steps off: K5 once
@@ -143,10 +150,13 @@ Phases (any failure exits non-zero before the result line):
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
-kernel's device µs) as JSON lines, with whatever misinfo_tpu_torch is
-first on sys.path: run from another tree's root with ``python -c "import
-runpy, sys; sys.argv = ['chip_smoke.py', '--times']; runpy.run_path(PATH,
-run_name='__main__')"`` it times that tree's kernels. ``--parent DIR``
+kernel's device µs; K1 and K2 at the b32/S512 shapes and one request's,
+beside torch._int_mm of the same integer products; ``--kernels`` picks
+among attention, layer_norm, decode and int8) as JSON lines, with
+whatever misinfo_tpu_torch is first on sys.path: run from another tree's
+root with ``python -c "import runpy, sys; sys.argv = ['chip_smoke.py',
+'--times']; runpy.run_path(PATH, run_name='__main__')"`` it times that
+tree's kernels. ``--parent DIR``
 also times the K4 source of the tree at DIR, interleaved with this
 tree's.
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -311,52 +321,49 @@ def append_profile(path: str, title: str, fn, rows: int = 30) -> None:
                                           row_limit=rows))
 
 
-def check_kernel(K1, quantize_dense):
-    """Phase 3: kernel vs plain on the card at the main-path shapes."""
-    gen = torch.Generator().manual_seed(0)
+def check_kernel(card):
+    """Phase 3: K1 against its plain version on the card at the main
+    path's shapes (ops/kernel_checks.py: within 3 int8 levels, with the
+    planted faults outside), bit for bit on the integer grid at M = 37
+    (the split form) and M = 16,384 (one block per output tile), and
+    CUDA-event times beside the bound and the integer products' yardstick
+    (torch._int_mm, which the port never calls)."""
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.ops import kernel_checks as KC
     rows = {}
     for name, M, K, N, mode in SHAPES:
-        p_in = quantize_dense({"kernel": torch.randn(K, N, generator=gen) * .03,
-                               "bias": torch.randn(N, generator=gen) * .01})
-        p_out = quantize_dense({"kernel": torch.randn(N, K, generator=gen) * .03,
-                                "bias": torch.randn(K, generator=gen) * .01})
-        args = [torch.randn(M, K, generator=gen).to(torch.bfloat16)]
-        for p in (p_in, p_out):
-            args += [p["kernel_q"], p["w_scale"], p["bias"]]
-        args = [a.cuda() for a in args]
-        y = K1.int8_ffn(*args, mode=mode)
-        y_plain = K1.int8_ffn_plain(*args, mode=mode)
+        c = KC.int8_ffn_case(M, K, N, mode)
+        res = KC.check_int8_ffn(c)
         torch.cuda.synchronize()
-        err = (y.float() - y_plain.float()).abs().max().item()
-        band = 3 * y_plain.float().abs().max().item() / 127
-        ms = cuda_ms(lambda: K1.int8_ffn(*args, mode=mode), 20)
-        plain_ms = cuda_ms(lambda: K1.int8_ffn_plain(*args, mode=mode), 5)
-        print(f"K1 {name} M={M} K={K} N={N} mode={mode}: max_abs_err={err} "
-              f"(band {band}) kernel_ms={ms} plain_ms={plain_ms}", flush=True)
-        if not (math.isfinite(err) and err < band):
-            raise AssertionError(f"K1 disagrees with its plain version at "
-                                 f"{name}: {err} >= {band}")
-        rows[name] = {"err": err, "ms": ms, "plain_ms": plain_ms}
-    # integer grid: x and weights whose abs-max is 127, so every scale is 1
-    # and the first int8 product is exact on both sides
-    M, K, N = 37, 768, 3072
-    args = [torch.randint(-126, 127, (M, K), generator=gen).to(torch.bfloat16)]
-    for k, n in ((K, N), (N, K)):
-        w = torch.randint(-126, 127, (k, n), generator=gen).float()
-        w[0] = 127.0
-        p = quantize_dense({"kernel": w, "bias": torch.randint(
-            -50, 50, (n,), generator=gen).float()})
-        args += [p["kernel_q"], p["w_scale"], p["bias"]]
-    args[0][:, 0] = 127.0
-    args = [a.cuda() for a in args]
-    exact = torch.equal(K1.int8_ffn(*args, mode="tanh"),
-                        K1.int8_ffn_plain(*args, mode="tanh"))
-    print(f"K1 integer grid M={M} K={K} N={N}: bitwise equal {exact}",
-          flush=True)
-    if not exact:
-        raise AssertionError("K1 differs from its plain version on the "
-                             "integer grid")
+        _report(f"K1 {name} M={M} K={K} N={N} {mode}", res, card)
+        a = c["args"]
+        rows[name] = {"err": res["err"], **_timed(
+            f"K1 {name}", lambda: K1.int8_ffn(*a, mode=mode),
+            lambda: K1.int8_ffn_plain(*a, mode=mode), None,
+            *ffn_work(M, K, N), "int8", card)}
+        print(f"K1 {name} yardstick: torch._int_mm of the two products "
+              f"{int_mm_ms(M, K, N) + int_mm_ms(M, N, K)} ms [{card}]",
+              flush=True)
+    for M in (37, 32 * 512):
+        _report(f"K1 integer grid M={M} K=768 N=3072 (bit for bit)",
+                KC.check_int8_ffn(KC.int8_ffn_case(M, 768, 3072, "tanh",
+                                                   grid=True)), card)
     return rows
+
+
+def ffn_work(M: int, K: int, N: int):
+    """(bytes, operations) of one int8 FFN call: x and out bf16, both
+    int8 weights, four f32 vectors once; 2·M·N·2K int8 operations."""
+    return M * K * 2 * 2 + 2 * K * N + 4 * (2 * N + 2 * K), 2 * M * N * 2 * K
+
+
+def int_mm_ms(M: int, K: int, N: int, reps: int = 20) -> float:
+    """torch._int_mm of an s8 [M, K] by a K-major s8 [K, N] (the integer
+    product alone, as cuBLAS computes it): the yardstick of K1's and K2's
+    products."""
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda")
+    b = torch.randint(-127, 128, (N, K), dtype=torch.int8, device="cuda").t()
+    return cuda_ms(lambda: torch._int_mm(a, b), reps)
 
 
 def make_vault(path: str, n: int = 2176, d: int = 512) -> None:
@@ -1394,6 +1401,75 @@ def attention_times(card, reps=20):
 
 
 LN_ROWS, LN_D = 32 * 512, 768       # K4's drive: RoBERTa b32/S512 rows
+# --times: K1 at the b32/S512 shapes, RoBERTa at B = 3 and one request of
+# each tower; K2 at the b32 shapes and one RoBERTa request (CLIP's 77 and
+# 50 rows stay below K2's 256)
+INT8_TIMES = {
+    "int8_ffn": (("roberta_b32", 32 * 512, 768, 3072, "tanh"),
+                 ("roberta_b3", 3 * 512, 768, 3072, "tanh"),
+                 ("clip_text_b32", 32 * 77, 512, 2048, "quick"),
+                 ("clip_vision_b32", 32 * 50, 768, 3072, "quick"),
+                 ("roberta_1", 512, 768, 3072, "tanh"),
+                 ("clip_text_1", 77, 512, 2048, "quick"),
+                 ("clip_vision_1", 50, 768, 3072, "quick")),
+    "int8_dense": (("roberta_b32", 32 * 512, 768, 768),
+                   ("clip_text_b32", 32 * 77, 512, 512),
+                   ("clip_vision_b32", 32 * 50, 768, 768),
+                   ("roberta_1", 512, 768, 768)),
+}
+
+
+def _int8_layer(K: int, N: int, gen):
+    """A seeded int8 dense layer laid out as the imported tree's serving
+    transform lays it on the card (K-major where it has ``kmajor``)."""
+    from misinfo_tpu_torch.ops import serving
+    from misinfo_tpu_torch.ops.quant import quantize_dense
+    p = quantize_dense({"kernel": torch.randn(K, N, generator=gen) * 0.03,
+                        "bias": torch.randn(N, generator=gen) * 0.01})
+    lay = getattr(serving, "kmajor", lambda t: t)
+    return lay(p["kernel_q"].cuda()), p["w_scale"].cuda(), p["bias"].cuda()
+
+
+def int8_times(card):
+    """K1 and K2 of the imported tree at INT8_TIMES' shapes, one JSON line
+    each: device µs per call (device_us), the device µs of each of its
+    CUDA kernels (kernel_split_us), CUDA kernels per call, the bound, and
+    torch._int_mm of the same integer products as the yardstick."""
+    from misinfo_tpu_torch.ops import int8_dense as K2
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    gen = torch.Generator().manual_seed(8)
+    for name, M, K, N, mode in INT8_TIMES["int8_ffn"]:
+        x = torch.randn(M, K, generator=gen).to(torch.bfloat16).cuda()
+        args = (x, *_int8_layer(K, N, gen), *_int8_layer(N, K, gen))
+        fn = lambda: K1.int8_ffn(*args, mode=mode)              # noqa: E731
+        _int8_time_row("int8_ffn", name, fn, (M, K, N), ffn_work(M, K, N),
+                       [(M, K, N), (M, N, K)], card)
+    for name, M, K, N in INT8_TIMES["int8_dense"]:
+        x = torch.randn(M, K, generator=gen).to(torch.bfloat16).cuda()
+        args = (x, *_int8_layer(K, N, gen))
+        fn = lambda: K2.int8_dense(*args)                       # noqa: E731
+        _int8_time_row("int8_dense", name, fn, (M, K, N),
+                       (nbytes(*args) + M * N * 2, 2 * M * K * N),
+                       [(M, K, N)], card)
+
+
+def _int8_time_row(kernel, name, fn, mkn, work, products, card) -> None:
+    us, per_call = device_us(fn)
+    mm = []
+    for M, K, N in products:
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda")
+        b = torch.randint(-127, 128, (N, K), dtype=torch.int8,
+                          device="cuda").t()
+        mm.append(device_us(lambda: torch._int_mm(a, b))[0])
+    b = bound(*work, "int8")
+    print(json.dumps({
+        "kernel": kernel, "shape": name, "M_K_N": mkn, "device_us": us,
+        "kernels_per_call": per_call, "kernels_us": kernel_split_us(fn),
+        "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"],
+        "int_mm_us": None if None in mm else sum(mm), "card": card}),
+        flush=True)
+
+
 # K4's checks (rows, D): the drive's shape, the other Whisper and RoBERTa
 # widths (the kernel's compiled row widths) and two others (its general
 # loop; 1,001 bf16 rows are not 16-byte aligned)
@@ -1514,6 +1590,8 @@ def check_opt_in_kernels(card):
         "int8_dense roberta", lambda: K2.int8_dense(*a),
         lambda: K2.int8_dense_plain(*a), None, nbytes(*a) + M * N * 2,
         2 * M * K * N, "int8", card)}
+    print(f"int8_dense roberta yardstick: torch._int_mm of the product "
+          f"{int_mm_ms(M, K, N)} ms [{card}]", flush=True)
 
     errs = []
     for dt in (bf16, f32):
@@ -1679,6 +1757,14 @@ def opt_in_engines(default, vault_path, b32, image, rng, card,
         what = f"engine {label} (quant={quant!r}, use_pallas={use_pallas!r})"
         if eng.quant != quant:
             raise AssertionError(f"{what}: quant resolved to {eng.quant}")
+        if quant == "int8":
+            held, kernels = storage_report(eng.params)
+            pb = eng.memory_report()["params_bytes"]
+            print(f"{what}: params {pb} bytes, storages held {held} bytes; "
+                  f"{kernels} int8 kernels, all K-major", flush=True)
+            if held != pb:
+                raise AssertionError(f"{what}: the tree holds {held} bytes "
+                                     f"of storage for {pb} bytes of params")
         text = words(rng, 300)
         eng.analyze(text, image, verbose=False)          # build, warm up
         torch.cuda.synchronize()
@@ -1723,6 +1809,30 @@ def opt_in_engines(default, vault_path, b32, image, rng, card,
     print("b32/S512 verdicts/s in one run: " + ", ".join(
         f"{k} {v}" for k, v in vps.items()) + f" [{card}]", flush=True)
     return launches
+
+
+def storage_report(tree):
+    """(bytes of the distinct storages a param tree holds, int8 kernels);
+    raises unless every ``kernel_q``'s transpose is contiguous."""
+    seen, kernels = {}, 0
+
+    def walk(t, key=None):
+        nonlocal kernels
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, k)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+            if key == "kernel_q":
+                kernels += 1
+                if not t.t().is_contiguous():
+                    raise AssertionError("an int8 kernel is not K-major")
+    walk(tree)
+    return sum(seen.values()), kernels
 
 
 def whisper_pallas_ffn(weights, cfg, wav, card):
@@ -1987,6 +2097,9 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="with --times: also time the K4 of the tree at "
                     "DIR, interleaved with this tree's")
+    ap.add_argument("--kernels", default="attention,layer_norm,decode,int8",
+                    help="with --times: which kernels to time, a comma list "
+                    "of attention, layer_norm, decode, int8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1994,9 +2107,15 @@ def main() -> int:
     if args.times:
         card = card_line()
         print(card, flush=True)
-        attention_times(card)
-        layer_norm_times(card, args.parent)
-        decode_step_times(card, strict=False)
+        which = args.kernels.split(",")
+        if "attention" in which:
+            attention_times(card)
+        if "layer_norm" in which:
+            layer_norm_times(card, args.parent)
+        if "decode" in which:
+            decode_step_times(card, strict=False)
+        if "int8" in which:
+            int8_times(card)
         return 0
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
@@ -2008,7 +2127,6 @@ def main() -> int:
     from misinfo_tpu_torch.ops import int8_ffn as K1
     from misinfo_tpu_torch.ops import layer_step as K9
     from misinfo_tpu_torch.ops import self_attn_step as K6
-    from misinfo_tpu_torch.ops.quant import quantize_dense
     from misinfo_tpu_torch.vault import int4 as K10
     from misinfo_tpu_torch.vault import int4_checks as IC
 
@@ -2018,7 +2136,7 @@ def main() -> int:
                for m in (K1, K2, K3, K5, K6, K7, K9, K10)]
               + [(K3, "_ln_library", "ln_build_log"),
                  (K7, "_library_i8cc", "build_log_i8cc")])
-    kernel_rows = check_kernel(K1, quantize_dense)            # phase 3
+    kernel_rows = check_kernel(card)                          # phase 3
     opt_rows = check_opt_in_kernels(card)                     # phase 15
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2105,18 +2223,16 @@ def main() -> int:
     int4_launches = vault_phases(card, vault_path,            # phases 10-14
                                  args.profile)
 
-    rob = kernel_rows["roberta"]
-    M, K, N = 3 * 512, 768, 3072
+    err_k1 = max(r["err"] for r in kernel_rows.values())
     kernels = [{
-        "name": "int8_ffn", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "misinfo_tpu_torch/csrc/int8_ffn.cu",
         "replaces": "misinfo_tpu/ops/pallas_int8.py:237",
-        "launches": main_launches,
-        "max_abs_err": max(r["err"] for r in kernel_rows.values()),
-        "ms": rob["ms"], "plain_ms": rob["plain_ms"],
-        **bound(M * K * 2 * 2 + 2 * K * N + 4 * (2 * N + 2 * K),
-                2 * M * N * 2 * K, "int8"),
-        "library_ms": None}]
+        "launches": main_launches, "max_abs_err": err_k1,
+        **{k: kernel_rows[shape][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}}
+        for name, shape in (("int8_ffn", "roberta"),
+                            ("int8_ffn_b32", "roberta_b32"))]
     replaces = {"self_attn_step": "misinfo_tpu/ops/pallas_decode.py:52",
                 "self_attn_step_i8": "misinfo_tpu/ops/pallas_decode.py:148",
                 "cross_ffn_step": "misinfo_tpu/ops/pallas_cross_ffn.py:125",

@@ -16,9 +16,11 @@ a 0-d f32 tensor, the fused multiply-add in float64, where the product of
 two floats is exact, rounded to f32 once.
 
 ``int8_dense`` dispatches on where its input lies: a CUDA tensor launches
-the kernel in ``csrc/int8_dense.cu`` (built with ``nvcc`` at first use)
-or raises; a CPU tensor runs ``int8_dense_plain``. ``launches`` counts
-kernel launches.
+the kernels in ``csrc/int8_dense.cu`` (built with ``nvcc`` at first use:
+a quantize pass, then the product) or raises; a CPU tensor runs
+``int8_dense_plain``. On the card the weight must be K-major
+(``wq.t()`` contiguous: the layout ``serving.kmajor`` gives it and the
+engine serves). ``launches`` counts calls that launched.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
+from misinfo_tpu_torch.ops.cuda_build import build, check_tensor, workspace
 from misinfo_tpu_torch.ops.quant import (
     int_matmul, quantize_rows_folded)
 
@@ -65,8 +67,10 @@ def _library():
         return _lib
     lib, build_log = build("int8_dense")
     lib.int8_dense_launch.restype = ctypes.c_int
-    lib.int8_dense_launch.argtypes = ([ctypes.c_void_p] * 5
+    lib.int8_dense_launch.argtypes = ([ctypes.c_void_p] * 6
                                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.int8_dense_workspace.restype = ctypes.c_size_t
+    lib.int8_dense_workspace.argtypes = [ctypes.c_int] * 2
     lib.int8_dense_error_string.restype = ctypes.c_char_p
     lib.int8_dense_error_string.argtypes = [ctypes.c_int]
     _lib = lib
@@ -82,7 +86,8 @@ def _launch(x, wq, w_scale, bias, out_dtype) -> torch.Tensor:
         raise ValueError(f"int8_dense: x and out must be bf16 or f32, got "
                          f"{x.dtype} → {out_dtype}")
     check_tensor(x2, "int8_dense: x", x.dtype, (M, K), x.device)
-    check_tensor(wq, "int8_dense: wq", torch.int8, (K, N), x.device)
+    check_tensor(wq.t(), "int8_dense: wq.t() (the K-major weight)",
+                 torch.int8, (N, K), x.device)
     check_tensor(w_scale, "int8_dense: w_scale", torch.float32, (N,),
                  x.device)
     if bias is not None:
@@ -91,10 +96,11 @@ def _launch(x, wq, w_scale, bias, out_dtype) -> torch.Tensor:
     if M:
         lib = _library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        work = workspace(lib.int8_dense_workspace(M, K), x.device, stream)
         err = lib.int8_dense_launch(
             x2.data_ptr(), wq.data_ptr(), w_scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            M, K, N, int(x.dtype == torch.float32),
+            work.data_ptr(), M, K, N, int(x.dtype == torch.float32),
             int(out_dtype == torch.float32), stream)
         if err:
             raise RuntimeError(

@@ -7,32 +7,44 @@ and add the bias in f32, apply the activation with bf16 roundings,
 re-quantize the chunk per row and accumulate its int8 product against W2
 in f32; finally scale by W2's channel scales and add its bias.
 
-``int8_ffn`` dispatches on where its input lies: a CUDA tensor launches
-the kernel in ``csrc/int8_ffn.cu`` (built with ``nvcc`` at first use into
-``build/misinfo_tpu_torch/``, keyed by a hash of the source) or raises; a
-CPU tensor runs ``int8_ffn_plain``. ``launches`` counts kernel launches.
+The numerics are those of the JAX kernel as XLA compiles it (which is
+how the JAX engine runs it): row scales multiply the abs-max by
+f32(1/127), the multiply-adds ``(hi·sx)·s1 + b1``, ``acc + y_j·sg_j`` and
+``acc·s2 + b2`` each round once, and quick GELU's product is quantized
+unrounded (XLA keeps that bf16 product in f32). ``int8_ffn_plain``
+repeats them operation for operation (each multiply-add as the kernel's
+FMA: ``_fma``); tests/test_torch_int8_ffn.py holds it bit for bit to
+JAX's kernel in interpret mode.
 
-When the 32-row tiles of x are fewer than the card's SMs, the wrapper
-hands the kernel an f32 workspace for the split form (one block per
-(row tile, chunk), partials summed in chunk order by a second pass), so
-a single request spreads over the card; results are bit-identical
-either way.
+``int8_ffn`` dispatches on where its input lies: a CUDA tensor launches
+the kernels in ``csrc/int8_ffn.cu`` (built with ``nvcc`` at first use into
+``build/misinfo_tpu_torch/``, keyed by a hash of the source) or raises; a
+CPU tensor runs ``int8_ffn_plain``. On the card both weights must be
+K-major (``kernel_q.t()`` contiguous: the layout ``serving.kmajor`` gives
+them and the engine serves). ``launches`` counts calls that launched.
+
+When the 128 × 128 output tiles are fewer than the card's SMs, the
+wrapper asks for the split form (the second product one block per (tile,
+chunk), its sums folded in chunk order by a last pass), so a single
+request spreads over the card; results are bit-identical either way.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional
 
 import torch
 
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, Policy
-from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
-from misinfo_tpu_torch.ops.quant import int_matmul, quantize_rows
+from misinfo_tpu_torch.ops.cuda_build import (
+    build, check_tensor, multiprocessors, workspace)
+from misinfo_tpu_torch.ops.quant import int_matmul, quantize_rows_folded
 from misinfo_tpu_torch.ops.serving import ffn_kernel_enabled
 
 _JC = 512                       # intermediate chunk target, as on the TPU
-_BM = 32                        # rows per block (BM in csrc/int8_ffn.cu)
+_TILE = 128                     # second product's output tile (DN_BM, DN_BN)
 _MODES = {"tanh": 0, "erf": 1, "quick": 2}
 
 launches = 0                    # kernel launches since import (or reset)
@@ -59,22 +71,50 @@ def _act(h32: torch.Tensor, dtype: torch.dtype, mode: str) -> torch.Tensor:
     return torch.nn.functional.gelu(hf, approximate=approx).to(dtype)
 
 
+def _act_q(h32: torch.Tensor, dtype: torch.dtype, mode: str) -> torch.Tensor:
+    """The activation as the f32 value that is quantized: ``_act`` but for
+    quick GELU's product, which jitted JAX leaves unrounded (XLA computes
+    the bf16 product in f32 and drops the rounding before the f32
+    cast that the quantize applies: its excess precision)."""
+    if mode != "quick":
+        return _act(h32, dtype, mode).float()
+    hf = h32.to(dtype).float()
+    return hf * torch.sigmoid(1.702 * hf).to(dtype).float()
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c of f32 tensors rounded to f32 once, as a fused multiply-add
+    (``__fmaf_rn`` in the kernel). The product is exact in float64; the
+    sum is rounded there to odd (to nearest, then to the odd neighbour on
+    the side of the exact sum wherever that rounding was inexact and gave
+    an even result), after which rounding to f32 is the correct rounding
+    of the exact a·b + c (Boldo and Melquiond's round-to-odd)."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    t = s - p
+    err = (p - (s - t)) + (cd - t)          # s + err == p + c exactly
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    away = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    return torch.where(fix, torch.nextafter(s, away), s).float()
+
+
 def int8_ffn_plain(x, w1q, s1, b1, w2q, s2, b2, *, mode: str = "tanh",
                    jc: Optional[int] = None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch ops; output in x's dtype. With
-    ``jc == N`` this is the JAX package's ``int8_ffn_xla``."""
+    ``jc == N`` this is the JAX package's ``int8_ffn_xla`` as jitted."""
     K, N = w1q.shape
     K2 = w2q.shape[1]
     jc = jc or pick_chunk(N)
     lead = x.shape[:-1]
-    xq, sx = quantize_rows(x.reshape(-1, K).float())
+    xq, sx = quantize_rows_folded(x.reshape(-1, K).float())
     acc = torch.zeros(xq.shape[0], K2, device=x.device)
     for j0 in range(0, N, jc):
-        h = int_matmul(xq, w1q[:, j0:j0 + jc]) * sx * s1[j0:j0 + jc] \
-            + b1[j0:j0 + jc]
-        gq, sg = quantize_rows(_act(h, x.dtype, mode).float())
-        acc = acc + int_matmul(gq, w2q[j0:j0 + jc]) * sg
-    return (acc * s2 + b2).to(x.dtype).reshape(*lead, K2)
+        h = _fma(int_matmul(xq, w1q[:, j0:j0 + jc]) * sx, s1[j0:j0 + jc],
+                 b1[j0:j0 + jc])
+        gq, sg = quantize_rows_folded(_act_q(h, x.dtype, mode))
+        acc = _fma(int_matmul(gq, w2q[j0:j0 + jc]), sg, acc)
+    return _fma(acc, s2, b2).to(x.dtype).reshape(*lead, K2)
 
 
 def _library():
@@ -84,8 +124,10 @@ def _library():
         return _lib
     lib, build_log = build("int8_ffn")
     lib.int8_ffn_launch.restype = ctypes.c_int
-    lib.int8_ffn_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
+    lib.int8_ffn_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
+    lib.int8_ffn_workspace.restype = ctypes.c_size_t
+    lib.int8_ffn_workspace.argtypes = [ctypes.c_int] * 6
     lib.int8_ffn_error_string.restype = ctypes.c_char_p
     lib.int8_ffn_error_string.argtypes = [ctypes.c_int]
     _lib = lib
@@ -100,24 +142,24 @@ def _launch(x, w1q, s1, b1, w2q, s2, b2, mode: str, jc: int) -> torch.Tensor:
     M = x2.shape[0]
     for t, name, dt, shape in (
             (x2, "x", torch.bfloat16, (M, K)),
-            (w1q, "w1q", torch.int8, (K, N)), (s1, "s1", torch.float32, (N,)),
-            (b1, "b1", torch.float32, (N,)),
-            (w2q, "w2q", torch.int8, (N, K2)),
+            (w1q.t(), "w1q.t() (K-major W1)", torch.int8, (N, K)),
+            (s1, "s1", torch.float32, (N,)), (b1, "b1", torch.float32, (N,)),
+            (w2q.t(), "w2q.t() (K-major W2)", torch.int8, (K2, N)),
             (s2, "s2", torch.float32, (K2,)),
             (b2, "b2", torch.float32, (K2,))):
         check_tensor(t, f"int8_ffn: {name}", dt, shape, x.device)
     out = torch.empty(M, K2, dtype=torch.bfloat16, device=x.device)
     if M:
         lib = _library()
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        part = (torch.empty(N // jc, M, K2, device=x.device)
-                if -(-M // _BM) < sms else None)
+        tiles = -(-M // _TILE) * -(-K2 // _TILE)
+        split = int(tiles < multiprocessors(x.device.index))
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        work = workspace(lib.int8_ffn_workspace(M, K, N, K2, jc, split),
+                         x.device, stream)
         err = lib.int8_ffn_launch(
             x2.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
             w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(),
-            M, K, N, K2, jc, _MODES[mode], stream)
+            work.data_ptr(), M, K, N, K2, jc, _MODES[mode], split, stream)
         if err:
             raise RuntimeError(
                 f"int8_ffn kernel launch failed (M={M} K={K} N={N} K2={K2} "

@@ -1,4 +1,4 @@
-"""Holding the detector's opt-in kernels (K2 int8 dense, K3 fused
+"""Holding the detector's kernels (K1 int8 FFN, K2 int8 dense, K3 fused
 attention, K4 LayerNorm, K5 fused FFN) to their plain versions.
 
 Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` on the card,
@@ -11,6 +11,18 @@ reproduce what a wrong kernel computes) falls outside it.
 
 Bands, elementwise (ulp: one step of the output dtype at |plain|):
 
+* K1, 3 int8 levels of the output (3·max|y|/127, the band of the JAX
+  package's tests/test_pallas_int8.py): the kernel's activations
+  (tanhf, erfcf, expf) may differ from PyTorch's by an ulp, which can
+  move a quantization level of the intermediate. On the integer grid
+  (every scale 1, so the first product and its dequantization are exact)
+  bit for bit. The inputs plant a chunk of small activations: chunk 0's
+  W1 columns and bias are scaled by 2^-4, and its W2 rows by 2^4, so that
+  its share of y stays that of the others while its own scale sg is
+  16 times smaller than its row's largest. Faults: chunk 0 left out; the
+  intermediate's scale per row instead of per (row, chunk) (chunk 0 then
+  loses 4 bits); each chunk's sums scaled by the next chunk's sg; the
+  ragged last 128-row tile left unwritten (zeros).
 * K2, bit for bit. Its plain version repeats the kernel's arithmetic
   operation for operation (integer sums, IEEE scales, one rounding of the
   epilogue's multiply-add). Fault: one row's scale one ulp high.
@@ -69,9 +81,12 @@ import torch
 from misinfo_tpu_torch.ops import fused_attention as K3
 from misinfo_tpu_torch.ops import fused_ffn as K5
 from misinfo_tpu_torch.ops import int8_dense as K2
+from misinfo_tpu_torch.ops import int8_ffn as K1
 from misinfo_tpu_torch.ops.common import matmul_f32
-from misinfo_tpu_torch.ops.int8_ffn import _act, pick_chunk
-from misinfo_tpu_torch.ops.quant import quantize_dense
+from misinfo_tpu_torch.ops.int8_ffn import _act, _act_q, _fma, pick_chunk
+from misinfo_tpu_torch.ops.quant import (
+    int_matmul, quantize_dense, quantize_rows_folded)
+from misinfo_tpu_torch.ops.serving import kmajor
 
 PLANT = 16.0            # score of a planted key
 PAIR = 40.125           # a bf16 rounding boundary: 40.0 and 40.25 round apart
@@ -116,6 +131,106 @@ def _gen(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+# -------------------------------------------------------------- K1 int8 FFN
+
+K1_TILE = 128           # rows of an output tile of csrc/int8_ffn.cu
+
+
+def int8_ffn_case(M: int, K: int, N: int, mode: str, seed: int = 0,
+                  device="cuda", grid: bool = False) -> Dict:
+    """Seeded x [M, K] bf16 and the two int8 FFN layers, K-major as the
+    engine serves them: Gaussian with chunk 0 planted (module note), or
+    (``grid``) integers whose abs-max is 127 per row and per channel, so
+    that every scale of x and of the weights is 1."""
+    gen = _gen(seed)
+    jc = pick_chunk(N)
+    if grid:
+        x = torch.randint(-126, 127, (M, K), generator=gen).float()
+        x[:, 0] = 127.0
+        ws = []
+        for k, n in ((K, N), (N, K)):
+            w = torch.randint(-126, 127, (k, n), generator=gen).float()
+            w[0] = 127.0
+            ws.append(quantize_dense({"kernel": w, "bias": torch.randint(
+                -50, 50, (n,), generator=gen).float()}))
+    else:
+        x = torch.randn(M, K, generator=gen)
+        w1 = torch.randn(K, N, generator=gen) * 0.03
+        b1 = torch.randn(N, generator=gen) * 0.01
+        w2 = torch.randn(N, K, generator=gen) * 0.03
+        w1[:, :jc] *= 2.0 ** -4
+        b1[:jc] *= 2.0 ** -4
+        w2[:jc] *= 2.0 ** 4
+        ws = [quantize_dense({"kernel": w1, "bias": b1}),
+              quantize_dense({"kernel": w2, "bias": torch.randn(
+                  K, generator=gen) * 0.01})]
+    args = [x.to(torch.bfloat16).to(device)]
+    for p in ws:
+        args += [kmajor(p["kernel_q"].to(device)), p["w_scale"].to(device),
+                 p["bias"].to(device)]
+    return {"args": tuple(args), "mode": mode, "jc": jc, "grid": grid}
+
+
+def _ffn_variant(args, mode: str, jc: int, fault: str) -> torch.Tensor:
+    """``int8_ffn_plain`` with one fault planted (see the module note)."""
+    x, w1q, s1, b1, w2q, s2, b2 = args
+    N = w1q.shape[1]
+    xq, sx = quantize_rows_folded(x.float())
+    gs = [_act_q(_fma(int_matmul(xq, w1q[:, j:j + jc]) * sx, s1[j:j + jc],
+                      b1[j:j + jc]), x.dtype, mode)
+          for j in range(0, N, jc)]
+    qs = [quantize_rows_folded(g) for g in gs]
+    if fault == "row_scale":
+        sg = quantize_rows_folded(torch.cat(gs, dim=1))[1]
+        qs = [(torch.clamp(torch.round(g / sg), -127, 127).to(torch.int8),
+               sg) for g in gs]
+    acc = torch.zeros(x.shape[0], w2q.shape[1], device=x.device)
+    for c, (gq, sg) in enumerate(qs):
+        if fault == "chunk" and c == 0:
+            continue
+        if fault == "next_scale":
+            sg = qs[(c + 1) % len(qs)][1]
+        acc = _fma(int_matmul(gq, w2q[c * jc:(c + 1) * jc]), sg, acc)
+    y = _fma(acc, s2, b2).to(x.dtype)
+    if fault == "ragged":
+        y[x.shape[0] // K1_TILE * K1_TILE:] = 0
+    return y
+
+
+def int8_ffn_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
+    """The planted faults that differ from the kernel's function at this
+    case: the scale faults need two chunks, the tile fault a ragged M."""
+    x, w1q = case["args"][:2]
+    names = ["chunk"]
+    if w1q.shape[1] > case["jc"]:
+        names += ["row_scale", "next_scale"]
+    if x.shape[0] % K1_TILE:
+        names.append("ragged")
+    return [(n, _ffn_variant(case["args"], case["mode"], case["jc"], n))
+            for n in names]
+
+
+def check_int8_ffn(case: Dict) -> Dict:
+    """K1 within 3 int8 levels of its plain version, every planted fault
+    outside; on the integer grid bit for bit. Counts one launch."""
+    a, mode = case["args"], case["mode"]
+    what = (f"int8_ffn M={a[0].shape[0]} K={a[0].shape[1]} "
+            f"N={a[1].shape[1]} {mode}")
+    got = K1.int8_ffn(*a, mode=mode)
+    want = K1.int8_ffn_plain(*a, mode=mode)
+    if case["grid"]:
+        if not torch.equal(got, want):
+            d = (got.float() - want.float()).abs()
+            raise AssertionError(
+                f"{what} differs on the integer grid from its plain version "
+                f"in {int((d > 0).sum())} elements (max {d.max()})")
+        return {"err": 0.0, "band": 0.0, "worst": 0.0, "faults": 0,
+                "nearest_fault": math.inf}
+    band = torch.full_like(want, 3 * want.float().abs().max().item() / 127,
+                           dtype=torch.float32)
+    return hold(got, want, band, int8_ffn_faults(case), what)
+
+
 # ------------------------------------------------------------ K2 int8 dense
 
 def int8_dense_case(M: int, K: int, N: int, x_dtype=torch.bfloat16,
@@ -125,7 +240,7 @@ def int8_dense_case(M: int, K: int, N: int, x_dtype=torch.bfloat16,
     p = quantize_dense({"kernel": torch.randn(K, N, generator=gen) * 0.03,
                         "bias": torch.randn(N, generator=gen) * 0.01})
     x = torch.randn(M, K, generator=gen).to(x_dtype)
-    return {"x": x.to(device), "wq": p["kernel_q"].to(device),
+    return {"x": x.to(device), "wq": kmajor(p["kernel_q"].to(device)),
             "w_scale": p["w_scale"].to(device),
             "bias": p["bias"].to(device) if bias else None}
 

@@ -14,8 +14,8 @@ Scales divide by a 0-d tensor of 127, not by the Python number: PyTorch's
 CUDA division by a CPU scalar multiplies by its reciprocal, which is one
 ulp off for some abs-max values and moves quantization levels. (These
 are the eager JAX function's scales. Under ``jit`` XLA folds JAX's
-``/ 127.0`` into a multiply by f32(1/127); the int8 dense kernel K2
-follows that form, ops/int8_dense.py.)
+``/ 127.0`` into a multiply by f32(1/127); the int8 kernels K1 and K2
+follow that form, ops/int8_ffn.py and ops/int8_dense.py.)
 """
 
 from __future__ import annotations

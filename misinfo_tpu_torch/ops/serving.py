@@ -9,6 +9,14 @@ decoder/embedding transforms. All are pure tree rewrites; models are
 unchanged. (The JAX package's QKV fuse and its inverses have no caller
 here: its engine keeps the fuse off, and the port has no trainer yet.)
 
+On a CUDA device the detector's int8 kernels are stored K-major
+(``kmajor``): each ``kernel_q`` keeps JAX's name, [in, out] shape and
+values, as the [in, out] transposed view of a contiguous [out, in]
+buffer, the operand layout that the tensor cores' int8 products read
+(K1 and K2 refuse any other). No weight byte is stored twice. Whisper's
+transforms leave their int8 weights [in, out] contiguous: the decode-step
+kernels read them so.
+
 ``quant_mode`` says which int8 kernels serve quantized denses (the JAX
 package's ``pallas_int8.quant_mode``): ``PrecisionConfig.quant_pallas``,
 overridden by ``MISINFO_TPU_INT8_PALLAS`` (auto | off | ffn | dense |
@@ -92,18 +100,51 @@ def resolve_quant(quant: str, policy, device) -> str:
     return "int8_ffn" if torch.device(device).type == "cuda" else "none"
 
 
+def kmajor(wq: torch.Tensor) -> torch.Tensor:
+    """The [in, out] int8 kernel as the transposed view of a contiguous
+    [out, in] copy: the same shape and values, ``.t()`` contiguous."""
+    return wq.t().contiguous().t()
+
+
+def kmajor_kernels(tree):
+    """Every ``kernel_q`` of a tree laid out by ``kmajor``."""
+    if isinstance(tree, dict):
+        return {key: (kmajor(v) if key == "kernel_q" else kmajor_kernels(v))
+                for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(kmajor_kernels(v) for v in tree)
+    return tree
+
+
+def _first_tensor(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+        return None
+    return tree if isinstance(tree, torch.Tensor) else None
+
+
 def optimize_for_serving(params, policy, quant: str):
     """The engine's serving pipeline: quantize every large dense
     (``quant="int8"``; nothing big is left to cast) or the tower FFNs
     (``"int8_ffn"``), and in bf16 mode store the remaining big kernels in
-    bf16. ``quant`` is resolved (``resolve_quant``)."""
+    bf16. ``quant`` is resolved (``resolve_quant``). On a CUDA device the
+    int8 kernels are laid out K-major (``kmajor_kernels``), as K1 and K2
+    read them."""
     if quant not in ("none", "int8", "int8_ffn"):
         raise ValueError(f"optimize_for_serving: unknown quant {quant!r}")
     if quant == "int8":
-        return quantize_params(params)
-    if quant == "int8_ffn":
+        params = quantize_params(params)
+    elif quant == "int8_ffn":
         params = quantize_ffn_params(params)
-    if policy.compute == torch.bfloat16:
+    t = _first_tensor(params)
+    if quant != "none" and t is not None and t.is_cuda:
+        params = kmajor_kernels(params)
+    if quant != "int8" and policy.compute == torch.bfloat16:
         params = cast_big_kernels(params, torch.bfloat16)
     return params
 

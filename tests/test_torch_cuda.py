@@ -7,8 +7,11 @@ machine with only PyTorch and the CUDA toolkit:
 
 (``--noconftest``: tests/conftest.py configures JAX.) K1 is held to its
 plain PyTorch version within 3 int8 levels (3·max|y|/127), and bit for
-bit, which both kernel forms (split chunks at small M, one block per row
-tile at large M) have shown on the card.
+bit, which both kernel forms (split chunks at small M, one block per
+output tile at large M) have shown on the card. K1 and K2 take int8
+weights K-major only (``serving.kmajor``, as the engine stores them) and
+raise on any other layout; engine I's params bytes are those of the tree
+without that layout.
 
 The decode-step kernels (K6 self-attention, K7 cross-attention + FFN)
 are held to their plain versions at whisper-base shapes through
@@ -43,6 +46,8 @@ bit, K3-K5 within the bands that module derives, with its planted faults
 outside them.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -56,6 +61,7 @@ from misinfo_tpu_torch.ops import kernel_checks as KC
 from misinfo_tpu_torch.ops import layer_step as K9
 from misinfo_tpu_torch.ops import self_attn_step as K6
 from misinfo_tpu_torch.ops.quant import quantize_dense
+from misinfo_tpu_torch.ops.serving import kmajor
 from misinfo_tpu_torch.vault import int4 as K10
 from misinfo_tpu_torch.vault import int4_checks as IC
 
@@ -78,7 +84,9 @@ def _ffn_args(M, K, N, seed=0):
         p = quantize_dense({"kernel": torch.randn(k, n, generator=gen) * 0.03,
                             "bias": torch.randn(n, generator=gen) * 0.01})
         args += [p["kernel_q"], p["w_scale"], p["bias"]]
-    return [a.cuda() for a in args]
+    args = [a.cuda() for a in args]
+    args[1], args[4] = kmajor(args[1]), kmajor(args[4])
+    return args
 
 
 @pytest.mark.parametrize("M,K,N,mode", [(3 * 512, 768, 3072, "tanh"),
@@ -105,6 +113,52 @@ def test_int8_ffn_kernel_refuses_what_it_cannot_run(card):
     odd = _ffn_args(4, 768, 3072 + 64)              # jc cannot be 128-aligned
     with pytest.raises(RuntimeError):
         K1.int8_ffn(*odd, mode="tanh")
+
+
+def test_int8_kernels_refuse_n_major_weights(card):
+    """K1 and K2 read the weights K-major; an [in, out] contiguous int8
+    kernel (the layout the Whisper decode steps read) is refused, not
+    transposed per call."""
+    args = _ffn_args(300, 768, 3072)
+    for i in (1, 4):
+        bad = list(args)
+        bad[i] = args[i].contiguous()
+        with pytest.raises(ValueError, match="K-major"):
+            K1.int8_ffn(*bad, mode="tanh")
+    d = KC.int8_dense_case(300, 768, 768)
+    with pytest.raises(ValueError, match="K-major"):
+        K2.int8_dense(d["x"], d["wq"].contiguous(), d["w_scale"], d["bias"])
+
+
+def test_engine_int8_params_bytes_unchanged_by_the_layout(card):
+    """Engine I (quant="int8") at full width stores every int8 kernel
+    K-major and no weight byte twice: its params bytes equal those of the
+    same tree laid out N-major, and the storages it holds."""
+    from misinfo_tpu_torch.core.config import ForensicsConfig
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
+    from misinfo_tpu_torch.ops.serving import optimize_for_serving
+    cfg = ForensicsConfig(verbose=False)
+    cfg = cfg.replace(precision=dataclasses.replace(cfg.precision,
+                                                    quant="int8"))
+    eng = MisinfoForensics(cfg, DetectorConfig(), device="cuda")
+    assert eng.quant == "int8"
+    n_major = optimize_for_serving(detector_init(cfg.seed, DetectorConfig()),
+                                   eng.policy, "int8")     # CPU: N-major
+
+    def leaves(t, key=None):
+        if isinstance(t, dict):
+            return [x for k, v in t.items() for x in leaves(v, k)]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return [(key, t)] if isinstance(t, torch.Tensor) else []
+    got, want = leaves(eng.params), leaves(n_major)
+    kq = [t for k, t in got if k == "kernel_q"]
+    assert kq and all(t.t().is_contiguous() for t in kq)
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for _, t in got}
+    nbytes = sum(t.numel() * t.element_size() for _, t in want)
+    assert eng.memory_report()["params_bytes"] == nbytes == sum(held.values())
 
 
 def _sms():
@@ -393,8 +447,8 @@ def test_opt_in_kernels_refuse_what_they_cannot_run(card):
         raw = torch.zeros(300 * 768 + 8, dtype=torch.bfloat16, device="cuda")
         K2.int8_dense(raw[1:300 * 768 + 1].view(300, 768), d["wq"],
                       d["w_scale"], d["bias"])
-    with pytest.raises(RuntimeError):                 # K not a multiple of 32
-        K2.int8_dense(d["x"][:, :760].contiguous(), d["wq"][:760].contiguous(),
+    with pytest.raises(RuntimeError):                 # K not a multiple of 16
+        K2.int8_dense(d["x"][:, :760].contiguous(), kmajor(d["wq"][:760]),
                       d["w_scale"], d["bias"])
     f = KC.ffn_case(4, 512, 2048, "tanh")["args"]
     with pytest.raises(ValueError):                   # int8 weights
