@@ -63,10 +63,11 @@ Phases (any failure exits non-zero before the result line):
      query) against their plain versions at 1,048,576 rows × 512 (B = 1,
      8, 32) and at a ragged row count (B = 3) through
      misinfo_tpu_torch/vault/int4_checks.py: K10b bit for bit, K10a within
-     (D + 1)·2^-23·Σ|q·nib|·scale with planted faults (a tile or the
-     ragged edge left out, nibbles swapped or read unsigned, the scale
-     dropped) outside that band; CUDA-event times, kernel and plain, and
-     the kernels' share of 3.35 TB/s;
+     (D + 1)·2^-23·Σ|q·nib|·scale with planted faults (a tile, one
+     consumer warp's rows, the last slice's high nibbles or the ragged
+     edge left out, nibbles swapped or read unsigned, the scale dropped)
+     outside that band; CUDA-event times, kernel and plain, and the
+     kernels' share of 3.35 TB/s;
  10. the engine at full width with vault_dtype="int4" and a 1,048,576-row
      vault (seeded random rows; the CLIP image embeddings of six requests
      planted with noise at known rows, the captions' text embeddings as
@@ -151,8 +152,11 @@ Phases (any failure exits non-zero before the result line):
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
 kernel's device µs; K1 and K2 at the b32/S512 shapes and one request's,
-beside torch._int_mm of the same integer products; ``--kernels`` picks
-among attention, layer_norm, decode and int8) as JSON lines, with
+beside torch._int_mm of the same integer products; K5 at the towers'
+b32/S512 shapes, one RoBERTa request and Whisper decode rows beside
+cuBLAS's two bf16 products; K10a/K10b at 1,048,576 rows for B = 1, 8, 32,
+64 beside torch._int_mm over unpacked rows; ``--kernels`` picks among
+attention, layer_norm, decode, int8, ffn and int4) as JSON lines, with
 whatever misinfo_tpu_torch is first on sys.path: run from another tree's
 root with ``python -c "import runpy, sys; sys.argv = ['chip_smoke.py',
 '--times']; runpy.run_path(PATH, run_name='__main__')"`` it times that
@@ -1470,6 +1474,81 @@ def _int8_time_row(kernel, name, fn, mkn, work, products, card) -> None:
         flush=True)
 
 
+# --times: K5 (bf16) at the towers' b32/S512 shapes, one RoBERTa request
+# and Whisper's pallas_ffn decode rows; K10a/K10b at the archive vault's
+# 1,048,576 rows × 512 for 1, 8, 32 and 64 query rows
+FFN_TIMES = (("roberta_b32", 32 * 512, 768, 3072, "tanh"),
+             ("clip_text_b32", 32 * 77, 512, 2048, "quick"),
+             ("clip_vision_b32", 32 * 50, 768, 3072, "quick"),
+             ("roberta_1", 512, 768, 3072, "tanh"),
+             ("whisper_base_decode_1", 1, 512, 2048, "tanh"),
+             ("whisper_base_decode_32", 32, 512, 2048, "tanh"),
+             ("whisper_large_decode_32", 32, 1280, 5120, "tanh"))
+INT4_TIMES = (1, 8, 32, 64)
+
+
+def _time_row(kernel, name, fn, shape, work, kind, library, yardstick,
+              card) -> None:
+    """One --times JSON line: device µs per call, CUDA kernels per call,
+    each CUDA kernel's device µs, the bound and the yardstick's µs."""
+    us, per_call = device_us(fn, 20)
+    b = bound(*work, kind)
+    print(json.dumps({
+        "kernel": kernel, "shape": name, **shape, "device_us": us,
+        "kernels_per_call": per_call, "kernels_us": kernel_split_us(fn),
+        "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"],
+        "library_us": device_us(library, 20)[0], "yardstick": yardstick,
+        "card": card}), flush=True)
+
+
+def ffn_times(card):
+    """K5 of the imported tree (bf16) at FFN_TIMES' shapes, one JSON line
+    each; the yardstick is cuBLAS's two bf16 products with f32 output
+    (torch.mm), which no port path calls in K5's place."""
+    from misinfo_tpu_torch.ops import fused_ffn as K5
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    for name, M, K, N, mode in FFN_TIMES:
+        a = KC.ffn_case(M, K, N, mode, torch.bfloat16)["args"]
+        x, w1, _, w2, _ = a
+        g = torch.randn(M, N, device="cuda").to(torch.bfloat16)
+        _time_row("fused_ffn", name,
+                  lambda a=a, mode=mode: K5.fused_ffn(*a, mode=mode),
+                  {"M_K_N_K2": [M, K, N, K]},
+                  (nbytes(*a) + M * K * 2, 2 * M * N * 2 * K), "bf16",
+                  lambda: (torch.mm(x, w1, out_dtype=torch.float32),
+                           torch.mm(g, w2, out_dtype=torch.float32)),
+                  "torch.mm(x, W1) + torch.mm(g, W2), f32 out", card)
+
+
+def int4_times(card):
+    """K10a and K10b of the imported tree at INT4_TIMES' query rows
+    against a 1,048,576-row, 512-d vault, one JSON line each; the
+    yardstick is torch._int_mm of the same integer product over the rows
+    unpacked to s8 (twice the bytes; query columns padded to 8)."""
+    from misinfo_tpu_torch.vault import int4 as K10
+    from misinfo_tpu_torch.vault import int4_checks as IC
+    packed, scale = IC.vault_case(BIG_ROWS, device="cuda")
+    nib = K10.unpack_int4(packed).to(torch.int8)
+    D = nib.shape[1]
+    for B in INT4_TIMES:
+        q = IC.query_case(B, seed=B, device="cuda")
+        qi8 = torch.zeros(max(8, -(-B // 8) * 8), D, dtype=torch.int8,
+                          device="cuda")
+        qi8[:B] = K10.quantize_query_i8(q)[0]
+        moved = nbytes(packed, scale) + B * BIG_ROWS * 4
+        for name, fn, qbytes, kind in (
+                ("int4_sims", K10.int4_sims, 2, "bf16"),
+                ("int4_sims_i8", K10.int4_sims_i8, 1, "int8")):
+            _time_row(name, f"B{B}",
+                      lambda fn=fn, q=q: fn(q, packed, scale),
+                      {"B_N_D": [B, BIG_ROWS, D]},
+                      (moved + B * D * qbytes, 2 * B * BIG_ROWS * D), kind,
+                      lambda: torch._int_mm(nib, qi8.t()),
+                      f"torch._int_mm(s8 rows [N, D], query [D, "
+                      f"{qi8.shape[0]}])", card)
+    del packed, scale, nib
+
+
 # K4's checks (rows, D): the drive's shape, the other Whisper and RoBERTa
 # widths (the kernel's compiled row widths) and two others (its general
 # loop; 1,001 bf16 rows are not 16-byte aligned)
@@ -2097,9 +2176,10 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="with --times: also time the K4 of the tree at "
                     "DIR, interleaved with this tree's")
-    ap.add_argument("--kernels", default="attention,layer_norm,decode,int8",
+    ap.add_argument("--kernels",
+                    default="attention,layer_norm,decode,int8,ffn,int4",
                     help="with --times: which kernels to time, a comma list "
-                    "of attention, layer_norm, decode, int8")
+                    "of attention, layer_norm, decode, int8, ffn, int4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2116,6 +2196,10 @@ def main() -> int:
             decode_step_times(card, strict=False)
         if "int8" in which:
             int8_times(card)
+        if "ffn" in which:
+            ffn_times(card)
+        if "int4" in which:
+            int4_times(card)
         return 0
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics

@@ -1,212 +1,407 @@
-// Fused transformer FFN for Hopper (sm_90a): dense -> activation -> dense,
-// with the [M, N] intermediate kept on chip.
+// Fused transformer FFN for Hopper (sm_90a): dense -> activation -> dense.
 //
 // Replaces the TPU kernel misinfo_tpu/ops/pallas_ffn.py::_ffn_kernel
 // (reached through fused_ffn / ffn_apply, selected by use_pallas="ffn" in
 // the RoBERTa and CLIP towers and by pallas_ffn=True in the Whisper
-// decode step). Per row tile and per chunk of JC intermediate columns:
-// h = x·W1[:, chunk] + b1 in f32, rounded to the compute dtype, the
+// decode step): h = x·W1 + b1 in f32, rounded to the compute dtype, the
 // activation with the casts of the JAX package's _act (tanh or erf GELU,
-// or CLIP's quick_gelu), rounded again, then acc += g·W2[chunk, :] in f32;
-// finally out = (acc + b2) in the compute dtype. The plain PyTorch version
-// is fused_ffn_plain in misinfo_tpu_torch/ops/fused_ffn.py; the two sum in
+// or CLIP's quick_gelu; int8k::act), rounded again (g), then out =
+// (Σ g·W2 in f32 + b2) in the compute dtype. The plain PyTorch version is
+// fused_ffn_plain in misinfo_tpu_torch/ops/fused_ffn.py; the two sum in
 // other orders, which misinfo_tpu_torch/ops/kernel_checks.py bounds.
 //
-// bf16: WMMA 16x16x16 bf16 tiles with f32 accumulators. A block of 8
-// warps takes 32 rows (16 when K2 > 768, so that the accumulator
-// fragments stay in registers): x's row tile sits in shared memory, each
-// chunk's weight slabs (32 rows at a time) are staged through shared
-// memory, the chunk's h goes to a shared f32 buffer, its activation to a
-// shared bf16 buffer that feeds the second product, and the [rows, K2]
-// accumulator stays in fragments across all chunks (~197 KB of shared
-// memory at K = K2 = 768, JC = 512: one block per SM). f32 (the parity
-// mode): plain FMAs, 16 rows per block, JC = 128, one row and 16-strided
-// columns per thread. K2 is a template parameter, instantiated for the
-// widths of every tower and Whisper size (384, 512, 768, 1024, 1280).
+// What bounds it on this card: 2·M·N·(K + K2) bf16 flops (RoBERTa
+// b32/S512: 154.6 GFLOP, ~156 µs at 989 TFLOP/s) on ~30 MB of operands:
+// compute-bound, so the products belong on wgmma. bf16 design, two
+// products on one tensor-core mainloop (the TMA ring, mbarriers and
+// 128-byte swizzle of int8_gemm.cuh):
+//   1. up: g = act(bf16(x·W1 + b1)), written bf16 to an [M, N] scratch
+//      buffer. A block owns a BM × BN tile of g; one producer thread
+//      streams 64-element K slices of x (K-major, as stored) and of W1 by
+//      TMA into a ring of STAGES stages, W1 as stored ([K, N], N
+//      contiguous: boxes of 64 columns × 64 rows that wgmma reads
+//      MN-major through its transpose bit, so no caller keeps a second
+//      copy of the weights); consumer warpgroups of 64 × WN run
+//      wgmma.m64nWNk16.f32.bf16.bf16 with the sums in registers. The
+//      epilogue (bias, rounding, activation, rounding) runs in registers
+//      and stores 16 bytes a lane after a quad transpose. At RoBERTa b32
+//      the tile is 128 × 256 with four consumer warpgroups (sixteen warps
+//      share the activation's instructions); fewer rows take 64 × 128 or
+//      64 × 64 tiles with one warpgroup, two blocks to an SM.
+//   2. down: out = bf16(g·W2 + b2), the same mainloop over K = N with one
+//      f32 accumulator across all of N; a row tile's column tiles run
+//      side by side, so its rows of g (100 MB at b32, above L2's 50 MB)
+//      come from memory once. Where the output tiles do not fill the card
+//      (one request, Whisper's decode rows), blocks also split N: each
+//      writes its f32 partial sums and a third launch adds them in split
+//      order, + b2, rounded.
+// The intermediate makes a round trip through memory (2·2·M·N bytes, ~60
+// µs of the card's 3.35 TB/s at b32): kept on chip, a 64-row block would
+// hold a 64 × K2 f32 accumulator (384 registers a thread at K2 = 768) and
+// stream all of W1 and W2 again per row tile, which the previous design
+// did. The wrapper picks the tile configurations and the split
+// (fused_ffn.plan) and passes them in.
 //
-// What bounds it on this card: 2·M·N·(K + K2) flops (RoBERTa b32/S512:
-// 154.6 GFLOP) on a few tens of MB, so it is compute-bound (~156 µs at
-// 989 TFLOP/s bf16). This version reaches a fraction of that: WMMA (not
-// wgmma), no asynchronous staging, and W1/W2 streamed again for each
-// 32-row tile (from L2). Those are later work.
+// f32 (the parity mode): plain FMAs, 16 rows per block, JC = 128, one row
+// and 16-strided columns per thread; K2 is a template parameter,
+// instantiated for the widths of every tower and Whisper size (384, 512,
+// 768, 1024, 1280).
+//
+// Numerics: __fadd_rn for + b1 and + b2, bf16 roundings of h and g as the
+// plain version; never build with --use_fast_math.
 
-#include <mma.h>
+#include "int8_gemm.cuh"
 
-#include "kernel_common.cuh"
-
-using namespace nvcuda;
 using int8k::act;
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int KS = 32;                    // weight rows staged per step
-
-// ---------------------------------------------------------------- bf16
-
-constexpr int JC = 512;                   // intermediate columns per chunk
-constexpr int NT1 = JC / 16 / WARPS;      // first product: tiles per warp
 constexpr size_t SMEM_MAX = 227 * 1024;   // shared memory per block
 
-// 16-row tiles per block: 2 (32 rows) up to K2 = 768, else 1
-template <int K2>
-__host__ __device__ constexpr int row_tiles() { return K2 <= 768 ? 2 : 1; }
+// ----------------------------------------------------------------- bf16
 
-template <int K2>
-size_t smem_bf16(int K) {
-  constexpr int BM = 16 * row_tiles<K2>();
-  const int sw = JC > K2 ? JC : K2;
-  return (size_t)BM * JC * 4 + (size_t)BM * (K + 8) * 2 +
-         (size_t)KS * (sw + 8) * 2 + (size_t)BM * (JC + 8) * 2;
+constexpr int KEL = i8g::BK / 2;          // bf16 elements per K slice (64)
+constexpr int STAGES = 4;
+constexpr int B_BOX = KEL * i8g::BK;      // bytes of a 64 × 64 W box (8 KB)
+
+// wgmma descriptor of an MN-major bf16 tile in the 128-byte swizzle, as
+// TMA lays out boxes of 64 columns × 64 K rows: 8-row groups 1024 bytes
+// apart (SBO) along K, 64-column boxes B_BOX bytes apart (LBO) along
+// M/N, tile 1024-byte aligned. Adding 128 to it steps 16 K rows.
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(B_BOX >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
 }
 
-// Copy rows [r0, r0 + KS) x columns [c0, c0 + w) of a row-major bf16
-// matrix (row length ld) into a shared [KS][w + 8] slab.
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* __restrict__ src,
-                                           int ld, int r0, int c0, int w) {
-  const int segs = w >> 3;                  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < KS * segs; i += THREADS) {
-    const int r = i / segs, s = i - r * segs;
-    *reinterpret_cast<int4*>(dst + r * (w + 8) + s * 8) =
-        *reinterpret_cast<const int4*>(src + (size_t)(r0 + r) * ld + c0 + s * 8);
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 × N] (+)= A[64 × 16] · B[16 × N], bf16 · bf16 → f32, A K-major
+// and B MN-major (transposed) in shared memory; `accumulate` 0
+// overwrites D.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db,
+                                           int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The producer (one thread): K slices [kb0, kb1) of A rows [m0, m0 + BM)
+// (K-major, boxes of 128 bytes × BM rows) and of B columns [n0, n0 + BN)
+// (MN-major, boxes of 64 columns × 64 K rows) into the ring.
+template <int BM, int BN>
+__device__ void produce_bf16(const i8g::Ring<BM, BN, STAGES>& ring,
+                             const CUtensorMap* ma, int m0,
+                             const CUtensorMap* mb, int n0, int kb0, int kb1,
+                             uint32_t& it) {
+  for (int kb = kb0; kb < kb1; ++kb, ++it) {
+    const uint32_t s = it % STAGES;
+    i8g::mbar_wait(ring.empty(s), ((it / STAGES) & 1) ^ 1);
+    i8g::mbar_expect_tx(ring.full(s), i8g::Ring<BM, BN, STAGES>::STAGE);
+    i8g::tma_load(ring.a(s), ma, ring.full(s), kb * i8g::BK, m0);
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      i8g::tma_load(ring.b(s) + j * B_BOX, mb, ring.full(s),
+                    (n0 + 64 * j) * 2, kb * KEL);
   }
 }
 
-template <int K2, int MODE>
-__global__ void __launch_bounds__(THREADS, 1)
-ffn_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ w1,
-                const float* __restrict__ b1,
-                const __nv_bfloat16* __restrict__ w2,
-                const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-                int M, int K, int N) {
-  constexpr int NT2 = K2 / 16 / WARPS;      // second product: tiles per warp
-  constexpr int RT = row_tiles<K2>();
-  constexpr int BM = 16 * RT;               // rows per block
-  extern __shared__ __align__(256) unsigned char smem[];
-  float* hbuf = reinterpret_cast<float*>(smem);                // [BM][JC]
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(hbuf + BM * JC);
-  __nv_bfloat16* stage = xs + BM * (K + 8);                    // [KS][sw+8]
-  constexpr int SW = JC > K2 ? JC : K2;
-  __nv_bfloat16* gbuf = stage + KS * (SW + 8);                 // [BM][JC+8]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * BM;
-  const int LX = K + 8;
-
-  // x's row tile; rows past M are zeros
-  for (int i = threadIdx.x; i < BM * (K >> 3); i += THREADS) {
-    const int r = i / (K >> 3), s = i - r * (K >> 3);
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < M)
-      val = *reinterpret_cast<const int4*>(x + (size_t)(row0 + r) * K + s * 8);
-    *reinterpret_cast<int4*>(xs + r * LX + s * 8) = val;
+// A consumer warpgroup's product over K slices [kb0, kb1): its 64 rows
+// start at byte a_off of each A tile, its WN columns at b_off of each B
+// tile; f32 sums in acc (WN/2 per thread, zero for an empty range). The
+// product on a stage overlaps the copies into the others; each stage is
+// handed back once its products are done.
+template <int WN, int BM, int BN>
+__device__ __forceinline__ void consume_bf16(
+    const i8g::Ring<BM, BN, STAGES>& ring, int a_off, int b_off, int kb0,
+    int kb1, float* acc, uint32_t& it) {
+  const int lane = threadIdx.x & 31;
+  for (int kb = kb0, i = 0; kb < kb1; ++kb, ++i, ++it) {
+    const uint32_t s = it % STAGES;
+    i8g::mbar_wait(ring.full(s), (it / STAGES) & 1);
+    const uint64_t da = i8g::sw128_desc(ring.a(s) + a_off);
+    const uint64_t db = mn_desc(ring.b(s) + b_off);
+    fence_acc<WN / 2>(acc);
+    i8g::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KEL / 16; ++j)
+      wgmma_bf16<WN>(acc, da + 2 * j, db + 128 * j, i > 0 || j > 0);
+    i8g::wgmma_commit();
+    i8g::wgmma_wait<1>();             // slice i - 1's products are done
+    if (i > 0 && lane == 0) i8g::mbar_arrive(ring.empty((it - 1) % STAGES));
   }
+  i8g::wgmma_wait<0>();
+  fence_acc<WN / 2>(acc);
+  if (kb1 > kb0 && lane == 0) i8g::mbar_arrive(ring.empty((it - 1) % STAGES));
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT][NT2];
-#pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
-#pragma unroll
-    for (int t = 0; t < NT2; ++t) wmma::fill_fragment(acc[rt][t], 0.f);
+// Tile configurations (the wrapper's plan): WGM × WGN consumer
+// warpgroups of 64 × WN each, a tile of 64·WGM × WN·WGN, one producer
+// warp. One warpgroup leaves room for two blocks on an SM.
+__host__ __device__ constexpr int threads(int wgm, int wgn) {
+  return wgm * wgn * 128 + 32;
+}
+__host__ __device__ constexpr int per_sm(int wgm, int wgn) {
+  return wgm * wgn == 1 ? 2 : 1;
+}
 
-  for (int j0 = 0; j0 < N; j0 += JC) {
-    // 1. h = x · W1[:, j0:j0+JC] (f32)
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[RT][NT1];
+// The bf16 of an f32 that is one already: its high half.
+__device__ __forceinline__ uint32_t bf16_bits(float lo, float hi) {
+  return __float_as_uint(lo) >> 16 | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+// Step 1: g tile (row tile blockIdx.y, column tile blockIdx.x).
+template <int WGM, int WGN, int WN, int MODE>
+__global__ void __launch_bounds__(threads(WGM, WGN), per_sm(WGM, WGN))
+ffn_up_bf16(const __grid_constant__ CUtensorMap mx,
+            const __grid_constant__ CUtensorMap mw,
+            const float* __restrict__ b1, __nv_bfloat16* __restrict__ g,
+            int M, int K, int N) {
+  constexpr int WG = WGM * WGN, BM = 64 * WGM, BN = WN * WGN;
+  extern __shared__ unsigned char smem[];
+  const auto ring = i8g::make_ring<BM, BN, STAGES>(smem);
+  i8g::ring_init(ring, 4 * WG);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nkb = (K + KEL - 1) / KEL;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  uint32_t it = 0;
+  if (wg == WG) {
+    if (lane == 0) produce_bf16(ring, &mx, m0, &mw, n0, 0, nkb, it);
+    return;
+  }
+  const int wm = wg / WGN, wn = wg % WGN;
+  float acc[WN / 2];
 #pragma unroll
-      for (int rt = 0; rt < RT; ++rt)
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+  consume_bf16<WN>(ring, wm * 64 * i8g::BK, wn * (WN / 64) * B_BOX, 0, nkb,
+                   acc, it);
+
+  const int q = lane & 3;
+  const int r = m0 + wm * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int cb = n0 + wn * WN;
 #pragma unroll
-        for (int t = 0; t < NT1; ++t) wmma::fill_fragment(c[rt][t], 0.f);
-      for (int k0 = 0; k0 < K; k0 += KS) {
-        __syncthreads();
-        stage_bf16(stage, w1, N, k0, j0, JC);
-        __syncthreads();
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
 #pragma unroll
-        for (int kk = 0; kk < KS / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> a[RT];
+    for (int blk = 0; blk < WN / 32; ++blk) {
+      uint32_t w[4];
 #pragma unroll
-          for (int rt = 0; rt < RT; ++rt)
-            wmma::load_matrix_sync(a[rt], xs + rt * 16 * LX + k0 + kk * 16, LX);
-#pragma unroll
-          for (int t = 0; t < NT1; ++t) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> b;
-            wmma::load_matrix_sync(
-                b, stage + kk * 16 * (JC + 8) + (warp * NT1 + t) * 16, JC + 8);
-#pragma unroll
-            for (int rt = 0; rt < RT; ++rt)
-              wmma::mma_sync(c[rt][t], a[rt], b, c[rt][t]);
-          }
-        }
+      for (int gg = 0; gg < 4; ++gg) {
+        const int i = blk * 4 + gg, c = cb + 8 * i + 2 * q;
+        const float2 bv = c < N ? *reinterpret_cast<const float2*>(b1 + c)
+                                : make_float2(0.f, 0.f);
+        w[gg] = bf16_bits(act<true>(__fadd_rn(acc[4 * i + 2 * h], bv.x), MODE),
+                          act<true>(__fadd_rn(acc[4 * i + 2 * h + 1], bv.y),
+                                    MODE));
       }
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt)
-#pragma unroll
-        for (int t = 0; t < NT1; ++t)
-          wmma::store_matrix_sync(hbuf + rt * 16 * JC + (warp * NT1 + t) * 16,
-                                  c[rt][t], JC, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 2. g = act(h + b1), rounded to bf16
-    for (int i = threadIdx.x; i < BM * JC; i += THREADS) {
-      const int r = i / JC, n = i - r * JC;
-      gbuf[r * (JC + 8) + n] = __float2bfloat16_rn(
-          act<true>(__fadd_rn(hbuf[i], b1[j0 + n]), MODE));
-    }
-
-    // 3. acc += g · W2[j0:j0+JC, :]
-    for (int k0 = 0; k0 < JC; k0 += KS) {
-      __syncthreads();
-      stage_bf16(stage, w2, K2, j0 + k0, 0, K2);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KS / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a[RT];
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt)
-          wmma::load_matrix_sync(a[rt], gbuf + rt * 16 * (JC + 8) + k0 + kk * 16,
-                                 JC + 8);
-#pragma unroll
-        for (int t = 0; t < NT2; ++t) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> b;
-          wmma::load_matrix_sync(
-              b, stage + kk * 16 * (K2 + 8) + (warp * NT2 + t) * 16, K2 + 8);
-#pragma unroll
-          for (int rt = 0; rt < RT; ++rt)
-            wmma::mma_sync(acc[rt][t], a[rt], b, acc[rt][t]);
-        }
-      }
+      const uint4 v = i8g::gather_groups(w);
+      const int col = cb + 8 * (blk * 4 + q);
+      if (row < M && col < N)
+        *reinterpret_cast<uint4*>(g + (size_t)row * N + col) = v;
     }
   }
-  __syncthreads();
+}
 
-  // 4. out = acc + b2 through a per-warp 16x16 scratch (hbuf is free)
-  float* scr = hbuf + warp * 256;
+// Step 2: out tile (column tile blockIdx.x, row tile blockIdx.y) over K
+// slices [z·per, min((z + 1)·per, N/64)) of split z = blockIdx.z: SPLIT
+// false (one split) adds b2 and writes out, SPLIT true writes the f32
+// sums to part [splits, M, K2].
+template <int WGM, int WGN, int WN, bool SPLIT>
+__global__ void __launch_bounds__(threads(WGM, WGN), per_sm(WGM, WGN))
+ffn_down_bf16(const __grid_constant__ CUtensorMap mg,
+              const __grid_constant__ CUtensorMap mw,
+              const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
+              float* __restrict__ part, int M, int N, int K2, int per) {
+  constexpr int WG = WGM * WGN, BM = 64 * WGM, BN = WN * WGN;
+  extern __shared__ unsigned char smem[];
+  const auto ring = i8g::make_ring<BM, BN, STAGES>(smem);
+  i8g::ring_init(ring, 4 * WG);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nkb = (N + KEL - 1) / KEL;
+  const int kb0 = blockIdx.z * per, kb1 = min(nkb, kb0 + per);
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  uint32_t it = 0;
+  if (wg == WG) {
+    if (lane == 0) produce_bf16(ring, &mg, m0, &mw, n0, kb0, kb1, it);
+    return;
+  }
+  const int wm = wg / WGN, wn = wg % WGN;
+  float acc[WN / 2];
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+  consume_bf16<WN>(ring, wm * 64 * i8g::BK, wn * (WN / 64) * B_BOX, kb0, kb1,
+                   acc, it);
+
+  const int q = lane & 3;
+  const int r = m0 + wm * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int cb = n0 + wn * WN;
 #pragma unroll
-    for (int t = 0; t < NT2; ++t) {
-      wmma::store_matrix_sync(scr, acc[rt][t], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rt * 16 + (e >> 4);
-        const int col = (warp * NT2 + t) * 16 + (e & 15);
-        if (row0 + r < M)
-          out[(size_t)(row0 + r) * K2 + col] =
-              __float2bfloat16_rn(__fadd_rn(scr[e], b2[col]));
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int i = 0; i < WN / 8; ++i) {
+        const int c = cb + 8 * i + 2 * q;
+        if (row < M && c < K2)
+          *reinterpret_cast<float2*>(
+              part + ((size_t)blockIdx.z * M + row) * K2 + c) =
+              make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
       }
-      __syncwarp();
+    } else {
+#pragma unroll
+      for (int blk = 0; blk < WN / 32; ++blk) {
+        uint32_t w[4];
+#pragma unroll
+        for (int gg = 0; gg < 4; ++gg) {
+          const int i = blk * 4 + gg, c = cb + 8 * i + 2 * q;
+          const float2 bv = c < K2
+                                ? *reinterpret_cast<const float2*>(b2 + c)
+                                : make_float2(0.f, 0.f);
+          w[gg] = i8g::pack_bf16(__fadd_rn(acc[4 * i + 2 * h], bv.x),
+                                 __fadd_rn(acc[4 * i + 2 * h + 1], bv.y));
+        }
+        const uint4 v = i8g::gather_groups(w);
+        const int col = cb + 8 * (blk * 4 + q);
+        if (row < M && col < K2)
+          *reinterpret_cast<uint4*>(out + (size_t)row * K2 + col) = v;
+      }
     }
+  }
+}
+
+// Split form, last launch: out = bf16(Σ_z part[z] in split order + b2),
+// four elements a thread.
+__global__ void ffn_reduce_bf16(const float* __restrict__ part,
+                                const float* __restrict__ b2,
+                                __nv_bfloat16* __restrict__ out, int M,
+                                int K2, int splits) {
+  const size_t n4 = (size_t)M * K2 / 4;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4* p = reinterpret_cast<const float4*>(part);
+  float4 s = p[i];
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = p[z * n4 + i];
+    s = make_float4(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y),
+                    __fadd_rn(s.z, v.z), __fadd_rn(s.w, v.w));
+  }
+  const float4 b = *reinterpret_cast<const float4*>(b2 + (i * 4) % K2);
+  *reinterpret_cast<uint2*>(out + i * 4) =
+      make_uint2(i8g::pack_bf16(__fadd_rn(s.x, b.x), __fadd_rn(s.y, b.y)),
+                 i8g::pack_bf16(__fadd_rn(s.z, b.z), __fadd_rn(s.w, b.w)));
+}
+
+template <int WGM, int WGN, int WN, int MODE>
+cudaError_t launch_up(const void* x, const void* w1, const void* b1,
+                      __nv_bfloat16* g, int M, int K, int N,
+                      cudaStream_t stream) {
+  constexpr int BM = 64 * WGM, BN = WN * WGN;
+  CUtensorMap mx, mw;
+  cudaError_t e;
+  if ((e = i8g::tensor_map(&mx, x, M, 2 * K, BM)) != cudaSuccess ||
+      (e = i8g::tensor_map(&mw, w1, K, 2 * N, KEL)) != cudaSuccess)
+    return e;
+  const size_t smem = i8g::Ring<BM, BN, STAGES>::bytes(0);
+  if ((e = i8g::allow_smem<ffn_up_bf16<WGM, WGN, WN, MODE>>(smem)) !=
+      cudaSuccess)
+    return e;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  ffn_up_bf16<WGM, WGN, WN, MODE><<<grid, threads(WGM, WGN), smem, stream>>>(
+      mx, mw, static_cast<const float*>(b1), g, M, K, N);
+  return cudaGetLastError();
+}
+
+template <int WGM, int WGN, int WN>
+cudaError_t launch_down(const __nv_bfloat16* g, const void* w2,
+                        const void* b2, void* out, float* part, int M, int N,
+                        int K2, int splits, int per, cudaStream_t stream) {
+  constexpr int BM = 64 * WGM, BN = WN * WGN;
+  CUtensorMap mg, mw;
+  cudaError_t e;
+  if ((e = i8g::tensor_map(&mg, g, M, 2 * N, BM)) != cudaSuccess ||
+      (e = i8g::tensor_map(&mw, w2, N, 2 * K2, KEL)) != cudaSuccess)
+    return e;
+  const size_t smem = i8g::Ring<BM, BN, STAGES>::bytes(0);
+  // the column tiles of a row tile run side by side (its g rows then come
+  // from memory once)
+  const dim3 grid((K2 + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  const auto* bias = static_cast<const float*>(b2);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (splits == 1) {
+    if ((e = i8g::allow_smem<ffn_down_bf16<WGM, WGN, WN, false>>(smem)) !=
+        cudaSuccess)
+      return e;
+    ffn_down_bf16<WGM, WGN, WN, false><<<grid, threads(WGM, WGN), smem,
+                                         stream>>>(mg, mw, bias, o, nullptr,
+                                                   M, N, K2, per);
+    return cudaGetLastError();
+  }
+  if ((e = i8g::allow_smem<ffn_down_bf16<WGM, WGN, WN, true>>(smem)) !=
+      cudaSuccess)
+    return e;
+  ffn_down_bf16<WGM, WGN, WN, true><<<grid, threads(WGM, WGN), smem,
+                                      stream>>>(mg, mw, bias, o, part, M, N,
+                                                K2, per);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const size_t n4 = (size_t)M * K2 / 4;
+  ffn_reduce_bf16<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+      part, bias, o, M, K2, splits);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32
 
+constexpr int THREADS = 256;
+constexpr int KS = 32;                    // W1 rows staged per step
 constexpr int FBM = 16;                   // rows per block
 constexpr int FJC = 128;                  // intermediate columns per chunk
 constexpr int FKS2 = 8;                   // W2 rows staged per step
@@ -286,83 +481,121 @@ ffn_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 template <int K2, int MODE>
-cudaError_t launch(const void* x, const void* w1, const void* b1,
-                   const void* w2, const void* b2, void* out, int M, int K,
-                   int N, int is_f32, cudaStream_t stream) {
-  if (is_f32) {
-    auto kern = ffn_f32_kernel<K2, MODE>;
-    const size_t smem = smem_f32<K2>(K);
-    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    kern<<<(M + FBM - 1) / FBM, THREADS, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2),
-        static_cast<const float*>(b2), static_cast<float*>(out), M, K, N);
-    return cudaGetLastError();
-  }
-  constexpr int BM = 16 * row_tiles<K2>();
-  auto kern = ffn_bf16_kernel<K2, MODE>;
-  const size_t smem = smem_bf16<K2>(K);
+cudaError_t launch_f32(const void* x, const void* w1, const void* b1,
+                       const void* w2, const void* b2, void* out, int M, int K,
+                       int N, cudaStream_t stream) {
+  auto kern = ffn_f32_kernel<K2, MODE>;
+  const size_t smem = smem_f32<K2>(K);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kern<<<(M + BM - 1) / BM, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
-      static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
-      static_cast<__nv_bfloat16*>(out), M, K, N);
+  kern<<<(M + FBM - 1) / FBM, THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), M, K, N);
   return cudaGetLastError();
 }
 
 template <int K2>
-cudaError_t launch_mode(const void* x, const void* w1, const void* b1,
-                        const void* w2, const void* b2, void* out, int M,
-                        int K, int N, int mode, int is_f32,
-                        cudaStream_t st) {
+cudaError_t launch_f32_mode(const void* x, const void* w1, const void* b1,
+                            const void* w2, const void* b2, void* out, int M,
+                            int K, int N, int mode, cudaStream_t st) {
   switch (mode) {
     case int8k::MODE_TANH:
-      return launch<K2, int8k::MODE_TANH>(x, w1, b1, w2, b2, out, M, K, N,
-                                          is_f32, st);
+      return launch_f32<K2, int8k::MODE_TANH>(x, w1, b1, w2, b2, out, M, K, N,
+                                              st);
     case int8k::MODE_ERF:
-      return launch<K2, int8k::MODE_ERF>(x, w1, b1, w2, b2, out, M, K, N,
-                                         is_f32, st);
+      return launch_f32<K2, int8k::MODE_ERF>(x, w1, b1, w2, b2, out, M, K, N,
+                                             st);
     case int8k::MODE_QUICK:
-      return launch<K2, int8k::MODE_QUICK>(x, w1, b1, w2, b2, out, M, K, N,
-                                           is_f32, st);
+      return launch_f32<K2, int8k::MODE_QUICK>(x, w1, b1, w2, b2, out, M, K,
+                                               N, st);
   }
   return cudaErrorInvalidValue;
 }
 
+size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
+
 }  // namespace
 
+// Bytes of the workspace the bf16 path needs: g [M, N] bf16 and, when N
+// is split, the splits' f32 sums [splits, M, K2].
+extern "C" size_t fused_ffn_workspace(int M, int N, int K2, int splits) {
+  return align256((size_t)M * N * 2) +
+         (splits > 1 ? (size_t)splits * M * K2 * 4 : 0);
+}
+
 // C entry: x [M, K], w1 [K, N], w2 [N, K2], out [M, K2], all bf16 (is_f32
-// 0) or all f32 (1); b1 f32 [N], b2 f32 [K2]; contiguous. mode 0 tanh /
-// 1 erf / 2 quick. Returns a cudaError_t (0 = launched). Supported:
-// K2 ∈ {384, 512, 768, 1024, 1280}; K % 32 == 0 with the buffers of
-// smem_bf16 / smem_f32 within 227 KB (K ≤ 1304 in bf16 up to K2 = 768,
-// so every K = K2 here); N % 512 == 0 (bf16) or N % 128 == 0 (f32).
+// 0) or all f32 (1); b1 f32 [N], b2 f32 [K2]; contiguous, 16-byte
+// aligned. mode 0 tanh / 1 erf / 2 quick. Returns a cudaError_t (0 =
+// launched).
+//   bf16: work (fused_ffn_workspace bytes); up ∈ {0: 128 × 256, 1: 64 ×
+//   128, 2: 64 × 64} and down ∈ {0: 128 × 256, 1: 128 × 128, 2: 64 × 128,
+//   3: 64 × 64} the tiles of the two products; N split into `splits`
+//   ranges of `per` 64-column slices (the last may be shorter, none
+//   empty). Launches: up, down (+ reduce when split). Supported: K, N, K2
+//   multiples of 8.
+//   f32: one launch, work and the plan ignored. Supported: K2 ∈ {384,
+//   512, 768, 1024, 1280}, K % 32 == 0 with smem_f32 within 227 KB, N %
+//   128 == 0.
 extern "C" int fused_ffn_launch(const void* x, const void* w1, const void* b1,
                                 const void* w2, const void* b2, void* out,
-                                int M, int K, int N, int K2, int mode,
-                                int is_f32, void* stream) {
-  if (M <= 0 || K <= 0 || K % KS || N <= 0 || N % (is_f32 ? FJC : JC))
-    return cudaErrorInvalidValue;
+                                void* work, int M, int K, int N, int K2,
+                                int mode, int is_f32, int up, int down,
+                                int splits, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (K2) {
+  if (M <= 0 || K <= 0 || N <= 0 || K2 <= 0 || mode < 0 || mode > 2)
+    return cudaErrorInvalidValue;
+  if (is_f32) {
+    if (K % KS || N % FJC) return cudaErrorInvalidValue;
+    switch (K2) {
 #define K2_CASE(W) \
-    case W:        \
-      return launch_mode<W>(x, w1, b1, w2, b2, out, M, K, N, mode, is_f32, st);
-    K2_CASE(384)
-    K2_CASE(512)
-    K2_CASE(768)
-    K2_CASE(1024)
-    K2_CASE(1280)
+      case W:      \
+        return launch_f32_mode<W>(x, w1, b1, w2, b2, out, M, K, N, mode, st);
+      K2_CASE(384)
+      K2_CASE(512)
+      K2_CASE(768)
+      K2_CASE(1024)
+      K2_CASE(1280)
 #undef K2_CASE
+    }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
+  const int nkb = (N + KEL - 1) / KEL;
+  if (K % 8 || N % 8 || K2 % 8 || up < 0 || up > 2 || down < 0 ||
+      down > 3 || splits < 1 || per < 1 || (splits - 1) * per >= nkb ||
+      splits * per < nkb)
+    return cudaErrorInvalidValue;
+  auto* g = static_cast<__nv_bfloat16*>(work);
+  float* part = reinterpret_cast<float*>(static_cast<unsigned char*>(work) +
+                                         align256((size_t)M * N * 2));
+  cudaError_t e = cudaErrorInvalidValue;
+#define FFN_UP(U, WGM, WGN, WN, MD)                                          \
+  if (up == (U) && mode == (MD))                                             \
+    e = launch_up<WGM, WGN, WN, MD>(x, w1, b1, g, M, K, N, st);
+  FFN_UP(0, 2, 2, 128, int8k::MODE_TANH) FFN_UP(0, 2, 2, 128, int8k::MODE_ERF)
+  FFN_UP(0, 2, 2, 128, int8k::MODE_QUICK)
+  FFN_UP(1, 1, 1, 128, int8k::MODE_TANH) FFN_UP(1, 1, 1, 128, int8k::MODE_ERF)
+  FFN_UP(1, 1, 1, 128, int8k::MODE_QUICK)
+  FFN_UP(2, 1, 1, 64, int8k::MODE_TANH) FFN_UP(2, 1, 1, 64, int8k::MODE_ERF)
+  FFN_UP(2, 1, 1, 64, int8k::MODE_QUICK)
+#undef FFN_UP
+  if (e != cudaSuccess) return e;
+  switch (down) {
+    case 0:
+      return launch_down<2, 2, 128>(g, w2, b2, out, part, M, N, K2, splits,
+                                    per, st);
+    case 1:
+      return launch_down<2, 1, 128>(g, w2, b2, out, part, M, N, K2, splits,
+                                    per, st);
+    case 2:
+      return launch_down<1, 1, 128>(g, w2, b2, out, part, M, N, K2, splits,
+                                    per, st);
+    default:
+      return launch_down<1, 1, 64>(g, w2, b2, out, part, M, N, K2, splits,
+                                   per, st);
+  }
 }
 
 extern "C" const char* fused_ffn_error_string(int err) {

@@ -7,26 +7,88 @@ Counterpart of ``misinfo_tpu/ops/pallas_ffn.py`` (the TPU kernel
 rounded to the compute dtype, the activation with the casts of ``_act``
 (tanh or erf GELU, or CLIP's quick_gelu), then ``g @ W2`` summed in f32
 chunk by chunk over ``jc`` intermediate columns, ``+ b2`` and the compute
-dtype out; the intermediate never reaches device memory in the kernel.
+dtype out.
 
 ``fused_ffn`` dispatches on where its input lies: a CUDA tensor launches
 the kernel in ``csrc/fused_ffn.cu`` (built with ``nvcc`` at first use) or
-raises; a CPU tensor runs ``fused_ffn_plain``. ``launches`` counts kernel
-launches.
+raises; a CPU tensor runs ``fused_ffn_plain``. ``launches`` counts calls
+that launched the kernel. In bf16 that is two or three CUDA kernels on
+the tensor cores (the up product with the activation, writing the
+intermediate to a per-stream workspace; the down product; with N split,
+the sum of the splits), with tiles and split chosen by ``plan``; in f32
+one.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, Policy, matmul_f32
-from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
+from misinfo_tpu_torch.ops.cuda_build import (
+    build, check_tensor, multiprocessors, workspace)
 from misinfo_tpu_torch.ops.int8_ffn import _MODES, _act, pick_chunk
 
 _DTYPES = (torch.bfloat16, torch.float32)
+# csrc/fused_ffn.cu's bf16 tiles (rows, columns) by configuration index
+UP_TILES = ((128, 256), (64, 128), (64, 64))
+DOWN_TILES = ((128, 256), (128, 128), (64, 128), (64, 64))
+K_SLICE = 64                    # N columns per slice of the down product
+F32_TILES = (16, 128)           # the f32 kernel's rows per block, chunk
+H100_SMS = 132
+
+
+class Plan(NamedTuple):
+    """The bf16 kernel's tiles and split for one call: ``up``/``down``
+    index UP_TILES/DOWN_TILES; N's ``N/64`` slices go to ``splits``
+    ranges of ``per`` (the last may be shorter)."""
+    up: int
+    down: int
+    splits: int
+    per: int
+
+
+def plan(M: int, N: int, K2: int, sms: int = H100_SMS) -> Plan:
+    """Tiles and split of a bf16 call on a card with ``sms`` SMs: the
+    large tiles where they make at least one wave, else the 64-row tiles
+    (two blocks to an SM); the down product splits N until its blocks
+    fill the card (each range at least two slices)."""
+    def count(shape, cols):
+        return -(-M // shape[0]) * -(-cols // shape[1])
+
+    up = 0 if count(UP_TILES[0], N) >= sms else 1 if M > 64 else 2
+    if K2 % 256 == 0 and count(DOWN_TILES[0], K2) >= sms:
+        down = 0
+    elif count(DOWN_TILES[1], K2) >= sms:
+        down = 1
+    else:
+        down = 2 if M > 64 else 3
+    slots = sms * (1 if down < 2 else 2)
+    kb = -(-N // K_SLICE)
+    splits = max(1, min(slots // count(DOWN_TILES[down], K2), kb // 2))
+    per = -(-kb // splits)
+    return Plan(up, down, -(-kb // per), per)
+
+
+def tiles(M: int, N: int, K2: int, dtype, sms: int = H100_SMS):
+    """(rows of an output tile, columns of an intermediate tile) of the
+    kernel for this call: the f32 kernel's block and chunk, or the bf16
+    down and up tiles of ``plan``."""
+    if dtype == torch.float32:
+        return F32_TILES
+    p = plan(M, N, K2, sms)
+    return DOWN_TILES[p.down][0], UP_TILES[p.up][1]
+
+
+def sm_count(device) -> int:
+    """The SM count that sets a call's plan: the card's, or an H100's for
+    the CPU (where the checks emulate the card's tiles)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return multiprocessors(device.index or 0)
+    return H100_SMS
 
 launches = 0                    # kernel launches since import (or reset)
 build_log = ""                  # nvcc's output of the last build
@@ -54,8 +116,10 @@ def _library():
         return _lib
     lib, build_log = build("fused_ffn")
     lib.fused_ffn_launch.restype = ctypes.c_int
-    lib.fused_ffn_launch.argtypes = ([ctypes.c_void_p] * 6
-                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.fused_ffn_launch.argtypes = ([ctypes.c_void_p] * 7
+                                     + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    lib.fused_ffn_workspace.restype = ctypes.c_size_t
+    lib.fused_ffn_workspace.argtypes = [ctypes.c_int] * 4
     lib.fused_ffn_error_string.restype = ctypes.c_char_p
     lib.fused_ffn_error_string.argtypes = [ctypes.c_int]
     _lib = lib
@@ -80,14 +144,19 @@ def _launch(x, w1, b1, w2, b2, mode: str) -> torch.Tensor:
     if M:
         lib = _library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        f32 = dt == torch.float32
+        p = Plan(0, 0, 1, 1) if f32 else plan(M, N, K2, sm_count(x.device))
+        work = None if f32 else workspace(
+            lib.fused_ffn_workspace(M, N, K2, p.splits), x.device,
+            stream).data_ptr()
         err = lib.fused_ffn_launch(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), M, K, N, K2, _MODES[mode],
-            int(dt == torch.float32), stream)
+            b2.data_ptr(), out.data_ptr(), work, M, K, N, K2, _MODES[mode],
+            int(f32), *p, stream)
         if err:
             raise RuntimeError(
                 f"fused_ffn kernel launch failed (M={M} K={K} N={N} K2={K2} "
-                f"{dt} mode={mode}): "
+                f"{dt} mode={mode} {p}): "
                 f"{lib.fused_ffn_error_string(err).decode()}")
         launches += 1
     return out.reshape(*x.shape[:-1], K2)

@@ -64,7 +64,11 @@ Bands, elementwise (ulp: one step of the output dtype at |plain|):
   (≤ 2^-7 of itself) apart, which moves g by at most 2^-7·(2|h| + |g|);
   the band allows such steps at one element in 2^5 (2^8 times the
   expected rate). Faults: each N chunk left out (its W2 rows zeroed), b2
-  dropped, and for tanh the erf GELU in its place, on inputs whose W2
+  dropped, the kernel's last intermediate column tile left out (its W2
+  rows zeroed; the up product's tile width in bf16, the chunk in f32), the
+  ragged last output row tile left unwritten (zeros; where M is not a
+  multiple of the kernel's row tile: ``fused_ffn.tiles``), and for tanh
+  the erf GELU in its place, on inputs whose W2
   column 0 carries, for row 0, the difference erf − tanh of the two
   activations in the compute dtype where h > 0 (so that it adds up there;
   in bf16 it is zero where the two round alike) and b2_0 cancelling the
@@ -439,7 +443,7 @@ def ffn_case(M: int, K: int, N: int, mode: str, dtype=torch.bfloat16,
 def ffn_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
     x, w1, b1, w2, b2 = case["args"]
     mode = case["mode"]
-    N = w1.shape[1]
+    M, (N, K2) = x.shape[0], w2.shape
     jc = pick_chunk(N)
     out = []
     for j0 in range(0, N, jc):
@@ -449,6 +453,17 @@ def ffn_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
                     K5.fused_ffn_plain(x, w1, b1, w2j, b2, mode=mode)))
     out.append(("b2 dropped", K5.fused_ffn_plain(
         x, w1, b1, w2, torch.zeros_like(b2), mode=mode)))
+    rows, cols = K5.tiles(M, N, K2, x.dtype, K5.sm_count(x.device))
+    j0 = (N - 1) // cols * cols
+    w2j = w2.clone()
+    w2j[j0:] = 0
+    out.append((f"intermediate columns {j0}..{N - 1} (the last "
+                f"{cols}-column tile) left out",
+                K5.fused_ffn_plain(x, w1, b1, w2j, b2, mode=mode)))
+    if M % rows:
+        y = K5.fused_ffn_plain(x, w1, b1, w2, b2, mode=mode)
+        y[M // rows * rows:] = 0
+        out.append((f"the ragged last {rows}-row tile dropped", y))
     if mode == "tanh":
         out.append(("erf in place of tanh",
                     K5.fused_ffn_plain(x, w1, b1, w2, b2, mode="erf")))

@@ -16,9 +16,10 @@ with a plain PyTorch version beside it:
   nibbles with f32 sums, then · scale per row. Every product is exact in
   f32, so kernel and plain version differ only in the order of the sums.
 * K10b ``int4_sims_i8`` (TPU kernel ``_int4_sims_kernel_i8``): the query
-  quantized per row to int8 outside the kernel (``quantize_query_i8``),
-  int8 · nibble products summed exactly in int32, then
-  ``(acc · scale[row]) · qscale[b]`` in that order. The plain version
+  quantized per row to int8 (``quantize_query_i8``; the kernel does it
+  in its prologue with the same IEEE arithmetic), int8 · nibble products
+  summed exactly in int32, then ``(acc · scale[row]) · qscale[b]`` in
+  that order. The plain version
   runs the sum as an f32 matmul over the unpacked nibbles: |Σ| ≤
   512·127·7 = 455,168 < 2^24, so every partial sum is an exact integer and
   kernel and plain version are equal bit for bit.
@@ -155,14 +156,14 @@ def _library():
     lib, build_log = build("int4_sims")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.int4_sims_launch.restype = i
-    lib.int4_sims_launch.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.int4_sims_launch.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.int4_sims_error_string.restype = ctypes.c_char_p
     lib.int4_sims_error_string.argtypes = [i]
     _lib = lib
     return lib
 
 
-def _launch(q, packed, scale, qscale, i8: bool) -> torch.Tensor:
+def _launch(q, packed, scale, i8: bool) -> torch.Tensor:
     global launches, launches_i8
     B, D = q.shape
     N = packed.shape[0]
@@ -174,18 +175,16 @@ def _launch(q, packed, scale, qscale, i8: bool) -> torch.Tensor:
         raise ValueError(f"{what}: needs D % 32 == 0 and N ≥ 1, got D={D} "
                          f"N={N}")
     dev = q.device
-    checks = [(q, "query", torch.int8 if i8 else torch.bfloat16, (B, D)),
+    checks = [(q, "query", torch.float32 if i8 else torch.bfloat16, (B, D)),
               (packed, "packed", torch.uint8, (N, D // 2)),
               (scale, "scale", torch.float32, (N,))]
-    if i8:
-        checks.append((qscale, "qscale", torch.float32, (B, 1)))
     for t, name, dt, shape in checks:
         check_tensor(t, f"{what}: {name}", dt, shape, dev)
     lib = _library()
     out = torch.empty(B, N, dtype=torch.float32, device=dev)
     err = lib.int4_sims_launch(
-        q.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-        qscale.data_ptr() if i8 else None, out.data_ptr(), B, N, D, int(i8),
+        q.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        B, N, D, int(i8),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{what} kernel launch failed (B={B} N={N} D={D}):"
@@ -205,7 +204,7 @@ def int4_sims(query: torch.Tensor, packed: torch.Tensor,
     if not query.is_cuda:
         return int4_sims_plain(query, packed, scale)
     return _launch(query.to(torch.bfloat16).contiguous(), packed,
-                   scale, None, i8=False)
+                   scale, i8=False)
 
 
 def int4_sims_i8(query: torch.Tensor, packed: torch.Tensor,
@@ -215,8 +214,7 @@ def int4_sims_i8(query: torch.Tensor, packed: torch.Tensor,
     kernel or raise; CPU tensors run the plain version."""
     if not query.is_cuda:
         return int4_sims_i8_plain(query, packed, scale)
-    qi8, qs = quantize_query_i8(query)
-    return _launch(qi8, packed, scale, qs, i8=True)
+    return _launch(query.float().contiguous(), packed, scale, i8=True)
 
 
 def int4_vault_sims(query: torch.Tensor, packed: torch.Tensor,

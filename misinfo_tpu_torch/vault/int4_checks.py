@@ -10,23 +10,41 @@ bit.
 
 K10a sums f32 products that are exact (a bf16 value times a nibble has
 at most 12 significant bits), so it differs from its plain version only
-in the order of the D additions. Each order's error is at most
-(D − 1)·2^-24·Σ_d |q_d·nib_d| (recursive summation; cuBLAS's blocked
-order has the same bound), and each side rounds once more when it scales
-by the row's scale. The band, elementwise, is therefore
+in how the D products are added. The plain version's order errs by at
+most (D − 1)·2^-24·Σ_d |q_d·nib_d| (recursive summation; cuBLAS's blocked
+order has the same bound). In the kernel an mma step adds 16 exact
+products to its f32 C with an error below 17·2^-23 of the largest of its
+terms (each of the 17 truncated at most once where they are aligned, as
+tensor cores have been measured to add). From 256 dims the eight steps
+of a 64-byte slice chain in the accumulator, ≤ 8·17·2^-23 = 272·2^-24 of
+the slice's products' absolute sum, and the D/128 slice sums are added
+by IEEE additions: ≤ (272 + D/128)·2^-24·Σ in all, inside the bound
+below from D = 136. Below 256 dims every step starts from a zero C (≤
+16·2^-23 of its sum) and is added by an IEEE addition: ≤ (32 +
+D/16)·2^-24·Σ. Each side rounds once more when it scales by the row's
+scale. The band, elementwise, is therefore
 
     |kernel − plain| ≤ (D + 1)·2^-23·Σ_d |q_d·nib_d|·scale[n]
 
 about 1e-4 for a unit 512-d query against random nibbles and a scale of
 0.02, against sims of ~0.1. A wrong kernel must leave it: the checks
-emulate four faults with the plain version on altered inputs (a
-2048-row tile left out, lo and hi nibbles swapped, nibbles read
-unsigned, the row scale dropped), and a fifth at a ragged N (the last
-partial 128-row tile left out); each must fall outside the band.
+emulate six faults with the plain version on altered inputs (a
+2048-row tile left out, one consumer warp's 32 rows left out, the last
+64-byte slice's high nibbles left out, lo and hi nibbles swapped,
+nibbles read unsigned, the row scale dropped), and a seventh at a ragged
+N (the last partial 128-row tile left out); each must fall outside the
+band.
 
 The vault of a case is random packed bytes, so every nibble value the
 unpacking can see (−8..7) occurs, with scales in [0.01, 0.03] (the
 range of unit 512-d rows; ``quantize_rows_int4``).
+
+``kernel_walk`` repeats the kernels' k-walk on the CPU: per 64-byte
+slice of a packed row, the low then the high nibbles, in the dims each
+mma step of ``csrc/int4_sims.cu`` pairs (K10b: s8 lanes holding 16·v,
+exact sums shifted back by 4; K10a: from 256 dims each slice's 128
+exact products, below each step's 16, rounded once to f32 and added to
+the running f32 sum).
 """
 
 from __future__ import annotations
@@ -40,7 +58,10 @@ import torch
 from misinfo_tpu_torch.vault import int4 as K10
 from misinfo_tpu_torch.vault.search import exact_matmul
 
-KERNEL_TILE = 128        # rows per tile of csrc/int4_sims.cu
+KERNEL_TILE = 128        # rows per tile of csrc/int4_sims.cu (D ≤ 512:
+                         # four consumer warps × 32 rows)
+WARP_ROWS = 32           # rows of one consumer warp there
+CHAIN_DIMS = 256         # from here K10a chains a slice's mma steps
 FAULT_TILE = 2048        # rows of the tile left out by the first fault
 
 
@@ -90,6 +111,16 @@ def faults(query, packed, scale,
         f = want.clone()
         f[:, n - n % KERNEL_TILE:] = 0.0
         out.append(("the ragged last tile left out", f))
+    r0 = min(n - 1, lo + WARP_ROWS)
+    f = want.clone()
+    f[:, r0:r0 + WARP_ROWS] = 0.0
+    out.append((f"one warp's rows {r0}.. left out", f))
+    d2 = query.shape[1] // 2
+    s0 = (d2 - 1) // 64 * 64
+    q = query.clone()
+    q[:, d2 + s0:] = 0.0
+    out.append(("the last slice's high nibbles left out",
+                K10.int4_sims_plain(q, packed, scale)))
     swapped = ((packed & 0xF) << 4) | (packed >> 4)
     out.append(("lo/hi nibbles swapped",
                 K10.int4_sims_plain(query, swapped, scale)))
@@ -121,6 +152,39 @@ def hold(got, want, allowed, fault_list, what: str) -> Dict:
         nearest = min(nearest, r)
     return {"err": err.max().item(), "band": allowed.max().item(),
             "faults": len(fault_list), "nearest_fault": nearest}
+
+
+def walk_steps(d: int, i8: bool) -> List[List[int]]:
+    """The dims of each mma step of csrc/int4_sims.cu, in the kernel's
+    order: per 64-byte slice s0 of the D/2 packed bytes, the low then the
+    high nibbles; lane t (a quad's index) holds bytes s0 + 16t .. + 15,
+    and step w pairs its words 2w, 2w + 1 (K10b, m16n8k32: 8 bytes a
+    lane) or word w (K10a, m16n8k16: 4 bytes a lane). Lanes past D/2 hold
+    zero query fragments and add nothing."""
+    d2, width = d // 2, 8 if i8 else 4
+    return [[hi * d2 + s0 + 16 * t + width * w + e
+             for t in range(4) if s0 + 16 * t < d2 for e in range(width)]
+            for s0 in range(0, d2, 64) for hi in (0, 1)
+            for w in range(16 // width)]
+
+
+def kernel_walk(query, packed, scale, i8: bool) -> torch.Tensor:
+    """K10b (``i8``) or K10a in the kernels' order and arithmetic
+    (module note), on the CPU."""
+    nib = K10.unpack_int4(packed)
+    steps = walk_steps(query.shape[1], i8)
+    if i8:
+        qi8, qs = K10.quantize_query_i8(query)
+        lanes = (nib * 16).to(torch.int8).long()      # 16·v in s8 lanes
+        acc = sum(qi8[:, s].long() @ lanes[:, s].T for s in steps) >> 4
+        return acc.float() * scale.float()[None, :] * qs
+    if query.shape[1] >= CHAIN_DIMS:          # a slice's 8 steps chain
+        steps = [sum(steps[i:i + 8], []) for i in range(0, len(steps), 8)]
+    q = query.to(torch.bfloat16).double()
+    acc = torch.zeros(query.shape[0], packed.shape[0])
+    for s in steps:          # exact products, one rounding, IEEE add
+        acc = acc + (q[:, s] @ nib[:, s].double().T).float()
+    return acc * scale.float()[None, :]
 
 
 def check_k10a(query, packed, scale) -> Dict:

@@ -151,12 +151,21 @@ def test_towers_with_opt_in_kernels_match_jax(use_pallas, monkeypatch):
                                         (77, 512, 2048, "quick"),
                                         (4, 512, 2048, "tanh"),
                                         (32, 384, 1536, "tanh"),
-                                        (32, 1280, 5120, "tanh")])
+                                        (32, 1280, 5120, "tanh"),
+                                        (300, 1280, 5120, "tanh"),
+                                        (2464, 512, 2048, "quick")])
 def test_k5_card_band_rejects_planted_faults(dtype, M, K, N, mode):
+    """Every fault (a chunk, b2, the kernel's last intermediate column
+    tile, the ragged last row tile, erf for tanh) leaves the band; in
+    bf16 the last two shapes plant the 128-column and (CLIP text b32)
+    256-column intermediate tiles, both beside a ragged 64-row tile."""
     res = KC.check_ffn(KC.ffn_case(M, K, N, mode, dtype, device="cpu"))
     chunks = N // 512
     erf = mode == "tanh"
-    assert res["faults"] == chunks + 1 + erf and res["nearest_fault"] > 4
+    rows, _ = K5.tiles(M, N, K, dtype)
+    ragged = M % rows > 0
+    assert res["faults"] == chunks + 2 + ragged + erf
+    assert res["nearest_fault"] > 4
 
 
 def test_cpu_tensors_take_the_plain_version():
