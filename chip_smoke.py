@@ -1434,6 +1434,32 @@ def _int8_layer(K: int, N: int, gen):
     return lay(p["kernel_q"].cuda()), p["w_scale"].cuda(), p["bias"].cuda()
 
 
+def _time_row(kernel, name, fn, shape, work, kind, library, yardstick,
+              card, calls: int = 20) -> None:
+    """One --times JSON line: device µs per call, CUDA kernels per call,
+    each CUDA kernel's device µs, the bound and the yardstick's µs
+    (``library``, never called by the port in the kernel's place)."""
+    us, per_call = device_us(fn, calls)
+    b = bound(*work, kind)
+    print(json.dumps({
+        "kernel": kernel, "shape": name, **shape, "device_us": us,
+        "kernels_per_call": per_call, "kernels_us": kernel_split_us(fn),
+        "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"],
+        "library_us": device_us(library, calls)[0], "yardstick": yardstick,
+        "card": card}), flush=True)
+
+
+def _int_mm(products):
+    """The int8 rows' yardstick: torch._int_mm of each (M, K, N) integer
+    product on random s8 operands, in one callable, and its name."""
+    ops = [(torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                          device="cuda"),
+            torch.randint(-127, 128, (N, K), dtype=torch.int8,
+                          device="cuda").t()) for M, K, N in products]
+    return (lambda: [torch._int_mm(a, b) for a, b in ops],
+            "torch._int_mm of the same integer products")
+
+
 def int8_times(card):
     """K1 and K2 of the imported tree at INT8_TIMES' shapes, one JSON line
     each: device µs per call (device_us), the device µs of each of its
@@ -1446,32 +1472,16 @@ def int8_times(card):
         x = torch.randn(M, K, generator=gen).to(torch.bfloat16).cuda()
         args = (x, *_int8_layer(K, N, gen), *_int8_layer(N, K, gen))
         fn = lambda: K1.int8_ffn(*args, mode=mode)              # noqa: E731
-        _int8_time_row("int8_ffn", name, fn, (M, K, N), ffn_work(M, K, N),
-                       [(M, K, N), (M, N, K)], card)
+        _time_row("int8_ffn", name, fn, {"M_K_N": [M, K, N]},
+                  ffn_work(M, K, N), "int8", *_int_mm([(M, K, N), (M, N, K)]),
+                  card, calls=50)
     for name, M, K, N in INT8_TIMES["int8_dense"]:
         x = torch.randn(M, K, generator=gen).to(torch.bfloat16).cuda()
         args = (x, *_int8_layer(K, N, gen))
         fn = lambda: K2.int8_dense(*args)                       # noqa: E731
-        _int8_time_row("int8_dense", name, fn, (M, K, N),
-                       (nbytes(*args) + M * N * 2, 2 * M * K * N),
-                       [(M, K, N)], card)
-
-
-def _int8_time_row(kernel, name, fn, mkn, work, products, card) -> None:
-    us, per_call = device_us(fn)
-    mm = []
-    for M, K, N in products:
-        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda")
-        b = torch.randint(-127, 128, (N, K), dtype=torch.int8,
-                          device="cuda").t()
-        mm.append(device_us(lambda: torch._int_mm(a, b))[0])
-    b = bound(*work, "int8")
-    print(json.dumps({
-        "kernel": kernel, "shape": name, "M_K_N": mkn, "device_us": us,
-        "kernels_per_call": per_call, "kernels_us": kernel_split_us(fn),
-        "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"],
-        "int_mm_us": None if None in mm else sum(mm), "card": card}),
-        flush=True)
+        _time_row("int8_dense", name, fn, {"M_K_N": [M, K, N]},
+                  (nbytes(*args) + M * N * 2, 2 * M * K * N), "int8",
+                  *_int_mm([(M, K, N)]), card, calls=50)
 
 
 # --times: K5 (bf16) at the towers' b32/S512 shapes, one RoBERTa request
@@ -1485,20 +1495,6 @@ FFN_TIMES = (("roberta_b32", 32 * 512, 768, 3072, "tanh"),
              ("whisper_base_decode_32", 32, 512, 2048, "tanh"),
              ("whisper_large_decode_32", 32, 1280, 5120, "tanh"))
 INT4_TIMES = (1, 8, 32, 64)
-
-
-def _time_row(kernel, name, fn, shape, work, kind, library, yardstick,
-              card) -> None:
-    """One --times JSON line: device µs per call, CUDA kernels per call,
-    each CUDA kernel's device µs, the bound and the yardstick's µs."""
-    us, per_call = device_us(fn, 20)
-    b = bound(*work, kind)
-    print(json.dumps({
-        "kernel": kernel, "shape": name, **shape, "device_us": us,
-        "kernels_per_call": per_call, "kernels_us": kernel_split_us(fn),
-        "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"],
-        "library_us": device_us(library, 20)[0], "yardstick": yardstick,
-        "card": card}), flush=True)
 
 
 def ffn_times(card):

@@ -531,8 +531,8 @@ extern "C" size_t fused_ffn_workspace(int M, int N, int K2, int splits) {
 // aligned. mode 0 tanh / 1 erf / 2 quick. Returns a cudaError_t (0 =
 // launched).
 //   bf16: work (fused_ffn_workspace bytes); up ∈ {0: 128 × 256, 1: 64 ×
-//   128, 2: 64 × 64} and down ∈ {0: 128 × 256, 1: 128 × 128, 2: 64 × 128,
-//   3: 64 × 64} the tiles of the two products; N split into `splits`
+//   128, 2: 64 × 64} and down ∈ {0: 128 × 256, 1: 64 × 128, 2: 64 × 64}
+//   the tiles of the two products; N split into `splits`
 //   ranges of `per` 64-column slices (the last may be shorter, none
 //   empty). Launches: up, down (+ reduce when split). Supported: K, N, K2
 //   multiples of 8.
@@ -564,7 +564,7 @@ extern "C" int fused_ffn_launch(const void* x, const void* w1, const void* b1,
   }
   const int nkb = (N + KEL - 1) / KEL;
   if (K % 8 || N % 8 || K2 % 8 || up < 0 || up > 2 || down < 0 ||
-      down > 3 || splits < 1 || per < 1 || (splits - 1) * per >= nkb ||
+      down > 2 || splits < 1 || per < 1 || (splits - 1) * per >= nkb ||
       splits * per < nkb)
     return cudaErrorInvalidValue;
   auto* g = static_cast<__nv_bfloat16*>(work);
@@ -587,9 +587,6 @@ extern "C" int fused_ffn_launch(const void* x, const void* w1, const void* b1,
       return launch_down<2, 2, 128>(g, w2, b2, out, part, M, N, K2, splits,
                                     per, st);
     case 1:
-      return launch_down<2, 1, 128>(g, w2, b2, out, part, M, N, K2, splits,
-                                    per, st);
-    case 2:
       return launch_down<1, 1, 128>(g, w2, b2, out, part, M, N, K2, splits,
                                     per, st);
     default:

@@ -19,7 +19,8 @@
 //  - persistent blocks, one per SM, each with a producer thread that
 //    streams tiles of TR consecutive packed rows (one contiguous block of
 //    memory: a 1-D bulk copy, cp.async.bulk, counted in on an mbarrier)
-//    into a ring of up to MAX_STAGES shared-memory stages; every packed
+//    into a ring of an even number, up to MAX_STAGES, of shared-memory
+//    stages (each consumer group owns every other one); every packed
 //    row is read from memory once for all B queries;
 //  - the query sits in shared memory for the life of the block, laid out
 //    in mma.sync B-fragment order (one lane-contiguous 16-byte load per
@@ -445,8 +446,14 @@ cudaError_t run(const void* query, const uint8_t* packed, const float* scale,
                        MAXB * 4 +
                        (I8 ? ((size_t)B * D + 15) / 16 * 16 : 0) +
                        16 * MAX_STAGES;
+  // An even depth: group q takes tiles it ≡ q (mod 2), so with an even
+  // depth it uses only the stages s ≡ q (mod 2) and waits on every phase
+  // of their full barriers. With an odd depth a stage would pass between
+  // the groups, each group's parity wait would skip the other's phase and
+  // could pass on a phase two back before the other group's copy landed
+  // (bulk copies complete in no promised order).
   const int stages =
-      (int)std::min<size_t>(MAX_STAGES, (SMEM_MAX - fixed) / tile_bytes);
+      (int)std::min<size_t>(MAX_STAGES, (SMEM_MAX - fixed) / tile_bytes) & ~1;
   if (stages < 2) return cudaErrorInvalidValue;
   const size_t smem = stages * tile_bytes + fixed;
   int dev = 0, sms = 0;

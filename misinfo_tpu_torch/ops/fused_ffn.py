@@ -34,7 +34,7 @@ from misinfo_tpu_torch.ops.int8_ffn import _MODES, _act, pick_chunk
 _DTYPES = (torch.bfloat16, torch.float32)
 # csrc/fused_ffn.cu's bf16 tiles (rows, columns) by configuration index
 UP_TILES = ((128, 256), (64, 128), (64, 64))
-DOWN_TILES = ((128, 256), (128, 128), (64, 128), (64, 64))
+DOWN_TILES = ((128, 256), (64, 128), (64, 64))
 K_SLICE = 64                    # N columns per slice of the down product
 F32_TILES = (16, 128)           # the f32 kernel's rows per block, chunk
 H100_SMS = 132
@@ -61,11 +61,9 @@ def plan(M: int, N: int, K2: int, sms: int = H100_SMS) -> Plan:
     up = 0 if count(UP_TILES[0], N) >= sms else 1 if M > 64 else 2
     if K2 % 256 == 0 and count(DOWN_TILES[0], K2) >= sms:
         down = 0
-    elif count(DOWN_TILES[1], K2) >= sms:
-        down = 1
     else:
-        down = 2 if M > 64 else 3
-    slots = sms * (1 if down < 2 else 2)
+        down = 1 if M > 64 else 2
+    slots = sms * (1 if down == 0 else 2)
     kb = -(-N // K_SLICE)
     splits = max(1, min(slots // count(DOWN_TILES[down], K2), kb // 2))
     per = -(-kb // splits)

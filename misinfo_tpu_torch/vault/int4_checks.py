@@ -11,28 +11,32 @@ bit.
 K10a sums f32 products that are exact (a bf16 value times a nibble has
 at most 12 significant bits), so it differs from its plain version only
 in how the D products are added. The plain version's order errs by at
-most (D − 1)·2^-24·Σ_d |q_d·nib_d| (recursive summation; cuBLAS's blocked
-order has the same bound). In the kernel an mma step adds 16 exact
-products to its f32 C with an error below 17·2^-23 of the largest of its
-terms (each of the 17 truncated at most once where they are aligned, as
-tensor cores have been measured to add). From 256 dims the eight steps
-of a 64-byte slice chain in the accumulator, ≤ 8·17·2^-23 = 272·2^-24 of
-the slice's products' absolute sum, and the D/128 slice sums are added
-by IEEE additions: ≤ (272 + D/128)·2^-24·Σ in all, inside the bound
-below from D = 136. Below 256 dims every step starts from a zero C (≤
-16·2^-23 of its sum) and is added by an IEEE addition: ≤ (32 +
-D/16)·2^-24·Σ. Each side rounds once more when it scales by the row's
-scale. The band, elementwise, is therefore
+most (D − 1)·2^-24·Σ_d |q_d·nib_d| (recursive summation; cuBLAS's
+blocked order has the same bound). In the kernel an mma step adds 16
+exact products to its f32 C with an error below 17·2^-23 of the largest
+of its terms (each of the 17 truncated at most once where they are
+aligned, as Fasi et al., 2021, measured tensor cores of earlier
+generations to add; the CPU's ``kernel_walk`` rounds once to nearest and
+cannot test it, so the card tests hold the band at 160, 256, 512, 768
+and 1,024 dims, both sides of the chaining and both tile heights). From
+256 dims the eight steps of a 64-byte slice chain in the accumulator, ≤
+8·17·2^-23 = 272·2^-24 of the slice's products' absolute sum, and the
+D/128 slice sums are added by IEEE additions: ≤ (272 + D/128)·2^-24·Σ in
+all, inside the bound below from D = 136. Below 256 dims every step
+starts from a zero C (≤ 16·2^-23 of its sum) and is added by an IEEE
+addition: ≤ (32 + D/16)·2^-24·Σ. Each side rounds once more when it
+scales by the row's scale. The band, elementwise, is therefore
 
     |kernel − plain| ≤ (D + 1)·2^-23·Σ_d |q_d·nib_d|·scale[n]
 
 about 1e-4 for a unit 512-d query against random nibbles and a scale of
 0.02, against sims of ~0.1. A wrong kernel must leave it: the checks
 emulate six faults with the plain version on altered inputs (a
-2048-row tile left out, one consumer warp's 32 rows left out, the last
+2048-row tile left out, one consumer warp's rows left out, the last
 64-byte slice's high nibbles left out, lo and hi nibbles swapped,
 nibbles read unsigned, the row scale dropped), and a seventh at a ragged
-N (the last partial 128-row tile left out); each must fall outside the
+N (the last partial tile left out), at the tile and warp rows the kernel
+takes for the call's query (``tiles``); each must fall outside the
 band.
 
 The vault of a case is random packed bytes, so every nibble value the
@@ -58,11 +62,17 @@ import torch
 from misinfo_tpu_torch.vault import int4 as K10
 from misinfo_tpu_torch.vault.search import exact_matmul
 
-KERNEL_TILE = 128        # rows per tile of csrc/int4_sims.cu (D ≤ 512:
-                         # four consumer warps × 32 rows)
-WARP_ROWS = 32           # rows of one consumer warp there
 CHAIN_DIMS = 256         # from here K10a chains a slice's mma steps
 FAULT_TILE = 2048        # rows of the tile left out by the first fault
+
+
+def tiles(b: int, d: int, i8: bool = False) -> Tuple[int, int]:
+    """(rows of a tile, rows of one consumer warp) of csrc/int4_sims.cu
+    for ``b`` query rows of ``d`` dims: four consumer warps of 32 rows up
+    to 512 dims, of 16 rows past 512 dims and for K10b's 33-64 query
+    rows (the C entry's ``by_batch`` choice)."""
+    warp_rows = 16 if d > 512 or (i8 and b > 32) else 32
+    return 4 * warp_rows, warp_rows
 
 
 def vault_case(n: int, d: int = 512, seed: int = 0,
@@ -101,19 +111,20 @@ def faults(query, packed, scale,
            want: torch.Tensor) -> List[Tuple[str, torch.Tensor]]:
     """What wrong K10a kernels would return, from the plain version."""
     n = packed.shape[0]
+    tile, warp_rows = tiles(*query.shape)
     out = []
     t = (n // FAULT_TILE) // 2
     lo, hi = t * FAULT_TILE, min(n, (t + 1) * FAULT_TILE)
     f = want.clone()
     f[:, lo:hi] = 0.0
     out.append((f"rows {lo}..{hi - 1} left out", f))
-    if n % KERNEL_TILE:
+    if n % tile:
         f = want.clone()
-        f[:, n - n % KERNEL_TILE:] = 0.0
+        f[:, n - n % tile:] = 0.0
         out.append(("the ragged last tile left out", f))
-    r0 = min(n - 1, lo + WARP_ROWS)
+    r0 = min(n - 1, lo + warp_rows)
     f = want.clone()
-    f[:, r0:r0 + WARP_ROWS] = 0.0
+    f[:, r0:r0 + warp_rows] = 0.0
     out.append((f"one warp's rows {r0}.. left out", f))
     d2 = query.shape[1] // 2
     s0 = (d2 - 1) // 64 * 64

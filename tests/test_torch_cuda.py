@@ -310,20 +310,24 @@ def test_decode_step_kernels_refuse_what_they_cannot_run(card):
                                 n_heads=H)
 
 
-@pytest.mark.parametrize("B", [1, 3, 32, 64])
-@pytest.mark.parametrize("N", [K10.INT4_TILE_ROWS * 3, 5000 + 77,
-                               (1 << 17) - 1])
-def test_int4_sims_kernels_match_plain(card, B, N):
+@pytest.mark.parametrize("B,N,D", [
+    (B, N, 512) for N in (K10.INT4_TILE_ROWS * 3, 5000 + 77, (1 << 17) - 1)
+    for B in (1, 3, 32, 64)] + [
+    (B, 5000 + 77, D) for D in (160, 256, 768, 1024) for B in (3, 64)])
+def test_int4_sims_kernels_match_plain(card, B, N, D):
     """1-64 query rows (one to eight n-tiles) against aligned and ragged
-    vaults: 5,077 and 131,071 rows end in a partial 128-row tile, and
-    131,071 is odd (the sims rows are not 16-byte aligned)."""
-    packed, scale = IC.vault_case(N, seed=N, device=card)
-    q = IC.query_case(B, seed=B, device=card)
+    vaults: 5,077 and 131,071 rows end in a partial tile, and 131,071 is
+    odd (the sims rows are not 16-byte aligned). Past 512 dims the tiles
+    are of 64 rows; 160 dims (a partial 64-byte slice) and 256 dims are
+    both sides of K10a's chained steps, and each width runs K10b at 3 and
+    64 query rows (its 32-row and 16-row warps up to 512 dims)."""
+    packed, scale = IC.vault_case(N, d=D, seed=N, device=card)
+    q = IC.query_case(B, d=D, seed=B, device=card)
     before = (K10.launches, K10.launches_i8)
     res = IC.check_k10a(q, packed, scale)          # band, planted faults
     IC.check_k10b(q, packed, scale)                # bit for bit
     torch.cuda.synchronize()
-    assert res["faults"] == (7 if N % IC.KERNEL_TILE else 6)
+    assert res["faults"] == (7 if N % IC.tiles(B, D)[0] else 6)
     assert (K10.launches, K10.launches_i8) == (before[0] + 1, before[1] + 1)
 
 

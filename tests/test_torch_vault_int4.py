@@ -121,22 +121,25 @@ def test_documented_band_against_exact_f32(kind):
     assert np.abs(err).max() < 0.05
 
 
-@pytest.mark.parametrize("n", [4096, 4096 + 77, 2048 + 1])
-def test_card_band_holds_jax_and_rejects_faults(n):
+@pytest.mark.parametrize("n,d", [(4096, 512), (4096 + 77, 512),
+                                 (2048 + 1, 512), (4096 + 100, 768)],
+                         ids=["4096", "4173", "2049", "4196-768"])
+def test_card_band_holds_jax_and_rejects_faults(n, d):
     """The K10a band of the card checks (vault/int4_checks.py) contains
     JAX's reference result around the plain version, and every planted
     fault (a tile, a consumer warp's rows, the last slice's high nibbles
     or the ragged edge left out, nibbles swapped or read unsigned, the
-    scale dropped) falls outside it."""
-    packed, scale = C.vault_case(n, seed=n)
-    q = C.query_case(3)
+    scale dropped) falls outside it; at 768 dims the kernel's tiles are
+    of 64 rows and its warps of 16, and the faults follow them."""
+    packed, scale = C.vault_case(n, d=d, seed=n)
+    q = C.query_case(3, d=d)
     want = T.int4_sims_plain(q, packed, scale)
     jax_got = np.array(J.int4_sims_reference(
         jnp.asarray(q.numpy()), jnp.asarray(packed.numpy()),
         jnp.asarray(scale.numpy())))
     res = C.hold(torch.from_numpy(jax_got), want, C.band(q, packed, scale),
                  C.faults(q, packed, scale, want), "JAX reference")
-    assert res["faults"] == (7 if n % C.KERNEL_TILE else 6)
+    assert res["faults"] == (7 if n % C.tiles(3, d)[0] else 6)
     assert res["nearest_fault"] > 100
     # on the CPU the wrappers run the plain versions
     assert C.check_k10a(q, packed, scale)["err"] == 0.0
