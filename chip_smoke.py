@@ -42,7 +42,7 @@ Phases (any failure exits non-zero before the result line):
      CUDA kernels (torch.profiler, the same head start) and its
      __global__ launches per call by the library's own count (K6 2 with
      its o product folded into the attention launch, at B = 1 and 4, else
-     3; K7 5, K8 9, K9 1);
+     3; K7 5, K8 5, K9 1);
   6. the Whisper transcriber at whisper-base widths (byte tokenizer,
      seeded weights through the JAX-layout bridge, device="cuda"):
      pallas on and quant="kernels" (K6/K7 int8 bodies, the whole
@@ -120,9 +120,12 @@ Phases (any failure exits non-zero before the result line):
      quantized probability that sits at a rounding boundary, with planted
      faults outside (V scales applied after the quantization, K scales
      dropped, the probabilities' scale per head, tiles of half the size,
-     a score chunk or a V piece left out, the mask one row off);
+     a score chunk or a V piece left out, one chunk left out of the
+     softmax's (m, l) merge, each piece's scale over its own rows, a piece
+     left out of its tile's s32 sum, the mask one row off);
  20. K9, the whole-layer step in one cooperative launch, at B = 1, 4, 32
-     and pos = 0, 447: output and both caches torch.equal to K6b followed
+     and pos = 0, 447, and at B = 4, pos 200 (chunks of unequal length):
+     output and both caches torch.equal to K6b followed
      by K7b on clones of the same inputs, inside the band of its plain
      version with the faults of both steps outside, and exactly one
      __global__ launch per call by the library's own count;
@@ -156,7 +159,10 @@ beside torch._int_mm of the same integer products; K5 at the towers'
 b32/S512 shapes, one RoBERTa request and Whisper decode rows beside
 cuBLAS's two bf16 products; K10a/K10b at 1,048,576 rows for B = 1, 8, 32,
 64 beside torch._int_mm over unpacked rows; ``--kernels`` picks among
-attention, layer_norm, decode, int8, ffn and int4) as JSON lines, with
+attention, layer_norm, decode, i8cc_layer, int8, ffn and int4, where
+i8cc_layer times K8 and K9 alone at B = 1, 4, 32, K9's rows with the
+device µs of the two calls it replaces, K6b → K7b, on the same inputs)
+as JSON lines, with
 whatever misinfo_tpu_torch is first on sys.path: run from another tree's
 root with ``python -c "import runpy, sys; sys.argv = ['chip_smoke.py',
 '--times']; runpy.run_path(PATH, run_name='__main__')"`` it times that
@@ -275,29 +281,34 @@ def kernel_split_us(fn, calls: int = 30):
     kernel records now and then on the card's machine, so a kernel is
     charged only where the record before it is that of the kernel that
     precedes it in most calls, and each part is the median over those
-    charges. None if the host took longer to enqueue the calls than the
-    card slept, or no part could be charged."""
+    charges. The profiler slows the host's launches, so where the host
+    took longer to enqueue the calls than the card slept, the sleep is
+    made four times longer and the calls profiled again (twice at most).
+    None if the host still took longer, or no part could be charged."""
     from collections import Counter
     from statistics import median
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        for _ in range(calls):
-            fn()
-        host_us = (time.perf_counter() - t0) * 1e6
-        torch.cuda.synchronize()
-    events = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and not e.name.startswith(("Memcpy", "Memset")))
-    spin = ([e for e in events if "spin" in e[2]]
-            or [e for e in events if e[1] - e[0] > 2000])      # the sleep
-    if not spin or host_us > spin[0][1] - spin[0][0]:
+    for cycles in (SLEEP_CYCLES, 4 * SLEEP_CYCLES, 16 * SLEEP_CYCLES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            torch.cuda._sleep(cycles)
+            for _ in range(calls):
+                fn()
+            host_us = (time.perf_counter() - t0) * 1e6
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.time_range.end, e.name)
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and not e.name.startswith(("Memcpy", "Memset")))
+        spin = ([e for e in events if "spin" in e[2]]
+                or [e for e in events if e[1] - e[0] > 2000])   # the sleep
+        if spin and host_us <= spin[0][1] - spin[0][0]:
+            break
+    else:
         return None
     after = [(a, b, _kernel_label(n)) for a, b, n in events
              if a >= spin[0][0] and (a, b, n) != spin[0]]
@@ -506,7 +517,7 @@ def decode_bound(name, case, int8: bool, scales=()):
 # self-attention step's where its o product is folded into the attention
 # launch (decode_checks.self_split), one more where it is not
 GLOBAL_LAUNCHES = {"self_attn_step": 2, "cross_ffn_step": 5,
-                   "cross_ffn_step_i8cc": 9, "layer_step": 1}
+                   "cross_ffn_step_i8cc": 5, "layer_step": 1}
 
 
 def global_launches(lib: str, B: int, pos: int, int8: bool) -> int:
@@ -522,17 +533,20 @@ def global_launches(lib: str, B: int, pos: int, int8: bool) -> int:
 SELF_POSITIONS = (32, 224, 447)   # where K6 is timed
 
 
-def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True):
+def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True,
+                      only_i8cc_layer=False):
     """Phase 5's timing half (and ``--times``): K6 with both weight types
     at pos 32, 224 and 447, K7 with both, K8 and K9 at pos 447 / T =
-    1,500, for each B: CUDA-event ms per call over ``reps`` back-to-back
+    1,500 (``only_i8cc_layer``: K8 and K9 alone, K9's row with the device
+    µs of the two-call route K6b → K7b that it replaces, on the same
+    inputs), for each B: CUDA-event ms per call over ``reps`` back-to-back
     calls (host-bound where the host takes longer to enqueue a call than
     the card to run it), device µs per call and CUDA kernels per call
     (``device_us``), device µs per call of each kernel
     (``kernel_split_us``), __global__ launches per call by the library's
-    own count where it keeps one, and a digest of the first call's output
+    own count where it keeps one, a digest of the first call's output
     (seeded inputs: two trees whose kernels agree bit for bit print the
-    same digest). ``strict``: raise unless those counts are
+    same digest) and the bound (``decode_bound``, ``layer_bound``). ``strict``: raise unless those counts are
     GLOBAL_LAUNCHES. Returns {(name, B, pos): row}."""
     from misinfo_tpu_torch.ops import cross_ffn_step as K7
     from misinfo_tpu_torch.ops import decode_checks as DC
@@ -541,7 +555,7 @@ def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True):
     rows = {}
     for B in batches:
         runs = []
-        for int8 in (False, True):
+        for int8 in () if only_i8cc_layer else (False, True):
             sfx = "_i8" if int8 else ""
             for pos in SELF_POSITIONS:
                 sc = DC.self_attn_case(B, pos, int8)
@@ -549,20 +563,25 @@ def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True):
                              "self_attn_step",
                              getattr(K6, "kernel_launches", None),
                              lambda a=sc["args"]: K6.fused_self_attn_step(
-                                 *a, n_heads=8)))
+                                 *a, n_heads=8),
+                             decode_bound("self_attn_step", sc, int8)))
             cc = DC.cross_ffn_case(B, 1500, int8)
             runs.append((f"cross_ffn_step{sfx}", 447, int8, "cross_ffn_step",
                          getattr(K7, "kernel_launches", None),
                          lambda a=cc["args"]: K7.fused_cross_ffn_step(
-                             *a, n_heads=8)))
+                             *a, n_heads=8),
+                         decode_bound("cross_ffn_step", cc, int8)))
         ic, lc = DC.cross_i8cc_case(B, 1500), DC.layer_case(B, 447)
         runs += [("cross_ffn_step_i8cc", 447, True, "cross_ffn_step_i8cc",
                   getattr(K7, "kernel_launches_i8cc", None),
                   lambda: K7.fused_cross_ffn_step(*ic["args"], n_heads=8,
-                                                  **ic["scales"])),
+                                                  **ic["scales"]),
+                  decode_bound("cross_ffn_step", ic, True,
+                               ic["scales"].values())),
                  ("layer_step", 447, True, "layer_step", K9.kernel_launches,
-                  lambda: K9.fused_layer_step(*lc["args"], n_heads=8))]
-        for name, pos, int8, lib, count, fn in runs:
+                  lambda: K9.fused_layer_step(*lc["args"], n_heads=8),
+                  layer_bound(lc))]
+        for name, pos, int8, lib, count, fn, bnd in runs:
             y = fn()
             y = (y[0] if isinstance(y, tuple) else y).cpu()
             per_call = None
@@ -580,7 +599,11 @@ def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True):
                    "global_launches_per_call": per_call,
                    "output_sha256": hashlib.sha256(
                        y.view(torch.int16).numpy().tobytes()).hexdigest(),
-                   "card": card}
+                   "bound_us": bnd["bound_ms"] * 1e3,
+                   "bound_by": bnd["bound_by"], "card": card}
+            if name == "layer_step" and only_i8cc_layer:
+                row["two_call_device_us"] = device_us(
+                    lambda: two_call_step(K6, K7, lc))[0]
             print(json.dumps(row), flush=True)
             want = global_launches(lib, B, pos, int8) if strict else None
             if strict and per_call != want:
@@ -631,6 +654,34 @@ def check_i8cc_kernel(K7, card):
     return row
 
 
+def layer_bound(case):
+    """bound_ms of the whole-layer step: the two steps' work, x1 neither
+    written nor read (it stays inside the kernel)."""
+    m6, o6 = decode_work("self_attn_step", case["self"])
+    m7, o7 = decode_work("cross_ffn_step", case["cross"])
+    return bound(m6 + m7 - 2 * nbytes(case["args"][0]), o6 + o7, "int8")
+
+
+def two_call_step(K6, K7, case):
+    """The two calls that K9 replaces, K6b then K7b, on a layer case's
+    inputs (the self caches' row pos written in place)."""
+    x, blk, ck, cv, xk, xv, pos, ta = case["args"]
+    sa, ca = blk["self_attn"], blk["cross_attn"]
+    H = case["n_heads"]
+    x1 = K6.fused_self_attn_step(x, blk["ln1"], sa["qkv"], sa["o"], ck, cv,
+                                 pos, n_heads=H)[0]
+    return K7.fused_cross_ffn_step(
+        x1, blk["ln_cross"], ca["q"], ca["o"], blk["ln2"], blk["mlp_in"],
+        blk["mlp_out"], xk, xv, ta, n_heads=H)
+
+
+# (B, pos) of phase 20: one chunk a head (pos 0; B = 32, 256 virtual
+# blocks), two chunks a head that wait for each other (B = 1, 4 at pos
+# 447), chunks of unequal length (pos 200)
+LAYER_CASES = ((1, 0), (1, 447), (4, 0), (4, 447), (4, 200), (32, 0),
+               (32, 447))
+
+
 def check_layer_kernel(K6, K7, K9, card):
     """Phase 20: K9 against K6b → K7b (bit for bit) and against its plain
     version (decode_checks.py), one __global__ launch per call; returns
@@ -639,48 +690,34 @@ def check_layer_kernel(K6, K7, K9, card):
     from misinfo_tpu_torch.ops import decode_checks as DC
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     row = None
-    for B in (1, 4, 32):
-        for pos in (0, 447):
-            case = DC.layer_case(B, pos)
-            before = (K9.launches, K9.kernel_launches())
-            res = DC.check_layer(case, sms)         # raises on any difference
-            torch.cuda.synchronize()
-            calls = K9.launches - before[0]
-            per_call = K9.kernel_launches() - before[1]
-            if (calls, per_call) != (1, 1):
-                raise AssertionError(
-                    f"layer_step B={B} pos={pos}: {per_call} __global__ "
-                    f"launches in {calls} calls, want 1 in 1")
-            x, blk, ck, cv, xk, xv, _, ta = case["args"]
-            H = case["n_heads"]
-            sa, ca = blk["self_attn"], blk["cross_attn"]
-
-            def two_call():
-                x1 = K6.fused_self_attn_step(x, blk["ln1"], sa["qkv"],
-                                             sa["o"], ck, cv, pos,
-                                             n_heads=H)[0]
-                return K7.fused_cross_ffn_step(
-                    x1, blk["ln_cross"], ca["q"], ca["o"], blk["ln2"],
-                    blk["mlp_in"], blk["mlp_out"], xk, xv, ta, n_heads=H)
-            ms = cuda_ms(lambda: K9.fused_layer_step(
-                x, blk, ck, cv, xk, xv, pos, ta, n_heads=H), 50)
-            two_ms = cuda_ms(two_call, 50)
-            plain_ms = cuda_ms(lambda: K9.layer_step_plain(
-                x, blk, ck, cv, xk, xv, pos, ta, n_heads=H), 5)
-            print(f"layer_step B={B} pos={pos}: output and caches equal to "
-                  f"K6b → K7b; {per_call} __global__ launch per call; "
-                  f"against the plain version max_abs_err={res['err']} (band "
-                  f"up to {res['band']}; {res['faults']} planted faults, "
-                  f"nearest at {res['nearest_fault']:.2f} bands) kernel_ms="
-                  f"{ms} two_call_ms={two_ms} plain_ms={plain_ms} [{card}]",
-                  flush=True)
-            if B == 4 and pos == 447:
-                m6, o6 = decode_work("self_attn_step", case["self"])
-                m7, o7 = decode_work("cross_ffn_step", case["cross"])
-                # x1 stays inside the kernel: neither written nor read
-                row = {"err": res["err"], "ms": ms, "plain_ms": plain_ms,
-                       "two_call_ms": two_ms,
-                       **bound(m6 + m7 - 2 * nbytes(x), o6 + o7, "int8")}
+    for B, pos in LAYER_CASES:
+        case = DC.layer_case(B, pos)
+        before = (K9.launches, K9.kernel_launches())
+        res = DC.check_layer(case, sms)         # raises on any difference
+        torch.cuda.synchronize()
+        calls = K9.launches - before[0]
+        per_call = K9.kernel_launches() - before[1]
+        if (calls, per_call) != (1, 1):
+            raise AssertionError(
+                f"layer_step B={B} pos={pos}: {per_call} __global__ "
+                f"launches in {calls} calls, want 1 in 1")
+        x, blk, ck, cv, xk, xv, _, ta = case["args"]
+        H = case["n_heads"]
+        ms = cuda_ms(lambda: K9.fused_layer_step(
+            x, blk, ck, cv, xk, xv, pos, ta, n_heads=H), 50)
+        two_ms = cuda_ms(lambda: two_call_step(K6, K7, case), 50)
+        plain_ms = cuda_ms(lambda: K9.layer_step_plain(
+            x, blk, ck, cv, xk, xv, pos, ta, n_heads=H), 5)
+        print(f"layer_step B={B} pos={pos}: output and caches equal to "
+              f"K6b → K7b; {per_call} __global__ launch per call; "
+              f"against the plain version max_abs_err={res['err']} (band "
+              f"up to {res['band']}; {res['faults']} planted faults, "
+              f"nearest at {res['nearest_fault']:.2f} bands) kernel_ms="
+              f"{ms} two_call_ms={two_ms} plain_ms={plain_ms} [{card}]",
+              flush=True)
+        if B == 4 and pos == 447:
+            row = {"err": res["err"], "ms": ms, "plain_ms": plain_ms,
+                   "two_call_ms": two_ms, **layer_bound(case)}
     return row
 
 
@@ -2175,7 +2212,8 @@ def main() -> int:
     ap.add_argument("--kernels",
                     default="attention,layer_norm,decode,int8,ffn,int4",
                     help="with --times: which kernels to time, a comma list "
-                    "of attention, layer_norm, decode, int8, ffn, int4")
+                    "of attention, layer_norm, decode, i8cc_layer, int8, ffn, "
+                    "int4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2190,6 +2228,8 @@ def main() -> int:
             layer_norm_times(card, args.parent)
         if "decode" in which:
             decode_step_times(card, strict=False)
+        if "i8cc_layer" in which:
+            decode_step_times(card, strict=False, only_i8cc_layer=True)
         if "int8" in which:
             int8_times(card)
         if "ffn" in which:

@@ -22,10 +22,9 @@
 // o_z between them: in self_attn_step.cu the chunks of one (row, head)
 // belong to one thread-block cluster and the exchange goes through
 // distributed shared memory; in layer_step.cu (a cooperative launch, which
-// takes no cluster) one block walks the chunks of its (row, head) one
-// after another and keeps them in its own shared memory. The same
-// functions over the same rows in the same order: the same bits on both
-// routes.
+// takes no cluster) each chunk is a virtual block of the grid and the
+// exchange goes through global memory. The same functions over the same
+// rows in the same order: the same bits on both routes.
 //
 // Rows past pos are never read: the TPU kernel masks them to −1e9 before
 // an f32 softmax, and exp(−1e9 − max) is exactly 0 in f32. A one-row query
@@ -239,51 +238,57 @@ __device__ __forceinline__ void chunk_pv(float* sc, const __nv_bfloat16* v,
   }
 }
 
-// Shared memory of self_attention_serial for caches of S rows.
-inline size_t self_serial_smem(int S) {
-  return (size_t)((S + 3) / 4 * 4 + HD + ROW_GROUPS * HD + SELF_ATT / 32 +
-                  MAX_CHUNKS * (HD + 2)) * 4;
-}
-
-// Head h of batch row b, its C chunks of rc rows walked one after the
-// other by one block: the cluster kernel's arithmetic, bit for bit, with
-// the chunks' values kept in this block's shared memory (`sm`,
-// self_serial_smem(S) bytes).
-__device__ __forceinline__ void self_attention_serial(
-    float* sm, int h, int b, const __nv_bfloat16* q, const __nv_bfloat16* ck,
-    const __nv_bfloat16* cv, __nv_bfloat16* ctx, int D, int S, int pos,
-    int C, int rc) {
-  float* sc = sm;                             // [pos + 1]
-  float* qs = sc + (S + 3) / 4 * 4;           // [HD]
-  float* red = qs + HD;                       // [ROW_GROUPS, HD]
-  float* scr = red + ROW_GROUPS * HD;         // [SELF_ATT / 32]
-  float* oz = scr + SELF_ATT / 32;            // [C, HD]
-  float2* ml = reinterpret_cast<float2*>(oz + MAX_CHUNKS * HD);   // [C]
-  wait_prior_grid();
-  if (threadIdx.x < HD) qs[threadIdx.x] = ld(q + (size_t)b * D + h * HD +
-                                             threadIdx.x);
-  __syncthreads();
-  const size_t base = (size_t)b * S * D + h * HD;
-  for (int z = 0; z < C; ++z) {
-    const int r0 = z * rc, n = min(rc, pos + 1 - r0);
-    const float mz = chunk_scores(sc + r0, qs, ck + base + (size_t)r0 * D,
-                                  D, n, scr);
-    const float lz = chunk_sum(sc + r0, n, mz, scr);
-    if (threadIdx.x == 0) ml[z] = make_float2(mz, lz);
-  }
-  __syncthreads();
-  float m, l;
-  merge_chunks(C, [&](int z) { return ml[z]; }, m, l);
-  for (int z = 0; z < C; ++z) {
-    const int r0 = z * rc, n = min(rc, pos + 1 - r0);
-    chunk_pv(sc + r0, cv + base + (size_t)r0 * D, D, n, m, l, red,
-             oz + z * HD);
-    __syncthreads();          // red is the next chunk's
-  }
-  if (threadIdx.x < HD) {
+// The int8 o product folded into the attention: W output columns of
+// x + o(ctx) for one batch row, out pointing at the first. Lane d of the
+// context row is bf16(Σ_z o_z[d]) over its head's C chunks in chunk order,
+// oload(d, z) giving chunk z's lane d % HD of head d / HD; the row is
+// quantized by its abs-max as quantize_rows, then multiplied by the W_o
+// slab wt [D, W] (its cp.async copies waited for here) in int32 sums,
+// exact in any order: the bits of the separate o product. x_n, s_n, b_n:
+// the residual, scale and bias of this thread's column, loaded before the
+// caller's wait. Shared memory: row [D], part [SELF_ATT], scr the warps'
+// scratch. For SELF_ATT threads.
+template <typename OLoad>
+__device__ __forceinline__ void fold_o(OLoad oload, int C, int D, int W,
+                                       const int8_t* wt, float* row,
+                                       int* part, float* scr, float x_n,
+                                       float s_n, float b_n,
+                                       __nv_bfloat16* out) {
+  const int tid = threadIdx.x;
+#pragma unroll 4
+  for (int d = tid; d < D; d += SELF_ATT) {
     float s = 0.f;
-    for (int z = 0; z < C; ++z) s = __fadd_rn(s, oz[z * HD + threadIdx.x]);
-    ctx[(size_t)b * D + h * HD + threadIdx.x] = __float2bfloat16_rn(s);
+    for (int z = 0; z < C; ++z) s = __fadd_rn(s, oload(d, z));
+    row[d] = bf(s);
+  }
+  cp_async_wait_all();        // the slab
+  __syncthreads();
+  // max(amax / 127, 1e-8) and the levels, as quantize_rows
+  float amax = 0.f;
+  for (int d = tid; d < D; d += SELF_ATT) amax = fmaxf(amax, fabsf(row[d]));
+  const float s_row = row_scale(block_max(amax, scr, whole_block()));
+  for (int d = tid; d < D; d += SELF_ATT) row[d] = (float)quant(row[d], s_row);
+  __syncthreads();
+  // W columns; SELF_ATT / W slices of the rows, each over four interleaved
+  // sums, slices and sums added in a fixed order
+  const int col = tid % W, slice = tid / W, slices = SELF_ATT / W;
+  int acc[4] = {};
+  for (int k = slice; k < D; k += 4 * slices) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int kk = k + a * slices;
+      if (kk < D) acc[a] += (int)row[kk] * wval(wt[kk * W + col]);
+    }
+  }
+  part[slice * W + col] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  __syncthreads();
+  if (tid < W) {
+    int s = part[tid];
+    for (int i = 1; i < slices; ++i) s += part[i * W + tid];
+    // finish<int8_t, EP_RESID> with the values loaded before the wait
+    const float y = bf(__fadd_rn(
+        __fmul_rn(__fmul_rn((float)s, s_row), s_n), b_n));
+    out[tid] = __float2bfloat16_rn(__fadd_rn(x_n, y));
   }
 }
 

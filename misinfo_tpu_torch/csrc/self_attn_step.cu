@@ -151,49 +151,13 @@ self_attention(const __nv_bfloat16* __restrict__ q,
       ctx[(size_t)b * D + h * HD + threadIdx.x] = __float2bfloat16_rn(s);
     }
   } else {
-    // the whole context row of batch row b, in chunk order per lane
-#pragma unroll 4
-    for (int d = threadIdx.x; d < D; d += SELF_ATT) {
-      float s = 0.f;
-      for (int zz = 0; zz < C; ++zz)
-        s = __fadd_rn(s, *cl.map_shared_rank(xch + 2 + d % HD,
-                                             rank(d / HD, zz)));
-      row[d] = bf(s);
-    }
-    cp_async_wait_all();      // the W_o tile
-    __syncthreads();
-    // max(amax / 127, 1e-8) and the levels, as quantize_rows
-    float amax = 0.f;
-    for (int d = threadIdx.x; d < D; d += SELF_ATT)
-      amax = fmaxf(amax, fabsf(row[d]));
-    const float s_row = row_scale(block_max(amax, scr, whole_block()));
-    for (int d = threadIdx.x; d < D; d += SELF_ATT)
-      row[d] = (float)quant(row[d], s_row);
-    __syncthreads();
-    // W columns; SELF_ATT / W slices of the rows, each over four
-    // interleaved sums, slices and sums added in a fixed order
-    const int col = threadIdx.x % W, slice = threadIdx.x / W;
-    const int slices = SELF_ATT / W;
-    int acc[4] = {};
-    for (int k = slice; k < D; k += 4 * slices) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int kk = k + a * slices;
-        if (kk < D) acc[a] += (int)row[kk] * wval(wt[kk * W + col]);
-      }
-    }
-    int* part = reinterpret_cast<int*>(red);
-    part[slice * W + col] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    __syncthreads();
-    if (threadIdx.x < W) {
-      int s = part[threadIdx.x];
-      for (int i = 1; i < slices; ++i) s += part[i * W + threadIdx.x];
-      // finish<int8_t, EP_RESID> with the values loaded before the wait
-      const float y = bf(__fadd_rn(
-          __fmul_rn(__fmul_rn((float)s, s_row), s_n), b_n));
-      out[(size_t)b * D + n0 + threadIdx.x] =
-          __float2bfloat16_rn(__fadd_rn(x_n, y));
-    }
+    // the whole context row of batch row b from the cluster's o_z
+    fold_o([&](int d, int zz) {
+             return *cl.map_shared_rank(xch + 2 + d % HD, rank(d / HD, zz));
+           },
+           C, D, W, reinterpret_cast<const int8_t*>(wt), row,
+           reinterpret_cast<int*>(red), scr, x_n, s_n, b_n,
+           out + (size_t)b * D + n0);
   }
   if (FOLD || C > 1) cl.sync();   // no block leaves while another reads it
 }

@@ -43,7 +43,7 @@ counts kernel calls on bf16 planes (one per call), ``launches_i8`` the
 calls among them with int8 weights, ``launches_i8cc`` the calls on int8
 planes; ``kernel_launches`` and ``kernel_launches_i8cc`` read the two
 libraries' own counts of ``__global__`` launches (five per call on bf16
-planes, nine on int8 planes). A call carries at most ``MAX_BATCH`` rows.
+planes and on int8 planes). A call carries at most ``MAX_BATCH`` rows.
 """
 
 from __future__ import annotations
@@ -248,7 +248,7 @@ def _library_i8cc():
     lib.cross_ffn_step_i8cc_workspace.restype = ctypes.c_size_t
     lib.cross_ffn_step_i8cc_workspace.argtypes = [i] * 6
     lib.cross_ffn_step_i8cc_tickets.restype = i
-    lib.cross_ffn_step_i8cc_tickets.argtypes = [i, i]
+    lib.cross_ffn_step_i8cc_tickets.argtypes = [i] * 5
     lib.cross_ffn_step_i8cc_kernel_launches.restype = ctypes.c_longlong
     lib.cross_ffn_step_i8cc_kernel_launches.argtypes = []
     lib.cross_ffn_step_i8cc_error_string.restype = ctypes.c_char_p
@@ -340,7 +340,8 @@ def _launch(x, ln_cross, q, o, ln2, mlp_in, mlp_out, cache_k, cache_v,
         ws = workspace(
             lib.cross_ffn_step_i8cc_workspace(B, D, Fd, T, tile, sms), dev,
             stream)
-        tk = tickets(lib.cross_ffn_step_i8cc_tickets(D, Fd), dev, stream)
+        tk = tickets(lib.cross_ffn_step_i8cc_tickets(B, D, Fd, T, tile),
+                     dev, stream)
         err = lib.cross_ffn_step_i8cc_launch(
             *ptrs, ws.data_ptr(), tk.data_ptr(), B, D, Fd, T, t_actual, tile,
             sms, stream)

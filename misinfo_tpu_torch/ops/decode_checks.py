@@ -514,7 +514,8 @@ def cross_i8cc_case(B: int, t_actual: int, device="cuda", seed: int = 0,
                      t_actual),
             "scales": {"k_scale": ks, "v_scale": vs}, "n_heads": H,
             "tile": tile, "spread": (lo, hi),
-            "planted": sorted(set(planted + [last]))}
+            "planted": sorted(set(planted + [last])),
+            "peaked": sorted(set(planted))}
 
 
 def _i8cc_parts(case: Dict, t_actual=None, k_scales: bool = True,
@@ -536,11 +537,14 @@ def _i8cc_finish(x, ctx, tail):
     return K7._after_attention(x, ctx.to(x.dtype), *tail, DEFAULT_POLICY)
 
 
-def _wrong_context(case: Dict, probs, kind: str, piece=None):
+def _wrong_context(case: Dict, probs, kind: str, piece=None, pc=None):
     """The context of an emulated wrong V pass: ``per_head`` (a scale per
     head), ``late`` (the probabilities quantized without the V row scales,
     which are applied per tile afterwards as the tile's largest), ``tile``
-    (tiles of half the size), ``piece`` (positions [lo, hi) left out)."""
+    (tiles of half the size), ``piece`` (positions [lo, hi) left out),
+    ``piece_sum`` (the tile's scale right, the s32 sum of positions [lo,
+    hi) left out), ``piece_scale`` (each piece of ``pc`` rows quantized
+    with a scale over its own rows)."""
     vq, vs = case["args"][8], case["scales"]["v_scale"]
     B, T, D = vq.shape
     H = case["n_heads"]
@@ -555,7 +559,20 @@ def _wrong_context(case: Dict, probs, kind: str, piece=None):
             pv[:, :, max(piece[0] - t0, 0):max(piece[1] - t0, 0)] = 0.0
         sp = (times_r127(pv.amax(dim=2, keepdim=True).clamp_min(1e-30))
               if kind == "per_head" else K7.i8cc_tile_scale(pv))
+        if kind == "piece_scale":
+            # each piece's rows with a scale over those rows only
+            sp = torch.cat([K7.i8cc_tile_scale(pv[:, :, a:a + pc]).expand(
+                B, 1, min(pc, t1 - t0 - a)) for a in range(0, t1 - t0, pc)],
+                dim=2)
         pq = torch.clamp(torch.round(pv / sp), 0, 127).to(torch.int8)
+        if kind == "piece_sum":
+            pq[:, :, max(piece[0] - t0, 0):max(piece[1] - t0, 0)] = 0
+        if kind == "piece_scale":
+            ci = torch.einsum("bht,bthd->bhd", pq.double() * sp.double(),
+                              vq[:, t0:t1].reshape(B, t1 - t0, H, D // H)
+                              .double()).float()
+            ctx = ctx + ci.reshape(B, D)
+            continue
         ci = int_einsum("bht,bthd->bhd", pq,
                         vq[:, t0:t1].reshape(B, t1 - t0, H, D // H))
         if kind == "late":
@@ -564,12 +581,58 @@ def _wrong_context(case: Dict, probs, kind: str, piece=None):
     return ctx
 
 
-def tile_pieces(B: int, H: int, tile: int, nt: int, sms: int):
+def tile_pieces(B: int, tile: int, nt: int, sms: int) -> Tuple[int, int]:
     """The int8-plane kernel's split of a V tile
-    (``cross_ffn_step_i8cc.cu::tile_pieces``): rows per piece, pieces."""
-    pp = min(max(-(-2 * sms // (B * H * nt)), 1), -(-tile // 32))
+    (``cross_ffn_step_i8cc.cu::tile_pieces``): rows per piece and pieces,
+    about two V blocks per SM over the B·nt tiles, 16-64 rows a piece."""
+    pp = min(max(-(-2 * sms // (B * nt)), -(-tile // 64)), -(-tile // 16))
     pc = -(-tile // pp)
     return pc, -(-tile // pc)
+
+
+def i8cc_chunk_stats(scores, tc: int, n: int):
+    """Every T chunk's (m_z, l_z) of scores [B, H, T] split into n chunks
+    of tc positions: the chunk's max and its exp-sum Σ exp(s − m_z)."""
+    stats = []
+    for z in range(n):
+        sz = scores[..., z * tc:(z + 1) * tc]
+        mz = sz.amax(-1)
+        stats.append((mz, torch.exp(sz - mz[..., None]).sum(-1)))
+    return stats
+
+
+def i8cc_merge(stats, skip=()):
+    """The V pass's merge of the chunks' (m_z, l_z), in chunk order,
+    without the chunks in ``skip``: (m, l) [B, H]."""
+    kept = [st for z, st in enumerate(stats) if z not in skip]
+    m = torch.stack([mz for mz, _ in kept]).amax(0)
+    l = torch.zeros_like(m)
+    for mz, lz in kept:
+        l = l + torch.exp(mz - m) * lz
+    return m, l
+
+
+def cross_i8cc_chunked(case: Dict, sms: int) -> torch.Tensor:
+    """The CUDA int8-plane step's order for the attention, in PyTorch f32
+    (``csrc/cross_ffn_step_i8cc.cu``): the plain version's scores, each
+    chunk of the kernel's T split (``t_chunks``) reduced to its max m_z and
+    exp-sum l_z, the global m and l merged in chunk order, p = exp(s − m)
+    / l, then the V pass with every tile's scale taken over the whole tile
+    (the pieces of a tile only split its s32 sum, which is exact in any
+    order). The rest is the plain version's. The CPU tests hold it to the
+    band, so that the kernel's order is tried against the band first."""
+    kq, t_actual = case["args"][7], case["args"][9]
+    B, T, _ = kq.shape
+    H = case["n_heads"]
+    x, lnc, q = case["args"][:3]
+    qf = K7._q_f32(q, layer_norm(lnc, x))
+    s = K7.i8cc_scores(qf, kq, case["scales"]["k_scale"], t_actual, H)
+    m, l = i8cc_merge(i8cc_chunk_stats(s, *t_chunks(B, H, T, sms)))
+    p = torch.exp(s - m[..., None]) / l[..., None]
+    ctx = K7.i8cc_context(p, case["args"][8], case["scales"]["v_scale"],
+                          case["tile"], H)
+    return _i8cc_finish(x, ctx, (case["args"][3], case["args"][4],
+                                 case["args"][5], case["args"][6]))
 
 
 def cross_i8cc_faults(case: Dict, sms: int) -> List[Tuple[str, torch.Tensor]]:
@@ -590,23 +653,50 @@ def cross_i8cc_faults(case: Dict, sms: int) -> List[Tuple[str, torch.Tensor]]:
     _, p, _ = _i8cc_parts(case, k_scales=False)
     out.append(("K row scales dropped", _i8cc_finish(x, right(p), tail)))
     tc, n = t_chunks(B, H, T, sms)
+    lnc, q = case["args"][1:3]
+    scores = K7.i8cc_scores(K7._q_f32(q, layer_norm(lnc, x)), kq,
+                            case["scales"]["k_scale"], t_actual, H)
+    stats = i8cc_chunk_stats(scores, tc, n)
     for j in range(n):
         lo, hi = j * tc, min(T, (j + 1) * tc)
         if lo < t_actual and any(lo <= r < hi for r in case["planted"]):
             _, p, _ = _i8cc_parts(case, skip=(lo, hi))
             out.append((f"score chunk {j} (rows {lo}..{hi - 1}) left out",
                         _i8cc_finish(x, right(p), tail)))
+            m, l = i8cc_merge(stats, skip=(j,))
+            p = torch.exp(scores - m[..., None]) / l[..., None]
+            out.append((f"chunk {j} (rows {lo}..{hi - 1}) left out of the "
+                        f"(m, l) merge", _i8cc_finish(x, right(p), tail)))
     nt = -(-T // tile)
-    pc, pp = tile_pieces(B, H, tile, nt, sms)
-    for j in range(nt):
-        for k in range(pp):
-            lo = j * tile + k * pc
-            hi = min(lo + pc, (j + 1) * tile, T)
-            if lo < t_actual and any(lo <= r < hi for r in case["planted"]):
-                out.append((
-                    f"V piece {k} of tile {j} (rows {lo}..{hi - 1}) left out",
-                    _i8cc_finish(x, _wrong_context(case, probs, "piece",
-                                                   (lo, hi)), tail)))
+
+    def v_faults(what, pc, pp, rows):
+        for j in range(nt):
+            for k in range(pp):
+                lo = j * tile + k * pc
+                hi = min(lo + pc, (j + 1) * tile, T)
+                if lo < t_actual and any(lo <= r < hi for r in rows):
+                    name = f"V {what} {k} of tile {j} (rows {lo}..{hi - 1})"
+                    out.append((f"{name} left out", _i8cc_finish(
+                        x, _wrong_context(case, probs, "piece", (lo, hi)),
+                        tail)))
+                    out.append((f"{name} left out of the tile's sum",
+                                _i8cc_finish(x, _wrong_context(
+                                    case, probs, "piece_sum", (lo, hi)),
+                                    tail)))
+    # rows left out of the V pass: ranges of ≥ 32 rows (a tile cut for
+    # about two blocks per SM over every (batch row, head, tile)), at every
+    # range that holds a planted row, the last attended row among them
+    rc = -(-tile // min(max(-(-2 * sms // (B * H * nt)), 1), -(-tile // 32)))
+    v_faults("range", rc, -(-tile // rc), case["planted"])
+    # the kernel's own pieces (tile_pieces, 16-64 rows): those that hold a
+    # loud V row. A piece that holds the last attended row and no loud one
+    # moves y by under 3 bands at B = 3 and 4 (the ranges above cover that
+    # row with the test's margin)
+    pc, pp = tile_pieces(B, tile, nt, sms)
+    out.append((f"each V piece's scale over its own {pc} rows",
+                _i8cc_finish(x, _wrong_context(case, probs, "piece_scale",
+                                               pc=pc), tail)))
+    v_faults("piece", pc, pp, case["peaked"])
     for name, t in (("mask one row short", t_actual - 1),
                     ("mask one row long", t_actual + 1)):
         if t <= T:

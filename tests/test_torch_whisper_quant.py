@@ -373,6 +373,29 @@ def test_cross_i8cc_band_rejects_planted_faults(B, t_actual, T, tile):
         DC.hold(near, want, x, 2, [], "probabilities an ulp off", slack)
 
 
+@pytest.mark.parametrize("B,t_actual,T,tile", [
+    (1, 1500, 1500, 512), (4, 1500, 1500, 512), (8, 1400, 1500, 256),
+    (32, 1500, 1500, 128), (3, 280, 300, 384)])
+def test_cross_i8cc_chunked_order_stays_in_the_band(B, t_actual, T, tile):
+    """The CUDA kernel's order (``decode_checks.cross_i8cc_chunked``: the
+    softmax's max and exp-sum merged from the T chunks in chunk order,
+    each V tile's scale over the whole tile) against the plain version,
+    within the unchanged band; and the kernel's new edges among the
+    planted faults (a chunk left out of the merge, a piece's scale over
+    its own rows, a piece left out of its tile's sum)."""
+    case = DC.cross_i8cc_case(B, t_actual, device="cpu", T=T)
+    assert case["tile"] == tile
+    args, sc = case["args"], case["scales"]
+    want = K7.cross_ffn_step_i8cc_plain(*args, n_heads=8, **sc)
+    slack, _ = DC.i8cc_level_slack(case)
+    got = DC.cross_i8cc_chunked(case, H100_SMS)
+    DC.hold(got, want, args[0], 2, [], "the chunked int8-plane order", slack)
+    names = [n for n, _ in DC.cross_i8cc_faults(case, H100_SMS)]
+    assert any("(m, l) merge" in n for n in names)
+    assert any("over its own" in n for n in names)
+    assert any("left out of the tile's sum" in n for n in names)
+
+
 def test_level_slack_covers_a_probability_at_a_rounding_boundary():
     """One entry placed on a rounding boundary: an ulp moves its level,
     the slack is what that level moves y, and the nudged output stays in
