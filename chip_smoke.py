@@ -18,7 +18,9 @@ Phases (any failure exits non-zero before the result line):
      the ragged last tile dropped) outside that band, and bit for bit on
      an integer grid where every scale of x and the weights is 1, at
      M = 37 and 16,384 (both forms); CUDA-event times with the bound and
-     torch._int_mm of the two integer products as a yardstick;
+     torch._int_mm of the two integer products as a yardstick; also at
+     the video path's CLIP vision shape (16 videos × 12 frames × 50
+     tokens = 9,600 rows);
   4. the engine at full width (RoBERTa-base, CLIP ViT-B/32,
      EfficientNet-B0; seeded random weights, bf16, quant="auto" →
      int8_ffn) with a 2,176-row vault: one analyze() and one mixed
@@ -76,9 +78,14 @@ Phases (any failure exits non-zero before the result line):
      and writes <vault>.int4.npz, the second loads it (re-quantizing
      fails the run); one analyze() and an analyze_batch() of 32 — planted
      requests at top-1 with their title and the gate open, the others at
-     0, K10b launched once per visual program;
+     0, K10b launched once per visual program; then one video_text
+     group of 16 videos × 12 frames (the engine's frame sampler replaced
+     by the pool's images; video 0's third frame planted): one program,
+     K10b launched 3 times (192 query rows in slices of 64), video 0 at
+     its planted row with the gate open, the others shut;
  11. the same vault with vault_dtype float32 (the reference: same top-1,
-     sims within 0.05 for the planted requests), bfloat16 and int8;
+     sims within 0.05 for the planted requests; the video group's video 0
+     at the same top-1), bfloat16 and int8;
      memory_report() and vault_search ms at B = 32 of each (printed);
  12. vault_ivf=True over the f32 vault: the index built on the card
      (time printed) and an analyze_batch that finds every planted row;
@@ -122,7 +129,10 @@ Phases (any failure exits non-zero before the result line):
      dropped, the probabilities' scale per head, tiles of half the size,
      a score chunk or a V piece left out, one chunk left out of the
      softmax's (m, l) merge, each piece's scale over its own rows, a piece
-     left out of its tile's s32 sum, the mask one row off);
+     left out of its tile's s32 sum, the mask one row off); and B = 4 and
+     3 again with the last attended row a loud V row, so that the
+     kernel's V piece holding it is planted (left out, left out of its
+     tile's sum);
  20. K9, the whole-layer step in one cooperative launch, at B = 1, 4, 32
      and pos = 0, 447, and at B = 4, pos 200 (chunks of unequal length):
      output and both caches torch.equal to K6b followed
@@ -150,7 +160,23 @@ Phases (any failure exits non-zero before the result line):
      analyze_image, analyze_consistency, search_vault and fusion_verdict
      answer once each; the host prep of the b32 batch's 32 images (and of
      32 photo-sized ones where cv2 or PIL is installed) with the engine's
-     thread pool and with a serial map swapped in (printed only).
+     thread pool and with a serial map swapped in (printed only);
+ 25. (after phase 4) video on phase 4's engine: four 12 s clips at 25 fps,
+     640 × 360, written with cv2 and decoded by the engine's sampler (or,
+     without cv2 or an mp4 encoder, the sampler replaced by seeded frames;
+     the route is printed); a whisper-base transcriber (seeded weights,
+     the ladder cut to its greedy rung) transcribes a 12 s WAV with K6/K7
+     counted once per layer per step, merge_into_caption must give
+     caption + blank line + that transcript; analyze(merged caption,
+     clip) launches K1 36 times and analyze(clip) 12 times; a group of 16
+     video_text requests (192 frames) one program, K1 36 times, scores
+     within 0.05 of the plain FFN's, verdicts and top-1 rows printed; the
+     same group with serving.device_resize; device_resize_pair on the
+     card against its CPU result on one clip's staged frames (224 × 224
+     and zero frames equal, the rest within one level on at most
+     ops/resize.py's TIE_SHARE of the pixels); printed: videos/s and host
+     prep ms per frame of both routes, the device ms of one V = 16
+     program, the largest score difference between the routes.
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -196,14 +222,16 @@ import torch
 SHAPES = (("roberta", 3 * 512, 768, 3072, "tanh"),
           ("clip_text", 3 * 77, 512, 2048, "quick"),
           ("clip_vision", 3 * 50, 768, 3072, "quick"),
-          ("roberta_b32", 32 * 512, 768, 3072, "tanh"))
+          ("roberta_b32", 32 * 512, 768, 3072, "tanh"),
+          ("clip_vision_video", 16 * 12 * 50, 768, 3072, "quick"))
 REPORT_KEYS = {"verdict", "verdict_text", "confidence", "scores",
                "vault_matches", "explanation"}
 SCORE_KEYS = {"ai_score", "misinfo_score", "deepfake_score",
               "clip_similarity", "vault_discrepancy", "text_similarity",
               "verdict", "confidence", "fake_probability",
               "real_probability"}
-PER_PROGRAM = {"full": 36, "text_only": 12, "visual_only": 12}
+PER_PROGRAM = {"full": 36, "text_only": 12, "visual_only": 12,
+               "video": 12, "video_text": 36}
 
 
 def card_line() -> str:
@@ -613,8 +641,12 @@ def decode_step_times(card, batches=(1, 4, 32), reps=200, strict=True,
     return rows
 
 
-I8CC_CASES = ((1, 1500, 1500), (4, 1500, 1500), (8, 1400, 1500),
-              (32, 1500, 1500), (3, 280, 300))      # B, t_actual, T
+# B, t_actual, T, loud_last: the loud_last cases make the last attended
+# row a loud V row, so that the kernel's V piece holding it is planted
+I8CC_CASES = ((1, 1500, 1500, False), (4, 1500, 1500, False),
+              (8, 1400, 1500, False), (32, 1500, 1500, False),
+              (3, 280, 300, False), (4, 1500, 1500, True),
+              (3, 280, 300, True))
 I8CC_TILES = {1: 512, 4: 512, 8: 256, 32: 128, 3: 384}
 
 
@@ -625,8 +657,8 @@ def check_i8cc_kernel(K7, card):
     from misinfo_tpu_torch.ops import decode_checks as DC
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     row = None
-    for B, ta, T in I8CC_CASES:
-        case = DC.cross_i8cc_case(B, ta, T=T)
+    for B, ta, T, loud in I8CC_CASES:
+        case = DC.cross_i8cc_case(B, ta, T=T, loud_last=loud)
         if case["tile"] != I8CC_TILES[B]:
             raise AssertionError(f"v_tile({B}, 512, {T}) = {case['tile']}, "
                                  f"want {I8CC_TILES[B]}")
@@ -641,13 +673,14 @@ def check_i8cc_kernel(K7, card):
         plain_ms = cuda_ms(lambda: K7.cross_ffn_step_i8cc_plain(
             *args, n_heads=H, **sc), 5)
         print(f"cross_ffn_step_i8cc B={B} T={T} t_actual={ta} tile="
-              f"{case['tile']}: max_abs_err={res['err']} (band up to "
+              f"{case['tile']}{' loud last row' if loud else ''}: "
+              f"max_abs_err={res['err']} (band up to "
               f"{res['band']}; {res['equal']:.4f} of the outputs bit for bit; "
               f"{res['edges']} probabilities at a rounding boundary; "
               f"{res['faults']} planted faults, nearest at "
               f"{res['nearest_fault']:.2f} bands) kernel_ms={ms} "
               f"plain_ms={plain_ms} [{card}]", flush=True)
-        if B == 4:
+        if B == 4 and not loud:
             row = {"err": res["err"], "ms": ms, "plain_ms": plain_ms,
                    **decode_bound("cross_ffn_step", case, True,
                                   sc.values())}
@@ -777,7 +810,7 @@ def plain_decode_steps(W, K6, K7):
 def transcribe_counted(tr, wav, W, K6, K7, int8: bool):
     """Phase 6 for one transcriber: counts set to 0 just before, read just
     after; every launch must be of the int8 body (``int8``) or of the bf16
-    body. Returns (K6 launches, K7 launches)."""
+    body. Returns (K6 launches, K7 launches, the transcript)."""
     layers = tr.cfg.decoder_layers
     what = "quant=kernels" if int8 else "quant=embedding"
     with counting_steps(W) as seen:
@@ -802,7 +835,7 @@ def transcribe_counted(tr, wav, W, K6, K7, int8: bool):
     if (l6_i8, l7_i8) != ((l6, l7) if int8 else (0, 0)):
         raise AssertionError(f"{what}: int8-body launches {l6_i8}/{l7_i8} "
                              f"of {l6}/{l7}")
-    return l6, l7
+    return l6, l7, text
 
 
 def teacher_forced(tr, wav, W, K6, K7):
@@ -908,7 +941,8 @@ def transcript_phases(engine, image, card, profile):
                                  f"{tr.pallas}, kernels={tr.quant_kernels}")
         if not (tr.has_weights and tr.tokenizer_compatible):
             raise AssertionError("transcriber reports no usable weights")
-        l6, l7 = transcribe_counted(tr, wav, W, K6, K7, want == "kernels")
+        l6, l7, _ = transcribe_counted(tr, wav, W, K6, K7,
+                                       want == "kernels")
         suffix = "_i8" if want == "kernels" else ""
         launches["self_attn_step" + suffix] = l6
         launches["cross_ffn_step" + suffix] = l7
@@ -928,6 +962,288 @@ def transcript_phases(engine, image, card, profile):
     launches.update(whisper_int8_modes(tr, weights, cfg, wav,   # 21-23
                                        card))
     return launches
+
+
+# -------------------------------------------------------------------- video
+
+CLIP_SECONDS, CLIP_FPS, CLIP_W, CLIP_H = 12, 25.0, 640, 360
+VIDEO_GROUP = 16                    # video_batch_buckets[-1]
+
+
+def write_clip(path: str, seed: int) -> bool:
+    """A 12 s mp4 at 25 fps and 640 × 360 (as tests/test_video_e2e.py
+    writes one): a moving gradient beside seeded noise blocks. False
+    where cv2 or an mp4 encoder is missing."""
+    try:
+        import cv2
+    except ImportError:
+        return False
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             CLIP_FPS, (CLIP_W, CLIP_H))
+    if not writer.isOpened():
+        return False
+    rng = np.random.default_rng(seed)
+    ramp = np.linspace(0, 255, CLIP_W, dtype=np.float32)
+    for i in range(int(CLIP_SECONDS * CLIP_FPS)):
+        frame = np.empty((CLIP_H, CLIP_W, 3), np.uint8)
+        frame[:] = ((ramp + 7 * i) % 256).astype(np.uint8)[None, :, None]
+        cells = rng.integers(0, 256, (CLIP_H // 40, CLIP_W // 80, 3),
+                             dtype=np.uint8)
+        frame[:, : CLIP_W // 2] = np.repeat(np.repeat(cells, 40, 0), 40,
+                                            1)[:CLIP_H, : CLIP_W // 2]
+        writer.write(frame)
+    writer.release()
+    return os.path.getsize(path) > 0
+
+
+def seeded_sampler(frames_of):
+    """A stand-in for the engine's frame sampler with
+    ``sample_video_frames``' contract: (frames [≤ max_frames], valid
+    [max_frames]) for a request's ``video`` key, the frames looked up in
+    ``frames_of``."""
+    def sample(key, max_frames=12, stride_seconds=1.0, fps_fallback=25.0):
+        frames = frames_of(key)[:max_frames]
+        valid = np.zeros((max_frames,), np.bool_)
+        valid[: len(frames)] = True
+        return frames, valid
+    return sample
+
+
+@contextlib.contextmanager
+def counting_video_programs(F):
+    """Record each video program the engine runs: has_text, the frame
+    mask's shape and the host time at which its host prep ended."""
+    real = F.video_program
+    seen = []
+
+    def spy(params, batch, **kw):
+        seen.append({"has_text": kw["has_text"], "batch": batch,
+                     "frames": tuple(batch["frame_valid"].shape),
+                     "t": time.perf_counter()})
+        return real(params, batch, **kw)
+    F.video_program = spy
+    try:
+        yield seen
+    finally:
+        F.video_program = real
+
+
+def program_device_ms(fn):
+    """One call of ``fn`` (a whole signal program) on the card, after a
+    warm call: (device busy ms, the union of torch.profiler's CUDA
+    intervals; span ms, CUDA events around the call, host gaps included;
+    the host syncs inside the call, as torch.cuda's sync debug mode warns
+    of them, with the first warning)."""
+    import warnings
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, last = 0.0, 0.0
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        busy += max(0.0, b - max(a, last))
+        last = max(last, b)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    return busy / 1e3, span, syncs
+
+
+def video_scores(reports):
+    return [r["scores"][k] for r in reports
+            for k in ("ai_score", "misinfo_score", "deepfake_score",
+                      "clip_similarity", "fake_probability")]
+
+
+def video_phase(engine, rng, card):
+    """Phase 25 on phase 4's engine; returns K1's launches in its run."""
+    from misinfo_tpu_torch.core.config import WhisperDecodeConfig
+    from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.models import whisper as W
+    from misinfo_tpu_torch.ops import cross_ffn_step as K7
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.ops import resize as R
+    from misinfo_tpu_torch.ops import self_attn_step as K6
+    from misinfo_tpu_torch.preprocess.image import stage_image_batch
+    from misinfo_tpu_torch.preprocess.whisper_tokenizer import (
+        ByteWhisperTokenizer)
+    from misinfo_tpu_torch.serve.transcript import (
+        WhisperTranscriber, merge_into_caption)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    clips = [os.path.join(tmp, f"clip{i}.mp4") for i in range(4)]
+    decoded = all(write_clip(c, 20 + i) for i, c in enumerate(clips))
+    if decoded:
+        sampler = contextlib.nullcontext()
+        print(f"phase 25: {len(clips)} clips of {CLIP_SECONDS} s at "
+              f"{CLIP_FPS:g} fps, {CLIP_W} × {CLIP_H}, written with cv2; "
+              "frames decoded by sample_video_frames", flush=True)
+    else:
+        seeded = {c: [np.random.default_rng(40 + i * 100 + f).integers(
+                      0, 256, (CLIP_H, CLIP_W, 3), dtype=np.uint8)
+                      for f in range(12)] for i, c in enumerate(clips)}
+        sampler = swapped((F, "sample_video_frames",
+                           seeded_sampler(seeded.__getitem__)))
+        print("phase 25: no cv2 or mp4 encoder; the engine's frame "
+              "sampler replaced by seeded 640 × 360 frames", flush=True)
+    clip = clips[0]
+    sp = ByteWhisperTokenizer().specials
+    wcfg = W.WhisperConfig(vocab_size=sp.vocab_size, eos_token_id=sp.eot,
+                           decoder_start_token_id=sp.sot, **WB)
+    tr = WhisperTranscriber(to_numpy(W.whisper_init(7, wcfg)), config=wcfg,
+                            device="cuda", decode_cfg=dataclasses.replace(
+                                WhisperDecodeConfig(),
+                                fallback_temperatures=(0.0,)))
+    wav = os.path.join(tmp, "clip.wav")
+    write_wav(wav, seconds=CLIP_SECONDS)
+    _, _, transcript = transcribe_counted(tr, wav, W, K6, K7, True)
+    caption = "Footage of the flood, shared as new."
+    merged = merge_into_caption(caption, wav, tr)
+    want = ((caption + "\n\n" + transcript).strip()
+            if transcript and not transcript.startswith("[transcript error")
+            else caption)
+    if merged != want:
+        raise AssertionError(f"merge_into_caption gave {merged[:80]!r}, "
+                             f"want {want[:80]!r}")
+    group = [{"video": clips[i % len(clips)], "text": words(rng, 20 + i)}
+             for i in range(VIDEO_GROUP)]
+    launches = {}
+    with sampler, counting_video_programs(F) as seen:
+        K1.launches = 0                 # this path's run starts here
+        one = [engine.analyze(merged, video_path=clip, verbose=False)]
+        torch.cuda.synchronize()
+        launches["video_text"] = K1.launches
+        one.append(engine.analyze(video_path=clip, verbose=False))
+        torch.cuda.synchronize()
+        launches["video"] = K1.launches - launches["video_text"]
+        t0 = time.perf_counter()
+        host = engine.analyze_batch(group)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches["group"] = (K1.launches - launches["video_text"]
+                             - launches["video"])
+        total = K1.launches             # read just after the path
+        grp = seen[-1]
+        check_reports(one, "analyze(video)")
+        check_reports(host, "video_text group")
+        print(f"K1 launches: analyze(merged caption, video) "
+              f"{launches['video_text']} (want {PER_PROGRAM['video_text']}), "
+              f"analyze(video) {launches['video']} (want "
+              f"{PER_PROGRAM['video']}), group of {VIDEO_GROUP} video_text "
+              f"{launches['group']} (want {PER_PROGRAM['video_text']}) in "
+              f"{len(seen) - 2} program(s) of {seen[-1]['frames']} frames",
+              flush=True)
+        if (launches != {"video_text": PER_PROGRAM["video_text"],
+                         "video": PER_PROGRAM["video"],
+                         "group": PER_PROGRAM["video_text"]}
+                or [s["frames"] for s in seen] != [(1, 12), (1, 12),
+                                                   (VIDEO_GROUP, 12)]):
+            raise AssertionError(f"video path: K1 launches {launches}, "
+                                 f"programs {[s['frames'] for s in seen]}")
+        with swapped((K1, "int8_ffn", K1.int8_ffn_plain)):
+            plain = engine.analyze_batch(group)
+        drift = max(abs(a - b) for a, b in zip(video_scores(host),
+                                               video_scores(plain)))
+        print(f"video_text group, kernel vs plain FFN: max score drift "
+              f"{drift} (limit 0.05); verdicts "
+              f"{[r['verdict'] for r in host]}; top-1 vault rows "
+              f"{[r['vault_matches'][0]['title'] for r in host]}",
+              flush=True)
+        if not drift < 0.05:
+            raise AssertionError(f"video scores drift {drift} >= 0.05")
+        prep_host = grp["t"] - t0
+        batch = grp["batch"]
+        kw = dict(has_text=True, det_cfg=engine.det_cfg, cfg=engine.cfg,
+                  policy=engine.policy)
+        with torch.inference_mode():
+            dev = program_device_ms(lambda: F.video_program(
+                engine.params, batch, **kw))
+        serving = engine.cfg.serving
+        engine.cfg = engine.cfg.replace(serving=dataclasses.replace(
+            serving, device_resize=True))
+        try:
+            engine.analyze_batch(group)
+            torch.cuda.synchronize()
+            del seen[:]
+            t0 = time.perf_counter()
+            staged = engine.analyze_batch(group)
+            torch.cuda.synchronize()
+            staged_s = time.perf_counter() - t0
+            prep_staged = seen[-1]["t"] - t0
+            staged_batch = seen[-1]["batch"]
+            with torch.inference_mode():
+                staged_dev = program_device_ms(lambda: F.video_program(
+                    engine.params, staged_batch, **kw))
+        finally:
+            engine.cfg = engine.cfg.replace(serving=serving)
+        check_reports(staged, "video_text group, device resize")
+        if "image_staged" not in staged_batch:
+            raise AssertionError("device_resize sent no staged frames")
+        routes = max(abs(a - b) for a, b in zip(video_scores(host),
+                                                video_scores(staged)))
+        frames = VIDEO_GROUP * 12
+        print(f"video_text group of {VIDEO_GROUP} ({frames} frames): host "
+              f"resize {VIDEO_GROUP / host_s} videos/s, host prep "
+              f"{prep_host / frames * 1e3} ms/frame, program device busy "
+              f"{dev[0]} ms of a {dev[1]} ms span; device resize "
+              f"{VIDEO_GROUP / staged_s} videos/s, host prep "
+              f"{prep_staged / frames * 1e3} ms/frame, program device busy "
+              f"{staged_dev[0]} ms of a {staged_dev[1]} ms span (staged "
+              f"{tuple(staged_batch['image_staged'].shape)}); max score "
+              f"difference between the routes {routes} [{card}]",
+              flush=True)
+        for name, d in (("host resize", dev), ("device resize", staged_dev)):
+            print(f"video_text program ({name}): {len(d[2])} host sync(s) "
+                  f"in one call{'; first: ' + d[2][0] if d[2] else ''}",
+                  flush=True)
+
+    # device_resize_pair on the card against its CPU result
+    rgb = [np.asarray(f, np.uint8) for f in
+           (F.sample_video_frames(clip, 12)[0] if decoded
+            else seeded[clip])]
+    extra = [np.random.default_rng(60 + i).integers(
+        0, 256, (224, 224, 3), dtype=np.uint8) for i in range(2)]
+    st, pa = stage_image_batch(rgb + extra + [None, None], 640, 224)
+    cpu = R.device_resize_pair(torch.from_numpy(st), torch.from_numpy(pa))
+    gpu = R.device_resize_pair(torch.from_numpy(st).cuda(),
+                               torch.from_numpy(pa).cuda())
+    n = len(rgb)
+    for name, c, g in zip(("effnet", "clip"), cpu, gpu):
+        g = g.cpu()
+        diff = (g.int() - c.int()).abs()
+        share = (diff[:n] > 0).float().mean().item()
+        print(f"device_resize_pair {name}, card vs CPU on {n} staged "
+              f"frames: max {diff.max().item()} level(s) on {share} of the "
+              f"pixels (limit 1 on {R.TIE_SHARE}); identity and zero "
+              f"frames equal: {torch.equal(g[n:], c[n:])}", flush=True)
+        if not (torch.equal(g[n:], c[n:]) and diff.max() <= 1
+                and share <= R.TIE_SHARE):
+            raise AssertionError(f"device resize ({name}) on the card is "
+                                 "off its CPU result")
+        if not torch.equal(g[n:n + 2], torch.from_numpy(np.stack(extra))):
+            raise AssertionError("the device resize of a 224 × 224 frame "
+                                 "is not the frame")
+    shutil.rmtree(tmp)
+    return total
 
 
 # ------------------------------------------------------------------- bounds
@@ -1244,6 +1560,35 @@ def vault_phases(card, small_vault, profile=None):
         raise AssertionError(f"K10 launches {k10} for {seen['visual']} "
                              "visual programs (want K10b once each)")
 
+    # phase 10, video: one video_text group of 16 videos × 12 frames; the
+    # first video's third frame is planted image 0 (its caption planted as
+    # that row's title), every other frame an unplanted image
+    frames_of = {f"video {v}": [pool[others[(v + f) % len(others)]]
+                                for f in range(12 - v % 4)]
+                 for v in range(VIDEO_GROUP)}
+    frames_of["video 0"][2] = pool[planted[0]]
+    vreqs = ([{"video": "video 0", "text": captions[0]}]
+             + [{"video": f"video {v}", "text": words(rng, 20)}
+                for v in range(1, VIDEO_GROUP)])
+    sampler = (F, "sample_video_frames", seeded_sampler(frames_of.get))
+    with swapped(sampler), counting_video_programs(F) as vseen:
+        K10.launches = K10.launches_i8 = 0      # this path's run starts here
+        t0 = time.perf_counter()
+        vbatch = eng.analyze_batch(vreqs)
+        torch.cuda.synchronize()
+        vsec = time.perf_counter() - t0
+        k10v = (K10.launches, K10.launches_i8)  # read just after the path
+    check_vault_reports(vbatch, {0: rows_at[0]}, "int4 video_text group")
+    print(f"int4 engine, video_text group of {VIDEO_GROUP} "
+          f"({VIDEO_GROUP * 12} frame rows): {1e3 * vsec:.1f} ms; video "
+          f"programs {len(vseen)}, K10b launches {k10v[1]} (want "
+          f"{-(-VIDEO_GROUP * 12 // K10.MAX_BATCH)}), K10a {k10v[0]}; video "
+          f"0 top-1 {top(vbatch[0])} [{card}]", flush=True)
+    if (len(vseen) != 1 or vseen[0]["frames"] != (VIDEO_GROUP, 12)
+            or k10v != (0, -(-VIDEO_GROUP * 12 // K10.MAX_BATCH))):
+        raise AssertionError(f"K10 launches {k10v} for the video group's "
+                             f"{len(vseen)} program(s)")
+
     # phase 11: the same vault in the other dtypes (f32 is the reference)
     q32 = torch.nn.functional.normalize(
         torch.randn(32, d, generator=torch.Generator().manual_seed(3)),
@@ -1257,6 +1602,14 @@ def vault_phases(card, small_vault, profile=None):
     f32, boot = vault_engine(params, path)
     ref = f32.analyze_batch(reqs)
     check_vault_reports(ref, plants, "f32 analyze_batch")
+    with swapped(sampler):
+        vref = f32.analyze_batch(vreqs)
+    check_vault_reports(vref, {0: rows_at[0]}, "f32 video_text group")
+    print(f"video_text group, int4 vs f32 vault: top-1 of video 0 "
+          f"{top(vbatch[0])} vs {top(vref[0])}", flush=True)
+    if top(vbatch[0])[0] != top(vref[0])[0]:
+        raise AssertionError("the int4 and f32 vaults disagree on the "
+                             "planted video's top-1")
     drift = 0.0
     for i in plants:
         a, b = batch[i], ref[i]
@@ -1351,7 +1704,7 @@ def vault_phases(card, small_vault, profile=None):
     if k10a != (seen["visual"], 0) or not seen["visual"]:
         raise AssertionError(f"K10 launches {k10a} on the small vault")
     shutil.rmtree(tmp)
-    return {"int4_sims": k10a[0], "int4_sims_i8": k10[1]}
+    return {"int4_sims": k10a[0], "int4_sims_i8": k10[1] + k10v[1]}
 
 
 # ------------------------------------------------------- opt-in kernel modes
@@ -2283,7 +2636,8 @@ def main() -> int:
     main_launches = K1.launches     # read just after the main path
     check_reports([report], "analyze")
     check_reports(reports, "analyze_batch")
-    want_batch = sum(PER_PROGRAM.values())    # full + packed text + visual
+    want_batch = sum(PER_PROGRAM[v] for v in ("full", "text_only",
+                                              "visual_only"))
     print(f"K1 launches: analyze {after_single} (want {PER_PROGRAM['full']})"
           f", analyze_batch {main_launches - after_single} "
           f"(want {want_batch})", flush=True)
@@ -2325,6 +2679,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
         open(args.profile, "w").close()
+    video_launches = video_phase(engine, rng, card)           # phase 25
     engine_surface(engine, batch, image, rng, card)           # phase 24
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
@@ -2348,11 +2703,13 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": "misinfo_tpu_torch/csrc/int8_ffn.cu",
         "replaces": "misinfo_tpu/ops/pallas_int8.py:237",
-        "launches": main_launches, "max_abs_err": err_k1,
+        "launches": launches, "max_abs_err": err_k1,
         **{k: kernel_rows[shape][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}}
-        for name, shape in (("int8_ffn", "roberta"),
-                            ("int8_ffn_b32", "roberta_b32"))]
+        for name, shape, launches in (
+            ("int8_ffn", "roberta", main_launches),
+            ("int8_ffn_b32", "roberta_b32", main_launches),
+            ("int8_ffn_video", "clip_vision_video", video_launches))]
     replaces = {"self_attn_step": "misinfo_tpu/ops/pallas_decode.py:52",
                 "self_attn_step_i8": "misinfo_tpu/ops/pallas_decode.py:148",
                 "cross_ffn_step": "misinfo_tpu/ops/pallas_cross_ffn.py:125",

@@ -1,12 +1,19 @@
 """MisinfoForensics — the serving facade.
 
 Counterpart of ``misinfo_tpu/engine/forensics.py`` for the slice the port
-carries: ``analyze(text, image_path)`` and ``analyze_batch(requests)``
-return the reference's report dicts ``{verdict, verdict_text, confidence,
-scores, vault_matches, explanation}``. Requests are grouped per variant
-(full / text_only / visual_only), padded to batch buckets, text to length
-buckets 64/128/256/512 or packed into shared rows (``pack_text="auto"``),
-and each group runs as one signal program on the device.
+carries: ``analyze(text, image_path, video_path)`` and
+``analyze_batch(requests)`` return the reference's report dicts
+``{verdict, verdict_text, confidence, scores, vault_matches,
+explanation}``. Requests are grouped per variant (full / text_only /
+visual_only / video / video_text), padded to batch buckets, text to
+length buckets 64/128/256/512 or packed into shared rows
+(``pack_text="auto"``), and each group runs as one signal program on the
+device. Videos go in groups of up to ``video_batch_buckets[-1]``: their
+frames are sampled on the host (preprocess/video.py, on the image-prep
+pool) and ride the batch axis of one ``video_program`` per group. Images
+and frames are resized on the host, or with ``serving.device_resize``
+staged as one padded frame each and resized on the device
+(ops/resize.py).
 ``analyze_batch_async`` enqueues a batch and returns its ``finalize()``
 (the device programs run asynchronously on the card; the one host sync is
 the result's copy back), ``analyze_stream`` keeps one batch in flight, and
@@ -25,11 +32,12 @@ The opt-in kernel modes are carried: ``PrecisionConfig.quant="int8"``
 fused int8 FFN K1), ``use_pallas=True`` (the fused attention kernel K3
 on unpacked rows) and ``use_pallas="ffn"`` (the fused FFN kernel K5).
 
-Not carried yet, and refused with NotImplementedError: video, meshes,
-warmup and the AOT cache, on-device resize, ``use_pallas="flash"`` (JAX's
-library TPU kernel) and the reference ``.pth`` checkpoints (an engine
-built without ``params`` refuses to start when one of ``ModelPaths``'
-checkpoint files exists, rather than serve random weights in its place).
+Not carried yet, and refused with NotImplementedError: meshes, warmup
+and the AOT cache, ``use_pallas="flash"`` (JAX's library TPU kernel) and
+the reference ``.pth`` checkpoints (an engine built without ``params``
+refuses to start when one of ``ModelPaths``' checkpoint files exists,
+rather than serve random weights in its place). The engine keeps no
+program cache: each group's program runs eagerly.
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ from misinfo_tpu_torch.checkpoints.from_jax import to_device
 from misinfo_tpu_torch.core.config import ForensicsConfig
 from misinfo_tpu_torch.engine.explain import Explainer
 from misinfo_tpu_torch.engine.signals import (
-    SignalOutput, pack_signal_output, signals_program, unpack_signal_output)
+    SignalOutput, pack_signal_output, signals_program, unpack_signal_output,
+    video_program)
 from misinfo_tpu_torch.models.clip import clip_text_features
 from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
 from misinfo_tpu_torch.models.fusion import fusion_apply
@@ -59,11 +68,13 @@ from misinfo_tpu_torch.ops.common import Policy, l2_normalize, set_exact_f32
 from misinfo_tpu_torch.ops.serving import (
     optimize_for_serving, quant_mode, resolve_quant)
 from misinfo_tpu_torch.preprocess.image import (
-    batch_images, decode_rgb, image_to_array)
+    batch_images, choose_staging_bucket, decode_rgb, image_to_array,
+    stage_image_batch)
 from misinfo_tpu_torch.preprocess.packing import (
     dense_rows_from_seqs, pack_token_rows, pad_packed_rows, trim_padded)
 from misinfo_tpu_torch.preprocess.tokenizer import (
     load_clip_tokenizer, load_roberta_tokenizer)
+from misinfo_tpu_torch.preprocess.video import sample_video_frames
 from misinfo_tpu_torch.vault.int4 import Int4Vault, pad_int4_vault
 from misinfo_tpu_torch.vault import ivf as vault_ivf
 from misinfo_tpu_torch.vault.prepack import get_or_build
@@ -117,8 +128,6 @@ class MisinfoForensics:
             raise ValueError(f"use_pallas={use_pallas!r}: expected False, "
                              "True or 'ffn'")
         self.use_pallas = use_pallas
-        if sv.device_resize:
-            not_ported("serving.device_resize", "M14")
         if sv.aot_cache:
             not_ported("serving.aot_cache", "M15")
         if self.cfg.paths.orbax_dir:
@@ -417,8 +426,12 @@ class MisinfoForensics:
     def _cl_len(self) -> int:
         return min(self.cfg.seq.clip_max_len, self.det_cfg.clip.max_text_len)
 
-    def _req_bucket(self, n: int) -> int:
-        return _bucket(n, self.cfg.serving.batch_buckets)
+    def _req_bucket(self, n: int, buckets: Optional[Sequence[int]] = None
+                    ) -> int:
+        """Bucket a request count (``buckets`` default: the request batch
+        buckets)."""
+        return _bucket(n, self.cfg.serving.batch_buckets
+                       if buckets is None else buckets)
 
     def _tokenize_batch(self, texts: List[str], bucket: int):
         """Dense RoBERTa rows for `bucket` requests, cut to the smallest
@@ -452,13 +465,39 @@ class MisinfoForensics:
                 "cls_rows": self._stage(packed.cls_rows),
                 "cls_cols": self._stage(packed.cls_cols)}
 
+    def _stage_images(self, arrays: List, bucket: int) -> Dict:
+        """Device-resize path: decoded frames (+ None padding to
+        ``bucket``) → staged uint8 planes + per-image resize params; both
+        224px flavors are derived on the device (ops/resize.py)."""
+        size = self.cfg.seq.image_size
+        arrays = arrays + [None] * (bucket - len(arrays))
+        max_dim = max((max(a.shape[:2]) for a in arrays if a is not None),
+                      default=size)
+        S = choose_staging_bucket(max_dim,
+                                  self.cfg.serving.image_staging_buckets)
+        staged, params = stage_image_batch(arrays, S, size,
+                                           prep_map=self._prep_map)
+        return {"image_staged": self._stage(staged),
+                "resize_params": self._stage(params)}
+
     def _image_batch(self, images: List, bucket: int) -> Dict:
-        """Host decode once, resize to both 224px flavors, zero-fill pads."""
+        """Host decode once, then resize to both 224px flavors on the host
+        or, with ``serving.device_resize``, stage the decoded frames for
+        the device resize. ``None`` entries and the pads up to ``bucket``
+        become zero frames (the missing-media zero-fill contract)."""
         size = self.cfg.seq.image_size
         fast = self.cfg.serving.fast_decode
 
+        def decode(im):
+            return None if im is None else decode_rgb(im, fast=fast)
+
+        if self.cfg.serving.device_resize:
+            return self._stage_images(self._prep_map(decode, images), bucket)
+
         def prep(im):
-            arr = decode_rgb(im, fast=fast)
+            arr = decode(im)
+            if arr is None:
+                return None, None
             return (image_to_array(arr, "effnet", size),
                     image_to_array(arr, "clip", size))
 
@@ -544,8 +583,9 @@ class MisinfoForensics:
 
     def analyze_batch(self, requests: List[Dict],
                       explanations: bool = False) -> List[Dict]:
-        """Batched analyze over {text?, image?} dicts: one program call per
-        variant group of at most the largest batch bucket."""
+        """Batched analyze over {text?, image?, video?} dicts: one program
+        call per variant group of at most the largest batch bucket (the
+        largest video batch bucket for videos)."""
         return self._analyze_batch_internal(requests, explanations)
 
     def analyze_stream(self, requests, batch_size: Optional[int] = None,
@@ -593,12 +633,14 @@ class MisinfoForensics:
         return finalize
 
     def _dispatch_batch(self, requests: List[Dict]):
-        """Group → prep → enqueue the device programs (no host sync)."""
+        """Group → prep → enqueue the device programs (no host sync).
+        Video requests go in ``video_batch_buckets``-sized groups, each one
+        program over its frames."""
         groups: Dict[str, List[int]] = {}
         for i, r in enumerate(requests):
             if "video" in r:
-                not_ported("video analysis", "M12")
-            if r.get("text") and "image" in r:
+                v = "video_text" if r.get("text") else "video"
+            elif r.get("text") and "image" in r:
                 v = "full"
             elif r.get("text"):
                 v = "text_only"
@@ -607,10 +649,20 @@ class MisinfoForensics:
             else:
                 raise ValueError(f"request {i} has no modality")
             groups.setdefault(v, []).append(i)
-        maxb = self.cfg.serving.batch_buckets[-1]
-        return [self._dispatch_group(requests, variant, idxs[lo:lo + maxb])
-                for variant, idxs in groups.items()
+        dispatches = []
+        for variant, idxs in groups.items():
+            if variant.startswith("video"):
+                maxv = self.cfg.serving.video_batch_buckets[-1]
+                for lo in range(0, len(idxs), maxv):
+                    chunk = idxs[lo:lo + maxv]
+                    dispatches.append((variant, self._analyze_video_group(
+                        [requests[i] for i in chunk], variant), chunk))
+                continue
+            maxb = self.cfg.serving.batch_buckets[-1]
+            dispatches += [
+                self._dispatch_group(requests, variant, idxs[lo:lo + maxb])
                 for lo in range(0, len(idxs), maxb)]
+        return dispatches
 
     def _dispatch_group(self, requests: List[Dict], variant: str,
                         idxs: List[int]):
@@ -661,6 +713,48 @@ class MisinfoForensics:
                 use_pallas=self.use_pallas))
         return variant, out, idxs
 
+    def _analyze_video_group(self, reqs: List[Dict],
+                             variant: str) -> torch.Tensor:
+        """V video requests → ONE [V·F]-frame program → packed result
+        tensor (enqueued, no sync). Frames are sampled per video on the
+        image-prep pool and resized there (or staged for the device
+        resize); padded videos carry all-invalid frame masks (their rows
+        are discarded)."""
+        F = self.cfg.video.max_frames
+        V = self._req_bucket(len(reqs), self.cfg.serving.video_batch_buckets)
+        vcfg = self.cfg.video
+
+        def sample(req):
+            if req is None:
+                return [], np.zeros((F,), np.bool_)
+            return sample_video_frames(req["video"], F, vcfg.stride_seconds,
+                                       vcfg.fps_fallback)
+
+        padded_reqs = list(reqs) + [None] * (V - len(reqs))
+        sampled = self._prep_map(sample, padded_reqs)
+        valids = [np.asarray(valid, np.bool_) for _, valid in sampled]
+        frames = []
+        for fs, _ in sampled:
+            frames += list(fs) + [None] * (F - len(fs))
+        # host resize of every frame, or (device_resize) frames staged for
+        # the device, which saves 2 host resizes × V·F frames
+        batch = self._image_batch(frames, V * F)
+        batch["frame_valid"] = self._stage(np.stack(valids))     # [V, F]
+        if variant == "video_text":
+            texts = [r.get("text", "") if r else "" for r in padded_reqs]
+            rb_ids, rb_mask = self._tokenize_batch(texts, V)
+            cl_ids, cl_mask = self.clip_tokenizer.batch(texts, self._cl_len)
+            batch.update(roberta_ids=self._stage(rb_ids),
+                         roberta_mask=self._stage(rb_mask),
+                         clip_ids=self._stage(cl_ids),
+                         clip_mask=self._stage(cl_mask))
+        batch.update(self._vault_device)
+        with torch.inference_mode():
+            return pack_signal_output(video_program(
+                self.params, batch, has_text=variant == "video_text",
+                det_cfg=self.det_cfg, cfg=self.cfg, policy=self.policy,
+                use_pallas=self.use_pallas))
+
     def _finalize_batch(self, dispatches, requests: List[Dict],
                         explanations: bool = False) -> List[Dict]:
         results: List[Optional[Dict]] = [None] * len(requests)
@@ -687,7 +781,7 @@ class MisinfoForensics:
         }
         matches: List[Dict] = []
         vault = self.vault
-        if vault is not None and "image" in req:
+        if vault is not None and ("image" in req or "video" in req):
             idxs = out.vault_top_idx[row]
             if idxs[0] >= 0:
                 matches = vault.matches_from_indices(
@@ -725,7 +819,8 @@ class MisinfoForensics:
         """Step-by-step forensic report (reference's verbose analyze())."""
         s = report["scores"]
         has_text = bool(req.get("text"))
-        has_visual = req.get("image") is not None
+        has_visual = (req.get("image") is not None
+                      or bool(req.get("video")))
         print("\n" + "=" * 70)
         print(f"MISINFORMATION FORENSICS ANALYSIS ({self.device.type} engine)")
         print("=" * 70)
@@ -735,7 +830,9 @@ class MisinfoForensics:
             print(f"  - Misinfo/Propaganda Score: {s['misinfo_score']:.2%}")
         else:
             print("  - Skipped (no text provided)")
-        print("\n[Step 2] Visual Forensics (EfficientNet)...")
+        step2 = ("Video Forensics (Frame Sampling)" if req.get("video")
+                 else "Visual Forensics (EfficientNet)")
+        print(f"\n[Step 2] {step2}...")
         if has_visual:
             print(f"  - Deepfake Probability: {s['deepfake_score']:.2%}")
         else:

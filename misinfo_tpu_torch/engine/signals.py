@@ -9,7 +9,14 @@ reference's gating arithmetic:
   * ``text_only``   — fake_prob = misinfo_score
   * ``visual_only`` — fake_prob = max(deepfake, vault_discrepancy)
   * ``text_packed`` — ``text_only`` over packed rows (block-diagonal
-    attention, CLS scores gathered per request)
+    attention, CLS scores gathered per request; ``packed_text_program``)
+
+plus ``video_program`` (``video`` / ``video_text``), which treats sampled
+frames as a batch axis and applies the reference's mean/mean/max
+aggregation (reference :563-573) before the verdict. An image batch may
+carry staged frames and resize parameters instead of the two 224px
+flavors (``ServingConfig.device_resize``); the program then derives both
+flavors on the device (ops/resize.py).
 
 PyTorch runs eagerly, so a program is a plain function; the engine calls
 it under ``torch.inference_mode``.
@@ -31,6 +38,7 @@ from misinfo_tpu_torch.models.roberta import (
     dual_head_logits, head_apply, roberta_encode)
 from misinfo_tpu_torch.ops.common import Policy, l2_normalize, softmax_f32
 from misinfo_tpu_torch.ops.image_ops import normalize_images
+from misinfo_tpu_torch.ops.resize import device_resize_pair
 from misinfo_tpu_torch.vault.search import vault_search
 
 
@@ -106,9 +114,16 @@ def _text_branch(params, batch, det_cfg, policy, use_pallas):
 
 def _visual_branch(params, batch, det_cfg, cfg, policy, use_pallas,
                    caption_text_emb=None, has_caption=None):
-    img_eff = normalize_images(batch["image_effnet"], "imagenet",
-                               policy.compute)
-    img_clip = normalize_images(batch["image_clip"], "clip", policy.compute)
+    if "image_staged" in batch:
+        # on-device resize: the host shipped one padded frame per image;
+        # both 224px flavors are derived here (ServingConfig.device_resize)
+        eff_u8, clip_u8 = device_resize_pair(
+            batch["image_staged"], batch["resize_params"],
+            out_size=cfg.seq.image_size)
+    else:
+        eff_u8, clip_u8 = batch["image_effnet"], batch["image_clip"]
+    img_eff = normalize_images(eff_u8, "imagenet", policy.compute)
+    img_clip = normalize_images(clip_u8, "clip", policy.compute)
     deepfake_score = softmax_f32(
         effnet_apply(params["efficientnet"], img_eff, policy))[:, 1]
     image_emb = l2_normalize(clip_image_features(
@@ -156,6 +171,7 @@ def signals_program(params: Dict, batch: Dict[str, torch.Tensor], *,
         variant = "text_only"   # the packed keys route _text_branch
     B = (batch["cls_rows"].shape[0] if "cls_rows" in batch
          else batch["roberta_ids"].shape[0] if "roberta_ids" in batch
+         else batch["image_staged"].shape[0] if "image_staged" in batch
          else batch["image_clip"].shape[0])
     dev = next(iter(batch.values())).device
     zeros = torch.zeros(B, device=dev)
@@ -197,3 +213,81 @@ def signals_program(params: Dict, batch: Dict[str, torch.Tensor], *,
                             vr.top_sims, vr.top_idx)
 
     raise ValueError(f"unknown variant {variant!r}")
+
+
+def packed_text_program(params: Dict, batch: Dict[str, torch.Tensor], *,
+                        det_cfg: DetectorConfig, cfg: ForensicsConfig,
+                        policy: Policy, use_pallas=False) -> SignalOutput:
+    """``text_only`` over a PACKED token matrix (preprocess/packing.py):
+    several ragged requests per row, block-diagonal attention, per-segment
+    positions, CLS scores gathered at (cls_rows, cls_cols). Verdict
+    semantics identical to ``text_only`` (reference misinfo_forensics.py:
+    883-889: fake_prob = misinfo_score); the packed keys in ``batch``
+    route ``_text_branch`` onto the packed path."""
+    return signals_program(params, batch, variant="text_only",
+                           det_cfg=det_cfg, cfg=cfg, policy=policy,
+                           use_pallas=use_pallas)
+
+
+def video_program(params: Dict, batch: Dict[str, torch.Tensor], *,
+                  has_text: bool, det_cfg: DetectorConfig,
+                  cfg: ForensicsConfig, policy: Policy,
+                  use_pallas=False) -> SignalOutput:
+    """Video forensics over V videos in one call: ``frame_valid`` is [F]
+    (one video, the legacy shape) or [V, F]; images are [V·F, ...] (frames
+    ride the batch axis) and text tensors [V, S]. Per-video aggregation
+    matches reference analyze_video (misinfo_forensics.py:563-573): mean
+    deepfake, mean CLIP similarity over the valid frames, MAX vault
+    discrepancy (invalid frames at -1; the first frame of the largest
+    wins, and its text similarity and matches are reported); then the
+    standard verdict gating. Outputs are [V]."""
+    fv_in = batch["frame_valid"]
+    fv = (fv_in[None, :] if fv_in.dim() == 1 else fv_in).float()
+    V, F = fv.shape
+    dev = fv.device
+    n = fv.sum(dim=1).clamp_min(1.0)                        # [V]
+
+    if has_text:
+        ai, mis = _text_branch(params, batch, det_cfg, policy, use_pallas)
+        ai, mis = ai[:V], mis[:V]
+        cap_emb = l2_normalize(clip_text_features(
+            params["clip"], batch["clip_ids"], batch["clip_mask"],
+            det_cfg.clip, policy, use_pallas))[:V]          # [V, D]
+        cap_per_frame = cap_emb.repeat_interleave(F, dim=0)  # [V·F, D]
+    else:
+        ai = mis = torch.zeros(V, device=dev)
+        cap_emb = cap_per_frame = None
+
+    deep, img_emb, vr = _visual_branch(
+        params, batch, det_cfg, cfg, policy, use_pallas,
+        caption_text_emb=cap_per_frame,
+        has_caption=(torch.ones(V * F, dtype=torch.bool, device=dev)
+                     if has_text else None))
+
+    deep_mean = (deep.reshape(V, F) * fv).sum(dim=1) / n
+    if cap_emb is not None:
+        sims = (img_emb * cap_per_frame).sum(dim=-1).reshape(V, F)
+        clip_mean = (sims * fv).sum(dim=1) / n
+    else:
+        clip_mean = torch.zeros(V, device=dev)
+
+    vd = torch.where(fv > 0, vr.vault_discrepancy.reshape(V, F),
+                     torch.full_like(fv, -1.0))
+    best_f = torch.argmax(vd, dim=1)                        # [V]
+    rows = torch.arange(V, device=dev)
+    vault_disc = vd[rows, best_f].clamp_min(0.0)
+    text_sim = vr.text_similarity.reshape(V, F)[rows, best_f]
+    K = vr.top_sims.shape[-1]
+    top_sims = vr.top_sims.reshape(V, F, K)[rows, best_f]
+    top_idx = vr.top_idx.reshape(V, F, K)[rows, best_f]
+
+    if has_text:
+        scores_vec = torch.stack([ai, mis, deep_mean, clip_mean, vault_disc],
+                                 dim=1)
+        verdict, conf, fake_p, real_p = _verdict_from_fusion(params,
+                                                             scores_vec)
+    else:
+        verdict, conf, fake_p, real_p = _verdict_from_prob(
+            torch.maximum(deep_mean, vault_disc))
+    return SignalOutput(ai, mis, deep_mean, clip_mean, vault_disc, text_sim,
+                        verdict, conf, fake_p, real_p, top_sims, top_idx)

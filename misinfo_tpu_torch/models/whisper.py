@@ -633,6 +633,18 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
     return tokens, avg_lp
 
 
+def greedy_decode(params: Dict, mel: torch.Tensor,
+                  cfg: WhisperConfig = WhisperConfig(),
+                  policy: Policy = DEFAULT_POLICY,
+                  max_len: Optional[int] = None,
+                  prompt_tokens: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Greedy transcript decoding (temperature-0 rung of decode_transcript)."""
+    tokens, _ = decode_transcript(params, mel, cfg, policy, max_len=max_len,
+                                  prompt_tokens=prompt_tokens)
+    return tokens
+
+
 def _sot_logits(params, enc_out, sot_id, cfg, policy):
     B = enc_out.shape[0]
     cache = init_kv_cache(params, enc_out, 1, cfg, policy)

@@ -438,6 +438,10 @@ def check_cross_ffn(case: Dict, sms: int) -> Dict:
 
 SPREAD = 4              # heads with spread attention
 LOUD = 8.0              # V loudness of a peaked row
+# V loudness of the last attended row in the loud_last cases: half a
+# peaked row's, so that it does not alone set the scale of its tile (at
+# B = 3, T = 300 a row as loud as LOUD hides the half-size tiles' fault)
+LOUD_LAST = 4.0
 K_NOISE = 3.0           # K loudness of a planted row outside its head
 DECOY = 10.0            # score of a decoy key
 SHOUT = 32.0            # V loudness of the unattended row of every tile
@@ -461,10 +465,12 @@ def row_quant(y: torch.Tensor):
 
 def cross_i8cc_case(B: int, t_actual: int, device="cuda", seed: int = 0,
                     D: int = 512, H: int = 8, T: int = 1500,
-                    F: int = 2048) -> Dict:
+                    F: int = 2048, loud_last: bool = False) -> Dict:
     """Inputs of one int8-plane step (comment above): ``args`` and
     ``scales`` for the wrapper and its plain version, the V tile, the
-    planted rows."""
+    planted rows. ``loud_last`` makes the last attended row a loud V row
+    too (``peaked``), so that the kernel's V piece holding it carries a
+    planted fault; the inputs are otherwise those of the case without."""
     gen = torch.Generator().manual_seed(seed * 100_003 + B * 11 + t_actual)
     Dh = D // H
     x = _bf16(gen, (B, D), device)
@@ -503,6 +509,9 @@ def cross_i8cc_case(B: int, t_actual: int, device="cuda", seed: int = 0,
     # the last attended row and the first masked one, aimed for every head
     for t in [last] + ([t_actual] if t_actual < T else []):
         ck[:, t] = (PLANT * key).reshape(B, D).to(ck.dtype)
+    if loud_last:
+        cv[:, last] = cv[:, last] * LOUD_LAST
+        planted.append(last)
     # one unattended shout per V tile
     used = set(planted) | {t + 1 for t in planted} | {last, t_actual}
     for t0 in range(0, T, tile):
@@ -691,7 +700,8 @@ def cross_i8cc_faults(case: Dict, sms: int) -> List[Tuple[str, torch.Tensor]]:
     # the kernel's own pieces (tile_pieces, 16-64 rows): those that hold a
     # loud V row. A piece that holds the last attended row and no loud one
     # moves y by under 3 bands at B = 3 and 4 (the ranges above cover that
-    # row with the test's margin)
+    # row with the test's margin); the loud_last cases make that row loud,
+    # so that its piece is planted too
     pc, pp = tile_pieces(B, tile, nt, sms)
     out.append((f"each V piece's scale over its own {pc} rows",
                 _i8cc_finish(x, _wrong_context(case, probs, "piece_scale",

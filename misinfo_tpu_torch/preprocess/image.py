@@ -47,13 +47,21 @@ def _cv():
     return cv2
 
 # Host resize backend. PIL replicates torchvision/CLIPProcessor antialiased
-# filters exactly but costs ~8 ms/request on one core — it caps end-to-end
-# serving throughput far below the device program's (docs/PERF.md). cv2 is
-# ~10× faster with small pixel-level divergence (INTER_AREA downscale ≈
+# filters exactly but is several times slower than cv2 on one core, enough
+# to cap end-to-end serving throughput below the device program's. cv2
+# diverges slightly at the pixel level (INTER_AREA downscale ≈
 # antialiased). "auto" → cv2 when importable. Pin "pil" for bit-exact
 # reference preprocessing (the parity harness feeds raw arrays and is
 # unaffected either way).
 _BACKEND = os.environ.get("MISINFO_TPU_IMAGE_BACKEND", "auto")
+
+
+def set_image_backend(name: str) -> None:
+    """'auto' | 'pil' | 'cv2' (module-wide; engine honors config)."""
+    global _BACKEND
+    if name not in ("auto", "pil", "cv2"):
+        raise ValueError(name)
+    _BACKEND = name
 
 
 def _use_cv2() -> bool:
@@ -61,14 +69,21 @@ def _use_cv2() -> bool:
 
 
 # Opt-in DCT-domain reduced JPEG decode (libjpeg 1/2^n scaled decode via
-# cv2.IMREAD_REDUCED_COLOR_* or PIL's Image.draft). On a 1-core host the
-# serving ceiling is the JPEG decode itself (docs/PERF.md host-prep rows);
-# decoding frames whose short side stays ≥ _FAST_DECODE_FLOOR pixels keeps
-# every later resize a ≥2× antialiased downscale to the 224px targets.
+# cv2.IMREAD_REDUCED_COLOR_* or PIL's Image.draft). On a host with few
+# cores the serving ceiling can be the JPEG decode itself; decoding
+# frames whose short side stays ≥ _FAST_DECODE_FLOOR pixels keeps every
+# later resize a ≥2× antialiased downscale to the 224px targets.
 # Documented divergence from the reference's full decode (PIL-level pixel
 # deltas only on large frames); off by default.
 _FAST_DECODE = os.environ.get("MISINFO_TPU_FAST_DECODE", "0") == "1"
 _FAST_DECODE_FLOOR = 448  # 2 × the 224px model inputs
+
+
+def set_fast_decode(on: bool) -> None:
+    """Module-wide default for :func:`decode_rgb`'s ``fast`` argument
+    (engine honors ``ServingConfig.fast_decode`` per call instead)."""
+    global _FAST_DECODE
+    _FAST_DECODE = bool(on)
 
 
 def _reduced_factor(path, floor: int = _FAST_DECODE_FLOOR) -> int:
@@ -228,6 +243,86 @@ def image_to_array(
     if mode == "effnet":
         return resize_squash(img, size)
     return resize_center_crop(img, size)
+
+
+def resize_param_row(h: int, w: int, out_size: int = 224) -> np.ndarray:
+    """Per-image scalar inputs for the on-device resize
+    (:mod:`misinfo_tpu_torch.ops.resize`): valid extents plus scale/offset
+    per flavor. The CLIP flavor's intermediate dims use the exact
+    truncating integer semantics of HF's shortest-edge resize
+    (:func:`_hf_resize_dims`), computed here on host so the device sees
+    only f32 scalars."""
+    h, w = max(1, int(h)), max(1, int(w))
+    nw, nh = _hf_resize_dims(w, h, out_size)
+    top, left = (nh - out_size) // 2, (nw - out_size) // 2
+    return np.array([h, w, h / out_size, w / out_size,
+                     h / nh, top, w / nw, left], np.float32)
+
+
+def shrink_to_staging(arr: np.ndarray, staging: int) -> np.ndarray:
+    """Host pre-shrink for images exceeding the largest staging bucket:
+    aspect-preserving area downscale so the frame fits ``staging`` on both
+    sides. The subsequent on-device resize then runs on the shrunk frame —
+    a two-stage resample (documented divergence from the single PIL pass;
+    only frames beyond the last ``image_staging_buckets`` entry pay it)."""
+    h, w = arr.shape[:2]
+    if h <= staging and w <= staging:
+        return arr
+    sc = staging / max(h, w)
+    nh, nw = max(1, int(h * sc)), max(1, int(w * sc))
+    if _use_cv2():
+        return _cv().resize(arr, (nw, nh), interpolation=_cv().INTER_AREA)
+    Image = _pil()
+    if Image is None:
+        raise RuntimeError("Pillow or OpenCV is required to shrink an "
+                           "image into its staging bucket")
+    return np.asarray(
+        Image.fromarray(arr).resize((nw, nh), Image.BILINEAR), np.uint8)
+
+
+def stage_image_batch(arrays, staging: int, out_size: int = 224,
+                      prep_map=None):
+    """Decoded frames → (staged uint8 [N, staging, staging, 3],
+    resize_params f32 [N, 8]) for :func:`ops.resize.device_resize_pair`.
+
+    Each frame sits in the top-left corner, zero-padded; ``None`` entries
+    (missing media) stage as all-zero frames with identity params, so the
+    device resize reproduces the zero-fill contract exactly (reference
+    misinformation_dataset.py:186-189). Frames larger than ``staging`` are
+    pre-shrunk on host (:func:`shrink_to_staging`).
+
+    ``prep_map(fn, items)`` (the engine's thread pool) parallelizes the
+    per-image shrink + buffer copy across host cores — rows are disjoint,
+    and cv2/PIL/large numpy copies release the GIL."""
+    n = len(arrays)
+    staged = np.zeros((n, staging, staging, 3), np.uint8)
+    params = np.tile(resize_param_row(out_size, out_size, out_size), (n, 1))
+
+    def place(item):
+        i, a = item
+        if a is None:
+            return
+        a = shrink_to_staging(a, staging)
+        h, w = a.shape[:2]
+        staged[i, :h, :w] = a
+        params[i] = resize_param_row(h, w, out_size)
+
+    items = list(enumerate(arrays))
+    if prep_map is None:
+        for it in items:
+            place(it)
+    else:
+        prep_map(place, items)
+    return staged, params
+
+
+def choose_staging_bucket(max_dim: int, buckets) -> int:
+    """Smallest staging bucket covering ``max_dim`` (last bucket if none —
+    oversize frames are then host-shrunk into it)."""
+    for b in buckets:
+        if max_dim <= b:
+            return b
+    return buckets[-1]
 
 
 def batch_images(arrays, size: int = 224) -> np.ndarray:

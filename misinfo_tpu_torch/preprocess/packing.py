@@ -136,6 +136,14 @@ def trim_padded(ids: np.ndarray, mask: np.ndarray) -> List[np.ndarray]:
     return out
 
 
+def packed_row_bucket(n_rows: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket ≥ n_rows (last bucket if none fits — callers split)."""
+    for b in buckets:
+        if n_rows <= b:
+            return b
+    return buckets[-1]
+
+
 def dense_rows_from_seqs(seqs: Sequence[np.ndarray], n_rows: int,
                          row_len: int, pad_id: int):
     """Unpacked [n_rows, row_len] ids/mask from trimmed sequences — lets the

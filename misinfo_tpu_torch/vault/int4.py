@@ -27,7 +27,10 @@ with a plain PyTorch version beside it:
 Each wrapper dispatches on where the query lies: a CUDA tensor launches
 the kernel or raises; a CPU tensor runs the plain version. ``launches``
 counts K10a launches and ``launches_i8`` K10b launches. A launch carries
-at most ``MAX_BATCH`` query rows.
+at most ``MAX_BATCH`` query rows; ``int4_vault_sims`` splits a larger
+query batch into consecutive slices of at most ``MAX_BATCH`` rows (every
+row is independent, K10b's query quantized per row), one launch each,
+and each launch reads the packed rows again.
 
 ``int4_vault_sims`` picks between them as the JAX package's dispatcher
 does on a TPU: K10b from ``KERNEL_MIN_ROWS`` rows when the row count is
@@ -221,11 +224,18 @@ def int4_vault_sims(query: torch.Tensor, packed: torch.Tensor,
                     scale: torch.Tensor) -> torch.Tensor:
     """The dispatcher of ``vault_sims`` for int4 rows (module docstring):
     the same choice on the card (kernels) and on the CPU (their plain
-    versions)."""
+    versions). A query batch of more than ``MAX_BATCH`` rows goes through
+    in consecutive slices of at most ``MAX_BATCH`` rows, whose results are
+    concatenated: ceil(B / MAX_BATCH) calls."""
     env = os.getenv("MISINFO_TPU_INT4_PALLAS", "auto")
     n = packed.shape[0]
     if env in ("i8", "1", "on", "true") or (
             env == "auto" and n >= KERNEL_MIN_ROWS
             and n % INT4_TILE_ROWS == 0):
-        return int4_sims_i8(query, packed, scale)
-    return int4_sims(query, packed, scale)
+        fn = int4_sims_i8
+    else:
+        fn = int4_sims
+    if query.shape[0] <= MAX_BATCH:
+        return fn(query, packed, scale)
+    return torch.cat([fn(query[lo:lo + MAX_BATCH], packed, scale)
+                      for lo in range(0, query.shape[0], MAX_BATCH)])

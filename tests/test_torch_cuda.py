@@ -29,7 +29,9 @@ that sits at a rounding boundary, with planted faults (V scales applied
 late, K scales dropped, the probabilities' scale per head, half-size
 tiles, a score chunk or a V piece left out, a chunk left out of the
 softmax's (m, l) merge, each piece's scale over its own rows, a piece
-left out of its tile's s32 sum, the mask one row off) outside. K9 (the whole-layer step) must equal K6b followed by K7b bit
+left out of its tile's s32 sum, the mask one row off) outside; two more
+cases make the last attended row loud, so that the kernel's V piece
+holding it carries its faults too. K9 (the whole-layer step) must equal K6b followed by K7b bit
 for bit, output and caches, in one ``__global__`` launch per call, and
 keep the band of its plain version; each case first waits for one call
 on an event with a deadline, so that a grid that waits on itself fails
@@ -40,7 +42,9 @@ held to their plain versions through misinfo_tpu_torch/vault/int4_checks.py:
 K10b bit for bit, K10a within (D + 1)·2^-23·Σ|q·nib|·scale per element
 (the two sum orders' error bound), with planted faults (a tile or the
 ragged edge left out, nibbles swapped or read unsigned, the row scale
-dropped) outside that band.
+dropped) outside that band. Through ``int4_vault_sims`` a query batch past
+``MAX_BATCH`` rows goes in slices of 64, one K10b launch each, bit for
+bit the concatenated per-slice results.
 
 The detector's opt-in kernels (K2 int8 dense, K3 fused attention, K4
 LayerNorm, K5 fused FFN) are held to their plain versions at the main
@@ -212,11 +216,19 @@ def test_cross_ffn_step_kernel_matches_plain(card, int8, B, t_actual):
                                              before[1] + int8)
 
 
-@pytest.mark.parametrize("B,t_actual,T,tile", [
-    (1, 1500, 1500, 512), (4, 1500, 1500, 512), (8, 1400, 1500, 256),
-    (32, 1500, 1500, 128), (3, 280, 300, 384)])
-def test_cross_ffn_step_i8cc_kernel_matches_plain(card, B, t_actual, T, tile):
-    case = DC.cross_i8cc_case(B, t_actual, T=T)
+# (B, t_actual, T, V tile, loud_last): the loud_last cases make the last
+# attended row a loud V row, so that the kernel's V piece holding it
+# carries planted faults (left out, and left out of its tile's s32 sum)
+@pytest.mark.parametrize("B,t_actual,T,tile,loud_last", [
+    pytest.param(B, ta, T, tile, False, id=f"{B}-{ta}-{T}-{tile}")
+    for B, ta, T, tile in ((1, 1500, 1500, 512), (4, 1500, 1500, 512),
+                           (8, 1400, 1500, 256), (32, 1500, 1500, 128),
+                           (3, 280, 300, 384))] + [
+    pytest.param(B, ta, T, tile, True, id=f"{B}-{ta}-{T}-{tile}-loud_last")
+    for B, ta, T, tile in ((4, 1500, 1500, 512), (3, 280, 300, 384))])
+def test_cross_ffn_step_i8cc_kernel_matches_plain(card, B, t_actual, T, tile,
+                                                  loud_last):
+    case = DC.cross_i8cc_case(B, t_actual, T=T, loud_last=loud_last)
     assert case["tile"] == tile
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     before = (K7.launches, K7.launches_i8, K7.launches_i8cc)
@@ -386,6 +398,27 @@ def test_int4_vault_dispatch_on_the_card(card, monkeypatch):
         K10.int4_vault_sims(q, packed, scale)
         assert (K10.launches - before[0], K10.launches_i8 - before[1]) == (
             (0, 1) if want == "i8" else (1, 0))
+
+
+@pytest.mark.parametrize("B", [65, 130, 192])
+def test_int4_vault_sims_splits_query_batches_past_max_batch(card, B):
+    """A query batch past MAX_BATCH goes through K10b in consecutive
+    slices of at most 64 rows, ceil(B / 64) launches, and gives the
+    concatenated results of the per-slice calls bit for bit (every row is
+    independent, its query quantized per row). 192 rows are one video
+    program's frames at V = 16, F = 12."""
+    packed, scale = IC.vault_case(K10.KERNEL_MIN_ROWS, device=card)
+    q = IC.query_case(B, seed=B, device=card)
+    before = (K10.launches, K10.launches_i8)
+    got = K10.int4_vault_sims(q, packed, scale)
+    torch.cuda.synchronize()
+    assert (K10.launches - before[0], K10.launches_i8 - before[1]) == (
+        0, -(-B // K10.MAX_BATCH))
+    want = torch.cat([K10.int4_sims_i8(q[lo:lo + K10.MAX_BATCH], packed,
+                                       scale)
+                      for lo in range(0, B, K10.MAX_BATCH)])
+    assert torch.equal(got, want)
+    assert torch.equal(got, K10.int4_sims_i8_plain(q, packed, scale))
 
 
 def test_int4_sims_kernels_refuse_what_they_cannot_run(card):

@@ -169,11 +169,47 @@ def test_f32_analyze_report(f32_engines):
 def test_out_of_slice_requests_refused(f32_engines):
     _, t_eng = f32_engines
     with pytest.raises(NotImplementedError):
-        t_eng.analyze_batch([{"video": "clip.mp4"}])
+        t_forensics.MisinfoForensics(
+            config=t_eng.cfg.replace(serving=dataclasses.replace(
+                t_eng.cfg.serving, aot_cache=True)),
+            det_cfg=t_eng.det_cfg, params=t_eng.params, device="cpu")
     with pytest.raises(NotImplementedError):
         t_eng.warmup()
     with pytest.raises(ValueError):
         t_eng.analyze(verbose=False)
+
+
+def test_packed_text_program_matches_jax(f32_engines):
+    """``packed_text_program`` (the JAX name) is ``text_only`` over packed
+    rows: on one packed batch it gives JAX's scores and the port's
+    ``signals_program(variant="text_packed")`` exactly."""
+    from misinfo_tpu.engine import signals as j_signals
+    from misinfo_tpu_torch.engine import signals as t_signals
+    from misinfo_tpu_torch.preprocess import packing as t_packing
+    j_eng, t_eng = f32_engines
+    rng = np.random.default_rng(13)
+    seqs = [rng.integers(3, 900, n).astype(np.int32)
+            for n in (5, 17, 30, 2, 9)]
+    packed = t_packing.pad_packed_rows(
+        t_packing.pack_token_rows(seqs, 32, 1, n_slots=8), 4, 1)
+    arrays = {"roberta_ids": packed.ids, "roberta_mask": packed.mask,
+              "roberta_pos": packed.position_ids,
+              "roberta_seg": packed.segment_ids,
+              "cls_rows": packed.cls_rows, "cls_cols": packed.cls_cols}
+    want = jax.jit(lambda p, b: j_signals.packed_text_program(
+        p, b, det_cfg=j_eng.det_cfg, cfg=j_eng.cfg, policy=j_eng.policy))(
+            j_eng.params, arrays)
+    batch = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    kw = dict(det_cfg=t_eng.det_cfg, cfg=t_eng.cfg, policy=t_eng.policy)
+    with torch.inference_mode():
+        got = t_signals.packed_text_program(t_eng.params, batch, **kw)
+        again = t_signals.signals_program(t_eng.params, batch,
+                                          variant="text_packed", **kw)
+    assert got.ai_score.shape == (8,)
+    for a, b, c in zip(want, got, again):
+        assert torch.equal(b, c)
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-4)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -113,6 +113,53 @@ def test_packed_arrays_identical():
         np.testing.assert_array_equal(x, y)
 
 
+def test_packed_row_bucket_identical():
+    for buckets in ((1, 2, 4, 8, 16, 32, 64), (3,), (8, 32)):
+        for n in (0, 1, 2, 3, 5, 8, 9, 33, 64, 65, 1000):
+            assert (t_packing.packed_row_bucket(n, buckets)
+                    == j_packing.packed_row_bucket(n, buckets))
+
+
+def test_image_backend_and_fast_decode_setters_match_jax(tmp_path,
+                                                         monkeypatch):
+    """``set_image_backend`` flips ``_use_cv2()`` as JAX's does and refuses
+    the same names with the same error; ``set_fast_decode`` switches a
+    large JPEG path to the reduced decode as JAX's does."""
+    pytest.importorskip("cv2")
+    Image = pytest.importorskip("PIL.Image")
+    try:
+        for name, cv in (("cv2", True), ("pil", False), ("auto", True)):
+            for m in (t_image, j_image):
+                m.set_image_backend(name)
+                assert m._use_cv2() is cv
+        for bad in ("PIL", "opencv", "", None):
+            errs = []
+            for m in (t_image, j_image):
+                with pytest.raises(ValueError) as e:
+                    m.set_image_backend(bad)
+                errs.append(str(e.value))
+            assert errs[0] == errs[1]
+        assert t_image._use_cv2() and j_image._use_cv2()
+        path = str(tmp_path / "big.jpg")
+        rng = np.random.default_rng(9)
+        Image.fromarray(rng.integers(0, 256, (1000, 1400, 3),
+                                     dtype=np.uint8)).save(path, quality=90)
+        for backend in ("cv2", "pil"):
+            for on in (True, False):
+                outs = []
+                for m in (t_image, j_image):
+                    m.set_image_backend(backend)
+                    m.set_fast_decode(on)
+                    outs.append(m.decode_rgb(path))
+                np.testing.assert_array_equal(outs[0], outs[1])
+                assert outs[0].shape == ((500, 700, 3) if on
+                                         else (1000, 1400, 3))
+    finally:
+        for m in (t_image, j_image):
+            m.set_image_backend("auto")
+            m.set_fast_decode(False)
+
+
 @pytest.mark.parametrize("shape", [(300, 200, 3), (64, 64, 3), (97, 130, 4),
                                    (50, 80)])
 @pytest.mark.parametrize("mode", ["effnet", "clip"])

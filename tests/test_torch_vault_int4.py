@@ -164,6 +164,29 @@ def test_dispatch_choices(monkeypatch, env, n, want):
     assert calls == [want]
 
 
+@pytest.mark.parametrize("env", ["i8", "bf16"])
+def test_query_batches_past_max_batch_go_in_slices(monkeypatch, env):
+    """130 query rows (past the kernels' MAX_BATCH of 64): three calls of
+    64, 64 and 2 rows, whose results are concatenated; for K10b that is
+    the one-call plain result bit for bit (rows are independent, the query
+    quantized per row)."""
+    packed, scale = C.vault_case(4096)
+    q = C.query_case(130, seed=4)
+    name = "int4_sims_i8" if env == "i8" else "int4_sims"
+    real = getattr(T, name)
+    rows = []
+    monkeypatch.setattr(T, name, lambda a, p, s: rows.append(a.shape[0])
+                        or real(a, p, s))
+    monkeypatch.setenv("MISINFO_TPU_INT4_PALLAS", env)
+    got = T.int4_vault_sims(q, packed, scale)
+    assert rows == [64, 64, 2]
+    want = torch.cat([real(q[lo:lo + T.MAX_BATCH], packed, scale)
+                      for lo in range(0, 130, T.MAX_BATCH)])
+    assert torch.equal(got, want)
+    if env == "i8":
+        assert torch.equal(got, T.int4_sims_i8_plain(q, packed, scale))
+
+
 def test_cpu_wrappers_run_plain_and_count_nothing():
     packed, scale = C.vault_case(256)
     q = C.query_case(2)

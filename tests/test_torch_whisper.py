@@ -131,6 +131,25 @@ def test_greedy_decode_matches_jax(model, prompt):
     np.testing.assert_allclose(nt, nj, atol=1e-6)
 
 
+def test_greedy_decode_function_matches_jax(model):
+    """``greedy_decode`` (the temperature-0 rung of decode_transcript,
+    tokens only) from the mel, with and without a prompt."""
+    jp, tp, mel, _ = model
+    prompt = np.array([[5, 6, 7], [8, 9, 10]], np.int32)
+    for pr in (None, prompt):
+        want = jw.greedy_decode(jp, jnp.asarray(mel), JCFG, JP, max_len=12,
+                                prompt_tokens=None if pr is None
+                                else jnp.asarray(pr))
+        got = tw.greedy_decode(tp, torch.from_numpy(mel), TCFG, TP,
+                               max_len=12, prompt_tokens=None if pr is None
+                               else torch.from_numpy(pr))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        tokens, _ = tw.decode_transcript(
+            tp, torch.from_numpy(mel), TCFG, TP, max_len=12,
+            prompt_tokens=None if pr is None else torch.from_numpy(pr))
+        assert torch.equal(got, tokens)
+
+
 def test_sampled_rung_with_jax_noise_matches(model):
     """The decode's noise is a tensor the step receives: handed JAX's
     gumbel draws (folded in per step index), it picks JAX's tokens."""

@@ -34,6 +34,8 @@ which the port's scales follow), Pallas kernels under
   off.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -349,20 +351,51 @@ def test_v_tile_is_the_jax_rule_at_whisper_base(B, want):
 H100_SMS = 132          # sets the kernel's chunks and pieces the faults drop
 
 
-@pytest.mark.parametrize("B,t_actual,T,tile", [
-    (1, 1500, 1500, 512), (4, 1500, 1500, 512), (8, 1400, 1500, 256),
-    (32, 1500, 1500, 128), (3, 280, 300, 384)])
-def test_cross_i8cc_band_rejects_planted_faults(B, t_actual, T, tile):
+# the chip smoke's K8 cases (B, t_actual, T, V tile), and the two whose last
+# attended row is a loud V row too (``loud_last``), so that the kernel's V
+# piece holding that row carries planted faults
+I8CC_CASES = [pytest.param(B, ta, T, tile, False, id=f"{B}-{ta}-{T}-{tile}")
+              for B, ta, T, tile in (
+                  (1, 1500, 1500, 512), (4, 1500, 1500, 512),
+                  (8, 1400, 1500, 256), (32, 1500, 1500, 128),
+                  (3, 280, 300, 384))] + [
+    pytest.param(B, ta, T, tile, True, id=f"{B}-{ta}-{T}-{tile}-loud_last")
+    for B, ta, T, tile in ((4, 1500, 1500, 512), (3, 280, 300, 384))]
+
+
+def _last_row_pieces(case, names):
+    """The planted faults that leave out the kernel's V piece holding the
+    last attended row (whole, or from its tile's s32 sum)."""
+    last = case["args"][9] - 1
+    out = []
+    for n in names:
+        m = re.fullmatch(r"V piece \d+ of tile \d+ \(rows (\d+)\.\.(\d+)\) "
+                         r"left out.*", n)
+        if m and int(m.group(1)) <= last <= int(m.group(2)):
+            out.append(n)
+    return out
+
+
+@pytest.mark.parametrize("B,t_actual,T,tile,loud_last", I8CC_CASES)
+def test_cross_i8cc_band_rejects_planted_faults(B, t_actual, T, tile,
+                                                loud_last):
     """On the CPU the wrapper is the plain version (error 0); what this
     shows is that every emulated wrong kernel leaves the band, at the chip
     smoke's shapes, and that a right kernel whose probabilities are an ulp
-    off stays inside it."""
-    case = DC.cross_i8cc_case(B, t_actual, device="cpu", T=T)
+    off stays inside it. In the loud_last cases the faults include the V
+    piece that holds the last attended row, left out and left out of its
+    tile's sum."""
+    case = DC.cross_i8cc_case(B, t_actual, device="cpu", T=T,
+                              loud_last=loud_last)
     assert case["tile"] == tile
     res = DC.check_cross_i8cc(case, H100_SMS)
     assert res["err"] == 0.0 and res["equal"] == 1.0
     assert res["faults"] >= 7 + (t_actual < T)
     assert res["nearest_fault"] > 3.0
+    if loud_last:
+        pieces = _last_row_pieces(case, [n for n, _ in DC.cross_i8cc_faults(
+            case, H100_SMS)])
+        assert len(pieces) == 2, pieces
     args, sc = case["args"], case["scales"]
     want = K7.cross_ffn_step_i8cc_plain(*args, n_heads=8, **sc)
     x, probs, tail = DC._i8cc_parts(case)
@@ -373,17 +406,17 @@ def test_cross_i8cc_band_rejects_planted_faults(B, t_actual, T, tile):
         DC.hold(near, want, x, 2, [], "probabilities an ulp off", slack)
 
 
-@pytest.mark.parametrize("B,t_actual,T,tile", [
-    (1, 1500, 1500, 512), (4, 1500, 1500, 512), (8, 1400, 1500, 256),
-    (32, 1500, 1500, 128), (3, 280, 300, 384)])
-def test_cross_i8cc_chunked_order_stays_in_the_band(B, t_actual, T, tile):
+@pytest.mark.parametrize("B,t_actual,T,tile,loud_last", I8CC_CASES)
+def test_cross_i8cc_chunked_order_stays_in_the_band(B, t_actual, T, tile,
+                                                    loud_last):
     """The CUDA kernel's order (``decode_checks.cross_i8cc_chunked``: the
     softmax's max and exp-sum merged from the T chunks in chunk order,
     each V tile's scale over the whole tile) against the plain version,
     within the unchanged band; and the kernel's new edges among the
     planted faults (a chunk left out of the merge, a piece's scale over
     its own rows, a piece left out of its tile's sum)."""
-    case = DC.cross_i8cc_case(B, t_actual, device="cpu", T=T)
+    case = DC.cross_i8cc_case(B, t_actual, device="cpu", T=T,
+                              loud_last=loud_last)
     assert case["tile"] == tile
     args, sc = case["args"], case["scales"]
     want = K7.cross_ffn_step_i8cc_plain(*args, n_heads=8, **sc)
