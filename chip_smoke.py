@@ -75,8 +75,8 @@ Phases (any failure exits non-zero before the result line):
      planted with noise at known rows, the captions' text embeddings as
      their title rows; weights seeded, vision class and position
      embeddings zeroed so that images differ): the first boot quantizes
-     and writes <vault>.int4.npz, the second loads it (re-quantizing
-     fails the run); one analyze() and an analyze_batch() of 32 — planted
+     and writes <vault>.int4.npz, the second (with CUDA graphs, for phase
+     26) loads it (re-quantizing fails the run); on the first, one analyze() and an analyze_batch() of 32 — planted
      requests at top-1 with their title and the gate open, the others at
      0, K10b launched once per visual program; then one video_text
      group of 16 videos × 12 frames (the engine's frame sampler replaced
@@ -177,10 +177,35 @@ Phases (any failure exits non-zero before the result line):
      ops/resize.py's TIE_SHARE of the pixels); printed: videos/s and host
      prep ms per frame of both routes, the device ms of one V = 16
      program, the largest score difference between the routes.
+ 26. (after phase 24) CUDA graphs: a default engine (every signature a
+     captured graph) beside phase 4's, which runs eagerly
+     (cuda_graphs=False, as every engine and transcriber of the other
+     phases does, so that their spies and swapped plain versions stay in
+     the path): the default warmup()'s signatures, wall seconds and the
+     graph pool's bytes, then the b32 full signatures; the b32/S512
+     batch, one analyze, the mixed batch and phase 25's group of 16
+     video_text requests replayed in the reverse of their capture order
+     under torch.cuda's sync debug mode "error", their packed outputs
+     torch.equal to the eager engine's and K1's launches per replay equal
+     to eager's (36 / 36 / 60 / 36); single-analyze ms, b32 verdicts/s,
+     videos/s of the group and the b32 batch's device idle share, eager
+     against graphs in turns; reload_vault onto phase 4's vault
+     (the warmed signatures re-captured) and the b32 batch torch.equal to
+     eager again. The transcriber (after phase 6): warmup((1,)) on a
+     default whisper-base transcriber with phase 6's weights and decode
+     config, transcribe() of the 20 s clip with the same text as phase 6's
+     eager transcriber (wall seconds beside phase 6's), the encoder and a
+     greedy and a sampled (T = 0.2) decode torch.equal, greedy ms per step
+     in turns.
+     The int4 engine (after phase 10's video group): phase 10's second
+     boot (CUDA graphs) warmed, the batch of 32 and the video_text group
+     replayed under "error", torch.equal to phase 10's eager engine, K10b
+     2 and 3 launches per replay;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
-kernel's device µs; K1 and K2 at the b32/S512 shapes and one request's,
+kernel's device µs; K1 and K2 at the b32/S512 shapes and one request's
+(K1 also at a V = 16 video program's CLIP vision shape, M = 9,600),
 beside torch._int_mm of the same integer products; K5 at the towers'
 b32/S512 shapes, one RoBERTa request and Whisper decode rows beside
 cuBLAS's two bf16 products; K10a/K10b at 1,048,576 rows for B = 1, 8, 32,
@@ -810,7 +835,8 @@ def plain_decode_steps(W, K6, K7):
 def transcribe_counted(tr, wav, W, K6, K7, int8: bool):
     """Phase 6 for one transcriber: counts set to 0 just before, read just
     after; every launch must be of the int8 body (``int8``) or of the bf16
-    body. Returns (K6 launches, K7 launches, the transcript)."""
+    body. Returns (K6 launches, K7 launches, the transcript, its wall
+    seconds)."""
     layers = tr.cfg.decoder_layers
     what = "quant=kernels" if int8 else "quant=embedding"
     with counting_steps(W) as seen:
@@ -835,7 +861,7 @@ def transcribe_counted(tr, wav, W, K6, K7, int8: bool):
     if (l6_i8, l7_i8) != ((l6, l7) if int8 else (0, 0)):
         raise AssertionError(f"{what}: int8-body launches {l6_i8}/{l7_i8} "
                              f"of {l6}/{l7}")
-    return l6, l7, text
+    return l6, l7, text, sec
 
 
 def teacher_forced(tr, wav, W, K6, K7):
@@ -934,20 +960,22 @@ def transcript_phases(engine, image, card, profile):
         tr = WhisperTranscriber(weights, config=cfg, device="cuda",
                                 decode_cfg=dataclasses.replace(
                                     WhisperDecodeConfig(), quant=quant,
-                                    **cut))
+                                    **cut), cuda_graphs=False)
         want = "kernels" if quant == "auto" else "embedding"
         if not (tr.pallas and getattr(tr, f"quant_{want}")):
             raise AssertionError(f"quant={quant!r} resolved to pallas="
                                  f"{tr.pallas}, kernels={tr.quant_kernels}")
         if not (tr.has_weights and tr.tokenizer_compatible):
             raise AssertionError("transcriber reports no usable weights")
-        l6, l7, _ = transcribe_counted(tr, wav, W, K6, K7,
-                                       want == "kernels")
+        l6, l7, text, sec = transcribe_counted(tr, wav, W, K6, K7,
+                                               want == "kernels")
         suffix = "_i8" if want == "kernels" else ""
         launches["self_attn_step" + suffix] = l6
         launches["cross_ffn_step" + suffix] = l7
-        trs[want] = tr
-    tr = trs["kernels"]
+        trs[want] = tr, text, sec, (l6, l7)
+    tr = trs["kernels"][0]
+    transcriber_graphs(*trs["kernels"], weights, cfg, wav,    # phase 26
+                       card)
     teacher_forced(tr, wav, W, K6, K7)
     merged = merge_into_caption("Caption of the clip.", wav, tr)
     if not merged.startswith("Caption of the clip.\n\n"):
@@ -1075,7 +1103,9 @@ def video_scores(reports):
 
 
 def video_phase(engine, rng, card):
-    """Phase 25 on phase 4's engine; returns K1's launches in its run."""
+    """Phase 25 on phase 4's engine; returns K1's launches in its run, the
+    group of 16 requests and the sampler stand-in's frames (None where cv2
+    decodes the clips, which stay for phase 26 in the returned directory)."""
     from misinfo_tpu_torch.core.config import WhisperDecodeConfig
     from misinfo_tpu_torch.engine import forensics as F
     from misinfo_tpu_torch.models import whisper as W
@@ -1112,10 +1142,11 @@ def video_phase(engine, rng, card):
     tr = WhisperTranscriber(to_numpy(W.whisper_init(7, wcfg)), config=wcfg,
                             device="cuda", decode_cfg=dataclasses.replace(
                                 WhisperDecodeConfig(),
-                                fallback_temperatures=(0.0,)))
+                                fallback_temperatures=(0.0,)),
+                            cuda_graphs=False)
     wav = os.path.join(tmp, "clip.wav")
     write_wav(wav, seconds=CLIP_SECONDS)
-    _, _, transcript = transcribe_counted(tr, wav, W, K6, K7, True)
+    _, _, transcript, _ = transcribe_counted(tr, wav, W, K6, K7, True)
     caption = "Footage of the flood, shared as new."
     merged = merge_into_caption(caption, wav, tr)
     want = ((caption + "\n\n" + transcript).strip()
@@ -1242,8 +1273,309 @@ def video_phase(engine, rng, card):
         if not torch.equal(g[n:n + 2], torch.from_numpy(np.stack(extra))):
             raise AssertionError("the device resize of a 224 × 224 frame "
                                  "is not the frame")
-    shutil.rmtree(tmp)
-    return total
+    return total, group, (None if decoded else seeded), tmp
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+def dispatch_outputs(engine, reqs, debug=None):
+    """One ``_dispatch_batch`` of ``reqs`` (under torch.cuda's sync debug
+    mode ``debug``): the packed outputs on the host, and K1's launches."""
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    before = K1.launches
+    if debug:
+        torch.cuda.set_sync_debug_mode(debug)
+    try:
+        outs = [o for _, o, _ in engine._dispatch_batch(reqs)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = K1.launches - before
+    return [o.cpu() for o in outs], launches
+
+
+def profiled(fn, kernels):
+    """fn()'s result, and torch.profiler's CUDA kernel records in that call
+    of each kernel of ``kernels`` (its name without namespaces and
+    template arguments)."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    seen = Counter(_kernel_label(e.name).split("<")[0].rsplit("::", 1)[-1]
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return out, {k: seen[k] for k in kernels}
+
+
+def replay_profiled(engine, reqs, kernel: str, counters):
+    """``dispatch_outputs(engine, reqs, "error")`` under torch.profiler:
+    (the packed outputs, the change of each of ``counters()``, a dict of
+    the wrappers' launch counters, and the records of ``kernel``, which
+    each counted call launches once, in that replay). The profiler loses
+    a kernel record now and then on the card's machine, so a replay whose
+    records fall short of the counters is profiled again, three times at
+    most; a count above them is never retried."""
+    for _ in range(3):
+        before = counters()
+        (got, _), rec = profiled(
+            lambda: dispatch_outputs(engine, reqs, "error"), (kernel,))
+        n = {k: v - before[k] for k, v in counters().items()}
+        if rec[kernel] >= sum(n.values()):
+            break
+    return got, n, rec[kernel]
+
+
+def same_bits(got, want) -> bool:
+    """Packed outputs equal bit for bit (their int32 indices are viewed as
+    f32, and -1 is a NaN pattern that torch.equal on floats refuses)."""
+    return len(got) == len(want) and all(
+        a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32))
+        for a, b in zip(got, want))
+
+
+def reserved_bytes() -> tuple:
+    torch.cuda.synchronize()
+    st = torch.cuda.memory_stats()
+    return st["reserved_bytes.all.current"], st["allocated_bytes.all.current"]
+
+
+def graph_phase(eager, batch, b32, text, image, group, seeded, card,
+                profile):
+    """Phase 26: a default engine (CUDA graphs) beside phase 4's eager
+    one, on the same seeded weights and vault."""
+    from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    sampler = (contextlib.nullcontext() if seeded is None else swapped(
+        (F, "sample_video_frames", seeded_sampler(seeded.__getitem__))))
+    with sampler:
+        m0 = reserved_bytes()
+        graphed = F.MisinfoForensics(eager.cfg, DetectorConfig(),
+                                     device="cuda")
+        torch.cuda.empty_cache()
+        m1 = reserved_bytes()
+        t0 = time.perf_counter()
+        sigs = graphed.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        m2 = reserved_bytes()
+        torch.cuda.empty_cache()    # the eager passes' cached blocks
+        m3 = reserved_bytes()
+        shared, apart = input_bytes(graphed)
+        extra = graphed.warmup(batch_sizes=(32,), variants=("full",),
+                               videos=())
+        print(f"phase 26: default warmup(): {len(sigs)} signatures "
+              f"captured in {warm_s} s; reserved bytes up {m2[0] - m1[0]} "
+              f"({m3[0] - m1[0]} after empty_cache: the graph pool and the "
+              f"input buffers, {shared} bytes shared, {apart} with one set "
+              f"per runner), allocated {m2[1] - m1[1]} (the engine's "
+              f"weights and vault {m1[1] - m0[1]}); then the b32 full "
+              f"signatures ({len(extra)}); eager by rule: none [{card}]",
+              flush=True)
+        work = {"b32": b32, "analyze": [{"text": text, "image": image}],
+                "mixed": batch, "video_text group": group}
+        want_k1 = {"b32": 36, "analyze": 36, "mixed": 60,
+                   "video_text group": 36}
+        for reqs in work.values():       # first use captures the rest
+            graphed.analyze_batch(reqs)
+        n_runners = len(graphed._runners)
+        for name in reversed(list(work)):
+            want, w_k1 = dispatch_outputs(eager, work[name])
+            got, g_k1, g_rec = replay_profiled(
+                graphed, work[name], "ffn_up_kernel",
+                lambda: {"K1": K1.launches})
+            g_k1 = g_k1["K1"]
+            same = same_bits(got, want)
+            print(f"phase 26 {name}: replay torch.equal to eager {same}, "
+                  f"under sync debug 'error'; K1 launches replay {g_k1} "
+                  f"(torch.profiler: {g_rec} records of K1's ffn_up_kernel, "
+                  f"one a call, in that replay), eager {w_k1} (want "
+                  f"{want_k1[name]})", flush=True)
+            if not (same and g_rec == g_k1 == w_k1 == want_k1[name]):
+                raise AssertionError(f"phase 26 {name}: graphs off eager")
+        if len(graphed._runners) != n_runners:
+            raise AssertionError("a replayed workload minted a runner")
+
+        for name, eng in (("eager", eager), ("graphs", graphed),
+                          ("graphs again", graphed), ("eager again", eager)):
+            eng.analyze(text, image, verbose=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.analyze(text, image, verbose=False)
+            torch.cuda.synchronize()
+            single = (time.perf_counter() - t0) / 5 * 1e3
+            vps = verdicts_per_s(eng, b32)
+            t0 = time.perf_counter()
+            eng.analyze_batch(group)
+            torch.cuda.synchronize()
+            videos = len(group) / (time.perf_counter() - t0)
+            busy, span, syncs = program_device_ms(
+                lambda eng=eng: eng.analyze_batch(b32))
+            print(f"phase 26 {name}: single analyze {single} ms; full "
+                  f"b32/S512 {vps} verdicts/s; video_text group of "
+                  f"{len(group)} {videos} videos/s; b32 batch device busy "
+                  f"{busy} ms of a {span} ms span (idle share "
+                  f"{1 - busy / span}), host syncs {len(syncs)} [{card}]",
+                  flush=True)
+        if profile:
+            append_profile(profile, "full b32/S512 analyze_batch, CUDA "
+                           "graphs", lambda: graphed.analyze_batch(b32),
+                           rows=40)
+
+        graphed.reload_vault(eager.cfg.paths.vault_path)
+        if sorted(graphed._runners) != sorted(graphed._warmed):
+            raise AssertionError("reload_vault kept other runners")
+        want, _ = dispatch_outputs(eager, b32)
+        got, g_k1 = dispatch_outputs(graphed, b32, "error")
+        if not same_bits(got, want):
+            raise AssertionError("b32 after reload_vault off eager")
+        print(f"phase 26: reload_vault re-captured {len(graphed._runners)} "
+              f"signatures; the b32 batch torch.equal to eager, K1 {g_k1}",
+              flush=True)
+    del graphed
+    torch.cuda.empty_cache()
+    staged_warmup(eager.cfg, card)
+
+
+def input_bytes(engine) -> tuple:
+    """(bytes of the engine's shared input buffers, bytes that its
+    runners' inputs would take with a buffer set of their own each)."""
+    return (nbytes(*engine._buffers.values()),
+            sum(nbytes(*r.static.values()) for r in engine._runners.values()))
+
+
+def staged_warmup(cfg, card):
+    """Phase 26, device memory under ``serving.device_resize`` with the
+    default staging sizes: the default warmup's signatures, seconds and
+    reserved bytes (after empty_cache), and its input buffers shared
+    against one set per runner."""
+    from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    m0 = reserved_bytes()
+    eng = F.MisinfoForensics(
+        cfg.replace(serving=dataclasses.replace(cfg.serving,
+                                                device_resize=True)),
+        DetectorConfig(), device="cuda")
+    torch.cuda.empty_cache()
+    m1 = reserved_bytes()
+    t0 = time.perf_counter()
+    sigs = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    m2 = reserved_bytes()
+    shared, apart = input_bytes(eng)
+    print(f"phase 26 device_resize (staging "
+          f"{cfg.serving.image_staging_buckets}): default warmup(): "
+          f"{len(sigs)} signatures captured in {warm_s} s; reserved bytes up "
+          f"{m2[0] - m1[0]} after empty_cache (the engine itself "
+          f"{m1[0] - m0[0]}); input buffers {shared} bytes shared, "
+          f"{apart} with one set per runner [{card}]", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def decode_counts(K6, K7, zero=False):
+    """The K6/K7 launch counters (K6, K6 int8 body, K7, K7 int8 body),
+    set to 0 first with ``zero``."""
+    if zero:
+        K6.launches = K7.launches = K6.launches_i8 = K7.launches_i8 = 0
+    return K6.launches, K6.launches_i8, K7.launches, K7.launches_i8
+
+
+def transcriber_graphs(te, text, sec, launches, weights, cfg, wav, card):
+    """Phase 26, the transcriber: phase 6's (eager; its transcript, wall
+    seconds and K6/K7 launches ``text``, ``sec``, ``launches``) against a
+    default one (CUDA graphs) on the same weights, after
+    ``warmup((1,))``, warmup_transcriber's call. The graphed transcript's
+    K6/K7 counts must be phase 6's (decoder layers × fused steps, every
+    launch of the int8 body), and a graphed greedy decode's the layers ×
+    the eager decode's steps, in the counters and in torch.profiler's
+    records of K6's self_attention and K7's cross_attn kernels (one each a
+    call)."""
+    from misinfo_tpu_torch.models import whisper as W
+    from misinfo_tpu_torch.ops import cross_ffn_step as K7
+    from misinfo_tpu_torch.ops import self_attn_step as K6
+    from misinfo_tpu_torch.preprocess.audio import prep_mel_windows
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    tg = WhisperTranscriber(weights, config=cfg, device="cuda",
+                            decode_cfg=te.decode_cfg)
+    t0 = time.perf_counter()
+    warmed = tg.warmup((1,))
+    warm_s = time.perf_counter() - t0
+    print(f"phase 26 transcriber: warmup((1,)) -> {warmed} in {warm_s} s, "
+          f"{len(tg._runners)} runners, "
+          f"{sum(len(v) for r in tg._runners.values() for v in getattr(r, 'graphs', {}).values())} "
+          f"decode graphs [{card}]", flush=True)
+    torch.cuda.synchronize()
+    decode_counts(K6, K7, zero=True)        # this path's run starts here
+    t0 = time.perf_counter()
+    texts = {"graphs": tg.transcribe(wav), "eager (phase 6)": text}
+    torch.cuda.synchronize()
+    walls = {"graphs": time.perf_counter() - t0, "eager (phase 6)": sec}
+    counts = decode_counts(K6, K7)          # read just after the path
+    want = (launches[0], launches[0], launches[1], launches[1])
+    print(f"phase 26 transcriber: transcribe() with graphs K6 launches "
+          f"{counts[0]} (int8 {counts[1]}), K7 {counts[2]} (int8 "
+          f"{counts[3]}); phase 6's eager transcript {want}", flush=True)
+    if len(set(texts.values())) != 1:
+        raise AssertionError(f"graph transcript differs: {texts}")
+    if counts != want:
+        raise AssertionError(f"graphed transcript K6/K7 launches {counts}, "
+                             f"eager {want}")
+    mels, _ = prep_mel_windows(wav, 2 * cfg.max_source_positions, 1)
+    with torch.inference_mode():
+        enc_e, enc_g = te._encode(mels), tg._encode(mels)
+        prompt = torch.tensor([te.tokenizer.sot_sequence(language="en")[1:]],
+                              device="cuda")
+        same = torch.equal(enc_e, enc_g)
+        for t, seed in ((0.0, None), (0.2, 262)):
+            a, b = te._decode(enc_e, prompt, t, seed), tg._decode(
+                enc_g, prompt, t, seed)
+            same = same and all(torch.equal(x, y) for x, y in zip(a, b))
+        with counting_steps(W) as seen:
+            te._decode(enc_e, prompt)
+        steps = max(seen["fused"], 1)
+        layers = cfg.decoder_layers
+        kernels = ("self_attention", "cross_attn")
+        for _ in range(3):      # the profiler loses a record now and then
+            decode_counts(K6, K7, zero=True)
+            _, rec = profiled(lambda: tg._decode(enc_g, prompt), kernels)
+            counts = decode_counts(K6, K7)
+            if min(rec.values()) >= layers * seen["fused"]:
+                break
+        print(f"phase 26 transcriber: a greedy decode with graphs: K6/K7 "
+              f"launches {counts} (K6, its int8 body, K7, its int8 body; "
+              f"want {layers} layers × {seen['fused']} eager steps each), "
+              f"torch.profiler's records in that decode {rec}", flush=True)
+        if not (seen["fused"] > 0
+                and set(counts) == set(rec.values())
+                == {layers * seen["fused"]}):
+            raise AssertionError(f"graphed decode K6/K7 launches {counts}, "
+                                 f"records {rec}")
+        per_step = {}
+        for name, tr, enc in (("eager", te, enc_e), ("graphs", tg, enc_g),
+                              ("graphs again", tg, enc_g),
+                              ("eager again", te, enc_e)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                tr._decode(enc, prompt)
+            torch.cuda.synchronize()
+            per_step[name] = (time.perf_counter() - t0) / 3 * 1e3 / steps
+    print(f"phase 26 transcriber: transcribe() of the 20 s clip, text "
+          f"equal {len(set(texts.values())) == 1}; wall s "
+          + ", ".join(f"{k} {v}" for k, v in walls.items())
+          + f"; encoder and greedy / sampled (T = 0.2) tokens torch.equal "
+          f"{same}; greedy decode ms/step ({steps} steps) "
+          + ", ".join(f"{k} {v}" for k, v in per_step.items())
+          + f" [{card}]", flush=True)
+    if not same:
+        raise AssertionError("graph decode tokens differ from eager")
 
 
 # ------------------------------------------------------------------- bounds
@@ -1328,7 +1660,7 @@ def vault_params():
     return params
 
 
-def vault_engine(params, path, **serving):
+def vault_engine(params, path, cuda_graphs=False, **serving):
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
     from misinfo_tpu_torch.models.detector import DetectorConfig
@@ -1337,7 +1669,7 @@ def vault_engine(params, path, **serving):
                       serving=dataclasses.replace(cfg.serving, **serving))
     t0 = time.perf_counter()
     eng = MisinfoForensics(cfg, DetectorConfig(), params=params,
-                           device="cuda")
+                           device="cuda", cuda_graphs=cuda_graphs)
     torch.cuda.synchronize()
     return eng, time.perf_counter() - t0
 
@@ -1352,8 +1684,9 @@ def clip_embeddings(eng, images=(), captions=()):
     out = []
     with torch.inference_mode():
         for im in images:
-            x = normalize_images(eng._image_batch([im], 1)["image_clip"],
-                                 "clip", eng.policy.compute)
+            x = normalize_images(
+                eng._image_batch([im], 1)["image_clip"].to(eng.device),
+                "clip", eng.policy.compute)
             out.append(l2_normalize(clip_image_features(
                 eng.params["clip"], x, eng.det_cfg.clip, eng.policy)))
         for c in captions:
@@ -1519,15 +1852,16 @@ def vault_phases(card, small_vault, profile=None):
           f"planes) made "
           f"and written in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # phase 10: the int4 engine at 1,048,576 rows, two boots
+    # phase 10: the int4 engine at 1,048,576 rows, two boots; the second
+    # with CUDA graphs, for phase 26 (the checks below run on the first)
     eng, boot1 = vault_engine(params, path, vault_dtype="int4")
     if not os.path.exists(prepack.sidecar_path(path)):
         raise AssertionError("the first int4 boot wrote no sidecar")
     real_build = prepack.build_prepacked
     builds = []
     prepack.build_prepacked = lambda v: builds.append(1) or real_build(v)
-    del eng
-    eng, boot2 = vault_engine(params, path, vault_dtype="int4")
+    geng, boot2 = vault_engine(params, path, cuda_graphs=True,
+                               vault_dtype="int4")
     prepack.build_prepacked = real_build
     print(f"int4 engine boot: first {boot1:.1f} s (quantized both planes, "
           f"wrote {os.path.basename(prepack.sidecar_path(path))}), second "
@@ -1535,7 +1869,8 @@ def vault_phases(card, small_vault, profile=None):
     if builds:
         raise AssertionError("the second boot re-quantized the vault")
     d = emb.shape[1]
-    if tuple(eng._vault_device["vault_emb"].shape) != (BIG_ROWS, d // 2):
+    if any(tuple(e._vault_device["vault_emb"].shape) != (BIG_ROWS, d // 2)
+           for e in (eng, geng)):
         raise AssertionError("int4 device plane shape")
 
     with counting_programs(F) as seen:
@@ -1588,6 +1923,34 @@ def vault_phases(card, small_vault, profile=None):
             or k10v != (0, -(-VIDEO_GROUP * 12 // K10.MAX_BATCH))):
         raise AssertionError(f"K10 launches {k10v} for the video group's "
                              f"{len(vseen)} program(s)")
+
+    # phase 26, int4: the second boot (CUDA graphs) warmed and replayed
+    t0 = time.perf_counter()
+    gsigs = geng.warmup(batch_sizes=(8, 32),
+                        variants=("full", "visual_only"), videos=(16,))
+    warm_s = time.perf_counter() - t0
+    with swapped(sampler):
+        for name, rq in (("batch of 32", reqs), ("video_text group", vreqs)):
+            geng.analyze_batch(rq)
+            want, _ = dispatch_outputs(eng, rq)
+            got, kg, rec = replay_profiled(
+                geng, rq, "int4_sims_kernel",
+                lambda: {"K10a": K10.launches, "K10b": K10.launches_i8})
+            kg = (kg["K10a"], kg["K10b"])
+            same = same_bits(got, want)
+            want_k = (0, -(-VIDEO_GROUP * 12 // K10.MAX_BATCH)
+                      if name == "video_text group" else 2)
+            print(f"phase 26 int4 engine (the second boot, warmup of "
+                  f"{len(gsigs)} signatures {warm_s} s), {name}: replay "
+                  f"torch.equal to eager {same}, K10b launches {kg[1]}, "
+                  f"K10a {kg[0]} (want {want_k[1]}, {want_k[0]}; "
+                  f"torch.profiler: {rec} int4_sims_kernel records in that "
+                  f"replay) [{card}]", flush=True)
+            if not (same and kg == want_k and rec == sum(kg)):
+                raise AssertionError(f"phase 26 int4 {name}: equal {same}, "
+                                     f"K10 {kg} (want {want_k}), profiler "
+                                     f"{rec}")
+    del geng
 
     # phase 11: the same vault in the other dtypes (f32 is the reference)
     q32 = torch.nn.functional.normalize(
@@ -1805,7 +2168,8 @@ INT8_TIMES = {
                  ("clip_vision_b32", 32 * 50, 768, 3072, "quick"),
                  ("roberta_1", 512, 768, 3072, "tanh"),
                  ("clip_text_1", 77, 512, 2048, "quick"),
-                 ("clip_vision_1", 50, 768, 3072, "quick")),
+                 ("clip_vision_1", 50, 768, 3072, "quick"),
+                 ("clip_vision_video", 16 * 12 * 50, 768, 3072, "quick")),
     "int8_dense": (("roberta_b32", 32 * 512, 768, 768),
                    ("clip_text_b32", 32 * 77, 512, 512),
                    ("clip_vision_b32", 32 * 50, 768, 768),
@@ -2218,7 +2582,7 @@ def opt_in_engines(default, vault_path, b32, image, rng, card,
             paths=dataclasses.replace(cfg.paths, vault_path=vault_path),
             precision=dataclasses.replace(cfg.precision, quant=quant))
         eng = MisinfoForensics(cfg, DetectorConfig(), use_pallas=use_pallas,
-                               device="cuda")
+                               device="cuda", cuda_graphs=False)
         what = f"engine {label} (quant={quant!r}, use_pallas={use_pallas!r})"
         if eng.quant != quant:
             raise AssertionError(f"{what}: quant resolved to {eng.quant}")
@@ -2313,7 +2677,7 @@ def whisper_pallas_ffn(weights, cfg, wav, card):
     tr = WhisperTranscriber(weights, config=cfg, device="cuda",
                             decode_cfg=dataclasses.replace(
                                 WhisperDecodeConfig(), quant="none",
-                                pallas="off"))
+                                pallas="off"), cuda_graphs=False)
     mels, _ = prep_mel_windows(wav, 2 * cfg.max_source_positions, 1)
     prompt = torch.tensor([tr.tokenizer.sot_sequence(language="en")[1:]],
                           device=tr.device)
@@ -2497,7 +2861,8 @@ def whisper_int8_modes(tr, weights, cfg, wav, card):
     trq = WhisperTranscriber(weights, config=cfg, device="cuda",
                              decode_cfg=dataclasses.replace(
                                  WhisperDecodeConfig(), quant="int8",
-                                 fallback_temperatures=(0.0,)))
+                                 fallback_temperatures=(0.0,)),
+                             cuda_graphs=False)
     emb = trq.params["decoder"].get("token_embedding_q")
     if not (trq.quant and not trq.pallas and not trq.quant_kernels
             and emb is not None and emb.dtype == torch.int8
@@ -2507,7 +2872,7 @@ def whisper_int8_modes(tr, weights, cfg, wav, card):
     exact = WhisperTranscriber(weights, config=cfg, device="cuda",
                                decode_cfg=dataclasses.replace(
                                    WhisperDecodeConfig(), quant="none",
-                                   pallas="off"))
+                                   pallas="off"), cuda_graphs=False)
     caches = []
 
     def stream_step(*a, **kw):
@@ -2617,7 +2982,8 @@ def main() -> int:
     make_vault(vault_path)
     cfg = ForensicsConfig(verbose=True)
     cfg = cfg.replace(paths=cfg.paths.__class__(vault_path=vault_path))
-    engine = MisinfoForensics(cfg, DetectorConfig(), device="cuda")
+    engine = MisinfoForensics(cfg, DetectorConfig(), device="cuda",
+                              cuda_graphs=False)
     if engine.quant != "int8_ffn":
         raise AssertionError(f"quant='auto' resolved to {engine.quant}")
     rng = np.random.default_rng(2)
@@ -2679,8 +3045,12 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
         open(args.profile, "w").close()
-    video_launches = video_phase(engine, rng, card)           # phase 25
+    video_launches, group, seeded, clip_dir = video_phase(    # phase 25
+        engine, rng, card)
     engine_surface(engine, batch, image, rng, card)           # phase 24
+    graph_phase(engine, batch, b32, text, image, group,       # phase 26
+                seeded, card, args.profile)
+    shutil.rmtree(clip_dir)
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
     decode_rows = check_decode_kernels(K6, K7)                # phase 5

@@ -32,12 +32,23 @@ The opt-in kernel modes are carried: ``PrecisionConfig.quant="int8"``
 fused int8 FFN K1), ``use_pallas=True`` (the fused attention kernel K3
 on unpacked rows) and ``use_pallas="ffn"`` (the fused FFN kernel K5).
 
-Not carried yet, and refused with NotImplementedError: meshes, warmup
-and the AOT cache, ``use_pallas="flash"`` (JAX's library TPU kernel) and
-the reference ``.pth`` checkpoints (an engine built without ``params``
-refuses to start when one of ``ModelPaths``' checkpoint files exists,
-rather than serve random weights in its place). The engine keeps no
-program cache: each group's program runs eagerly.
+Each group runs through a runner of its signature (ops/graphs.py), the
+counterpart of the JAX engine's jit caches: (variant, batch bucket, text
+bucket, packed rows[, staging size]) as ``warmup()`` lists them. On the
+card a runner is a CUDA graph, captured on the engine's stream after one
+eager pass and replayed for every later request of its signature
+(``cuda_graphs=False`` runs every program eagerly instead); on the CPU it
+runs the eager program over the same input buffers. ``warmup()`` makes
+the runners of the serving grid before traffic arrives; a signature not
+warmed gets its runner at first use, whose eager pass answers that
+request. ``reload_vault`` re-captures the warmed signatures against the
+new vault before it publishes it.
+
+Not carried yet, and refused with NotImplementedError: meshes, the AOT
+cache (the runners play its role), ``use_pallas="flash"`` (JAX's library
+TPU kernel) and the reference ``.pth`` checkpoints (an engine built
+without ``params`` refuses to start when one of ``ModelPaths``'
+checkpoint files exists, rather than serve random weights in its place).
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ import logging
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,11 +76,13 @@ from misinfo_tpu_torch.models.clip import clip_text_features
 from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
 from misinfo_tpu_torch.models.fusion import fusion_apply
 from misinfo_tpu_torch.ops.common import Policy, l2_normalize, set_exact_f32
+from misinfo_tpu_torch.ops import graphs
+from misinfo_tpu_torch.ops.graphs import Runner
 from misinfo_tpu_torch.ops.serving import (
     optimize_for_serving, quant_mode, resolve_quant)
 from misinfo_tpu_torch.preprocess.image import (
     batch_images, choose_staging_bucket, decode_rgb, image_to_array,
-    stage_image_batch)
+    resize_param_row, stage_image_batch)
 from misinfo_tpu_torch.preprocess.packing import (
     dense_rows_from_seqs, pack_token_rows, pad_packed_rows, trim_padded)
 from misinfo_tpu_torch.preprocess.tokenizer import (
@@ -106,14 +119,16 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 class MisinfoForensics:
     """Batched forensics engine on one device: the CUDA card by default,
-    the CPU when the caller asks for it (``device="cpu"``)."""
+    the CPU when the caller asks for it (``device="cpu"``). On the card
+    each signature's program is a captured CUDA graph unless
+    ``cuda_graphs=False``."""
 
     _TEXT_BUCKETS = (64, 128, 256, 512)
 
     def __init__(self, config: Optional[ForensicsConfig] = None,
                  det_cfg: Optional[DetectorConfig] = None,
                  params: Optional[Dict] = None, mesh=None,
-                 use_pallas=False, device="cuda"):
+                 use_pallas=False, device="cuda", cuda_graphs: bool = True):
         self.cfg = config or ForensicsConfig.from_env()
         self.det_cfg = det_cfg or DetectorConfig()
         self.device = torch.device(device)
@@ -181,6 +196,21 @@ class MisinfoForensics:
         self._vault_device = self._prepare_vault()
         self._warn_vault_capacity(self._vault_device)
         self._reload_lock = threading.Lock()  # serializes reload_vault
+        # signature → Runner; the lock covers a runner's copy-in, run and
+        # copy-out, so that no two threads replay one graph at once, and
+        # the runners share their input buffers (graphs.Runner)
+        self._runners: Dict[tuple, Runner] = {}
+        self._buffers: Dict[tuple, torch.Tensor] = {}
+        # warmed signature → its synthetic host inputs (a function), which
+        # reload_vault re-captures it with
+        self._warmed: Dict[tuple, Callable[[], Dict]] = {}
+        self._runner_lock = threading.Lock()
+        on_card = self.device.type == "cuda"
+        self.cuda_graphs = bool(cuda_graphs) and on_card
+        self._stream = (torch.cuda.Stream(self.device) if self.cuda_graphs
+                        else None)
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.cuda_graphs else None)
         self._prep_pool = None  # lazy image-prep thread pool (_prep_map)
         self.explainer = Explainer(self.cfg.gemini_api_key,
                                    self.cfg.gemini_model,
@@ -194,6 +224,7 @@ class MisinfoForensics:
             print(f"MisinfoForensics ready in {self.init_seconds:.1f}s "
                   f"(device={self.device}, quant={self.quant}, "
                   f"use_pallas={self.use_pallas}, "
+                  f"cuda_graphs={self.cuda_graphs}, "
                   f"vault={'loaded' if self.vault_loaded else 'absent'}, "
                   f"vault_dtype={sv.vault_dtype}, "
                   f"ckpt={self.load_report['mode']}, tokenizer={tok})")
@@ -203,15 +234,13 @@ class MisinfoForensics:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
-    def _stage(self, a) -> torch.Tensor:
-        """A request input on the device. On the card it goes through
-        pinned host memory without a sync (PyTorch's pinned-memory cache
-        keeps the buffer until the copy has run), so that a batch's inputs
-        and programs are all enqueued before anything waits."""
-        if self.device.type != "cuda":
-            return self._tensor(a)
-        host = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-        return host.to(self.device, non_blocking=True)
+    @staticmethod
+    def _stage(a) -> torch.Tensor:
+        """A request input as a host tensor; its runner copies it into the
+        program's buffer (on the card from pinned memory, without a sync,
+        so that a batch's inputs and programs are all enqueued before
+        anything waits)."""
+        return torch.from_numpy(np.ascontiguousarray(a))
 
     def _pool(self) -> concurrent.futures.ThreadPoolExecutor:
         """Lazy shared host-prep thread pool (cv2/PIL release the GIL, so
@@ -370,20 +399,34 @@ class MisinfoForensics:
         are served without a vault instead of running out of memory.
 
         A batch in flight during the swap may map its scores onto the new
-        metadata; append-only growth keeps indices stable. Returns
+        metadata; append-only growth keeps indices stable (its output was
+        copied out of its runner when it was dispatched). The signatures
+        that ``warmup()`` made are re-captured against the new vault
+        before it is published (requests wait on the runners' lock
+        meanwhile); every other runner is dropped. Returns
         ``{articles, rows, sharded}``."""
         with self._reload_lock:
             new_path = path if path is not None else self.cfg.paths.vault_path
             new_vault = TruthVault.load(new_path)
             if drop_first:
-                self._publish_vault(None, self._prepare_vault(None, None))
+                with self._runner_lock:
+                    self._runners = {}
+                    self._publish_vault(None, self._prepare_vault(None, None))
             dev = self._prepare_vault(new_vault, vault_path=new_path)
             self._warn_vault_capacity(dev)
-            if path is not None:  # publish config only after staging worked
-                self.cfg = self.cfg.replace(
-                    paths=dataclasses.replace(self.cfg.paths,
-                                              vault_path=path))
-            self._publish_vault(new_vault, dev)
+            with self._runner_lock:
+                runners = {}
+                for sig, make_inputs in self._warmed.items():
+                    inputs = make_inputs()
+                    runner = self._new_runner(sig, inputs, dev)
+                    runner.start(inputs)
+                    runners[sig] = runner
+                if path is not None:  # publish config only after staging
+                    self.cfg = self.cfg.replace(
+                        paths=dataclasses.replace(self.cfg.paths,
+                                                  vault_path=path))
+                self._runners = runners
+                self._publish_vault(new_vault, dev)
             return {"articles": (0 if new_vault is None
                                  else new_vault.num_articles),
                     "rows": int(dev["vault_emb"].shape[0]),
@@ -413,8 +456,259 @@ class MisinfoForensics:
             out["hbm_headroom_bytes"] = mem[1] - mem[0]
         return out
 
-    def warmup(self, *args, **kwargs):
-        not_ported("warmup (CUDA-graph capture per signature)", "M9")
+    # ------------------------------------------------------------ runners
+
+    def _program(self, sig: tuple, vault: Dict[str, torch.Tensor]):
+        """The device program of signature ``sig`` over its input dict,
+        reading ``vault``'s device arrays. The signal programs are looked
+        up by name at every run, so that a caller can wrap them."""
+        variant, r = sig[0], sig[3]
+        if variant == "caption_title_sim":
+            def run(b):
+                with torch.inference_mode():
+                    return l2_normalize(clip_text_features(
+                        self.params["clip"], b["clip_ids"], b["clip_mask"],
+                        self.det_cfg.clip, self.policy))
+            return run
+        kw = dict(det_cfg=self.det_cfg, policy=self.policy,
+                  use_pallas=self.use_pallas)
+        if variant.startswith("video"):
+            def run(b):
+                with torch.inference_mode():
+                    return pack_signal_output(video_program(
+                        self.params, {**b, **vault}, cfg=self.cfg,
+                        has_text=variant == "video_text", **kw))
+            return run
+        program = "text_packed" if r and variant == "text_only" else variant
+
+        def run(b):
+            with torch.inference_mode():
+                return pack_signal_output(signals_program(
+                    self.params, {**b, **vault}, variant=program,
+                    cfg=self.cfg, **kw))
+        return run
+
+    def _new_runner(self, sig: tuple, inputs: Dict[str, torch.Tensor],
+                    vault: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Runner:
+        return Runner(sig, self._program(
+            sig, self._vault_device if vault is None else vault), inputs,
+            device=self.device, capture=self.cuda_graphs,
+            stream=self._stream, pool=self._graph_pool,
+            buffers=self._buffers)
+
+    def _sig(self, variant: str, n: int, inputs: Dict) -> tuple:
+        """The signature ``warmup()`` lists for a program over ``inputs``:
+        (variant, batch bucket, text length, packed rows), and under
+        ``serving.device_resize`` the staging size (0 without images)."""
+        L = inputs["roberta_ids"].shape[1] if "roberta_ids" in inputs else 0
+        r = (inputs["roberta_ids"].shape[0] if "roberta_seg" in inputs
+             else 0)
+        sig = (variant, n, L, r)
+        if self.cfg.serving.device_resize:
+            sig += (inputs["image_staged"].shape[1]
+                    if "image_staged" in inputs else 0,)
+        return sig
+
+    def _run(self, sig: tuple, inputs: Dict[str, torch.Tensor]):
+        """Run ``sig``'s program on ``inputs`` through its runner, made (and
+        on the card captured) at first use; the output is the request's
+        own (copied out of the graph)."""
+        return graphs.run(lambda: self._runners, self._runner_lock, sig,
+                          inputs, lambda: self._new_runner(sig, inputs))
+
+    # ------------------------------------------------------------ warmup
+
+    _WARMUP_VARIANTS = ("full", "text_only", "visual_only")
+
+    def warmup(self, batch_sizes: Optional[Sequence[int]] = None,
+               text_buckets: Optional[Sequence[int]] = None,
+               variants: Sequence[str] = _WARMUP_VARIANTS,
+               videos: Optional[Sequence[int]] = None,
+               packed: Optional[bool] = None,
+               full_grid: bool = False,
+               parallel: Optional[int] = None,
+               progress=None) -> List[tuple]:
+        """Make the runners of the serving signatures before traffic
+        arrives: on the card each is one CUDA graph, captured after one
+        eager pass of synthetic inputs of exactly the shapes
+        ``_dispatch_group`` builds; later requests of that signature
+        replay it. The JAX engine's contract and grid, in its order.
+
+        Defaults warm the endpoints of each axis: batch buckets ``(1,
+        max)``, every reachable text bucket (including the ``rb_max``
+        fallback length), the three request variants and video buckets
+        ``(1, max)``. Text layouts follow ``pack_text``: ``True`` → packed
+        only, ``False`` → dense only, ``"auto"`` → dense unless
+        ``packed=True`` or ``full_grid=True`` warms every row bucket
+        auto-pack can route to. ``full_grid=True`` warms every batch and
+        video bucket. ``videos=()`` skips the video programs (which cover
+        ``video`` and ``video_text``). With ``serving.device_resize`` every
+        image-bearing program is warmed once per ``image_staging_buckets``
+        entry and signatures gain a fifth element (the staging size; 0 for
+        image-less programs). A vault without title embeddings adds the
+        caption-vs-headline program ``("caption_title_sim", 2, clip
+        length, 0)``. ``parallel`` (or ``MISINFO_TPU_WARMUP_PARALLEL``) is
+        validated and the captures run one after another (one capture
+        stream; the list is the serial one). ``progress(sig)`` is called
+        after each signature. Returns the warmed signatures
+        ``(variant, batch, text_len, packed_rows[, staging])``
+        (``packed_rows=0`` ⇒ dense)."""
+        bad = set(variants) - set(self._WARMUP_VARIANTS)
+        if bad:
+            raise ValueError(
+                f"unknown warmup variants {sorted(bad)}; valid: "
+                f"{self._WARMUP_VARIANTS} (video programs are warmed via "
+                "videos=[V, ...], which covers both video and video_text)")
+        if parallel is None:
+            parallel = int(os.environ.get("MISINFO_TPU_WARMUP_PARALLEL",
+                                          "0") or 0)
+        if int(parallel) != parallel or parallel < 0:
+            raise ValueError(f"warmup parallel={parallel!r}: expected an "
+                             "integer ≥ 0")
+        rb_max, cl_len = self._rb_max, self._cl_len
+        size = self.cfg.seq.image_size
+        buckets = self.cfg.serving.batch_buckets
+        vbuckets = self.cfg.serving.video_batch_buckets
+        if full_grid:
+            batch_sizes = buckets if batch_sizes is None else batch_sizes
+            videos = vbuckets if videos is None else videos
+        if batch_sizes is None:
+            batch_sizes = (1, buckets[-1])
+        if videos is None:
+            videos = (1, vbuckets[-1])
+        if text_buckets is None:
+            text_buckets = [b for b in self._TEXT_BUCKETS if b < rb_max] \
+                + [rb_max]
+        pack_mode = self.cfg.serving.pack_text
+        if packed is None:
+            packed = pack_mode is True or (full_grid and bool(pack_mode))
+        dense_text = pack_mode is not True  # True-mode never serves dense
+        staging = (self.cfg.serving.image_staging_buckets
+                   if self.cfg.serving.device_resize else None)
+        done: List[tuple] = []
+
+        def _sig(variant, B, L, r, S=0):
+            return ((variant, B, L, r) if staging is None
+                    else (variant, B, L, r, S))
+
+        def _dispatch(sig, make_inputs):
+            if sig in done:   # e.g. two batch_sizes rounding to one bucket
+                return
+            if sig not in self._runners:
+                self._run(sig, make_inputs())
+            self._warmed.setdefault(sig, make_inputs)
+            done.append(sig)
+            if progress is not None:
+                try:
+                    progress(sig)
+                except Exception:
+                    pass
+
+        def zeros(shape, dtype=np.int32):
+            return self._stage(np.zeros(shape, dtype))
+
+        def ones(shape, dtype=np.int32):
+            return self._stage(np.ones(shape, dtype))
+
+        def _clip_tokens(n):
+            return {"clip_ids": zeros((n, cl_len)),
+                    "clip_mask": ones((n, cl_len))}
+
+        def _image_sets(n):
+            """[(make_image_inputs, staging size)]: functions, so that
+            nothing is allocated until the signature is warmed."""
+            if staging is None:
+                return [((lambda n=n: {
+                    "image_effnet": zeros((n, size, size, 3), np.uint8),
+                    "image_clip": zeros((n, size, size, 3), np.uint8),
+                }), 0)]
+            row = resize_param_row(size, size, size)
+            return [((lambda n=n, S=S: {
+                "image_staged": zeros((n, S, S, 3), np.uint8),
+                "resize_params": self._stage(np.tile(row, (n, 1)))}), S)
+                for S in staging]
+
+        for variant in variants:
+            for n in batch_sizes:
+                B = self._req_bucket(n, buckets)
+                if variant == "visual_only":
+                    for mk_img, S in _image_sets(B):
+                        _dispatch(_sig(variant, B, 0, 0, S), mk_img)
+                    continue
+                img_sets = (_image_sets(B) if variant == "full"
+                            else [((lambda: {}), 0)])
+                for mk_img, S in img_sets:
+                    for L in text_buckets:
+                        if dense_text:
+                            def mk_dense(B=B, L=L, mk_img=mk_img,
+                                         variant=variant):
+                                return {
+                                    "roberta_ids": zeros((B, L)),
+                                    "roberta_mask": ones((B, L)),
+                                    **(_clip_tokens(B) if variant == "full"
+                                       else {}),
+                                    **mk_img(),
+                                }
+                            _dispatch(_sig(variant, B, L, 0, S), mk_dense)
+                        if not packed:
+                            continue
+                        # row counts dispatch can emit: bucketed, and only
+                        # those auto-pack routes to this bucket (any r ≤ B
+                        # when pack_text is True, else rows*4 <= bucket*3)
+                        for r in sorted({self._req_bucket(r0, buckets)
+                                         for r0 in buckets}):
+                            if r > B or (pack_mode is not True
+                                         and r * 4 > B * 3):
+                                continue
+
+                            def mk_packed(B=B, L=L, r=r, mk_img=mk_img,
+                                          variant=variant):
+                                return {
+                                    "roberta_ids": zeros((r, L)),
+                                    "roberta_mask": ones((r, L)),
+                                    "roberta_pos": zeros((r, L)),
+                                    "roberta_seg": zeros((r, L)),
+                                    "cls_rows": zeros((B,)),
+                                    "cls_cols": zeros((B,)),
+                                    **(_clip_tokens(B) if variant == "full"
+                                       else {}),
+                                    **mk_img(),
+                                }
+                            _dispatch(_sig(variant, B, L, r, S), mk_packed)
+        F = self.cfg.video.max_frames
+        for n in videos:
+            V = self._req_bucket(n, vbuckets)
+            for mk_img, S in _image_sets(V * F):
+                def mk_video(V=V, mk_img=mk_img):
+                    return {**mk_img(),
+                            "frame_valid": ones((V, F), np.bool_)}
+                _dispatch(_sig("video", V, 0, 0, S), mk_video)
+                for L in text_buckets:
+                    def mk_video_text(V=V, L=L, mk_video=mk_video):
+                        return {**mk_video(),
+                                "roberta_ids": zeros((V, L)),
+                                "roberta_mask": ones((V, L)),
+                                **_clip_tokens(V)}
+                    _dispatch(_sig("video_text", V, L, 0, S), mk_video_text)
+        vault = self.vault
+        if vault is not None and vault.text_embeddings is None:
+            # vaults without title embeddings compute the caption-vs-
+            # headline similarity on demand (_caption_title_similarity)
+            _dispatch(_sig("caption_title_sim", 2, cl_len, 0),
+                      lambda: {"clip_ids": zeros((2, cl_len)),
+                               "clip_mask": ones((2, cl_len))})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self.cfg.verbose:
+            def _fmt(sig):
+                v, b, s, r = sig[:4]
+                st = f"/st{sig[4]}" if len(sig) > 4 and sig[4] else ""
+                return f"{v}/b{b}/S{s}" + (f"/r{r}" if r else "") + st
+            what = "captured" if self.cuda_graphs else "warmed (eager)"
+            print(f"warmup: {len(done)} signatures {what} "
+                  + ", ".join(_fmt(sig) for sig in done))
+        return done
 
     @property
     def _rb_max(self) -> int:
@@ -704,13 +998,7 @@ class MisinfoForensics:
         if variant in ("full", "visual_only"):
             batch.update(self._image_batch([r["image"] for r in reqs],
                                            bucket))
-        batch.update(self._vault_device)
-        program = "text_packed" if pack and variant == "text_only" else variant
-        with torch.inference_mode():
-            out = pack_signal_output(signals_program(
-                self.params, batch, variant=program, det_cfg=self.det_cfg,
-                cfg=self.cfg, policy=self.policy,
-                use_pallas=self.use_pallas))
+        out = self._run(self._sig(variant, bucket, batch), batch)
         return variant, out, idxs
 
     def _analyze_video_group(self, reqs: List[Dict],
@@ -748,12 +1036,7 @@ class MisinfoForensics:
                          roberta_mask=self._stage(rb_mask),
                          clip_ids=self._stage(cl_ids),
                          clip_mask=self._stage(cl_mask))
-        batch.update(self._vault_device)
-        with torch.inference_mode():
-            return pack_signal_output(video_program(
-                self.params, batch, has_text=variant == "video_text",
-                det_cfg=self.det_cfg, cfg=self.cfg, policy=self.policy,
-                use_pallas=self.use_pallas))
+        return self._run(self._sig(variant, V, batch), batch)
 
     def _finalize_batch(self, dispatches, requests: List[Dict],
                         explanations: bool = False) -> List[Dict]:
@@ -809,10 +1092,11 @@ class MisinfoForensics:
 
     def _caption_title_similarity(self, caption: str, title: str) -> float:
         ids, mask = self.clip_tokenizer.batch([caption, title], self._cl_len)
-        with torch.inference_mode():
-            emb = l2_normalize(clip_text_features(
-                self.params["clip"], self._tensor(ids), self._tensor(mask),
-                self.det_cfg.clip, self.policy)).cpu().numpy()
+        batch = {"clip_ids": self._stage(ids), "clip_mask": self._stage(mask)}
+        sig = ("caption_title_sim", 2, self._cl_len, 0)
+        if self.cfg.serving.device_resize:
+            sig += (0,)
+        emb = self._run(sig, batch).cpu().numpy()
         return float(np.dot(emb[0], emb[1]))
 
     def _print_report(self, req: Dict, report: Dict) -> None:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.attention import (
     attention_init, multi_head_attention)
 from misinfo_tpu_torch.ops.common import (
@@ -504,7 +505,8 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
                       quant: bool = False,
                       cross_int8: bool = False,
                       unroll: int = 1,
-                      gumbel: Optional[Callable[[int], torch.Tensor]] = None):
+                      gumbel: Optional[Callable[[int], torch.Tensor]] = None,
+                      runner: Optional["DecodeRunner"] = None):
     """KV-cached transcript decoding with an early exit once every row has
     emitted EOS (post-EOS rows stay EOS and stop scoring, so the outputs
     equal a run of all ``max_len`` steps; ``done`` is read on the host only
@@ -518,7 +520,9 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
     is set.
 
     The step variants and what they refuse are the JAX package's (module
-    docstring). ``unroll`` (1..4) is validated and changes nothing."""
+    docstring). ``unroll`` (1..4) is validated and changes nothing. With
+    ``runner`` (a ``DecodeRunner``) the step blocks run over the runner's
+    buffers, as captured graphs on the card; the outputs are the same."""
     if not 1 <= unroll <= 4:
         raise ValueError(f"unroll must be in [1, 4], got {unroll}")
     dec_p = params["decoder"]
@@ -570,67 +574,229 @@ def decode_transcript(params: Dict, mel: Optional[torch.Tensor],
         params = stack_whisper_decoder(params)
     elif pallas_self_attn:
         params = fuse_whisper_decoder_qkv(params)      # the kernel's layout
-    dev = enc_out.device
-    B = enc_out.shape[0]
+    if runner is not None and gumbel is not None:
+        raise ValueError("gumbel (drawn noise) does not compose with a "
+                         "runner (its graphs draw from their generator)")
     sampled = temperature != 0
-    tokens = torch.full((B, max_len), cfg.eos_token_id, dtype=torch.int64,
-                        device=dev)
-    tokens[:, 0] = cfg.decoder_start_token_id
-    start = 1
-    if prompt_tokens is not None:
-        P = prompt_tokens.shape[1]
-        tokens[:, 1:1 + P] = prompt_tokens.to(device=dev, dtype=torch.int64)
-        start = 1 + P
-    cache = init_kv_cache(
-        params, enc_out, max_len, cfg, policy,
-        merged_self=pallas_self_attn or pallas_layer, quant=quant,
-        merged_cross=pallas_cross or pallas_layer,
-        cross_int8=cross_int8)
 
-    def step(tok, pos):
-        # looked up by name on every call, so a caller can wrap the step
-        if scan:
-            logits, _ = _scan_decoder_step(params, tok, pos, enc_out, cache,
-                                           cfg, policy)
-        else:
-            logits, _ = _cached_decoder_step(
-                params, tok, pos, enc_out, cache, cfg, policy,
-                pallas_ffn=pallas_ffn, pallas_self_attn=pallas_self_attn,
-                pallas_cross=pallas_cross, pallas_layer=pallas_layer)
-        return logits.float()
+    def make(enc, prompt):
+        return StepBlocks(
+            params, cfg, policy, enc, prompt, max_len,
+            nospeech_id=nospeech_id, scan=scan,
+            step_kw=dict(pallas_ffn=pallas_ffn,
+                         pallas_self_attn=pallas_self_attn,
+                         pallas_cross=pallas_cross,
+                         pallas_layer=pallas_layer),
+            cache_kw=dict(merged_self=pallas_self_attn or pallas_layer,
+                          quant=quant,
+                          merged_cross=pallas_cross or pallas_layer,
+                          cross_int8=cross_int8))
 
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    sum_lp = torch.zeros(B, device=dev)
-    cnt = torch.zeros(B, device=dev)
-    ns = torch.zeros(B, device=dev)
-    for i in range(start - 1):                       # prompt prefill
-        logits = step(tokens[:, i], i)
-        if nospeech_id is not None and i == 0:
-            ns = torch.softmax(logits, dim=-1)[:, nospeech_id]
-    for i in range(start, max_len):
-        if (i - start) % _DONE_EVERY == 0 and bool(done.all()):
-            break
-        logits = step(tokens[:, i - 1], i - 1)
-        if sampled:
-            g = (gumbel(i) if gumbel is not None
-                 else gumbel_noise(logits.shape, rng, dev))
-            nxt = torch.argmax(logits / temperature + g.to(dev), dim=-1)
-        else:
-            nxt = torch.argmax(logits, dim=-1)
-        logp = torch.log_softmax(logits, dim=-1)
-        if nospeech_id is not None and start == 1 and i == 1:
-            ns = torch.exp(logp[:, nospeech_id])
-        tok_lp = logp.gather(1, nxt[:, None])[:, 0]
-        active = ~done
-        sum_lp = sum_lp + torch.where(active, tok_lp, 0.0)
-        cnt = cnt + active.float()
-        nxt = torch.where(active, nxt, cfg.eos_token_id)
-        done = done | (nxt == cfg.eos_token_id)
-        tokens[:, i] = nxt
-    avg_lp = sum_lp / cnt.clamp_min(1.0)
+    if runner is not None:
+        tokens, avg_lp, ns = runner(make, enc_out, prompt_tokens,
+                                    temperature, rng)
+    else:
+        blocks = make(enc_out, None if prompt_tokens is None
+                      else prompt_tokens.to(device=enc_out.device,
+                                            dtype=torch.int64))
+        blocks.temperature, blocks.rng, blocks.gumbel = (temperature, rng,
+                                                         gumbel)
+        blocks.run(sampled)
+        tokens, avg_lp, ns = blocks.result()
     if nospeech_id is not None:
         return tokens, avg_lp, ns
     return tokens, avg_lp
+
+
+class StepBlocks:
+    """``decode_transcript``'s loop over buffers updated in place, cut
+    into programs that a runner can capture: ``head()`` sets the tokens,
+    caches and sums up from ``enc`` and ``prompt`` and runs the prompt
+    prefill; ``block(k, sampled)`` runs the ``_DONE_EVERY`` steps from
+    ``start + _DONE_EVERY·k``, each at a fixed position. ``run`` reads
+    ``done`` on the host before every block and stops once every row is
+    done. The buffers' values are those of the plain loop, bit for bit.
+
+    A sampled block divides the logits by the Python float
+    ``temperature`` unless ``buffer_temperature``, when it multiplies them
+    by the device scalar ``inv_temperature``, f32(1)/f32(temperature):
+    the same operation as the division on a CUDA device (PyTorch
+    multiplies by the scalar's reciprocal there), read from memory so that
+    one graph serves every rung."""
+
+    def __init__(self, params: Dict, cfg: WhisperConfig, policy: Policy,
+                 enc: torch.Tensor, prompt: Optional[torch.Tensor],
+                 max_len: int, *, nospeech_id: Optional[int] = None,
+                 scan: bool = False, step_kw: Optional[Dict] = None,
+                 cache_kw: Optional[Dict] = None):
+        dev = enc.device
+        B = enc.shape[0]
+        self.params, self.cfg, self.policy = params, cfg, policy
+        self.enc, self.max_len = enc, max_len
+        self.nospeech_id, self.scan = nospeech_id, scan
+        self.step_kw, self.cache_kw = step_kw or {}, cache_kw or {}
+        self.prompt = prompt
+        self.start = 1 + (0 if prompt is None else prompt.shape[1])
+        self.n_blocks = max(0, -(-(max_len - self.start) // _DONE_EVERY))
+        self.tokens = torch.empty((B, max_len), dtype=torch.int64,
+                                  device=dev)
+        self.cache: Optional[Dict] = None
+        self.done = torch.zeros(B, dtype=torch.bool, device=dev)
+        self.sum_lp = torch.zeros(B, device=dev)
+        self.cnt = torch.zeros(B, device=dev)
+        self.ns = torch.zeros(B, device=dev)
+        self.temperature = 0.0
+        self.inv_temperature = torch.ones((), device=dev)
+        self.buffer_temperature = False
+        self.rng: Optional[torch.Generator] = None
+        self.gumbel: Optional[Callable[[int], torch.Tensor]] = None
+
+    def _step(self, tok, pos):
+        # looked up by name on every call, so a caller can wrap the step
+        if self.scan:
+            logits, _ = _scan_decoder_step(self.params, tok, pos, self.enc,
+                                           self.cache, self.cfg, self.policy)
+        else:
+            logits, _ = _cached_decoder_step(
+                self.params, tok, pos, self.enc, self.cache, self.cfg,
+                self.policy, **self.step_kw)
+        return logits.float()
+
+    def head(self) -> None:
+        cfg = self.cfg
+        self.tokens.fill_(cfg.eos_token_id)
+        self.tokens[:, 0] = cfg.decoder_start_token_id
+        if self.prompt is not None:
+            self.tokens[:, 1:self.start] = self.prompt
+        fresh = init_kv_cache(self.params, self.enc, self.max_len, cfg,
+                              self.policy, **self.cache_kw)
+        if self.cache is None:
+            self.cache = fresh
+        else:   # the buffers a captured graph points at
+            for name, planes in fresh.items():
+                dst = self.cache[name]
+                for d, f in (zip(dst, planes) if isinstance(dst, list)
+                             else ((dst, planes),)):
+                    d.copy_(f)
+        for t in (self.done, self.sum_lp, self.cnt, self.ns):
+            t.zero_()
+        for i in range(self.start - 1):                # prompt prefill
+            logits = self._step(self.tokens[:, i], i)
+            if self.nospeech_id is not None and i == 0:
+                self.ns.copy_(torch.softmax(logits, dim=-1)[:,
+                                                             self.nospeech_id])
+
+    def block(self, k: int, sampled: bool) -> None:
+        cfg, dev = self.cfg, self.tokens.device
+        lo = self.start + _DONE_EVERY * k
+        for i in range(lo, min(lo + _DONE_EVERY, self.max_len)):
+            logits = self._step(self.tokens[:, i - 1], i - 1)
+            if sampled:
+                g = (self.gumbel(i) if self.gumbel is not None
+                     else gumbel_noise(logits.shape, self.rng, dev))
+                scaled = (logits * self.inv_temperature
+                          if self.buffer_temperature
+                          else logits / self.temperature)
+                nxt = torch.argmax(scaled + g.to(dev), dim=-1)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            logp = torch.log_softmax(logits, dim=-1)
+            if self.nospeech_id is not None and self.start == 1 and i == 1:
+                self.ns.copy_(torch.exp(logp[:, self.nospeech_id]))
+            tok_lp = logp.gather(1, nxt[:, None])[:, 0]
+            active = ~self.done
+            self.sum_lp.copy_(self.sum_lp + torch.where(active, tok_lp, 0.0))
+            self.cnt.copy_(self.cnt + active.float())
+            nxt = torch.where(active, nxt, cfg.eos_token_id)
+            self.done.copy_(self.done | (nxt == cfg.eos_token_id))
+            self.tokens[:, i] = nxt
+
+    def run(self, sampled: bool, early_exit: bool = True) -> None:
+        """The whole decode eagerly; without ``early_exit`` every block
+        runs (the steps after every row is done change no output)."""
+        self.head()
+        for k in range(self.n_blocks):
+            if early_exit and bool(self.done.all()):
+                break
+            self.block(k, sampled)
+
+    def result(self):
+        """(tokens [B, max_len], avg_logprob [B], no-speech prob [B])."""
+        return (self.tokens, self.sum_lp / self.cnt.clamp_min(1.0),
+                self.ns)
+
+
+class DecodeRunner:
+    """``decode_transcript``'s step blocks for one signature (window batch,
+    prompt length): ``StepBlocks`` over static buffers, made at first
+    use, and on the card (``capture``) one CUDA graph for the head and one
+    per block for each of greedy and sampled decoding, captured after one
+    eager pass of every block on ``stream`` and replayed block by block
+    with the host's check of ``done`` between blocks, where the plain
+    loop makes it. The sampled graphs draw from ``generator``, registered
+    with them: a sampled decode must be handed that generator (seeded).
+    The first decode of a mode returns its eager pass's outputs. On the
+    CPU, or without ``capture``, the blocks run eagerly over the same
+    buffers. The outputs are copied out of the buffers."""
+
+    def __init__(self, sig, *, device, capture: bool = False, stream=None,
+                 pool=None, generator: Optional[torch.Generator] = None):
+        self.sig = sig
+        self.device = torch.device(device)
+        self.capture = capture and self.device.type == "cuda"
+        self.stream = stream if self.device.type == "cuda" else None
+        self.pool, self.generator = pool, generator
+        self.blocks: Optional[StepBlocks] = None
+        self.graphs: Dict[bool, list] = {}   # sampled → [(graph, delta)]
+
+    def _capture(self, b: StepBlocks, sampled: bool) -> list:
+        gens = (self.generator,) if sampled else ()
+        mode = "sampled" if sampled else "greedy"
+        out = [graphs.capture(b.head, (*self.sig, "head"), self.pool)]
+        for k in range(b.n_blocks):
+            out.append(graphs.capture(lambda k=k: b.block(k, sampled),
+                                      (*self.sig, mode, k), self.pool, gens))
+        return [(g, d) for g, _, d in out]
+
+    def __call__(self, make, enc, prompt, temperature=0.0, rng=None):
+        sampled = temperature != 0
+        if self.capture and sampled and rng is not self.generator:
+            raise ValueError(f"decode runner {self.sig}: a sampled decode "
+                             "draws from the runner's generator")
+        with graphs.on_stream(self.stream, self.device) as cur:
+            if self.blocks is None:
+                P = 0 if prompt is None else prompt.shape[1]
+                self.blocks = make(
+                    torch.empty(enc.shape, dtype=enc.dtype,
+                                device=self.device),
+                    None if prompt is None else torch.zeros(
+                        (enc.shape[0], P), dtype=torch.int64,
+                        device=self.device))
+            b = self.blocks
+            b.enc.copy_(enc, non_blocking=True)
+            if prompt is not None:
+                b.prompt.copy_(prompt, non_blocking=True)
+            b.temperature, b.rng = temperature, rng
+            b.buffer_temperature = self.capture
+            if sampled and self.capture:
+                b.inv_temperature.fill_(float(np.float32(1.0)
+                                              / np.float32(temperature)))
+            replay = self.graphs.get(sampled)
+            if replay is None:
+                b.run(sampled, early_exit=not self.capture)
+                out = graphs.clone(b.result())
+                if self.capture:
+                    self.graphs[sampled] = self._capture(b, sampled)
+                return graphs.hand_over(out, cur)
+            (head, delta), *rest = replay
+            head.replay()
+            graphs.add_counts(delta)
+            for g, delta in rest:
+                if bool(b.done.all()):
+                    break
+                g.replay()
+                graphs.add_counts(delta)
+            return graphs.hand_over(graphs.clone(b.result()), cur)
 
 
 def greedy_decode(params: Dict, mel: torch.Tensor,

@@ -12,6 +12,7 @@ code, and is refused.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -29,6 +30,16 @@ def attention_init(gen: torch.Generator, dim: int,
     out_dim = out_dim or dim
     return {"q": dense_init(gen, dim, dim), "k": dense_init(gen, dim, dim),
             "v": dense_init(gen, dim, dim), "o": dense_init(gen, dim, out_dim)}
+
+
+@functools.lru_cache(maxsize=None)
+def score_scale(hd: int, dtype) -> float:
+    """1/sqrt(hd) as the score multiply sees it: the f32 square root and
+    reciprocal, rounded to the score dtype, as a Python float that holds
+    that value exactly. Evaluated once on the host, so that an attention
+    call copies no scalar to the device (a CUDA graph cannot hold the
+    blocking copy)."""
+    return (1.0 / torch.sqrt(torch.tensor(float(hd)))).to(dtype).item()
 
 
 def _additive(allowed_f32: torch.Tensor, dtype) -> torch.Tensor:
@@ -65,9 +76,8 @@ def multi_head_attention(
         return dense(params["o"], ctx.reshape(B, S, D), policy)
 
     sdt = policy.score
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=x.device))
     scores = torch.einsum("bshd,bthd->bhst", q.to(sdt), k.to(sdt))
-    scores = scores * scale.to(sdt)
+    scores = scores * score_scale(hd, sdt)
     if segment_ids is not None:
         assert mask is None, "segment packing replaces the padding mask"
         same = segment_ids[:, :, None] == segment_ids[:, None, :]

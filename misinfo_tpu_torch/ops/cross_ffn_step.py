@@ -55,6 +55,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, dense, layer_norm)
 from misinfo_tpu_torch.ops.cuda_build import (
@@ -68,6 +69,7 @@ MAX_BATCH = 32                  # decode_common.cuh MAXB
 launches = 0                    # kernel calls since import (or reset)
 launches_i8 = 0                 # those with int8 weights
 launches_i8cc = 0               # kernel calls on int8 planes (K8)
+graphs.count_launches(__name__, "launches", "launches_i8", "launches_i8cc")
 build_log = ""                  # nvcc's output of the last build
 build_log_i8cc = ""
 _lib = None

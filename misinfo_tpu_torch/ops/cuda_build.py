@@ -8,7 +8,8 @@ headers: a build takes seconds, not minutes). Never add
 
 ``tickets`` keeps the zeroed counters that the decode-step kernels use to
 find the last block of each column tile (or batch row), ``workspace``
-their scratch, one each per stream;
+their scratch, one each per stream, sized before a CUDA-graph capture
+(ops/graphs.py) and never moved under one;
 ``weight_pointers`` validates a decode step's weights once per weight set
 and keeps their pointers, so that a step's host work is its activations.
 """
@@ -33,6 +34,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "misinfo_tpu_torch"
 _PER_STREAM: Dict[tuple, torch.Tensor] = {}
+_CAPTURED: set = set()          # per-stream buffers a CUDA graph points at
+_RETIRED: List[torch.Tensor] = []   # outgrown ones among them, kept alive
 _WEIGHTS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _WEIGHTS_LOCK = threading.Lock()
 WEIGHT_SETS = 64        # weight sets whose pointers are kept (LRU)
@@ -88,11 +91,28 @@ def check_tensor(t, what: str, dtype, shape, device) -> None:
 
 
 def _per_stream(kind: str, n: int, dtype, device, stream: int):
+    """The buffer of (kind, device, stream), grown to ``n`` elements.
+    Under a CUDA-graph capture it must not grow: the new buffer would land
+    in the graph's pool and the old one be freed while earlier graphs
+    point at it, so a capture that needs more raises (run the program
+    eagerly on the capture stream first, which sizes it). A buffer that a
+    capture has used is kept alive when a later eager call outgrows it."""
     key = (kind, device.index, stream)
     t = _PER_STREAM.get(key)
+    capturing = torch.cuda.is_current_stream_capturing()
     if t is None or t.numel() < n:
+        if capturing:
+            raise RuntimeError(
+                f"{kind}: {n} elements asked for during a CUDA-graph capture "
+                f"on stream {stream:#x}, which has "
+                f"{0 if t is None else t.numel()}; run the program eagerly "
+                "on the capture stream before capturing it")
+        if key in _CAPTURED:
+            _RETIRED.append(t)
         t = torch.zeros(n, dtype=dtype, device=device)
         _PER_STREAM[key] = t
+    elif capturing:
+        _CAPTURED.add(key)
     return t
 
 

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
 
 _NEG = -1e9
@@ -35,6 +36,7 @@ _DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0                    # K3 launches since import (or reset)
 ln_launches = 0                 # K4 launches
+graphs.count_launches(__name__, "launches", "ln_launches")
 build_log = ""                  # nvcc's output of the last K3 build
 ln_build_log = ""
 _lib = None

@@ -26,6 +26,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, Policy, matmul_f32
 from misinfo_tpu_torch.ops.cuda_build import (
     build, check_tensor, multiprocessors, workspace)
@@ -89,6 +90,7 @@ def sm_count(device) -> int:
     return H100_SMS
 
 launches = 0                    # kernel launches since import (or reset)
+graphs.count_launches(__name__, "launches")
 build_log = ""                  # nvcc's output of the last build
 _lib = None
 

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.cuda_build import build, check_tensor, workspace
 from misinfo_tpu_torch.ops.quant import (
     int_matmul, quantize_rows_folded)
@@ -37,6 +38,7 @@ from misinfo_tpu_torch.ops.quant import (
 _IN_DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0                        # kernel launches since import (or reset)
+graphs.count_launches(__name__, "launches")
 build_log = ""                      # nvcc's output of the last build
 _lib = None
 

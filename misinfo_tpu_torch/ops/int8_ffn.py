@@ -37,6 +37,7 @@ from typing import Dict, Optional
 
 import torch
 
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, Policy
 from misinfo_tpu_torch.ops.cuda_build import (
     build, check_tensor, multiprocessors, workspace)
@@ -48,6 +49,7 @@ _TILE = 128                     # second product's output tile (DN_BM, DN_BN)
 _MODES = {"tanh": 0, "erf": 1, "quick": 2}
 
 launches = 0                    # kernel launches since import (or reset)
+graphs.count_launches(__name__, "launches")
 build_log = ""                  # nvcc's output of the last build
 _lib = None
 

@@ -31,6 +31,7 @@ from typing import Dict
 import torch
 
 from misinfo_tpu_torch.ops import cross_ffn_step as _cross
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops import self_attn_step as _self
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, Policy
 from misinfo_tpu_torch.ops.cuda_build import (
@@ -40,6 +41,7 @@ HEAD_DIM = 64                   # the kernel's head width (every Whisper size)
 MAX_BATCH = 32                  # decode_common.cuh MAXB
 
 launches = 0                    # kernel calls since import (or reset)
+graphs.count_launches(__name__, "launches")
 build_log = ""                  # nvcc's output of the last build
 _lib = None
 

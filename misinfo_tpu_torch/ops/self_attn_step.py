@@ -39,6 +39,7 @@ from typing import Dict
 
 import torch
 
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, dense, layer_norm)
 from misinfo_tpu_torch.ops.cuda_build import (
@@ -50,6 +51,7 @@ MAX_BATCH = 32                  # decode_common.cuh MAXB
 
 launches = 0                    # kernel calls since import (or reset)
 launches_i8 = 0                 # those with int8 weights
+graphs.count_launches(__name__, "launches", "launches_i8")
 build_log = ""                  # nvcc's output of the last build
 _lib = None
 

@@ -17,10 +17,16 @@ fused step kernels with int8 weights (``pallas="auto"`` → on,
 token embedding, int8 cross caches, the unfused step (``pallas="auto"``
 resolves off with it, and ``pallas="on"`` refuses it).
 
+The device programs run through runners (ops/graphs.py): the encoder
+and ``detect_language`` per window bucket, and the decode's step blocks
+per (window bucket, prompt length) (models/whisper.py::DecodeRunner). On
+the card each is captured as CUDA graphs (``cuda_graphs=False`` runs them
+eagerly); ``warmup(buckets)`` makes them before the first request.
+
 Weights come as a JAX-layout parameter tree of numpy arrays
 (checkpoints/from_jax.py); orbax checkpoints and HF ``.pt`` conversion
 are not ported yet (ROADMAP.md M16), nor mesh sharding (M17), the AOT /
-compile-cache plumbing and the isolated host-prep worker.
+compile-cache plumbing and the isolated host-prep worker (M11).
 """
 
 from __future__ import annotations
@@ -38,9 +44,11 @@ from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.checkpoints.from_jax import params_from_jax, to_device
 from misinfo_tpu_torch.core.config import WhisperDecodeConfig
 from misinfo_tpu_torch.models.whisper import (
-    WhisperConfig, decode_transcript, detect_language,
+    DecodeRunner, WhisperConfig, decode_transcript, detect_language,
     fuse_whisper_decoder_qkv, whisper_encode, whisper_init)
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, set_exact_f32
+from misinfo_tpu_torch.ops import graphs
+from misinfo_tpu_torch.ops.graphs import Runner
 from misinfo_tpu_torch.ops.self_attn_step import MAX_BATCH
 from misinfo_tpu_torch.ops.serving import (
     optimize_whisper_for_serving, quantize_whisper_decoder,
@@ -87,13 +95,16 @@ def needs_fallback(text: str, avg_logprob: float,
 class WhisperTranscriber:
     """Log-mel frontend + Whisper decoding with whisper's temperature-
     fallback ladder and no-speech gate, on one device: the CUDA card by
-    default, the CPU when the caller asks for it (``device="cpu"``)."""
+    default, the CPU when the caller asks for it (``device="cpu"``). On
+    the card its programs are captured CUDA graphs unless
+    ``cuda_graphs=False``."""
 
     def __init__(self, params=None, size: Optional[str] = None,
                  tokenizer_dir: Optional[str] = None,
                  decode_cfg: WhisperDecodeConfig = _DECODE_DEFAULTS,
                  config: Optional[WhisperConfig] = None, device="cuda",
-                 checkpoint_dir: Optional[str] = None, mesh=None):
+                 checkpoint_dir: Optional[str] = None, mesh=None,
+                 cuda_graphs: bool = True):
         if checkpoint_dir:
             not_ported("checkpoint loading (orbax / HF .pt)", "M16")
         if mesh is not None:
@@ -154,12 +165,55 @@ class WhisperTranscriber:
         self.params = params
         # language of the most recent transcribe(); None until the first
         self.last_language: Optional[str] = None
+        # runners by signature; the lock covers a whole program's copy-in,
+        # run (every decode block) and copy-out
+        self.cuda_graphs = bool(cuda_graphs) and on_card
+        self._stream = (torch.cuda.Stream(self.device) if self.cuda_graphs
+                        else None)
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.cuda_graphs else None)
+        self._runners: dict = {}
+        self._runner_lock = threading.Lock()
+        # the sampled rungs' generator, seeded per draw (the graphs draw
+        # from it), and the language block's ids, made once
+        self._generator = torch.Generator(self.device)
+        self._language_ids = torch.tensor(
+            [sp.language_ids[lang] for lang in sp.languages],
+            dtype=torch.int64, device=self.device)
 
     # -------------------------------------------------------- device work
 
+    def _run(self, sig: tuple, program, inputs: dict) -> torch.Tensor:
+        """``program`` over ``inputs`` through the runner of ``sig``, made
+        (and on the card captured) at first use."""
+        return graphs.run(lambda: self._runners, self._runner_lock, sig,
+                          inputs, lambda: Runner(sig, program, inputs,
+                                                 device=self.device,
+                                                 capture=self.cuda_graphs,
+                                                 stream=self._stream,
+                                                 pool=self._graph_pool))
+
     def _encode(self, mels: np.ndarray) -> torch.Tensor:
-        mel = torch.as_tensor(np.asarray(mels, np.float32), device=self.device)
-        return whisper_encode(self.params, mel, self.cfg, self.policy)
+        mel = torch.from_numpy(np.ascontiguousarray(mels, np.float32))
+
+        def encode(b):
+            with torch.inference_mode():
+                return whisper_encode(self.params, b["mel"], self.cfg,
+                                      self.policy)
+        return self._run(("encode", mel.shape[0]), encode, {"mel": mel})
+
+    def _detect_language(self, mels: np.ndarray):
+        """``detect_language`` on the first window's encoding → (argmax
+        [1] into the language block, probs [1, L])."""
+        sot = self.tokenizer.specials.sot
+
+        def detect(b):
+            with torch.inference_mode():
+                return detect_language(self.params, b["enc"], sot,
+                                       self._language_ids, self.cfg,
+                                       self.policy)
+        return self._run(("detect_language", 1), detect,
+                         {"enc": self._encode(mels[:1])})
 
     def _fused(self, enc) -> bool:
         """The fused step for this window batch. The kernels carry at most
@@ -169,13 +223,64 @@ class WhisperTranscriber:
         return self.pallas and enc.shape[0] <= MAX_BATCH
 
     def _decode(self, enc, prompt, temperature: float = 0.0,
-                rng: Optional[torch.Generator] = None):
+                seed: Optional[int] = None):
+        """One decode of the window batch ``enc`` through the runner of its
+        (window batch, prompt length); a sampled one draws from the
+        transcriber's generator seeded with ``seed``."""
         fused = self._fused(enc)
-        return decode_transcript(
-            self.params, None, self.cfg, self.policy, prompt_tokens=prompt,
-            temperature=temperature, rng=rng, enc_out=enc,
-            nospeech_id=self.tokenizer.specials.no_speech, quant=self.quant,
-            pallas_self_attn=fused, pallas_cross=fused)
+        sig = ("decode", enc.shape[0],
+               0 if prompt is None else prompt.shape[1])
+        with self._runner_lock:
+            runner = self._runners.get(sig)
+            if runner is None:
+                runner = self._runners[sig] = DecodeRunner(
+                    sig, device=self.device, capture=self.cuda_graphs,
+                    stream=self._stream, pool=self._graph_pool,
+                    generator=self._generator)
+            rng = None
+            if temperature != 0:
+                rng = self._generator.manual_seed(0 if seed is None
+                                                  else seed)
+            return decode_transcript(
+                self.params, None, self.cfg, self.policy,
+                prompt_tokens=prompt, temperature=temperature, rng=rng,
+                enc_out=enc, nospeech_id=self.tokenizer.specials.no_speech,
+                quant=self.quant, pallas_self_attn=fused, pallas_cross=fused,
+                runner=runner)
+
+    # -------------------------------------------------------- warmup
+
+    def warmup(self, buckets=(1,)) -> list:
+        """Make the transcription programs' runners for the given window
+        buckets before the first request: the encoder, the greedy decode
+        and the sampled decode (one set of step blocks serves every rung),
+        and ``detect_language`` on a 1-window encoding when no language is
+        pinned. On the card each is captured as CUDA graphs after one
+        eager pass of zero inputs. The JAX transcriber also starts its
+        isolated host-prep worker here; the port has no such worker yet
+        (ROADMAP.md M11). Returns the warmed buckets, ``[]`` when the
+        capability is degraded (no weights / tokenizer mismatch)."""
+        if not self.has_weights or not self.tokenizer_compatible:
+            return []
+        frames = 2 * self.cfg.max_source_positions
+        shape = (frames, self.cfg.num_mel_bins)
+        language = self.decode_cfg.language or "en"
+        warmed = []
+        with torch.inference_mode():
+            for b in buckets:
+                enc = self._encode(np.zeros((b, *shape), np.float32))
+                prompt = torch.tensor(
+                    [self.tokenizer.sot_sequence(language=language)[1:]] * b,
+                    dtype=torch.int64, device=self.device)
+                self._decode(enc, prompt)
+                self._decode(enc, prompt, 1.0, seed=0)
+                warmed.append(b)
+            if (self.tokenizer.specials.multilingual
+                    and not self.decode_cfg.language):
+                self._detect_language(np.zeros((1, *shape), np.float32))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return warmed
 
     # -------------------------------------------------------- transcribe
 
@@ -236,9 +341,7 @@ class WhisperTranscriber:
         if not sp.multilingual:
             self.last_language = "en"
             return "en"
-        ids = [sp.language_ids[lang] for lang in sp.languages]
-        idx, probs = detect_language(self.params, self._encode(mels[:1]),
-                                     sp.sot, ids, self.cfg, self.policy)
+        idx, probs = self._detect_language(mels)
         i = int(idx[0])
         lang = sp.languages[i]
         self.last_language = lang
@@ -275,12 +378,11 @@ class WhisperTranscriber:
                     no_speech = ns.cpu().numpy()
             else:
                 # whisper's best_of: independent candidates per window, the
-                # highest-avg-logprob one kept; one generator per draw
+                # highest-avg-logprob one kept; one seed per draw
                 tokens, lp = None, None
                 for draw in range(max(dc.best_of, 1)):
-                    gen = torch.Generator(self.device).manual_seed(
-                        int(t * 10) * 131 + draw)
-                    dt, dlp, ns = self._decode(enc, prompt, float(t), gen)
+                    dt, dlp, ns = self._decode(enc, prompt, float(t),
+                                               int(t * 10) * 131 + draw)
                     dt, dlp = dt.cpu().numpy(), dlp.cpu().numpy()
                     if no_speech is None:
                         no_speech = ns.cpu().numpy()
@@ -371,6 +473,15 @@ def extract_transcript(media_path: Optional[str],
         return engine.transcribe(media_path)
     except Exception as e:
         return f"[transcript error: {e}]"
+
+
+def warmup_transcriber(buckets=(1,)) -> list:
+    """Build the module-cached transcriber and warm its programs (the
+    serving surfaces' ``--warmup`` path, beside the engine's
+    ``warmup()``). Returns the warmed buckets, ``[]`` when the transcript
+    capability is degraded or could not be built."""
+    engine = _get_engine()
+    return engine.warmup(buckets) if engine is not None else []
 
 
 def reset_transcriber() -> None:

@@ -48,6 +48,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.cuda_build import build, check_tensor
 from misinfo_tpu_torch.vault.search import exact_matmul
 
@@ -64,6 +65,7 @@ _INV127 = float(np.float32(1.0) / np.float32(127.0))  # f32 1/127, as XLA folds 
 
 launches = 0                    # K10a launches since import (or reset)
 launches_i8 = 0                 # K10b launches
+graphs.count_launches(__name__, "launches", "launches_i8")
 build_log = ""                  # nvcc's output of the last build
 _lib = None
 

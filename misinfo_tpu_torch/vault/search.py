@@ -95,16 +95,16 @@ def topk_first(sims: torch.Tensor, k: int) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
     """Exact top-k as k passes of (argmax → record → mask): argmax returns
     the first maximum, so ties resolve to the lowest index (padded rows all
-    sit at −2.0), which ``torch.topk`` does not promise."""
+    sit at −2.0), which ``torch.topk`` does not promise. The mask is a
+    scatter of the scalar, which copies nothing to the device."""
     cur = sims.clone()
-    rows = torch.arange(sims.shape[0], device=sims.device)
     vals, idxs = [], []
     for _ in range(k):
-        i = torch.argmax(cur, dim=1)
-        vals.append(cur[rows, i])
+        i = torch.argmax(cur, dim=1)[:, None]
+        vals.append(cur.gather(1, i))
         idxs.append(i.to(torch.int32))
-        cur[rows, i] = float("-inf")
-    return torch.stack(vals, dim=1), torch.stack(idxs, dim=1)
+        cur.scatter_(1, i, float("-inf"))
+    return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
 
 
 def vault_search(

@@ -53,6 +53,7 @@ bit, K3-K5 within the bands that module derives, with its planted faults
 outside them.
 """
 
+import collections
 import dataclasses
 
 import pytest
@@ -545,3 +546,255 @@ def test_opt_in_kernels_refuse_what_they_cannot_run(card):
     with pytest.raises(RuntimeError):                 # N not a multiple of 8
         K5.fused_ffn(f[0], f[1][:, :1916].contiguous(), f[2][:1916],
                      f[3][:1916].contiguous(), f[4])
+
+
+# ------------------------------------------------------------ CUDA graphs
+# Each engine mode on a small detector (head dim 64, weights just past
+# the serving quantization's size floor, so that the int8 kernels run),
+# and each vault row type, IVF and the device resize: a graphed
+# engine (the default) and an eager one
+# (cuda_graphs=False) on the same weights and vault; every request mix
+# after a full-grid warmup is dispatched under sync debug "error", its
+# packed outputs torch.equal to eager's, in shuffled order, with the same
+# kernel launches per replay as per eager run, and no new runner.
+
+def _small_det():
+    from misinfo_tpu_torch.models.clip import ClipConfig
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.models.roberta import RobertaConfig
+    return DetectorConfig(
+        roberta=RobertaConfig(vocab_size=1024, hidden_size=512, num_layers=2,
+                              num_heads=8, intermediate_size=1024,
+                              max_position_embeddings=130),
+        clip=ClipConfig(vocab_size=512, text_width=512, text_layers=2,
+                        text_heads=8, text_mlp=1024, max_text_len=32,
+                        eos_token_id=511, image_size=64, patch_size=16,
+                        vision_width=512, vision_layers=2, vision_heads=8,
+                        vision_mlp=1024, projection_dim=64))
+
+
+_GRAPH_MODES = {
+    "default": ({}, {}, {}),
+    "engine_I": ({"quant": "int8"}, {"use_pallas": True}, {}),
+    "engine_II": ({"quant": "none"}, {"use_pallas": "ffn"}, {}),
+    "int4": ({}, {}, {"vault_dtype": "int4"}),
+    "int4_small": ({}, {}, {"vault_dtype": "int4"}),
+    "bf16_vault": ({}, {}, {"vault_dtype": "bfloat16"}),
+    "int8_vault": ({}, {}, {"vault_dtype": "int8"}),
+    "ivf": ({}, {}, {"vault_ivf": True}),
+    "device_resize": ({}, {}, {"device_resize": True,
+                               "image_staging_buckets": (96, 160)}),
+}
+# the counters (ops/graphs.py::launch_counts) of each mode's own kernels,
+# of which the traffic must launch each
+_MODE_KERNELS = {"engine_I": ("int8_dense.launches",
+                              "fused_attention.launches"),
+                 "engine_II": ("fused_ffn.launches",),
+                 "int4": ("int4.launches_i8",),
+                 "int4_small": ("int4.launches",)}
+
+
+def _graph_vault(path, rows, seed):
+    import numpy as np
+    from misinfo_tpu_torch.vault.store import TruthVault
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(rows, 64)).astype(np.float32)
+    TruthVault(emb, [{"title": f"t{i}", "url": "u", "date": "d"}
+                     for i in range(rows)],
+               rng.normal(size=(rows, 64)).astype(np.float32)).save(path)
+    return path
+
+
+def _graph_engines(tmp_path, mode):
+    from misinfo_tpu_torch.core import config as C
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import detector_init
+    prec, kw, serving = _GRAPH_MODES[mode]
+    rows = 65536 if mode == "int4" else 300
+    paths = [_graph_vault(str(tmp_path / f"v{i}.npz"), rows + 64 * i, i)
+             for i in range(2)]
+    det = _small_det()
+    cfg = C.ForensicsConfig(
+        verbose=False,
+        precision=dataclasses.replace(C.PrecisionConfig(), **prec),
+        paths=C.ModelPaths(vault_path=paths[0]),
+        seq=C.SequenceConfig(roberta_max_len=128, image_size=64),
+        serving=dataclasses.replace(
+            C.ServingConfig(batch_buckets=(1, 2, 4, 8),
+                            video_batch_buckets=(1, 2)), **serving))
+    params = detector_init(0, det)
+    return [MisinfoForensics(cfg, det, params=params, device="cuda",
+                             cuda_graphs=g, **kw)
+            for g in (True, False)], paths
+
+
+def _graph_traffic():
+    import numpy as np
+
+    def img(seed):
+        return np.random.default_rng(seed).integers(0, 256, (64 + seed, 80,
+                                                             3), np.uint8)
+    short, mid = "a short claim", "a medium claim about some news " * 3
+    long = "many words " * 30
+    return [
+        [{"text": short}],
+        [{"text": long}, {"text": short}, {"text": mid}],
+        [{"text": f"{short} {i}"} for i in range(5)],
+        [{"text": mid} for _ in range(9)] + [{"text": short}],
+        [{"image": img(1)}, {"image": img(2)}, {"image": img(3)}],
+        [{"text": short, "image": img(4)}, {"text": long, "image": img(5)}],
+        [{"text": short}, {"image": img(6)}, {"text": mid, "image": img(7)},
+         {"text": long}, {"text": short, "image": img(8)}],
+        [{"video": "clip0", "text": mid}, {"video": "clip1"}],
+        [{"video": "clip2", "text": short}, {"video": "clip3", "text": long}],
+    ]
+
+
+def _seeded_frames(monkeypatch):
+    import numpy as np
+    from misinfo_tpu_torch.engine import forensics as F
+
+    def sample(key, max_frames=12, stride_seconds=1.0, fps_fallback=25.0):
+        i = int(key[-1])
+        frames = [np.random.default_rng(40 + 100 * i + f).integers(
+            0, 256, (72, 96, 3), np.uint8) for f in range(5 + i)]
+        valid = np.zeros((max_frames,), bool)
+        valid[:len(frames)] = True
+        return frames, valid
+    monkeypatch.setattr(F, "sample_video_frames", sample)
+
+
+def _bits(a, b):
+    """Bit for bit: the packed outputs carry int32 indices viewed as f32
+    (-1, a NaN pattern), which torch.equal on the floats would refuse."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _dispatch(eng, reqs, debug=None):
+    """The packed outputs of one dispatch (copied to the host after it),
+    and the kernels' launches it made."""
+    from misinfo_tpu_torch.ops import graphs
+    before = graphs.launch_counts()
+    if debug:
+        torch.cuda.set_sync_debug_mode(debug)
+    try:
+        outs = [o for _, o, _ in eng._dispatch_batch(reqs)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [o.cpu() for o in outs], graphs.counts_since(before)
+
+
+@pytest.mark.parametrize("mode", list(_GRAPH_MODES))
+def test_graph_replays_equal_eager(card, tmp_path, monkeypatch, mode):
+    import random
+    _seeded_frames(monkeypatch)
+    (graphed, eager), paths = _graph_engines(tmp_path, mode)
+    sigs = graphed.warmup(full_grid=True)
+    assert sigs and len(graphed._runners) == len(sigs)
+    assert all(r.graph is not None for r in graphed._runners.values())
+    traffic = _graph_traffic()
+    order = list(range(len(traffic)))
+    random.Random(mode).shuffle(order)
+    total = collections.Counter()
+    for i in order:
+        want, w_launch = _dispatch(eager, traffic[i])
+        got, g_launch = _dispatch(graphed, traffic[i], debug="error")
+        assert len(got) == len(want), i
+        assert all(_bits(a, b) for a, b in zip(got, want)), i
+        assert g_launch == w_launch, (i, g_launch, w_launch)
+        assert len(graphed._runners) == len(sigs), i
+        total.update(w_launch)
+    assert total["int8_ffn.launches"] > 0 or mode == "engine_II"      # K1
+    assert all(total[k] > 0 for k in _MODE_KERNELS.get(mode, ())), total
+    # two batches of one signature in flight
+    a, b = traffic[3][:8], traffic[3][2:] + traffic[3][:2]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fa = graphed.analyze_batch_async(a)
+        fb = graphed.analyze_batch_async(b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fa() == eager.analyze_batch(a) and fb() == eager.analyze_batch(b)
+    # a new vault: the warmed signatures re-captured, the rest dropped
+    for eng in (graphed, eager):
+        eng.reload_vault(paths[1])
+    assert list(graphed._runners) == sigs
+    for i in order[::-1]:
+        want, _ = _dispatch(eager, traffic[i])
+        got, _ = _dispatch(graphed, traffic[i], debug="error")
+        assert all(_bits(x, y) for x, y in zip(got, want)), i
+
+
+def test_per_stream_scratch_does_not_grow_under_capture(card):
+    from misinfo_tpu_torch.ops import cuda_build
+    dev = torch.device("cuda", 0)
+    s = torch.cuda.Stream(dev)
+    with torch.cuda.stream(s):
+        h = s.cuda_stream
+        small = cuda_build.workspace(1024, dev, h)
+        g = torch.cuda.CUDAGraph()
+        g.capture_begin()
+        try:
+            assert cuda_build.workspace(512, dev, h) is small
+            with pytest.raises(RuntimeError, match="capture"):
+                cuda_build.workspace(1 << 20, dev, h)
+        finally:
+            g.capture_end()
+        big = cuda_build.workspace(1 << 20, dev, h)
+    assert big is not small
+    assert any(t is small for t in cuda_build._RETIRED)
+
+
+@pytest.mark.parametrize("quant", ["auto", "embedding", "int8"])
+def test_transcriber_graphs_equal_eager(card, quant):
+    import numpy as np
+    from misinfo_tpu_torch.core.config import WhisperDecodeConfig
+    from misinfo_tpu_torch.models import whisper as W
+    from misinfo_tpu_torch.ops import graphs
+    from misinfo_tpu_torch.preprocess.whisper_tokenizer import (
+        ByteWhisperTokenizer)
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    tok = ByteWhisperTokenizer()
+    sp = tok.specials
+    cfg = W.WhisperConfig(vocab_size=sp.vocab_size, d_model=384,
+                          encoder_layers=2, decoder_layers=2, num_heads=6,
+                          ffn_dim=1536, max_target_positions=40,
+                          eos_token_id=sp.eot, decoder_start_token_id=sp.sot)
+    def numpy_tree(t):
+        if isinstance(t, dict):
+            return {k: numpy_tree(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [numpy_tree(v) for v in t]
+        return t.numpy()
+    tree = numpy_tree(W.whisper_init(7, cfg))
+    dc = WhisperDecodeConfig(language="en", quant=quant)
+    tg, te = (WhisperTranscriber(tree, config=cfg, device="cuda",
+                                 decode_cfg=dc, cuda_graphs=g)
+              for g in (True, False))
+    assert tg.pallas == (quant != "int8")        # int8: the streaming step
+    assert tg.quant_kernels == (quant == "auto")
+    assert tg.warmup((1, 2)) == [1, 2]
+    mels = np.random.default_rng(0).standard_normal(
+        (2, 3000, 80)).astype(np.float32)
+    with torch.inference_mode():
+        for b in (1, 2, 34):
+            prompt = torch.tensor([tok.sot_sequence(language="en")[1:]] * b,
+                                  device="cuda")
+            if b <= 2:
+                enc_g, enc_e = tg._encode(mels[:b]), te._encode(mels[:b])
+                assert torch.equal(enc_g, enc_e)
+            else:   # past MAX_BATCH: the unfused step, captured alike
+                enc_g = enc_e = torch.randn(
+                    b, 1500, 384, generator=torch.Generator().manual_seed(b)
+                ).to("cuda", torch.bfloat16)
+                tg._decode(enc_g, prompt)          # captured at first use
+                tg._decode(enc_g, prompt, 0.5, 7)
+            for t, seed in ((0.0, None), (0.5, 7), (1.0, 11), (0.0, None)):
+                before = graphs.launch_counts()
+                e = te._decode(enc_e, prompt, t, seed)
+                eager = graphs.counts_since(before)
+                before = graphs.launch_counts()
+                g = tg._decode(enc_g, prompt, t, seed)
+                assert all(torch.equal(x, y) for x, y in zip(g, e)), (b, t)
+                assert graphs.counts_since(before) == eager, (b, t)

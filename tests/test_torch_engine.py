@@ -173,8 +173,9 @@ def test_out_of_slice_requests_refused(f32_engines):
             config=t_eng.cfg.replace(serving=dataclasses.replace(
                 t_eng.cfg.serving, aot_cache=True)),
             det_cfg=t_eng.det_cfg, params=t_eng.params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_eng.warmup()
+    assert t_eng.warmup(batch_sizes=(1,), text_buckets=(32,),
+                        variants=("text_only",), videos=()) == [
+        ("text_only", 1, 32, 0)]
     with pytest.raises(ValueError):
         t_eng.analyze(verbose=False)
 
