@@ -201,6 +201,31 @@ Phases (any failure exits non-zero before the result line):
      boot (CUDA graphs) warmed, the batch of 32 and the video_text group
      replayed under "error", torch.equal to phase 10's eager engine, K10b
      2 and 3 launches per replay;
+ 27. (after phase 26) the entry points on reference checkpoints, at full
+     width: a seeded tree written through the port's
+     export_reference_state_dicts and torch.save as the monolithic
+     forensics_master_final.pth + clip_detective_best.pth and, in a second
+     directory, as the per-branch files; MisinfoForensics booted from each
+     (boot seconds printed) with load_report mode monolithic / individual,
+     every written leaf applied, none skipped, and analyze_batch of the
+     mixed batch equal, float for float, to an engine given the same tree
+     as params (a tree of another seed changes it); serve.cli.main with
+     --batch-file (the mixed batch as JSONL) and --output run beside the
+     monolithic files, its JSON equal to analyze_stream on the booted
+     engine; the API (serve(ForensicsAPI(engine), port=0) on 127.0.0.1,
+     the engine warmed as CUDA graphs): /healthz names the card and the
+     checkpoint mode, /metrics carries verdicts_per_sec, memory and
+     host_prep, 64 full requests (text + base64 image) from 8 client
+     threads to /analyze with one /analyze_batch and one /predict, every
+     verdict equal to the engine's own report for that request, K1's
+     ffn_up_kernel records (torch.profiler) over the API calls equal to
+     PER_PROGRAM × the programs the batcher dispatched; requests/s and
+     p50/p95 latency printed. (After phase 26's transcriber) phase 6's
+     whisper-base tree as an HF-layout .pt through
+     WhisperTranscriber(checkpoint_dir=...): has_weights, the same config,
+     greedy tokens torch.equal to the tree's transcriber, transcribe() of
+     the 20 s clip with phase 6's text and K6/K7 counts, merge_into_caption
+     → analyze;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -976,6 +1001,8 @@ def transcript_phases(engine, image, card, profile):
     tr = trs["kernels"][0]
     transcriber_graphs(*trs["kernels"], weights, cfg, wav,    # phase 26
                        card)
+    transcriber_from_pt(trs["kernels"], weights, cfg, wav,    # phase 27
+                        engine, image, W, K6, K7)
     teacher_forced(tr, wav, W, K6, K7)
     merged = merge_into_caption("Caption of the clip.", wav, tr)
     if not merged.startswith("Caption of the clip.\n\n"):
@@ -1576,6 +1603,405 @@ def transcriber_graphs(te, text, sec, launches, weights, cfg, wav, card):
           + f" [{card}]", flush=True)
     if not same:
         raise AssertionError("graph decode tokens differ from eager")
+
+
+# ------------------------------------------------- entry points (phase 27)
+
+WEIGHT_FILES = ("fusion_weights", "ai_head_weights", "misinfo_head_weights",
+                "efficientnet_weights", "clip_weights")
+API_REQUESTS, API_CLIENTS = 64, 8
+
+
+def write_reference_ckpts(tree, root: str) -> dict:
+    """Phase 27's checkpoints: ``tree`` through the port's
+    export_reference_state_dicts into ``root``/mono (the monolithic file
+    and clip_detective_best.pth) and ``root``/indiv (the per-branch
+    files). Returns each directory's leaf count."""
+    from misinfo_tpu_torch.checkpoints.torch_convert import (
+        export_reference_state_dicts)
+    full, clip_sd = export_reference_state_dicts(tree)
+
+    def tensors(prefix=""):
+        return {k: torch.from_numpy(v) for k, v in full.items()
+                if k.startswith(prefix)}
+    mono, indiv = os.path.join(root, "mono"), os.path.join(root, "indiv")
+    os.makedirs(mono)
+    os.makedirs(indiv)
+    torch.save({"full_model_state_dict": tensors(), "epoch": 8,
+                "accuracy": 0.9538},
+               os.path.join(mono, "forensics_master_final.pth"))
+    torch.save({"model_state_dict": {k: torch.from_numpy(v)
+                                     for k, v in clip_sd.items()}},
+               os.path.join(mono, "clip_detective_best.pth"))
+    branches = (("ai_head_best.pth", "ai_head."),
+                ("roberta_detective_best.pth", "misinfo_head."))
+    for name, prefix in branches:
+        torch.save({"model_state_dict": tensors(prefix)},
+                   os.path.join(indiv, name))
+    # the reference CIFAKE trainer saves a raw state_dict
+    torch.save(tensors("efficientnet."),
+               os.path.join(indiv, "efficientnet_cifake_best.pth"))
+    return {mono: len(full) + len(clip_sd),
+            indiv: sum(len(tensors(p)) for p in ("ai_head.", "misinfo_head.",
+                                                  "efficientnet."))}
+
+
+def config_in(base, ckpt_dir: str, vault_path: str):
+    """``base`` with ModelPaths' reference files in ``ckpt_dir``."""
+    p = base.paths
+    return base.replace(paths=dataclasses.replace(
+        p, vault_path=vault_path,
+        **{f: os.path.join(ckpt_dir, getattr(p, f)) for f in WEIGHT_FILES}))
+
+
+def png_path(image: np.ndarray, path: str) -> str:
+    from PIL import Image
+    Image.fromarray(image).save(path)
+    return path
+
+
+def png_b64(image: np.ndarray) -> str:
+    import base64
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def http(url: str, payload=None):
+    """(status, JSON body, seconds) of a GET (no payload) or a POST."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            body = json.loads(r.read())
+            code = r.status
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    return code, body, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def counting_runs(engine):
+    """Record the variant of every program ``engine`` runs (its ``_run``,
+    one call a program) while the block lasts."""
+    seen = []
+    real = engine._run
+
+    def spy(sig, inputs):
+        seen.append(sig[0])
+        return real(sig, inputs)
+    engine._run = spy
+    try:
+        yield seen
+    finally:
+        del engine._run
+
+
+def api_phase(engine, rng, card):
+    """Phase 27, the API: ``serve(ForensicsAPI(engine), port=0)`` over the
+    warmed checkpoint engine. Returns K1's launches in its requests."""
+    from concurrent.futures import ThreadPoolExecutor
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.serve import api as A
+
+    sigs = engine.warmup()
+    images = [rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
+              for _ in range(4)]
+    b64 = [png_b64(im) for im in images]
+    reqs = [{"text": words(rng, 20 + (7 * i) % 50), "image_b64": b64[i % 4]}
+            for i in range(API_REQUESTS)]
+    own = engine.analyze_batch([A._decode_request_image(r) for r in reqs])
+    api = A.ForensicsAPI(engine=engine)
+    httpd = A.serve(api, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, health, _ = http(url + "/healthz")
+        name = torch.cuda.get_device_name(0)
+        print(f"phase 27 API: /healthz {code} {health}", flush=True)
+        if not (code == 200 and health["device"] == name
+                and health["checkpoint_mode"] == "monolithic"):
+            raise AssertionError(f"/healthz gave {health}")
+
+        def drive():
+            with ThreadPoolExecutor(API_CLIENTS) as ex:
+                got = list(ex.map(lambda r: http(url + "/analyze", r), reqs))
+            batch = http(url + "/analyze_batch", reqs[:4])
+            pred = http(url + "/predict", reqs[4])
+            return got, batch, pred
+
+        # the first run also captures the batch buckets that the default
+        # warmup leaves to first use (2-16); the second replays them
+        for run in ("first run", "again"):
+            t0 = time.perf_counter()
+            got, batch, pred = drive()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lat = sorted(s for _, _, s in got)
+            if any(c != 200 for c, _, _ in got + [batch, pred]):
+                raise AssertionError("an API call failed: " + str(
+                    [b for c, b, _ in got + [batch, pred] if c != 200][:2]))
+            answers = [b for _, b, _ in got] + batch[1]
+            wants = own + own[:4]
+            drift = max(abs(a["scores"][k] - w["scores"][k])
+                        for a, w in zip(answers, wants)
+                        for k in ("fake_probability", "ai_score",
+                                  "deepfake_score", "clip_similarity"))
+            same = all(a["verdict"] == w["verdict"]
+                       for a, w in zip(answers, wants))
+            same = same and pred[1]["verdict_text"] == own[4]["verdict_text"]
+            print(f"phase 27 API ({run}): {API_REQUESTS} full requests "
+                  f"from {API_CLIENTS} client threads in {wall} s: "
+                  f"{API_REQUESTS / wall} requests/s (with one "
+                  f"/analyze_batch of 4 and one /predict), latency p50 "
+                  f"{lat[len(lat) // 2] * 1e3} ms, p95 "
+                  f"{lat[int(0.95 * (len(lat) - 1))] * 1e3} ms, "
+                  f"{len(engine._runners)} runners; verdicts equal to the "
+                  f"engine's own {same}, max score difference {drift} "
+                  f"[{card}]", flush=True)
+            if not same:
+                raise AssertionError("an API verdict differs from the "
+                                     "engine's")
+
+        code, metrics, _ = http(url + "/metrics")
+        print(f"phase 27 API: /metrics verdicts_per_sec "
+              f"{metrics.get('verdicts_per_sec')}, host_prep "
+              f"{metrics.get('host_prep', {}).get('summary')}", flush=True)
+        if not (code == 200 and {"verdicts_per_sec", "memory",
+                                 "host_prep"} <= set(metrics)):
+            raise AssertionError(f"/metrics gave keys {sorted(metrics)}")
+
+        # K1 in the replays: the profiler's records of its up kernel over
+        # the API calls equal PER_PROGRAM × the programs dispatched (the
+        # profiler drops a record now and then: three tries at most)
+        for _ in range(3):
+            before = K1.launches
+            with counting_runs(engine) as seen:
+                _, rec = profiled(drive, ("ffn_up_kernel",))
+            want = sum(PER_PROGRAM[v] for v in seen)
+            counted = K1.launches - before
+            if rec["ffn_up_kernel"] >= want:
+                break
+        print(f"phase 27 API: the batcher dispatched {len(seen)} programs "
+              f"({', '.join(sorted(set(seen)))}) over the warmed signatures "
+              f"({len(sigs)}, CUDA graphs); K1 launches {counted}, "
+              f"torch.profiler records of ffn_up_kernel "
+              f"{rec['ffn_up_kernel']} (want {want})", flush=True)
+        if not (seen and rec["ffn_up_kernel"] == counted == want):
+            raise AssertionError("K1 off PER_PROGRAM × programs in the API")
+    finally:
+        httpd.shutdown()
+        api.close()
+    return want
+
+
+def entry_points_phase(batch, vault_path, rng, card):
+    """Phase 27: the entry points on reference checkpoints at full width.
+    Returns K1's launches in the phase (its counts set to 0 just before,
+    read just after)."""
+    import gc
+    from misinfo_tpu_torch.core.config import ForensicsConfig
+    from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.serve import cli
+
+    det = DetectorConfig()
+    base = ForensicsConfig(verbose=True)
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tree = detector_init(11, det)
+        t0 = time.perf_counter()
+        written = write_reference_ckpts(tree, tmp)
+        mono, indiv = list(written)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d in written for f in os.listdir(d))
+        print(f"phase 27: {size} bytes of .pth written in "
+              f"{time.perf_counter() - t0} s", flush=True)
+        K1.launches = 0             # this path's run starts here
+        booted = {}
+        for d, mode in ((mono, "monolithic"), (indiv, "individual")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = F.MisinfoForensics(config_in(base, d, vault_path), det,
+                                     device="cuda",
+                                     cuda_graphs=mode == "monolithic")
+            torch.cuda.synchronize()
+            boot = time.perf_counter() - t0
+            rep = eng.load_report
+            print(f"phase 27: boot from {mode} .pth {boot} s, load_report "
+                  f"mode {rep['mode']}, applied {rep['applied']} (written "
+                  f"{written[d]}), skipped {len(rep['skipped'])} [{card}]",
+                  flush=True)
+            if (rep["mode"], rep["applied"], rep["skipped"]) != (
+                    mode, written[d], []):
+                raise AssertionError(f"phase 27 {mode}: load_report {rep}")
+            booted[mode] = eng
+        # the trees the files carry, given as params: individual mode
+        # overlays the heads and EfficientNet on the engine's seeded init
+        want_i = detector_init(base.seed, det)
+        for sub in ("ai_head", "misinfo_head", "efficientnet"):
+            want_i[sub] = tree[sub]
+        for mode, params in (("monolithic", tree), ("individual", want_i),
+                             ("another seed", detector_init(12, det))):
+            ref = F.MisinfoForensics(config_in(base, tmp, vault_path), det,
+                                     params=params, device="cuda",
+                                     cuda_graphs=False)
+            want = ref.analyze_batch(batch)
+            got = booted.get(mode, booted["monolithic"]).analyze_batch(batch)
+            check_reports(got, f"phase 27 {mode}")
+            equal = got == want
+            print(f"phase 27: {mode} engine's analyze_batch of the mixed "
+                  f"batch equal to one given the tree: {equal}", flush=True)
+            if equal != (mode != "another seed"):
+                raise AssertionError(f"phase 27 {mode}: reports equal "
+                                     f"{equal}")
+            del ref
+        engine = booted.pop("monolithic")
+        del booted
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the CLI in the process, beside the monolithic files
+        img = png_path(batch[0]["image"], os.path.join(tmp, "image.png"))
+        reqs = [{k: (img if k == "image" else v) for k, v in r.items()}
+                for r in batch]
+        jsonl = os.path.join(tmp, "requests.jsonl")
+        with open(jsonl, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in reqs)
+        out = os.path.join(tmp, "cli.json")
+        cwd = os.getcwd()
+        os.chdir(mono)
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(["--batch-file", jsonl, "--output", out,
+                           "--vault", vault_path, "--quiet"])
+            cli_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(out) as f:
+            got = json.load(f)
+        want = json.loads(json.dumps(list(engine.analyze_stream(
+            reqs, explanations=True))))
+        print(f"phase 27 CLI: --batch-file of {len(reqs)} requests rc {rc} "
+              f"in {cli_s} s (boot included); its JSON equal to "
+              f"analyze_stream on the monolithic engine: {got == want}",
+              flush=True)
+        if not (rc == 0 and got == want):
+            raise AssertionError("phase 27: the CLI's output differs")
+
+        api_phase(engine, rng, card)
+        launches = K1.launches      # read just after the path
+        print(f"phase 27: K1 launches {launches}; the engine half of the "
+              f"phase {time.perf_counter() - start} s", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def export_whisper_hf(tree) -> dict:
+    """A Whisper tree (numpy, the JAX layout) → an HF WhisperModel state
+    dict of torch tensors, the inverse of torch_convert.convert_whisper."""
+    sd = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    def lin(key, node):
+        sd[key + ".weight"] = t(node["kernel"].T)
+        if "bias" in node:
+            sd[key + ".bias"] = t(node["bias"])
+
+    def ln(key, node):
+        sd[key + ".weight"], sd[key + ".bias"] = (t(node["scale"]),
+                                                  t(node["bias"]))
+    enc, dec = tree["encoder"], tree["decoder"]
+    for conv in ("conv1", "conv2"):
+        sd[f"encoder.{conv}.weight"] = t(
+            enc[conv]["kernel"].transpose(2, 1, 0))
+        sd[f"encoder.{conv}.bias"] = t(enc[conv]["bias"])
+    sd["encoder.embed_positions.weight"] = t(enc["positions"])
+    sd["decoder.embed_tokens.weight"] = t(dec["token_embedding"])
+    sd["decoder.embed_positions.weight"] = t(dec["positions"])
+    projections = (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                   ("out_proj", "o"))
+    for tower, blocks in (("encoder", enc["blocks"]),
+                          ("decoder", dec["blocks"])):
+        for i, b in enumerate(blocks):
+            lp = f"{tower}.layers.{i}."
+            ln(lp + "self_attn_layer_norm", b["ln1"])
+            attn = b["attn"] if tower == "encoder" else b["self_attn"]
+            for hf, j in projections:
+                lin(lp + "self_attn." + hf, attn[j])
+            if tower == "decoder":
+                ln(lp + "encoder_attn_layer_norm", b["ln_cross"])
+                for hf, j in projections:
+                    lin(lp + "encoder_attn." + hf, b["cross_attn"][j])
+            ln(lp + "final_layer_norm", b["ln2"])
+            lin(lp + "fc1", b["mlp_in"])
+            lin(lp + "fc2", b["mlp_out"])
+    ln("encoder.layer_norm", enc["final_ln"])
+    ln("decoder.layer_norm", dec["final_ln"])
+    return sd
+
+
+def transcriber_from_pt(want, weights, cfg, wav, engine, image, W, K6, K7):
+    """Phase 27, the transcriber: ``weights`` as an HF-layout ``.pt``,
+    loaded through ``WhisperTranscriber(checkpoint_dir=...)``; the 20 s
+    clip transcribed to phase 6's text (``want``: its kernels
+    transcriber, text, seconds and K6/K7 launches) with phase 6's counts,
+    the greedy tokens torch.equal, merge_into_caption → analyze."""
+    from misinfo_tpu_torch.serve.transcript import (
+        WhisperTranscriber, merge_into_caption)
+    tr0, text0, _, counts0 = want
+    d = tempfile.mkdtemp(prefix="chip_smoke_whisper_")
+    try:
+        path = os.path.join(d, "whisper-base.pt")
+        sd = export_whisper_hf(weights)
+        torch.save(sd, path)
+        t0 = time.perf_counter()
+        tr = WhisperTranscriber(checkpoint_dir=path, device="cuda",
+                                decode_cfg=tr0.decode_cfg, cuda_graphs=False)
+        boot = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 27 transcriber: {len(sd)} tensors as an HF .pt, built in "
+          f"{boot} s: has_weights {tr.has_weights}, tokenizer_compatible "
+          f"{tr.tokenizer_compatible}, config equal {tr.cfg == cfg}",
+          flush=True)
+    if not (tr.has_weights and tr.tokenizer_compatible and tr.cfg == cfg):
+        raise AssertionError("phase 27: the .pt transcriber is not phase 6's")
+    from misinfo_tpu_torch.preprocess.audio import prep_mel_windows
+    mels, _ = prep_mel_windows(wav, 2 * cfg.max_source_positions, 1)
+    with torch.inference_mode():
+        prompt = torch.tensor(
+            [tr.tokenizer.sot_sequence(language="en")[1:]], device="cuda")
+        tok = tr._decode(tr._encode(mels), prompt)[0]
+        tok0 = tr0._decode(tr0._encode(mels), prompt)[0]
+    l6, l7, text, sec = transcribe_counted(tr, wav, W, K6, K7, True)
+    print(f"phase 27 transcriber: greedy tokens torch.equal to the tree's "
+          f"{torch.equal(tok, tok0)}; transcribe() text equal to phase 6's "
+          f"{text == text0}, K6/K7 launches {l6}/{l7} (phase 6 "
+          f"{counts0[0]}/{counts0[1]})", flush=True)
+    if not (torch.equal(tok, tok0) and text == text0
+            and (l6, l7) == tuple(counts0)):
+        raise AssertionError("phase 27: the .pt transcriber differs")
+    merged = merge_into_caption("Caption of the clip.", wav, tr)
+    if merged != ("Caption of the clip.\n\n" + text).strip():
+        raise AssertionError(f"merge_into_caption gave {merged[:80]!r}")
+    check_reports([engine.analyze(merged, image, verbose=False)],
+                  "phase 27 analyze(merged caption)")
 
 
 # ------------------------------------------------------------------- bounds
@@ -3050,6 +3476,8 @@ def main() -> int:
     engine_surface(engine, batch, image, rng, card)           # phase 24
     graph_phase(engine, batch, b32, text, image, group,       # phase 26
                 seeded, card, args.profile)
+    ep_launches = entry_points_phase(batch, vault_path, rng,  # phase 27
+                                     card)
     shutil.rmtree(clip_dir)
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
@@ -3077,8 +3505,8 @@ def main() -> int:
         **{k: kernel_rows[shape][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}}
         for name, shape, launches in (
-            ("int8_ffn", "roberta", main_launches),
-            ("int8_ffn_b32", "roberta_b32", main_launches),
+            ("int8_ffn", "roberta", main_launches + ep_launches),
+            ("int8_ffn_b32", "roberta_b32", main_launches + ep_launches),
             ("int8_ffn_video", "clip_vision_video", video_launches))]
     replaces = {"self_attn_step": "misinfo_tpu/ops/pallas_decode.py:52",
                 "self_attn_step_i8": "misinfo_tpu/ops/pallas_decode.py:148",

@@ -44,11 +44,15 @@ warmed gets its runner at first use, whose eager pass answers that
 request. ``reload_vault`` re-captures the warmed signatures against the
 new vault before it publishes it.
 
+Without ``params`` the engine starts from its seeded init and overlays
+the reference's ``.pth`` files where ``ModelPaths`` finds them
+(checkpoints/torch_convert.py: the monolithic file first, then the
+per-branch ones); ``load_report`` says which mode loaded.
+``host_prep_report`` measures this host's image prep once.
+
 Not carried yet, and refused with NotImplementedError: meshes, the AOT
 cache (the runners play its role), ``use_pallas="flash"`` (JAX's library
-TPU kernel) and the reference ``.pth`` checkpoints (an engine built
-without ``params`` refuses to start when one of ``ModelPaths``'
-checkpoint files exists, rather than serve random weights in its place).
+TPU kernel) and native (orbax) checkpoints (``paths.orbax_dir``).
 """
 
 from __future__ import annotations
@@ -67,6 +71,8 @@ import torch
 
 from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.checkpoints.from_jax import to_device
+from misinfo_tpu_torch.checkpoints.torch_convert import (
+    load_detector_from_reference_ckpts)
 from misinfo_tpu_torch.core.config import ForensicsConfig
 from misinfo_tpu_torch.engine.explain import Explainer
 from misinfo_tpu_torch.engine.signals import (
@@ -80,6 +86,7 @@ from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.graphs import Runner
 from misinfo_tpu_torch.ops.serving import (
     optimize_for_serving, quant_mode, resolve_quant)
+from misinfo_tpu_torch.preprocess.hostprobe import recommend
 from misinfo_tpu_torch.preprocess.image import (
     batch_images, choose_staging_bucket, decode_rgb, image_to_array,
     resize_param_row, stage_image_batch)
@@ -166,20 +173,15 @@ class MisinfoForensics:
         self.tokenizer_parity = all(self.tokenizer_grades.values())
 
         if params is None:
-            paths = self.cfg.paths
-            found = [f for f in (paths.fusion_weights, paths.ai_head_weights,
-                                 paths.misinfo_head_weights,
-                                 paths.efficientnet_weights,
-                                 paths.clip_weights) if os.path.exists(f)]
-            if found:
-                # JAX loads these; serving random weights beside them
-                # would pass for a trained deployment
-                not_ported(f"loading the reference checkpoints "
-                           f"{', '.join(found)}", "M16")
-            # seeded random init, as the JAX engine serves when no
-            # checkpoint files are present
+            # seeded init, then the reference .pth cascade (C10) over it;
+            # an unreadable file stops the cascade there, as in JAX, and
+            # the error is reported
             params = detector_init(self.cfg.seed, self.det_cfg)
-            self.load_report = {"mode": "init"}
+            try:
+                self.load_report = load_detector_from_reference_ckpts(
+                    params, self.cfg.paths)
+            except Exception as e:
+                self.load_report = {"mode": "init", "error": str(e)}
         else:
             self.load_report = {"mode": "provided"}
         self.load_report["tokenizer_parity"] = self.tokenizer_parity
@@ -228,6 +230,14 @@ class MisinfoForensics:
                   f"vault={'loaded' if self.vault_loaded else 'absent'}, "
                   f"vault_dtype={sv.vault_dtype}, "
                   f"ckpt={self.load_report['mode']}, tokenizer={tok})")
+            try:
+                # host-prep sizing hint: one ~0.3 s probe, so that an
+                # operator learns this host's image-traffic ceiling at boot
+                rec = self.host_prep_report()
+                if rec["host_bound_at_probe_res"]:
+                    print(f"host-prep notice: {rec['summary']}")
+            except Exception:
+                pass  # the probe is advisory; never block construction
 
     # ----------------------------------------------------------- helpers
 
@@ -455,6 +465,19 @@ class MisinfoForensics:
             out["hbm_in_use_bytes"], out["hbm_limit_bytes"] = mem
             out["hbm_headroom_bytes"] = mem[1] - mem[0]
         return out
+
+    def host_prep_report(self) -> Dict:
+        """Measured image-prep capacity of THIS host and the knob
+        recommendation: one cached ~0.3 s probe of the ``_image_batch``
+        path (preprocess/hostprobe.py), with the knobs in effect. Read by
+        the verbose boot banner and ``/metrics``."""
+        rec = dict(recommend())
+        rec["active"] = {
+            "fast_decode": self.cfg.serving.fast_decode,
+            "device_resize": self.cfg.serving.device_resize,
+            "prep_pool_workers": min(16, (os.cpu_count() or 1)),
+        }
+        return rec
 
     # ------------------------------------------------------------ runners
 

@@ -13,15 +13,15 @@ FFNs run through the fused int8 FFN (ops/int8_ffn.py, quick mode);
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from misinfo_tpu_torch.ops.attention import attention_init, multi_head_attention
 from misinfo_tpu_torch.ops.common import (
-    DEFAULT_POLICY, Policy, dense, dense_init, layer_norm, layer_norm_init,
-    quick_gelu)
+    DEFAULT_POLICY, Policy, dense, dense_init, l2_normalize, layer_norm,
+    layer_norm_init, quick_gelu)
 from misinfo_tpu_torch.ops.fused_ffn import ffn_apply
 from misinfo_tpu_torch.ops.int8_ffn import int8_ffn_apply
 
@@ -168,3 +168,18 @@ def clip_image_features(params: Dict, images: torch.Tensor,
                        use_pallas=use_pallas)
     pooled = layer_norm(v["post_ln"], x[:, 0], cfg.layer_norm_eps, policy)
     return dense(params["visual_projection"], pooled, policy).float()
+
+
+def clip_similarity(params: Dict, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor, images: torch.Tensor,
+                    cfg: ClipConfig = ClipConfig(),
+                    policy: Policy = DEFAULT_POLICY, use_pallas=False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ (cosine_sim [B], text_embeds_norm, image_embeds_norm): both
+    embeddings L2-normalized, one dot product per pair (reference
+    analyze_consistency, misinfo_forensics.py:394-404)."""
+    te = l2_normalize(clip_text_features(params, input_ids, attention_mask,
+                                         cfg, policy, use_pallas))
+    ie = l2_normalize(clip_image_features(params, images, cfg, policy,
+                                          use_pallas))
+    return torch.sum(te * ie, dim=-1), te, ie

@@ -24,9 +24,12 @@ the card each is captured as CUDA graphs (``cuda_graphs=False`` runs them
 eagerly); ``warmup(buckets)`` makes them before the first request.
 
 Weights come as a JAX-layout parameter tree of numpy arrays
-(checkpoints/from_jax.py); orbax checkpoints and HF ``.pt`` conversion
-are not ported yet (ROADMAP.md M16), nor mesh sharding (M17), the AOT /
-compile-cache plumbing and the isolated host-prep worker (M11).
+(checkpoints/from_jax.py), or from a Whisper torch file
+(``checkpoint_dir`` a ``.pt``/``.pth``/``.bin`` in HF or openai-whisper
+layout, checkpoints/torch_convert.py) whose own shapes set the
+architecture. Not ported yet: orbax checkpoint directories (ROADMAP.md
+M16), mesh sharding (M17), the AOT / compile-cache plumbing and the
+isolated host-prep worker (M11).
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ import torch
 
 from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.checkpoints.from_jax import params_from_jax, to_device
+from misinfo_tpu_torch.checkpoints.torch_convert import (
+    apply_updates, convert_whisper, whisper_config_from_torch,
+    whisper_state_dict)
 from misinfo_tpu_torch.core.config import WhisperDecodeConfig
 from misinfo_tpu_torch.models.whisper import (
     DecodeRunner, WhisperConfig, decode_transcript, detect_language,
@@ -56,7 +62,7 @@ from misinfo_tpu_torch.ops.serving import (
 from misinfo_tpu_torch.preprocess.audio import (
     HOP_LENGTH, mel_windows, prep_mel_windows)
 from misinfo_tpu_torch.preprocess.whisper_tokenizer import (
-    load_whisper_tokenizer)
+    load_whisper_tokenizer, specials_for_vocab)
 
 _log = logging.getLogger(__name__)
 
@@ -105,8 +111,11 @@ class WhisperTranscriber:
                  config: Optional[WhisperConfig] = None, device="cuda",
                  checkpoint_dir: Optional[str] = None, mesh=None,
                  cuda_graphs: bool = True):
-        if checkpoint_dir:
-            not_ported("checkpoint loading (orbax / HF .pt)", "M16")
+        if checkpoint_dir and not os.path.isfile(str(checkpoint_dir)):
+            not_ported("native (orbax) checkpoint directories", "M16")
+        if checkpoint_dir and (params is not None or config is not None):
+            raise ValueError("WhisperTranscriber: pass params/config or "
+                             "checkpoint_dir, not both")
         if mesh is not None:
             not_ported("a device mesh (multi-GPU transcription)", "M17")
         self.device = torch.device(device)
@@ -116,16 +125,50 @@ class WhisperTranscriber:
         # tokenizer first: its special-token layout pins the decoder ids
         self.tokenizer = load_whisper_tokenizer(tokenizer_dir)
         sp = self.tokenizer.specials
+        sd = None
         if config is None:
             size = size or os.getenv("WHISPER_MODEL", "base")
-            config = WhisperConfig(**_SIZES.get(size, _SIZES["base"]),
-                                   vocab_size=sp.vocab_size,
-                                   eos_token_id=sp.eot,
-                                   decoder_start_token_id=sp.sot)
+            kw = dict(_SIZES.get(size, _SIZES["base"]))
+            if checkpoint_dir:
+                # a Whisper torch file: the checkpoint's own shapes pin the
+                # architecture (a fallback tokenizer's vocab would
+                # shape-skip the real token embedding while the rest
+                # applies: a 'loaded' model that decodes garbage)
+                try:
+                    sd = whisper_state_dict(str(checkpoint_dir))
+                    kw.update(whisper_config_from_torch(sd))
+                except Exception:
+                    sd = None
+            kw.setdefault("vocab_size", sp.vocab_size)
+            # a checkpoint vocab other than the tokenizer's: the decoder
+            # ids follow the canonical layout for that vocab (transcribe()
+            # stays off through tokenizer_compatible below)
+            csp = (sp if kw["vocab_size"] == sp.vocab_size
+                   else specials_for_vocab(kw["vocab_size"]))
+            kw.setdefault("eos_token_id", csp.eot)
+            kw.setdefault("decoder_start_token_id", csp.sot)
+            config = WhisperConfig(**kw)
         self.cfg = config
-        self.has_weights = params is not None
-        params = (params_from_jax(params, self.device) if self.has_weights
-                  else to_device(whisper_init(0, self.cfg), self.device))
+        if checkpoint_dir:
+            params = whisper_init(0, self.cfg)
+            self.has_weights = False
+            if sd is not None:
+                try:
+                    applied, skipped = apply_updates(params,
+                                                     convert_whisper(sd))
+                    # the token embedding is load-bearing for decode: a
+                    # conversion that skipped it is not a usable model
+                    emb_skipped = any(p == ("decoder", "token_embedding")
+                                      for p, _ in skipped)
+                    self.has_weights = applied > 0 and not emb_skipped
+                except Exception:
+                    pass    # an unusable file: no weights, as in JAX
+            params = to_device(params, self.device)
+        else:
+            self.has_weights = params is not None
+            params = (params_from_jax(params, self.device)
+                      if self.has_weights
+                      else to_device(whisper_init(0, self.cfg), self.device))
         # the decoder can only emit text the tokenizer can spell
         self.tokenizer_compatible = sp.vocab_size == self.cfg.vocab_size
 
@@ -430,14 +473,27 @@ def merge_into_caption(text: Optional[str], video_path: Optional[str],
 _lock = threading.Lock()
 _engine = None
 _engine_failed = False
+_default_device = "cuda"
+
+
+def set_transcriber_device(device) -> None:
+    """Build the module-cached transcriber on ``device`` (the serving
+    surfaces' ``--device``, so that transcription runs where the engine
+    does). Applies to the next ``_get_engine`` build; call
+    ``reset_transcriber()`` first if one exists already."""
+    global _default_device
+    with _lock:
+        _default_device = str(device)
 
 
 def _get_engine() -> Optional[WhisperTranscriber]:
     """Lazily build (once) the module-cached transcriber from the
     environment, or None when construction failed (latched, like the
-    reference's global whisper model cache). It is built on the card;
-    without one its construction fails like any other. It has no weights
-    until checkpoint loading is ported (M16), so it transcribes to ""."""
+    reference's global whisper model cache). It is built on the device
+    that ``set_transcriber_device`` named, the card by default (without
+    one its construction fails like any other), from the Whisper torch
+    file that ``WHISPER_CHECKPOINT`` names; without one it has no weights
+    and transcribes to ""."""
     global _engine, _engine_failed
     with _lock:
         if _engine is None and not _engine_failed:
@@ -451,7 +507,7 @@ def _get_engine() -> Optional[WhisperTranscriber]:
                                      _DECODE_DEFAULTS.pallas))
                 _engine = WhisperTranscriber(
                     checkpoint_dir=os.getenv("WHISPER_CHECKPOINT"),
-                    decode_cfg=dc)
+                    decode_cfg=dc, device=_default_device)
             except Exception:
                 _log.warning("transcriber construction failed",
                              exc_info=True)
@@ -485,8 +541,10 @@ def warmup_transcriber(buckets=(1,)) -> list:
 
 
 def reset_transcriber() -> None:
-    """Drop the module-cached transcriber (tests / configuration swaps)."""
-    global _engine, _engine_failed
+    """Drop the module-cached transcriber and its device choice (tests /
+    configuration swaps)."""
+    global _engine, _engine_failed, _default_device
     with _lock:
         _engine = None
         _engine_failed = False
+        _default_device = "cuda"

@@ -798,3 +798,88 @@ def test_transcriber_graphs_equal_eager(card, quant):
                 g = tg._decode(enc_g, prompt, t, seed)
                 assert all(torch.equal(x, y) for x, y in zip(g, e)), (b, t)
                 assert graphs.counts_since(before) == eager, (b, t)
+
+
+# ------------------------------------------------- reference checkpoints
+# The reference .pth cascade on the card: the small detector's seeded tree
+# written through export_reference_state_dicts (monolithic, or the
+# per-branch files), an engine booted from the files beside one given the
+# tree it must hold; their reports equal float for float, and the booted
+# engine behind the API answers as itself.
+
+@pytest.mark.parametrize("layout", ["monolithic", "individual"])
+def test_engine_booted_from_reference_pth_equals_the_tree(card, tmp_path,
+                                                          monkeypatch,
+                                                          layout):
+    import json
+    import urllib.request
+
+    import numpy as np
+    from misinfo_tpu_torch.checkpoints.torch_convert import (
+        export_reference_state_dicts)
+    from misinfo_tpu_torch.core import config as C
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import detector_init
+    from misinfo_tpu_torch.serve.api import ForensicsAPI, serve
+
+    det = _small_det()
+    tree = detector_init(3, det)
+    full, clip_sd = export_reference_state_dicts(tree)
+
+    def tensors(sd, prefix=""):
+        return {k: torch.from_numpy(v) for k, v in sd.items()
+                if k.startswith(prefix)}
+    if layout == "monolithic":
+        torch.save({"full_model_state_dict": tensors(full), "epoch": 8,
+                    "accuracy": 0.9538},
+                   tmp_path / "forensics_master_final.pth")
+        torch.save({"model_state_dict": tensors(clip_sd)},
+                   tmp_path / "clip_detective_best.pth")
+        want_tree, written = tree, len(full) + len(clip_sd)
+    else:
+        torch.save({"model_state_dict": tensors(full, "ai_head.")},
+                   tmp_path / "ai_head_best.pth")
+        torch.save({"model_state_dict": tensors(full, "misinfo_head.")},
+                   tmp_path / "roberta_detective_best.pth")
+        torch.save(tensors(full, "efficientnet."),
+                   tmp_path / "efficientnet_cifake_best.pth")
+        want_tree = detector_init(C.ForensicsConfig().seed, det)
+        for sub in ("ai_head", "misinfo_head", "efficientnet"):
+            want_tree[sub] = tree[sub]
+        written = sum(len(tensors(full, p)) for p in
+                      ("ai_head.", "misinfo_head.", "efficientnet."))
+    monkeypatch.chdir(tmp_path)
+    cfg = C.ForensicsConfig(
+        verbose=False,
+        paths=C.ModelPaths(vault_path=_graph_vault(
+            str(tmp_path / "v.npz"), 300, 0)),
+        seq=C.SequenceConfig(roberta_max_len=128, image_size=64))
+    booted = MisinfoForensics(cfg, det, device="cuda")
+    assert (booted.load_report["mode"], booted.load_report["applied"],
+            booted.load_report["skipped"]) == (layout, written, [])
+    given = MisinfoForensics(cfg, det, params=want_tree, device="cuda",
+                             cuda_graphs=False)
+    reqs = [r for group in _graph_traffic()[:7] for r in group]
+    assert booted.analyze_batch(reqs) == given.analyze_batch(reqs)
+
+    api = ForensicsAPI(engine=booted)
+    httpd = serve(api, port=0)
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        assert health["device"] == torch.cuda.get_device_name(0)
+        assert health["checkpoint_mode"] == layout
+        req = urllib.request.Request(
+            url + "/analyze", data=json.dumps({"text": "a claim"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = json.loads(r.read())
+        want = given.analyze_batch([{"text": "a claim"}],
+                                   explanations=True)[0]
+        assert got["verdict"] == want["verdict"]
+        assert np.isclose(got["scores"]["fake_probability"],
+                          want["scores"]["fake_probability"], atol=1e-6)
+    finally:
+        httpd.shutdown()
+        api.close()

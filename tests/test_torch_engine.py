@@ -369,17 +369,29 @@ def test_engine_attributes_match_jax(f32_engines, tmp_path, capsys):
 @pytest.mark.parametrize("name", ["forensics_master_final.pth",
                                   "clip_detective_best.pth"])
 def test_reference_checkpoints_are_refused(tmp_path, monkeypatch, name):
-    """Without ``params`` the JAX engine loads ModelPaths' reference .pth
-    files; until the port loads them too, it refuses to start beside one
-    (naming ROADMAP.md M16) instead of serving random weights. With none
-    present it serves its seeded init."""
+    """Without ``params`` the engine loads ModelPaths' reference .pth
+    files, as the JAX engine does (the cascade's parity with JAX is in
+    tests/test_torch_serve.py); an unreadable one is refused by the
+    cascade, and the engine serves its seeded init with the error in
+    ``load_report`` (JAX's soft-fail). With none present it serves its
+    seeded init, reported as JAX reports it (the per-branch mode with
+    nothing applied). Native (orbax) checkpoints stay refused by name
+    (ROADMAP.md M16)."""
     monkeypatch.chdir(tmp_path)
     cfg = t_config.ForensicsConfig(verbose=False)
     det = TDetectorConfig.tiny()
     engine = t_forensics.MisinfoForensics(config=cfg, det_cfg=det,
                                           device="cpu")
-    assert engine.load_report["mode"] == "init"
+    assert (engine.load_report["mode"], engine.load_report["applied"],
+            engine.load_report["skipped"]) == ("individual", 0, [])
+    assert "error" not in engine.load_report
     (tmp_path / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="M16") as e:
-        t_forensics.MisinfoForensics(config=cfg, det_cfg=det, device="cpu")
-    assert name in str(e.value)
+    engine = t_forensics.MisinfoForensics(config=cfg, det_cfg=det,
+                                          device="cpu")
+    assert engine.load_report["mode"] == "init"
+    assert engine.load_report["error"]
+    native = cfg.replace(paths=dataclasses.replace(cfg.paths,
+                                                   orbax_dir="ckpt"))
+    with pytest.raises(NotImplementedError, match="M16"):
+        t_forensics.MisinfoForensics(config=native, det_cfg=det,
+                                     device="cpu")

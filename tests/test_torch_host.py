@@ -346,3 +346,44 @@ def test_whisper_tokenizer_identical(tmp_path):
     assert tt.sot_sequence() == tj.sot_sequence()
     assert isinstance(t_wtok.load_whisper_tokenizer(None),
                       t_wtok.ByteWhisperTokenizer)
+
+
+def test_host_prep_probe_and_recommendation_identical():
+    """preprocess/hostprobe.py's image-prep half: the probe's keys, and
+    ``recommend``'s decisions on the same probes (host-bound or not, the
+    fast decode worth it or not). The port's device rate and hint text
+    are its own (no TPU rate, no link probe or auto policy: M15)."""
+    from misinfo_tpu.preprocess import hostprobe as j_hp
+    from misinfo_tpu_torch.preprocess import hostprobe as t_hp
+    got = t_hp.probe_host_prep(res=120, trials=1)
+    assert set(got) == set(j_hp.probe_host_prep(res=120, trials=1))
+    assert got["probe_resolution"] == 120 and got["exact_ms_per_image"] > 0
+    assert t_hp.probe_host_prep(res=120) is got          # cached
+    for exact, fast in ((50.0, 200.0), (50.0, 55.0), (5000.0, 9000.0)):
+        probe = dict(got, exact_ceiling_images_per_s=exact,
+                     fast_ceiling_images_per_s=fast)
+        for rate in (100.0, t_hp.DEVICE_IMAGES_PER_S):
+            a = t_hp.recommend(probe, device_images_per_s=rate)
+            b = j_hp.recommend(probe, device_images_per_s=rate)
+            assert set(a) == set(b)
+            for k in ("host_bound_at_probe_res", "fast_decode_recommended",
+                      "probe"):
+                assert a[k] == b[k], (exact, fast, rate, k)
+            assert ("FAST_DECODE" in a["summary"]) == (
+                "FAST_DECODE" in b["summary"])
+
+
+def test_serving_modules_import_no_jax():
+    code = ("import sys; "
+            "import misinfo_tpu_torch.serve.api, misinfo_tpu_torch.serve.cli; "
+            "import misinfo_tpu_torch.serve.webui, "
+            "misinfo_tpu_torch.serve.dashboard; "
+            "import misinfo_tpu_torch.serve.similarity, "
+            "misinfo_tpu_torch.serve.download; "
+            "import misinfo_tpu_torch.engine.batching, "
+            "misinfo_tpu_torch.checkpoints.torch_convert, "
+            "misinfo_tpu_torch.preprocess.hostprobe; "
+            "assert 'jax' not in sys.modules; "
+            "assert not any(m == 'misinfo_tpu' or m.startswith('misinfo_tpu.')"
+            " for m in sys.modules)")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
