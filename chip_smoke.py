@@ -226,6 +226,27 @@ Phases (any failure exits non-zero before the result line):
      greedy tokens torch.equal to the tree's transcriber, transcribe() of
      the 20 s clip with phase 6's text and K6/K7 counts, merge_into_caption
      → analyze;
+ 28. (after phase 27) the trainers (misinfo_tpu_torch/train/): one f32
+     text step (RoBERTa-base + both heads, B = 2, S = 128, dropout 0) on
+     the card and on the CPU from one tree and batch: losses within 1e-4
+     relative, gradient norms within 1e-3, each leaf's gradient within
+     1e-3 of its largest (the attention key biases, whose exact gradient
+     is zero, below 1e-5 of the largest on both); then in bf16 at full
+     width on generated rows, each with its step ms (median after the
+     first two), tokens/s or images/s, peak memory, first and last loss
+     and checkpoint save/load seconds: roberta_detective (400 CSV rows,
+     B = 16, 256 tokens, one epoch; its FLOPs and share of the bf16
+     peak), cifake_efficientnet and clip_detective (400 seeded 224² PNGs,
+     B = 32; the CLIP trainer's frozen leaves torch.equal to their start)
+     and fusion_judge (precompute_scores of 64 rows through phase 4's
+     engine, K1 launches and ffn_up_kernel records = 36 × its programs,
+     then 10 epochs; the engine's tree untouched); the RoBERTa trainer's
+     directory boots an engine (load_report native, the text branch
+     torch.equal to the trained tree, one analyze) and the CLI with
+     --checkpoint (its JSON equal to that engine's analyze). (After phase
+     27's transcriber) its HF .pt through checkpoints/convert.py
+     --whisper: the directory's transcriber has phase 6's config and
+     greedy tokens torch.equal to phase 6's;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -1003,6 +1024,7 @@ def transcript_phases(engine, image, card, profile):
                        card)
     transcriber_from_pt(trs["kernels"], weights, cfg, wav,    # phase 27
                         engine, image, W, K6, K7)
+    transcriber_from_native(trs["kernels"], weights, cfg, wav)  # phase 28
     teacher_forced(tr, wav, W, K6, K7)
     merged = merge_into_caption("Caption of the clip.", wav, tr)
     if not merged.startswith("Caption of the clip.\n\n"):
@@ -2002,6 +2024,459 @@ def transcriber_from_pt(want, weights, cfg, wav, engine, image, W, K6, K7):
         raise AssertionError(f"merge_into_caption gave {merged[:80]!r}")
     check_reports([engine.analyze(merged, image, verbose=False)],
                   "phase 27 analyze(merged caption)")
+
+
+# ------------------------------------------------------ trainers (phase 28)
+
+TRAIN_ROWS, TRAIN_BATCH, TRAIN_LEN = 400, 16, 256
+IMAGE_ITEMS, IMAGE_BATCH = 400, 32
+FUSION_ROWS, FUSION_EPOCHS = 64, 10
+
+
+class GradCapture:
+    """An optimizer stand-in that keeps the gradients a step hands it."""
+
+    def update(self, grads, state):
+        self.grads = grads
+
+
+def text_loss_grads(tree, det, policy, batch, device):
+    """(loss, {path: gradient on the CPU}) of one misinfo-head text step
+    (make_text_head_step) on ``device``, the trainable leaves being the
+    backbone and the misinfo head."""
+    from misinfo_tpu_torch.train import optim, steps
+    from misinfo_tpu_torch.utils.tree import clone_tree
+    tree = clone_tree(tree, device)
+    tx = optim.make_optimizer(optim.OptimConfig(), optim.branch_mask(
+        tree, ["roberta", "misinfo_head"]))
+    state = tx.init(tree)
+    cap = GradCapture()
+    _, _, m = steps.make_text_head_step(cap, det, policy)(
+        tree, state, steps.batch_to(batch, device))
+    return float(m["loss"]), {p: g.detach().float().cpu()
+                              for p, g in zip(state.paths, cap.grads)}
+
+
+def text_step_card_vs_cpu(card):
+    """Phase 28, first part: one f32 text step (RoBERTa-base + both heads,
+    B = 2, S = 128, dropout 0) on the card and on the CPU from the same
+    tree and batch. The attention key biases' exact gradient is zero (a
+    softmax does not see a shift of all its scores): both sides hold
+    rounding noise there, which must stay below 1e-5 of the largest
+    gradient; every other leaf within 1e-3 of its own largest."""
+    from misinfo_tpu_torch.core.config import PrecisionConfig
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.models.roberta import head_init, roberta_init
+    from misinfo_tpu_torch.ops.common import Policy, set_exact_f32
+    det = DetectorConfig()
+    det = dataclasses.replace(det, roberta=dataclasses.replace(
+        det.roberta, hidden_dropout=0.0))
+    gen = torch.Generator().manual_seed(31)
+    tree = {"roberta": roberta_init(gen, det.roberta),
+            "ai_head": head_init(gen, det.roberta),
+            "misinfo_head": head_init(gen, det.roberta)}
+    rng = np.random.default_rng(31)
+    ids = rng.integers(3, det.roberta.vocab_size, (2, 128)).astype(np.int32)
+    mask = np.ones((2, 128), np.int32)
+    ids[1, 90:], mask[1, 90:] = det.roberta.pad_token_id, 0
+    batch = {"input_ids": ids, "attention_mask": mask,
+             "labels": np.asarray([1, 0], np.int32)}
+    policy = Policy(PrecisionConfig.highest())
+    tf32 = torch.backends.cudnn.allow_tf32
+    set_exact_f32(parity=True)
+    try:
+        t0 = time.perf_counter()
+        l_cpu, g_cpu = text_loss_grads(tree, det, policy, batch, "cpu")
+        cpu_s = time.perf_counter() - t0
+        l_card, g_card = text_loss_grads(tree, det, policy, batch, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    def norm(gs):
+        return float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in gs.values()])))
+    n_cpu, n_card = norm(g_cpu), norm(g_card)
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    ratio, noise = 0.0, 0.0
+    for path, a in g_cpu.items():
+        b = g_card[path]
+        if path[-2:] == ("k", "bias"):
+            noise = max(noise, float(a.abs().max()), float(b.abs().max()))
+            continue
+        scale = float(a.abs().max())
+        diff = float((a - b).abs().max())
+        if scale or diff:
+            ratio = max(ratio, diff / scale if scale else math.inf)
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    rel_norm = abs(n_card - n_cpu) / n_cpu
+    print(f"phase 28: f32 text step (RoBERTa-base + heads, B 2, S 128) "
+          f"card vs CPU: loss {l_card} / {l_cpu} (rel {rel_loss}, bound "
+          f"1e-4), gradient norm {n_card} / {n_cpu} (rel {rel_norm}, bound "
+          f"1e-3), largest per-leaf |Δg| / max|g| {ratio} (bound 1e-3) over "
+          f"{len(g_cpu)} leaves, key-bias noise {noise} (bound "
+          f"{1e-5 * top}); CPU step {cpu_s} s", flush=True)
+    if not (rel_loss <= 1e-4 and rel_norm <= 1e-3 and ratio <= 1e-3
+            and noise <= 1e-5 * top):
+        raise AssertionError("phase 28: the card's f32 text step is off "
+                             "the CPU's")
+
+
+# the step (from 0) a trainer's record profiles, not timed: the profiler
+# slows it
+PROFILED_STEP = 3
+
+
+def step_device_ms(fn):
+    """fn() under torch.profiler: (its result, the card's busy ms — the
+    union of the CUDA records' intervals — and the number of records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, last = 0.0, 0.0
+    for a, b in spans:
+        busy += max(0.0, b - max(a, last))
+        last = max(last, b)
+    return out, busy / 1e3, len(spans)
+
+
+@contextlib.contextmanager
+def timed_trainer(module):
+    """Every step of ``module``'s trainer timed with the card synced
+    before and after, and its loss read; every checkpoint it saves timed.
+    Yields the record."""
+    from misinfo_tpu_torch.checkpoints import io as ckpt_io
+    rec = {"n": 0, "ms": [], "loss": [], "save_s": [], "busy_ms": None,
+           "kernels": None}
+    real_run, real_save = module.run_training, ckpt_io.save_checkpoint
+
+    def run(params, opt_state, step_fn, *a, **kw):
+        def timed(p, o, b, g):
+            torch.cuda.synchronize()
+            rec["n"] += 1
+            if rec["n"] == PROFILED_STEP + 1:
+                out, rec["busy_ms"], rec["kernels"] = step_device_ms(
+                    lambda: step_fn(p, o, b, g))
+                return out
+            t0 = time.perf_counter()
+            out = step_fn(p, o, b, g)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["loss"].append(float(out[2]["loss"]))
+            return out
+        return real_run(params, opt_state, timed, *a, **kw)
+
+    def save(*a, **kw):
+        t0 = time.perf_counter()
+        real_save(*a, **kw)
+        rec["save_s"].append(time.perf_counter() - t0)
+    module.run_training, ckpt_io.save_checkpoint = run, save
+    try:
+        yield rec
+    finally:
+        module.run_training, ckpt_io.save_checkpoint = real_run, real_save
+
+
+def run_trainer(name, module, train, per_step, unit, out_dir, like, card):
+    """One trainer at full width: its result, and the printed step ms
+    (median after the first two steps), rate, peak memory, first and last
+    loss, checkpoint save and load seconds."""
+    from misinfo_tpu_torch.checkpoints.io import load_checkpoint
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_trainer(module) as rec:
+        res = train()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    loaded = load_checkpoint(out_dir, like)
+    load_s = time.perf_counter() - t0
+    ms = float(np.median(rec["ms"][2:]))
+    losses = rec["loss"]
+    info = {"steps": rec["n"],
+            "ms": ms, "rate": per_step / ms * 1e3,
+            "busy_ms": rec["busy_ms"], "kernels": rec["kernels"],
+            "peak_gb": peak / 1e9, "own_gb": (peak - base) / 1e9,
+            "loss": (losses[0], losses[-1]), "saves": rec["save_s"],
+            "load_s": load_s, "wall_s": wall}
+    print(f"phase 28 {name}: {info['steps']} steps, step ms {ms} (median "
+          f"after the first two; step {PROFILED_STEP} profiled instead: the "
+          f"card busy {rec['busy_ms']} ms over {rec['kernels']} CUDA "
+          f"records), {info['rate']} {unit}/s, peak memory "
+          f"{info['peak_gb']} GB ({info['own_gb']} GB over what the phase "
+          f"found allocated), loss first {losses[0]} last {losses[-1]}, "
+          f"{len(rec['save_s'])} checkpoint saves {rec['save_s']} s, load "
+          f"{load_s} s, trainer wall {wall} s [{card}]", flush=True)
+    if not (losses and all(math.isfinite(v) for v in losses)
+            and loaded is not None and rec["save_s"]):
+        raise AssertionError(f"phase 28 {name}: losses {losses[:3]}..., "
+                             "or no checkpoint")
+    return res, info
+
+
+def write_pngs(root: str, n: int, size: int = 224, seed: int = 28):
+    """``n`` seeded RGB PNGs: smooth gradients, blocks and noise."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    paths = []
+    for i in range(n):
+        c = rng.uniform(0, 255, (2, 3)).astype(np.float32)
+        img = (c[0] * xx[..., None] + c[1] * yy[..., None]) / 2
+        r, q = rng.integers(0, size - 48, 2)
+        img[r:r + 48, q:q + 48] = rng.uniform(0, 255, 3)
+        img += rng.normal(0, 8, img.shape)
+        p = os.path.join(root, f"img{i:04d}.png")
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            p, compress_level=1)
+        paths.append(p)
+    return paths
+
+
+def same_leaves(a, b, branches=None) -> bool:
+    """torch.equal over the leaves of two trees (of ``branches`` only)."""
+    from misinfo_tpu_torch.utils.tree import leaves_with_paths
+    pa, pb = leaves_with_paths(a), leaves_with_paths(b)
+    return [p for p, _ in pa] == [p for p, _ in pb] and all(
+        torch.equal(x.to(y.device), y) for (p, x), (_, y) in zip(pa, pb)
+        if branches is None or p[0] in branches)
+
+
+def roberta_flops(tree, det) -> float:
+    """One RoBERTa training step's FLOPs: 6 × the non-embedding
+    parameters × the tokens, plus the attention products (QKᵀ and PV,
+    forward and twice in backward: 12·L·B·S²·D)."""
+    from misinfo_tpu_torch.utils.tree import leaves_with_paths
+    n = sum(t.numel() for p, t in leaves_with_paths(tree)
+            if p[0] in ("ai_head", "misinfo_head")
+            or p[:2] == ("roberta", "layers"))
+    r = det.roberta
+    attn = 12 * r.num_layers * TRAIN_BATCH * TRAIN_LEN ** 2 * r.hidden_size
+    return 6 * n * TRAIN_BATCH * TRAIN_LEN + attn
+
+
+def trainers_phase(engine, vault_path, rng, card):
+    """Phase 28: the f32 step on the card against the CPU, the five
+    trainers at full width in bf16 on generated rows, and the RoBERTa
+    trainer's directory served (the engine, the CLI). Returns K1's
+    launches in the fusion judge's sweep over ``engine`` (its counts set
+    to 0 just before the sweep, read just after)."""
+    import gc
+    import pandas as pd
+    from misinfo_tpu_torch.checkpoints.from_jax import to_device
+    from misinfo_tpu_torch.core.config import ForensicsConfig
+    from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.ops.serving import optimize_for_serving
+    from misinfo_tpu_torch.serve import cli
+    from misinfo_tpu_torch.train import (
+        cifake_efficientnet, clip_detective, fusion_judge, roberta_detective)
+    from misinfo_tpu_torch.utils.tree import clone_tree
+
+    start = time.perf_counter()
+    text_step_card_vs_cpu(card)
+    det = DetectorConfig()
+    tree = detector_init(0, det)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    quiet = lambda *_: None     # noqa: E731
+    try:
+        csv = os.path.join(tmp, "welfake.csv")
+        pd.DataFrame([{"text": words(rng, int(rng.integers(150, 320))),
+                       "label": i % 2} for i in range(TRAIN_ROWS)]
+                     ).to_csv(csv, index=False)
+        out = os.path.join(tmp, "roberta")
+        res, info = run_trainer(
+            "roberta_detective", roberta_detective,
+            lambda: roberta_detective.train(
+                csv, out, epochs=1, batch_size=TRAIN_BATCH,
+                max_len=TRAIN_LEN, det_cfg=det, params=tree, log=quiet,
+                device="cuda"),
+            TRAIN_BATCH * TRAIN_LEN, "tokens", out, tree, card)
+        flops = roberta_flops(tree, det)
+        share = flops / (info["ms"] / 1e3) / PEAK_OPS["bf16"]
+        print(f"phase 28 roberta_detective: {flops / 1e12} TFLOP a step, "
+              f"{share} of the bf16 dense peak ({PEAK_OPS['bf16'] / 1e12} "
+              f"TFLOP/s), least time {flops / PEAK_OPS['bf16'] * 1e3} ms "
+              f"[{card}]", flush=True)
+
+        # the trainer's directory, served: the engine and the CLI
+        cfg = ForensicsConfig(verbose=False)
+        cfg = cfg.replace(paths=dataclasses.replace(
+            cfg.paths, vault_path=vault_path, orbax_dir=out))
+        t0 = time.perf_counter()
+        served = F.MisinfoForensics(cfg, det, device="cuda",
+                                    cuda_graphs=False)
+        boot = time.perf_counter() - t0
+        want = optimize_for_serving(clone_tree(res.params), served.policy,
+                                    served.quant)
+        equal = same_leaves(want, served.params,
+                            ("roberta", "ai_head", "misinfo_head"))
+        rep = served.load_report
+        text = words(rng, 40)
+        report = served.analyze(text, verbose=False)
+        check_reports([report], "phase 28 native engine")
+        print(f"phase 28: engine booted from the trainer's directory in "
+              f"{boot} s, load_report mode {rep['mode']} (trainer "
+              f"{rep.get('trainer')}, epoch {rep.get('epoch')}), text "
+              f"branch torch.equal to the trained tree {equal}, analyze "
+              f"verdict {report['verdict']}", flush=True)
+        if not (rep["mode"] == "native" and equal):
+            raise AssertionError(f"phase 28: native engine {rep['mode']}, "
+                                 f"equal {equal}")
+        del want
+        out_json = os.path.join(tmp, "cli.json")
+        t0 = time.perf_counter()
+        rc = cli.main(["--checkpoint", out, "--text", text, "--vault",
+                       vault_path, "--output", out_json, "--quiet"])
+        cli_s = time.perf_counter() - t0
+        with open(out_json) as f:
+            got = json.load(f)
+        same = got == json.loads(json.dumps(report))
+        print(f"phase 28 CLI: --checkpoint rc {rc} in {cli_s} s (boot "
+              f"included); its JSON equal to the engine's analyze: {same}",
+              flush=True)
+        if not (rc == 0 and same):
+            raise AssertionError("phase 28: the CLI's output differs")
+        del served, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        pngs = write_pngs(tmp, IMAGE_ITEMS)
+        items = [(p, i % 2) for i, p in enumerate(pngs)]
+        out = os.path.join(tmp, "cifake")
+        run_trainer("cifake_efficientnet", cifake_efficientnet,
+                    lambda: cifake_efficientnet.train(
+                        "", out, epochs=1, batch_size=IMAGE_BATCH,
+                        det_cfg=det, params=tree, items=items, log=quiet,
+                        device="cuda"),
+                    IMAGE_BATCH, "images", out, tree, card)
+        gc.collect()
+
+        pairs = os.path.join(tmp, "pairs.csv")
+        n_match = IMAGE_ITEMS * 4 // 5
+        pd.DataFrame([{"image_path": p, "text": words(rng, 12),
+                       "label": int(i >= n_match)}
+                      for i, p in enumerate(pngs)]).to_csv(pairs, index=False)
+        out = os.path.join(tmp, "clip")
+        res, _ = run_trainer(
+            "clip_detective", clip_detective,
+            lambda: clip_detective.train(
+                pairs, out_dir=out, epochs=1, batch_size=IMAGE_BATCH,
+                det_cfg=det, params=tree, log=quiet, device="cuda"),
+            IMAGE_BATCH, "pairs", out, tree, card)
+        trained = {("clip", "text_projection"), ("clip", "visual_projection"),
+                   ("clip", "logit_scale")}
+        from misinfo_tpu_torch.utils.tree import leaves_with_paths
+        frozen = [torch.equal(a, b.cpu()) for (p, a), (_, b) in zip(
+            leaves_with_paths(tree), leaves_with_paths(res.params))
+            if p[:2] not in trained]
+        moved = [not torch.equal(a, b.cpu()) for (p, a), (_, b) in zip(
+            leaves_with_paths(tree), leaves_with_paths(res.params))
+            if p[:2] in trained]
+        print(f"phase 28 clip_detective: {sum(frozen)} of {len(frozen)} "
+              f"frozen leaves torch.equal to their start, {sum(moved)} of "
+              f"{len(moved)} trained ones moved", flush=True)
+        if not (all(frozen) and all(moved)):
+            raise AssertionError("phase 28: the CLIP trainer's freeze")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rows = [{"text": words(rng, int(rng.integers(20, 200))),
+                 "image": pngs[i % len(pngs)], "label": i % 2}
+                for i in range(FUSION_ROWS)]
+        fusion_before = clone_tree(engine.params["fusion"])
+        counts = {}
+        for _ in range(3):          # the profiler may drop a record
+            K1.launches = 0         # this path's run starts here
+            with counting_runs(engine) as seen:
+                (vecs, labels), rec = profiled(
+                    lambda: fusion_judge.precompute_scores(
+                        engine, rows, log=quiet), ("ffn_up_kernel",))
+            launches = K1.launches  # read just after the sweep
+            want = sum(PER_PROGRAM[v] for v in seen)
+            counts = {"programs": list(seen), "want": want,
+                      "launches": launches,
+                      "records": rec["ffn_up_kernel"]}
+            if counts["records"] >= want:
+                break
+        print(f"phase 28 fusion_judge: precompute_scores over "
+              f"{FUSION_ROWS} rows: programs {counts['programs']}, K1 "
+              f"launches {launches} and ffn_up_kernel records "
+              f"{counts['records']} (want {want} = 36 x programs)",
+              flush=True)
+        if not (launches == want == counts["records"] and np.all(
+                np.isfinite(vecs)) and np.any(vecs)):
+            raise AssertionError(f"phase 28: the fusion sweep {counts}")
+        out = os.path.join(tmp, "fusion")
+        res, _ = run_trainer(
+            "fusion_judge", fusion_judge,
+            lambda: fusion_judge.train_on_scores(
+                vecs, labels, engine.params, out, epochs=FUSION_EPOCHS,
+                log=quiet, device="cuda"),
+            16, "rows", out, detector_init(0, det), card)
+        intact = same_leaves(fusion_before, engine.params["fusion"])
+        only_fusion = same_leaves(engine.params, res.params,
+                                  ("roberta", "ai_head", "misinfo_head",
+                                   "efficientnet", "clip"))
+        print(f"phase 28 fusion_judge: the engine's own fusion leaves "
+              f"untouched {intact}; every other branch of the trained tree "
+              f"torch.equal to the engine's {only_fusion}", flush=True)
+        if not (intact and only_fusion):
+            raise AssertionError("phase 28: the fusion trainer touched "
+                                 "what it does not own")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 28: {time.perf_counter() - start} s in all", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def transcriber_from_native(want, weights, cfg, wav):
+    """Phase 28, the transcriber: phase 27's HF ``.pt`` through
+    ``checkpoints/convert.py --whisper`` into a native directory, loaded
+    by ``WhisperTranscriber(checkpoint_dir=dir)``: its config phase 6's
+    and its greedy tokens torch.equal to phase 6's transcriber's."""
+    from misinfo_tpu_torch.checkpoints import convert
+    from misinfo_tpu_torch.preprocess.audio import prep_mel_windows
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    tr0 = want[0]
+    d = tempfile.mkdtemp(prefix="chip_smoke_native_whisper_")
+    try:
+        pt = os.path.join(d, "whisper-base.pt")
+        torch.save(export_whisper_hf(weights), pt)
+        t0 = time.perf_counter()
+        rc = convert.main(["--whisper", pt, "--out", os.path.join(d, "ck")])
+        conv_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr = WhisperTranscriber(checkpoint_dir=os.path.join(d, "ck"),
+                                device=tr0.device, decode_cfg=tr0.decode_cfg,
+                                cuda_graphs=False)
+        boot = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    mels, _ = prep_mel_windows(wav, 2 * cfg.max_source_positions, 1)
+    with torch.inference_mode():
+        prompt = torch.tensor(
+            [tr.tokenizer.sot_sequence(language="en")[1:]], device=tr.device)
+        tok = tr._decode(tr._encode(mels), prompt)[0]
+        tok0 = tr0._decode(tr0._encode(mels), prompt)[0]
+    same = torch.equal(tok, tok0)
+    print(f"phase 28 transcriber: convert.py --whisper rc {rc} in {conv_s} "
+          f"s, the directory's transcriber built in {boot} s: has_weights "
+          f"{tr.has_weights}, config equal {tr.cfg == cfg}, greedy tokens "
+          f"torch.equal to phase 6's {same}", flush=True)
+    if not (rc == 0 and tr.has_weights and tr.cfg == cfg and same):
+        raise AssertionError("phase 28: the converted transcriber differs")
 
 
 # ------------------------------------------------------------------- bounds
@@ -3478,6 +3953,8 @@ def main() -> int:
                 seeded, card, args.profile)
     ep_launches = entry_points_phase(batch, vault_path, rng,  # phase 27
                                      card)
+    train_launches = trainers_phase(engine, vault_path, rng,  # phase 28
+                                    card)
     shutil.rmtree(clip_dir)
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
@@ -3505,8 +3982,10 @@ def main() -> int:
         **{k: kernel_rows[shape][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}}
         for name, shape, launches in (
-            ("int8_ffn", "roberta", main_launches + ep_launches),
-            ("int8_ffn_b32", "roberta_b32", main_launches + ep_launches),
+            ("int8_ffn", "roberta",
+             main_launches + ep_launches + train_launches),
+            ("int8_ffn_b32", "roberta_b32",
+             main_launches + ep_launches + train_launches),
             ("int8_ffn_video", "clip_vision_video", video_launches))]
     replaces = {"self_attn_step": "misinfo_tpu/ops/pallas_decode.py:52",
                 "self_attn_step_i8": "misinfo_tpu/ops/pallas_decode.py:148",

@@ -44,15 +44,17 @@ warmed gets its runner at first use, whose eager pass answers that
 request. ``reload_vault`` re-captures the warmed signatures against the
 new vault before it publishes it.
 
-Without ``params`` the engine starts from its seeded init and overlays
-the reference's ``.pth`` files where ``ModelPaths`` finds them
+Without ``params`` the engine starts from its seeded init and loads a
+native checkpoint directory (``paths.orbax_dir``, checkpoints/io.py: the
+trainers' output, or the JAX package's saved without orbax), else
+overlays the reference's ``.pth`` files where ``ModelPaths`` finds them
 (checkpoints/torch_convert.py: the monolithic file first, then the
 per-branch ones); ``load_report`` says which mode loaded.
 ``host_prep_report`` measures this host's image prep once.
 
 Not carried yet, and refused with NotImplementedError: meshes, the AOT
-cache (the runners play its role), ``use_pallas="flash"`` (JAX's library
-TPU kernel) and native (orbax) checkpoints (``paths.orbax_dir``).
+cache (the runners play its role) and ``use_pallas="flash"`` (JAX's
+library TPU kernel).
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ import torch
 
 from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.checkpoints.from_jax import to_device
+from misinfo_tpu_torch.checkpoints.io import load_checkpoint, load_metadata
 from misinfo_tpu_torch.checkpoints.torch_convert import (
     load_detector_from_reference_ckpts)
 from misinfo_tpu_torch.core.config import ForensicsConfig
@@ -152,8 +155,6 @@ class MisinfoForensics:
         self.use_pallas = use_pallas
         if sv.aot_cache:
             not_ported("serving.aot_cache", "M15")
-        if self.cfg.paths.orbax_dir:
-            not_ported("native checkpoint loading", "M16")
         set_exact_f32(parity=self.policy.compute == torch.float32)
         t0 = time.perf_counter()
 
@@ -173,15 +174,24 @@ class MisinfoForensics:
         self.tokenizer_parity = all(self.tokenizer_grades.values())
 
         if params is None:
-            # seeded init, then the reference .pth cascade (C10) over it;
-            # an unreadable file stops the cascade there, as in JAX, and
-            # the error is reported
+            # seeded init, then the cascade: a native checkpoint directory
+            # (checkpoints/io.py, the trainers' output), else the reference
+            # .pth files (C10), where an unreadable file stops the cascade,
+            # as in JAX, and the error is reported
             params = detector_init(self.cfg.seed, self.det_cfg)
-            try:
-                self.load_report = load_detector_from_reference_ckpts(
-                    params, self.cfg.paths)
-            except Exception as e:
-                self.load_report = {"mode": "init", "error": str(e)}
+            orbax_dir = self.cfg.paths.orbax_dir
+            native = (load_checkpoint(orbax_dir, params) if orbax_dir
+                      else None)
+            if native is not None:
+                params = native
+                self.load_report = {"mode": "native", "path": orbax_dir,
+                                    **load_metadata(orbax_dir)}
+            else:
+                try:
+                    self.load_report = load_detector_from_reference_ckpts(
+                        params, self.cfg.paths)
+                except Exception as e:
+                    self.load_report = {"mode": "init", "error": str(e)}
         else:
             self.load_report = {"mode": "provided"}
         self.load_report["tokenizer_parity"] = self.tokenizer_parity

@@ -1,20 +1,25 @@
-"""EfficientNet-B0 visual forensics branch, inference only.
+"""EfficientNet-B0 visual forensics branch.
 
-Counterpart of ``misinfo_tpu/models/efficientnet.py`` with BatchNorm on
-running statistics. Parameters keep the JAX layout (HWIO conv kernels,
-NHWC at the public function); the body runs NCHW through cuDNN
-convolutions with symmetric (k-1)//2 padding, as torchvision.
+Counterpart of ``misinfo_tpu/models/efficientnet.py``. Parameters keep
+the JAX layout (HWIO conv kernels, NHWC at the public function); the body
+runs NCHW through cuDNN convolutions with symmetric (k-1)//2 padding, as
+torchvision. ``effnet_apply`` normalizes with the running statistics;
+``effnet_train_apply`` with the batch's (f32 over N·H·W), returning the
+BatchNorm state (running statistics updated with the unbiased variance
+at momentum 0.1), which ``merge_bn_updates`` writes back after the
+update; with a generator it also applies stochastic depth and the
+classifier's dropout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from misinfo_tpu_torch.ops.common import (
-    DEFAULT_POLICY, Policy, dense, dense_init, silu)
+    DEFAULT_POLICY, Policy, dense, dense_init, dropout, silu)
 
 # (expand_ratio, kernel, stride, in_ch, out_ch, num_blocks) — B0 stages
 B0_STAGES = (
@@ -29,6 +34,8 @@ B0_STAGES = (
 STEM_CH = 32
 HEAD_CH = 1280
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+STOCHASTIC_DEPTH_P = 0.2  # torchvision default, linearly scaled per block
 
 
 def _block_cfgs() -> List[Dict]:
@@ -91,13 +98,34 @@ def _conv(x, kernel, stride: int, groups: int = 1, policy=DEFAULT_POLICY):
                     padding=(k - 1) // 2, groups=groups)
 
 
-def _bn(bn: Dict, x, policy=DEFAULT_POLICY):
-    """Running-stat BatchNorm, math in f32 (channels on dim 1)."""
+def _bn(bn: Dict, x, policy=DEFAULT_POLICY, stats: Optional[list] = None):
+    """BatchNorm, math in f32 (channels on dim 1): on the running
+    statistics, or with ``stats`` (a list) on the batch's, appending the
+    updated running statistics to it."""
     c = (-1, 1, 1)
-    y = ((x.float() - bn["mean"].view(c)) * torch.rsqrt(bn["var"].view(c)
-                                                         + BN_EPS)
+    xf = x.float()
+    if stats is None:
+        mean, var = bn["mean"], bn["var"]
+    else:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf - mean.view(c)).square().mean(dim=(0, 2, 3))
+        stats.append(_update_bn_state(bn, mean.detach(), var.detach(),
+                                      x.shape[0] * x.shape[2] * x.shape[3]))
+    y = ((xf - mean.view(c)) * torch.rsqrt(var.view(c) + BN_EPS)
          * bn["scale"].view(c) + bn["bias"].view(c))
     return y.to(policy.compute)
+
+
+def _update_bn_state(bn: Dict, mean, var, n_elem: int) -> Dict:
+    """JAX's ``{**bn, mean, var}``: the running statistics updated
+    (unbiased variance), scale and bias as they are before the step."""
+    unbiased = var * (n_elem / max(1, n_elem - 1))
+    return {"scale": bn["scale"].detach().clone(),
+            "bias": bn["bias"].detach().clone(),
+            "mean": (1 - BN_MOMENTUM) * bn["mean"].detach()
+            + BN_MOMENTUM * mean,
+            "var": (1 - BN_MOMENTUM) * bn["var"].detach()
+            + BN_MOMENTUM * unbiased}
 
 
 def _se(se: Dict, x, policy=DEFAULT_POLICY):
@@ -108,27 +136,89 @@ def _se(se: Dict, x, policy=DEFAULT_POLICY):
     return x * gate[:, :, None, None].to(x.dtype)
 
 
-def effnet_apply(params: Dict, images: torch.Tensor,
-                 policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
-    """images [B,H,W,3] normalized NHWC → logits [B, num_classes] f32."""
+def _forward(params: Dict, images: torch.Tensor, policy: Policy,
+             stats: Optional[list], gen: Optional[torch.Generator],
+             dropout_rate: float) -> torch.Tensor:
+    """The network; ``stats`` is None at inference, else the list that
+    collects each BatchNorm's updated running statistics in tree order
+    (stem, each block's expand/dw/project, head)."""
     x = images.permute(0, 3, 1, 2)
     x = silu(_bn(params["stem"]["bn"],
-                 _conv(x, params["stem"]["conv"], 2, policy=policy), policy))
-    for blk, cfg in zip(params["blocks"], BLOCK_CFGS):
+                 _conv(x, params["stem"]["conv"], 2, policy=policy), policy,
+                 stats))
+    num_blocks = len(params["blocks"])
+    for bi, (blk, cfg) in enumerate(zip(params["blocks"], BLOCK_CFGS)):
         inp = x
         if "expand" in blk:
             x = silu(_bn(blk["expand"]["bn"],
                          _conv(x, blk["expand"]["conv"], 1, policy=policy),
-                         policy))
+                         policy, stats))
         x = _conv(x, blk["dw"]["conv"], cfg["stride"], groups=x.shape[1],
                   policy=policy)
-        x = _se(blk["se"], silu(_bn(blk["dw"]["bn"], x, policy)), policy)
+        x = _se(blk["se"], silu(_bn(blk["dw"]["bn"], x, policy, stats)),
+                policy)
         x = _bn(blk["project"]["bn"],
-                _conv(x, blk["project"]["conv"], 1, policy=policy), policy)
+                _conv(x, blk["project"]["conv"], 1, policy=policy), policy,
+                stats)
         if cfg["stride"] == 1 and cfg["cin"] == cfg["cout"]:
+            if gen is not None:
+                # stochastic depth (row mode), survival linearly decayed
+                sd_p = STOCHASTIC_DEPTH_P * bi / num_blocks
+                keep = torch.rand((x.shape[0], 1, 1, 1), generator=gen,
+                                  device=x.device) < 1.0 - sd_p
+                x = torch.where(keep, x / (1.0 - sd_p), 0.0).to(x.dtype)
             x = x + inp
     x = silu(_bn(params["head"]["bn"],
-                 _conv(x, params["head"]["conv"], 1, policy=policy), policy))
-    pooled = x.float().mean(dim=(2, 3))
+                 _conv(x, params["head"]["conv"], 1, policy=policy), policy,
+                 stats))
+    pooled = dropout(gen, x.float().mean(dim=(2, 3)), dropout_rate,
+                     gen is None)
     return dense(params["classifier"], pooled.to(policy.compute),
                  policy).float()
+
+
+def effnet_apply(params: Dict, images: torch.Tensor,
+                 policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
+    """images [B,H,W,3] normalized NHWC → logits [B, num_classes] f32,
+    BatchNorm on the running statistics."""
+    return _forward(params, images, policy, None, None, 0.0)
+
+
+def effnet_train_apply(params: Dict, images: torch.Tensor,
+                       policy: Policy = DEFAULT_POLICY, *,
+                       gen: Optional[torch.Generator] = None,
+                       dropout_rate: float = 0.2
+                       ) -> Tuple[torch.Tensor, List[Dict]]:
+    """Training forward (JAX's ``effnet_apply(train=True, rng=...)``):
+    BatchNorm on batch statistics → (logits, the updated running
+    statistics for ``merge_bn_updates``). Stochastic depth and the
+    classifier dropout run only with ``gen``."""
+    stats: List[Dict] = []
+    logits = _forward(params, images, policy, stats, gen, dropout_rate)
+    return logits, stats
+
+
+def _bn_leaves(params: Dict) -> List[Dict]:
+    """Every BatchNorm dict of the tree in ``_forward``'s order."""
+    out = [params["stem"]["bn"]]
+    for blk in params["blocks"]:
+        out += [blk[k]["bn"] for k in ("expand", "dw", "project")
+                if k in blk]
+    return out + [params["head"]["bn"]]
+
+
+@torch.no_grad()
+def merge_bn_updates(params: Dict, new_state: List[Dict]) -> Dict:
+    """Write the state of a training forward over the tree's ``bn``
+    leaves, in place (the leaves stay the optimizer's tensors); every
+    other leaf is untouched. Returns ``params``. As in JAX, each ``bn``
+    dict is replaced whole: the updated running statistics, and scale and
+    bias as they were before the step, so that an optimizer update of
+    those two is undone (the JAX package's EfficientNet step never trains
+    BatchNorm's affine parameters; the port keeps that)."""
+    leaves = _bn_leaves(params)
+    assert len(leaves) == len(new_state)
+    for bn, st in zip(leaves, new_state):
+        for k in ("scale", "bias", "mean", "var"):
+            bn[k].copy_(st[k])
+    return params

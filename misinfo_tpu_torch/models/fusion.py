@@ -2,18 +2,20 @@
 
 Counterpart of ``misinfo_tpu/models/fusion.py``: Linear(5,64) → ReLU →
 Linear(64,32) → ReLU → Linear(32,2) over ``[ai_score, misinfo_score,
-deepfake_score, clip_similarity, vault_discrepancy]``, run in f32.
+deepfake_score, clip_similarity, vault_discrepancy]``, run in f32, with
+dropout after the first ReLU in training.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from misinfo_tpu_torch.ops.common import F32_POLICY, dense, dense_init
+from misinfo_tpu_torch.ops.common import F32_POLICY, dense, dense_init, dropout
 
 FUSION_DIMS = (5, 64, 32, 2)
+FUSION_DROPOUT = 0.2  # reference misinfo_forensics.py:86
 
 
 def fusion_init(gen: torch.Generator) -> Dict:
@@ -21,8 +23,12 @@ def fusion_init(gen: torch.Generator) -> Dict:
             for i in range(3)}
 
 
-def fusion_apply(params: Dict, scores: torch.Tensor) -> torch.Tensor:
-    """scores [B,5] → logits [B,2] f32."""
+def fusion_apply(params: Dict, scores: torch.Tensor, *,
+                 gen: Optional[torch.Generator] = None,
+                 deterministic: bool = True) -> torch.Tensor:
+    """scores [B,5] → logits [B,2] f32. Dropout runs only in training and
+    with a generator (JAX's ``rng is not None``)."""
     h = torch.relu(dense(params["fc1"], scores.float(), F32_POLICY))
+    h = dropout(gen, h, FUSION_DROPOUT, deterministic or gen is None)
     h = torch.relu(dense(params["fc2"], h, F32_POLICY))
     return dense(params["fc3"], h, F32_POLICY)

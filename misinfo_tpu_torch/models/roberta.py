@@ -8,6 +8,10 @@ and ``segment_ids`` (block-diagonal attention). Int8-quantized FFNs run
 through the fused int8 FFN (ops/int8_ffn.py); ``use_pallas="ffn"`` runs
 the other FFNs through the fused FFN kernel (ops/fused_ffn.py) and keeps
 the einsum attention, ``use_pallas=True`` the fused attention kernel.
+Training (``deterministic=False``) applies hidden dropout to the
+embeddings and to each attention and MLP output, its masks drawn from a
+``torch.Generator``; ``dual_head_logits`` never applies the heads'
+dropout, as in JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 from misinfo_tpu_torch.ops.attention import attention_init, multi_head_attention
 from misinfo_tpu_torch.ops.common import (
-    DEFAULT_POLICY, Policy, dense, dense_init, gelu, layer_norm,
+    DEFAULT_POLICY, Policy, dense, dense_init, dropout, gelu, layer_norm,
     layer_norm_init)
 from misinfo_tpu_torch.ops.fused_ffn import ffn_apply
 from misinfo_tpu_torch.ops.int8_ffn import int8_ffn_apply
@@ -53,9 +57,13 @@ def head_init(gen: torch.Generator, cfg: RobertaConfig) -> Dict:
 
 
 def head_apply(params: Dict, pooled: torch.Tensor,
-               policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
-    """Linear → ReLU → Linear (inference: dropout is the identity)."""
+               policy: Policy = DEFAULT_POLICY, *,
+               gen: Optional[torch.Generator] = None,
+               deterministic: bool = True,
+               dropout_rate: float = 0.3) -> torch.Tensor:
+    """Linear → ReLU → Dropout → Linear."""
     h = torch.relu(dense(params["fc1"], pooled, policy))
+    h = dropout(gen, h, dropout_rate, deterministic)
     return dense(params["fc2"], h, policy).float()
 
 
@@ -95,14 +103,18 @@ def roberta_encode(
     use_pallas=False,
     position_ids: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    gen: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ) -> torch.Tensor:
     """→ last_hidden_state [B, S, D] in the compute dtype."""
+    rate = cfg.hidden_dropout
     emb = params["embeddings"]
     pos_ids = (position_ids if position_ids is not None
                else _position_ids(input_ids, cfg.pad_token_id))
     x = (emb["word"][input_ids.long()] + emb["position"][pos_ids.long()]
          + emb["token_type"][0])
     x = layer_norm(emb["ln"], x, cfg.layer_norm_eps, policy)
+    x = dropout(gen, x, rate, deterministic)
     ffn_fused = use_pallas == "ffn"
     attn_pallas = False if ffn_fused else use_pallas
     for layer in params["layers"]:
@@ -110,6 +122,7 @@ def roberta_encode(
             layer["attn"], x, cfg.num_heads,
             mask=None if segment_ids is not None else attention_mask,
             segment_ids=segment_ids, policy=policy, use_pallas=attn_pallas)
+        attn_out = dropout(gen, attn_out, rate, deterministic)
         x = layer_norm(layer["attn_ln"], x + attn_out, cfg.layer_norm_eps,
                        policy)
         if "kernel_q" in layer["mlp_in"]:
@@ -122,8 +135,18 @@ def roberta_encode(
             mlp = dense(layer["mlp_out"],
                         gelu(dense(layer["mlp_in"], x, policy), policy),
                         policy)
+        mlp = dropout(gen, mlp, rate, deterministic)
         x = layer_norm(layer["mlp_ln"], x + mlp, cfg.layer_norm_eps, policy)
     return x
+
+
+def roberta_cls(params: Dict, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor,
+                cfg: RobertaConfig = RobertaConfig(),
+                policy: Policy = DEFAULT_POLICY, **kw) -> torch.Tensor:
+    """[CLS] pooling (position 0) of ``roberta_encode``."""
+    return roberta_encode(params, input_ids, attention_mask, cfg, policy,
+                          **kw)[:, 0, :]
 
 
 def dual_head_logits(
@@ -135,10 +158,14 @@ def dual_head_logits(
     cfg: RobertaConfig = RobertaConfig(),
     policy: Policy = DEFAULT_POLICY,
     use_pallas=False,
+    gen: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CLS pooling into both heads → (ai_logits [B,2], misinfo_logits [B,2])
-    in f32."""
-    pooled = roberta_encode(backbone_params, input_ids, attention_mask,
-                            cfg, policy, use_pallas=use_pallas)[:, 0, :]
+    in f32. ``gen``/``deterministic`` reach the encoder only: the heads
+    run without dropout, as JAX's function calls them."""
+    pooled = roberta_cls(backbone_params, input_ids, attention_mask, cfg,
+                         policy, use_pallas=use_pallas, gen=gen,
+                         deterministic=deterministic)
     return (head_apply(ai_head_params, pooled, policy),
             head_apply(misinfo_head_params, pooled, policy))

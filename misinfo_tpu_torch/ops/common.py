@@ -66,16 +66,45 @@ def set_exact_f32(parity: bool) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The card's low-precision product with an f32 result, for training:
+    each gradient is an f32-accumulated product of operands in the
+    forward's dtype, rounded to its input's dtype (JAX's transpose of a
+    ``preferred_element_type=f32`` dot)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = _mm_f32(g, b.t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = _mm_f32(a.t(), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with an f32 result whatever the input dtype: the
     ``preferred_element_type=f32`` of the JAX dots. On the card a bf16
-    product keeps its f32 accumulator (``out_dtype``); on the CPU the
-    inputs widen exactly and the product runs in f32."""
+    product keeps its f32 accumulator (``out_dtype``; under autograd
+    through ``_MatmulF32``); on the CPU the inputs widen exactly and the
+    product runs in f32."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
         lead = a.shape[:-1]
-        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        a2 = a.reshape(-1, a.shape[-1])
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            y = _MatmulF32.apply(a2, b)
+        else:
+            y = _mm_f32(a2, b)
         return y.reshape(*lead, b.shape[-1])
     return a.float() @ b.float()
 
@@ -143,6 +172,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def softmax_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.softmax(x.float(), dim=dim)
+
+
+def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (JAX's ``ops/common.dropout``): each element kept
+    with probability 1 − rate and scaled by 1/(1 − rate), the mask drawn
+    from ``gen`` (a generator on x's device). The identity when
+    ``deterministic`` or at rate 0."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

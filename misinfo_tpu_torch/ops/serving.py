@@ -6,8 +6,9 @@ Counterpart of ``misinfo_tpu/ops/serving.py``: ``quant="int8_ffn"``
 int8 dense kernel K2 for the rest), ``cast_big_kernels`` (large dense
 kernels stored in bf16), and Whisper's bf16 storage and int8
 decoder/embedding transforms. All are pure tree rewrites; models are
-unchanged. (The JAX package's QKV fuse and its inverses have no caller
-here: its engine keeps the fuse off, and the port has no trainer yet.)
+unchanged. ``deoptimize_params`` undoes them for a checkpoint. (The JAX
+package's QKV fuse and unfuse have no caller here: its engine keeps the
+fuse off.)
 
 On a CUDA device the detector's int8 kernels are stored K-major
 (``kmajor``): each ``kernel_q`` keeps JAX's name, [in, out] shape and
@@ -147,6 +148,27 @@ def optimize_for_serving(params, policy, quant: str):
     if quant != "int8" and policy.compute == torch.bfloat16:
         params = cast_big_kernels(params, torch.bfloat16)
     return params
+
+
+def deoptimize_params(tree):
+    """The tree in the canonical checkpoint layout (``detector_init``'s
+    structure, f32 kernels), for persisting params that went through
+    ``optimize_for_serving``: int8 kernels dequantized (``kernel_q`` ·
+    ``w_scale`` in f32, lossy: the quantization error stays), bf16 leaves
+    upcast, every leaf contiguous in [in, out] order."""
+    if isinstance(tree, dict):
+        if "kernel_q" in tree:
+            out = {"kernel": (tree["kernel_q"].float()
+                              * tree["w_scale"]).contiguous()}
+            if "bias" in tree:
+                out["bias"] = tree["bias"]
+            return out
+        return {k: deoptimize_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(deoptimize_params(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        return tree.float()
+    return tree
 
 
 def optimize_whisper_for_serving(params, policy,

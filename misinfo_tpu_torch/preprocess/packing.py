@@ -136,6 +136,81 @@ def trim_padded(ids: np.ndarray, mask: np.ndarray) -> List[np.ndarray]:
     return out
 
 
+class StreamPacker:
+    """Incremental first-fit packer for TRAINING batches with static shapes.
+
+    Unlike serving (where row count adapts per batch), training wants one
+    jit signature: exactly ``n_rows`` rows × ``row_len`` tokens with
+    ``n_slots`` CLS slots per emitted batch. `add()` places sequences
+    first-fit until the next one doesn't fit (rows exhausted or slots
+    full), at which point the full batch is returned and the sequence
+    seeds the next one. Examples-per-step therefore varies; the loss
+    weights by ``slot_valid`` (train/steps.py packed step).
+    """
+
+    def __init__(self, row_len: int, pad_id: int, n_rows: int, n_slots: int):
+        self.row_len, self.pad_id = row_len, pad_id
+        self.n_rows, self.n_slots = n_rows, n_slots
+        self._reset()
+
+    def _reset(self):
+        self._free = [self.row_len] * self.n_rows
+        self._items: List[Tuple[int, int, np.ndarray, object]] = []  # row, col, seq, meta
+
+    def _try_place(self, seq) -> bool:
+        n = max(len(seq), 1)
+        if len(self._items) >= self.n_slots:
+            return False
+        for r, cap in enumerate(self._free):
+            if cap >= n:
+                self._items.append((r, self.row_len - cap, seq, None))
+                self._free[r] = cap - n
+                return True
+        return False
+
+    def add(self, seq: np.ndarray, meta=None):
+        """→ a finished (PackedTextBatch, metas) when this sequence forced a
+        flush, else None. The sequence always ends up in some batch."""
+        if len(seq) > self.row_len:
+            raise ValueError(f"sequence longer than row_len={self.row_len}")
+        if self._try_place(seq):
+            self._items[-1] = self._items[-1][:3] + (meta,)
+            return None
+        out = self.flush()
+        assert self._try_place(seq)
+        self._items[-1] = self._items[-1][:3] + (meta,)
+        return out
+
+    def flush(self):
+        """Emit the current batch (or None if empty) and reset."""
+        if not self._items:
+            return None
+        R, L = self.n_rows, self.row_len
+        ids = np.full((R, L), self.pad_id, np.int32)
+        mask = np.zeros((R, L), np.int32)
+        seg = np.zeros((R, L), np.int32)
+        pos = np.full((R, L), self.pad_id, np.int32)
+        seg_counter = np.zeros(R, np.int32)
+        cls_rows = np.zeros(self.n_slots, np.int32)
+        cls_cols = np.zeros(self.n_slots, np.int32)
+        metas = []
+        for i, (r, c, seq, meta) in enumerate(self._items):
+            n = max(len(seq), 1)
+            tok = (np.asarray(seq, np.int32) if len(seq)
+                   else np.asarray([self.pad_id], np.int32))
+            ids[r, c:c + n] = tok
+            mask[r, c:c + n] = 1
+            seg_counter[r] += 1
+            seg[r, c:c + n] = seg_counter[r]
+            pos[r, c:c + n] = self.pad_id + 1 + np.arange(n, dtype=np.int32)
+            cls_rows[i], cls_cols[i] = r, c
+            metas.append(meta)
+        batch = PackedTextBatch(ids, mask, pos, seg, cls_rows, cls_cols,
+                                n_real=len(self._items))
+        self._reset()
+        return batch, metas
+
+
 def packed_row_bucket(n_rows: int, buckets: Sequence[int]) -> int:
     """Smallest bucket ≥ n_rows (last bucket if none fits — callers split)."""
     for b in buckets:

@@ -13,9 +13,10 @@ warmed signature is a CUDA graph, replayed per batch.
     curl -X POST localhost:8080/analyze -d '{"text": "some claim"}'
 
 ``--device`` is ``auto`` or ``cuda`` (the card; they raise without one) or
-``cpu``. ``--mesh`` (multi-GPU, ROADMAP.md M17) and ``--checkpoint`` (a
-native orbax directory, M16) are refused by name; the reference ``.pth``
-files load from ``ModelPaths`` (the working directory) as in JAX.
+``cpu``. ``--mesh`` (multi-GPU, ROADMAP.md M17) is refused by name.
+``--checkpoint`` names a native checkpoint directory (checkpoints/io.py),
+which comes before the reference ``.pth`` files in ``ModelPaths`` (the
+working directory), as in JAX.
 
 Endpoints:
   GET  /               → browser dashboard (no-gradio UI, serve/webui.py)
@@ -48,7 +49,6 @@ from typing import Dict, Optional
 
 import torch
 
-from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.serve.device import DEVICE_CHOICES, select_device
 
 
@@ -299,18 +299,19 @@ def main(argv=None) -> int:
                         "that reads operator-named files — only behind a "
                         "trusted network)")
     args = p.parse_args(argv)
-    if args.checkpoint:
-        not_ported(f"--checkpoint {args.checkpoint} (a native orbax "
-                   "checkpoint directory)", "M16")
     device = select_device(args.device, args.mesh)
 
     from misinfo_tpu_torch.core.config import ForensicsConfig
 
     cfg = ForensicsConfig.from_env(verbose=False)
+    updates = {}
     if args.vault:
+        updates["vault_path"] = args.vault
+    if args.checkpoint:
+        updates["orbax_dir"] = args.checkpoint
+    if updates:
         import dataclasses
-        cfg = cfg.replace(paths=dataclasses.replace(cfg.paths,
-                                                    vault_path=args.vault))
+        cfg = cfg.replace(paths=dataclasses.replace(cfg.paths, **updates))
     api = ForensicsAPI(config=cfg, allow_reload=args.allow_reload,
                        device=device)
     if args.warmup:

@@ -5,10 +5,11 @@ optional JSON dump of the report. Adds --batch-file for the batched path.
 
 Counterpart of ``misinfo_tpu/serve/cli.py``. ``--device`` is ``auto`` or
 ``cuda`` (the card; they raise without one) or ``cpu``, for the engine and
-the transcriber alike. ``--mesh`` (multi-GPU, ROADMAP.md M17) and
-``--checkpoint`` (a native orbax directory, M16) are refused by name; the
-reference ``.pth`` files load from ``ModelPaths`` (the working directory)
-as in JAX.
+the transcriber alike. ``--mesh`` (multi-GPU, ROADMAP.md M17) is refused
+by name. ``--checkpoint`` names a native checkpoint directory
+(checkpoints/io.py: the trainers' output, or the JAX package's saved
+without orbax), which comes before the reference ``.pth`` files in
+``ModelPaths`` (the working directory), as in JAX.
 
     python -m misinfo_tpu_torch.serve.cli --text "some claim" --image a.jpg
 """
@@ -20,7 +21,6 @@ import json
 import os
 import sys
 
-from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.serve.device import DEVICE_CHOICES, select_device
 
 
@@ -37,8 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSONL of {text?, image?, video?} requests (batched path)")
     p.add_argument("--vault", type=str, default=None, help="Vault path override")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="Native checkpoint dir (as saved by the trainers; not "
-                        "ported: refused)")
+                   help="Native checkpoint dir (as saved by the trainers; "
+                        "takes precedence over the torch .pth cascade)")
     p.add_argument("--device", choices=list(DEVICE_CHOICES), default="auto",
                    help="auto and cuda: the card (an error without one); "
                         "cpu: the CPU")
@@ -74,9 +74,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not (args.text or args.image or args.video or args.batch_file):
         build_parser().error("Provide at least one of --text, --image, --video, or --batch-file")
-    if args.checkpoint:
-        not_ported(f"--checkpoint {args.checkpoint} (a native orbax "
-                   "checkpoint directory)", "M16")
     device = select_device(args.device, args.mesh)
 
     from misinfo_tpu_torch.core.config import ForensicsConfig
@@ -88,6 +85,9 @@ def main(argv=None) -> int:
     if args.vault:
         cfg = cfg.replace(paths=cfg.paths.__class__(
             **{**cfg.paths.__dict__, "vault_path": args.vault}))
+    if args.checkpoint:
+        cfg = cfg.replace(paths=cfg.paths.__class__(
+            **{**cfg.paths.__dict__, "orbax_dir": args.checkpoint}))
 
     engine = MisinfoForensics(config=cfg, device=device)
     if args.warmup:

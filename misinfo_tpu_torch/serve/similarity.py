@@ -6,8 +6,8 @@ Counterpart of ``misinfo_tpu/serve/similarity.py``: Match/Mismatch at the
 (strong/moderate/weak match, strong mismatch < 0.1, reference :164-174).
 ``analyze_pairs`` scores many (text, image) pairs in one forward of both
 towers (models/clip.py::clip_similarity) on one device, the card by
-default. Its ``checkpoint`` is a native (orbax) directory in JAX, which
-the port does not read yet (ROADMAP.md M16).
+default. Its ``checkpoint`` is a native checkpoint directory
+(checkpoints/io.py) laid over the seeded init, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.checkpoints.from_jax import to_device
+from misinfo_tpu_torch.checkpoints.io import load_checkpoint
 from misinfo_tpu_torch.core.config import PrecisionConfig
 from misinfo_tpu_torch.models.clip import clip_similarity
 from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
@@ -51,15 +51,14 @@ def tiered_explanation(sim: float, threshold: float = MATCH_THRESHOLD) -> str:
 class ClipSimilarityEngine:
     """Self-contained dual-tower similarity scorer. ``params`` is the
     detector tree (or its ``clip`` branch) as torch tensors; without it the
-    engine serves the port's seeded init (seed 0)."""
+    engine serves the port's seeded init (seed 0), with ``checkpoint``'s
+    tree over it when given."""
 
     def __init__(self, det_cfg: Optional[DetectorConfig] = None,
                  params: Optional[Dict] = None,
                  checkpoint: Optional[str] = None,
                  threshold: float = MATCH_THRESHOLD,
                  precision: str = "float32", device="cuda"):
-        if checkpoint:
-            not_ported("native (orbax) checkpoint directories", "M16")
         self.det_cfg = det_cfg or DetectorConfig()
         self.policy = Policy(PrecisionConfig(compute_dtype=precision))
         set_exact_f32(parity=self.policy.compute == torch.float32)
@@ -67,6 +66,10 @@ class ClipSimilarityEngine:
         self.device = torch.device(device)
         if params is None:
             params = detector_init(0, self.det_cfg)
+            if checkpoint:
+                restored = load_checkpoint(checkpoint, params)
+                if restored is not None:
+                    params = restored
         params = params["clip"] if "clip" in params else params
         self.params = to_device(params, self.device)
         self.tokenizer = load_clip_tokenizer(None, self.det_cfg.clip.vocab_size)

@@ -24,12 +24,14 @@ the card each is captured as CUDA graphs (``cuda_graphs=False`` runs them
 eagerly); ``warmup(buckets)`` makes them before the first request.
 
 Weights come as a JAX-layout parameter tree of numpy arrays
-(checkpoints/from_jax.py), or from a Whisper torch file
-(``checkpoint_dir`` a ``.pt``/``.pth``/``.bin`` in HF or openai-whisper
-layout, checkpoints/torch_convert.py) whose own shapes set the
-architecture. Not ported yet: orbax checkpoint directories (ROADMAP.md
-M16), mesh sharding (M17), the AOT / compile-cache plumbing and the
-isolated host-prep worker (M11).
+(checkpoints/from_jax.py), from a Whisper torch file (``checkpoint_dir``
+a ``.pt``/``.pth``/``.bin`` in HF or openai-whisper layout,
+checkpoints/torch_convert.py) whose own shapes set the architecture, or
+from a native checkpoint directory (checkpoints/io.py, written by
+checkpoints/convert.py) whose metadata's ``whisper_config`` sets it and
+whose ``tokenizer/`` holds the vocabulary. Not ported yet: mesh sharding
+(M17), the AOT / compile-cache plumbing and the isolated host-prep
+worker (M11).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 
 from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.checkpoints.from_jax import params_from_jax, to_device
+from misinfo_tpu_torch.checkpoints.io import load_checkpoint, load_metadata
 from misinfo_tpu_torch.checkpoints.torch_convert import (
     apply_updates, convert_whisper, whisper_config_from_torch,
     whisper_state_dict)
@@ -111,8 +114,6 @@ class WhisperTranscriber:
                  config: Optional[WhisperConfig] = None, device="cuda",
                  checkpoint_dir: Optional[str] = None, mesh=None,
                  cuda_graphs: bool = True):
-        if checkpoint_dir and not os.path.isfile(str(checkpoint_dir)):
-            not_ported("native (orbax) checkpoint directories", "M16")
         if checkpoint_dir and (params is not None or config is not None):
             raise ValueError("WhisperTranscriber: pass params/config or "
                              "checkpoint_dir, not both")
@@ -122,14 +123,24 @@ class WhisperTranscriber:
         self.decode_cfg = decode_cfg
         self.policy = DEFAULT_POLICY
         set_exact_f32(parity=self.policy.compute == torch.float32)
+        ckpt_is_dir = bool(checkpoint_dir) and os.path.isdir(
+            str(checkpoint_dir))
         # tokenizer first: its special-token layout pins the decoder ids
+        if tokenizer_dir is None and ckpt_is_dir and os.path.isdir(
+                os.path.join(str(checkpoint_dir), "tokenizer")):
+            tokenizer_dir = os.path.join(str(checkpoint_dir), "tokenizer")
         self.tokenizer = load_whisper_tokenizer(tokenizer_dir)
         sp = self.tokenizer.specials
         sd = None
         if config is None:
             size = size or os.getenv("WHISPER_MODEL", "base")
             kw = dict(_SIZES.get(size, _SIZES["base"]))
-            if checkpoint_dir:
+            meta = load_metadata(str(checkpoint_dir)) if ckpt_is_dir else {}
+            if isinstance(meta.get("whisper_config"), dict):
+                # native checkpoints self-describe their architecture
+                kw = {k: v for k, v in meta["whisper_config"].items()
+                      if k in WhisperConfig.__dataclass_fields__}
+            if checkpoint_dir and os.path.isfile(str(checkpoint_dir)):
                 # a Whisper torch file: the checkpoint's own shapes pin the
                 # architecture (a fallback tokenizer's vocab would
                 # shape-skip the real token embedding while the rest
@@ -163,6 +174,11 @@ class WhisperTranscriber:
                     self.has_weights = applied > 0 and not emb_skipped
                 except Exception:
                     pass    # an unusable file: no weights, as in JAX
+            elif ckpt_is_dir:
+                restored = load_checkpoint(str(checkpoint_dir), params)
+                if restored is not None:
+                    params = restored
+                    self.has_weights = True
             params = to_device(params, self.device)
         else:
             self.has_weights = params is not None

@@ -51,8 +51,9 @@ class IVFIndex(NamedTuple):
     def n_clusters(self) -> int:
         return self.centroids.shape[0]
 
-    def device_arrays(self, device="cpu") -> Dict[str, torch.Tensor]:
-        """Keys the engine merges into program batches (prefix `ivf_`)."""
+    def device_arrays(self, device="cuda") -> Dict[str, torch.Tensor]:
+        """Keys the engine merges into program batches (prefix `ivf_`), on
+        the card unless the caller asks for another device."""
         return {
             "ivf_centroids": torch.as_tensor(self.centroids, device=device),
             "ivf_lists": torch.as_tensor(self.lists, device=device),
@@ -128,11 +129,12 @@ def build_ivf(
     nprobe: Optional[int] = None,
     seed: int = 0,
     chunk_rows: int = 16384,
-    device="cpu",
+    device="cuda",
 ) -> IVFIndex:
     """Spherical k-means + dense list table; the assignment products run
-    on ``device``, the centroid updates and the table on the host, as in
-    the JAX package."""
+    on ``device`` (the card unless the caller asks for the CPU, as JAX's
+    default device), the centroid updates and the table on the host, as
+    in the JAX package."""
     emb = np.asarray(embeddings, np.float32)
     valid_idx = np.flatnonzero(np.asarray(row_valid))
     n_valid = len(valid_idx)

@@ -360,7 +360,8 @@ def test_port_transcriber_from_hf_file_matches_jax(trained, tmp_path,
 def test_port_transcriber_file_degrades_as_jax(tmp_path):
     """A checkpoint without a usable token embedding, or a vocab other
     than the tokenizer's: JAX's has_weights, tokenizer_compatible and
-    decoder ids. A directory (orbax) is refused by name."""
+    decoder ids. A directory without a native checkpoint gives no weights,
+    as JAX's."""
     from transformers import WhisperModel
     sd = WhisperModel(_tiny_whisper_config()).state_dict()
     cases = {"no_embedding": {k: v for k, v in sd.items()
@@ -375,7 +376,9 @@ def test_port_transcriber_file_degrades_as_jax(tmp_path):
         assert (tr.has_weights, tr.tokenizer_compatible) == (
             jt.has_weights, jt.tokenizer_compatible), name
         assert not (tr.has_weights and tr.tokenizer_compatible), name
-    with pytest.raises(NotImplementedError, match="M16"):
-        t_tr.WhisperTranscriber(checkpoint_dir=str(tmp_path), device="cpu")
+    tr = t_tr.WhisperTranscriber(checkpoint_dir=str(tmp_path), device="cpu")
+    jt = j_tr.WhisperTranscriber(checkpoint_dir=str(tmp_path))
+    assert dataclasses.asdict(tr.cfg) == dataclasses.asdict(jt.cfg)
+    assert tr.has_weights is jt.has_weights is False
     with pytest.raises(ValueError, match="not both"):
         t_tr.WhisperTranscriber({}, checkpoint_dir=path, device="cpu")

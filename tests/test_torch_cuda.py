@@ -51,6 +51,13 @@ LayerNorm, K5 fused FFN) are held to their plain versions at the main
 path's shapes through misinfo_tpu_torch/ops/kernel_checks.py: K2 bit for
 bit, K3-K5 within the bands that module derives, with its planted faults
 outside them.
+
+Training (misinfo_tpu_torch/train/): an f32 text step on the card against
+the same step on the CPU at a small width (loss within 1e-4 relative, the
+global gradient norm within 1e-3 relative, each leaf's gradient within
+1e-3 of its largest; the attention key biases, whose exact gradient is
+zero, only small on both), and bf16 trainer steps whose frozen leaves stay
+``torch.equal`` to their start.
 """
 
 import collections
@@ -883,3 +890,122 @@ def test_engine_booted_from_reference_pth_equals_the_tree(card, tmp_path,
     finally:
         httpd.shutdown()
         api.close()
+
+
+# ----------------------------------------------------------------- training
+# the trainers' steps on the card: autograd through the bf16 products'
+# f32-accumulating backward (ops/common.py::_MatmulF32) and cuDNN's
+# convolutions, the in-place AdamW update, the freeze masks
+
+def _text_grads(tree, det, policy, batch, device):
+    """(loss, the trainable leaves' gradients) of one misinfo-head text
+    step on ``device``, captured at the optimizer."""
+    from misinfo_tpu_torch.train import optim, steps
+    from misinfo_tpu_torch.utils.tree import clone_tree
+
+    class Capture:
+        def update(self, grads, state):
+            self.grads = [g.detach().float().cpu() for g in grads]
+    tree = clone_tree(tree, device)
+    tx = optim.make_optimizer(optim.OptimConfig(), optim.branch_mask(
+        tree, ["roberta", "misinfo_head"]))
+    state = tx.init(tree)
+    cap = Capture()
+    step = steps.make_text_head_step(cap, det, policy)
+    _, _, m = step(tree, state, steps.batch_to(batch, device))
+    return float(m["loss"]), dict(zip(state.paths, cap.grads))
+
+
+def test_train_f32_text_step_card_matches_cpu(card):
+    import numpy as np
+    from misinfo_tpu_torch.core.config import PrecisionConfig
+    from misinfo_tpu_torch.models.detector import detector_init
+    from misinfo_tpu_torch.ops.common import Policy, set_exact_f32
+    det = _small_det()
+    det = dataclasses.replace(det, roberta=dataclasses.replace(
+        det.roberta, hidden_dropout=0.0))
+    set_exact_f32(parity=True)
+    policy = Policy(PrecisionConfig.highest())
+    tree = detector_init(5, det)
+    tree = {k: tree[k] for k in ("roberta", "ai_head", "misinfo_head")}
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 1000, (2, 64)).astype(np.int32)
+    mask = np.ones((2, 64), np.int32)
+    mask[1, 40:] = 0
+    ids[1, 40:] = 1
+    batch = {"input_ids": ids, "attention_mask": mask,
+             "labels": np.asarray([0, 1], np.int32)}
+    l_cpu, g_cpu = _text_grads(tree, det, policy, batch, "cpu")
+    l_card, g_card = _text_grads(tree, det, policy, batch, card)
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    n_cpu = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in g_cpu.values()]))
+    n_card = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in g_card.values()]))
+    assert abs(n_card - n_cpu) <= 1e-3 * n_cpu
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    for path, a in g_cpu.items():
+        b = g_card[path]
+        if path[-2:] == ("k", "bias"):
+            assert max(float(a.abs().max()), float(b.abs().max())) <= (
+                1e-5 * top), path
+            continue
+        assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max()), \
+            path
+
+
+@pytest.mark.parametrize("kind", ["text", "effnet", "clip"])
+def test_train_bf16_step_leaves_frozen_leaves_equal(card, kind):
+    import numpy as np
+    from misinfo_tpu_torch.core.config import PrecisionConfig
+    from misinfo_tpu_torch.models.detector import detector_init
+    from misinfo_tpu_torch.ops.common import Policy
+    from misinfo_tpu_torch.train import optim, steps
+    from misinfo_tpu_torch.train.clip_detective import clip_trainable_mask
+    from misinfo_tpu_torch.utils.tree import clone_tree, leaves_with_paths
+    det = _small_det()
+    policy = Policy(PrecisionConfig(compute_dtype="bfloat16",
+                                    gelu_mode="erf"))
+    start = detector_init(6, det)
+    tree = clone_tree(start, card)
+    rng = np.random.default_rng(1)
+    imgs = rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)
+    if kind == "text":
+        mask = optim.branch_mask(tree, ["roberta", "misinfo_head"])
+        step_fn = steps.make_text_head_step
+        batch = {"input_ids": rng.integers(3, 1000, (8, 64)).astype(np.int32),
+                 "attention_mask": np.ones((8, 64), np.int32)}
+    elif kind == "effnet":
+        mask = optim.branch_mask(tree, ["efficientnet"])
+        batch = {"images_u8": imgs}
+    else:
+        mask = clip_trainable_mask(tree)
+        ids = rng.integers(1, 500, (8, 16)).astype(np.int32)
+        ids[:, -1] = det.clip.eos_token_id
+        batch = {"input_ids": ids, "attention_mask": np.ones((8, 16),
+                                                             np.int32),
+                 "images_u8": imgs}
+    batch["labels"] = np.asarray([0, 1] * 4, np.int32)
+    tx = optim.make_optimizer(optim.OptimConfig(lr=1e-3, total_steps=4,
+                                                warmup_fraction=0.0), mask)
+    state = tx.init(tree)
+    step = {"text": lambda: steps.make_text_head_step(tx, det, policy),
+            "effnet": lambda: steps.make_effnet_step(tx, policy),
+            "clip": lambda: steps.make_clip_step(tx, det, policy)}[kind]()
+    gen = torch.Generator(card).manual_seed(0)
+    losses = []
+    for _ in range(3):
+        tree, state, m = step(tree, state, steps.batch_to(batch, card), gen)
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)), losses
+    train = dict(leaves_with_paths(mask))
+    moved = 0
+    for (path, a), (_, b) in zip(leaves_with_paths(start),
+                                 leaves_with_paths(tree)):
+        b = b.cpu()
+        if not train[path]:
+            assert torch.equal(a, b), path
+        else:
+            moved += not torch.equal(a, b)
+            assert b.dtype == torch.float32
+    assert moved > 0

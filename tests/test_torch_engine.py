@@ -375,8 +375,10 @@ def test_reference_checkpoints_are_refused(tmp_path, monkeypatch, name):
     cascade, and the engine serves its seeded init with the error in
     ``load_report`` (JAX's soft-fail). With none present it serves its
     seeded init, reported as JAX reports it (the per-branch mode with
-    nothing applied). Native (orbax) checkpoints stay refused by name
-    (ROADMAP.md M16)."""
+    nothing applied). A native checkpoint directory that holds no params
+    passes on to the .pth cascade, as in JAX; one that holds only an
+    orbax tree is refused by name (tests/test_torch_native_ckpt.py loads
+    the native ones)."""
     monkeypatch.chdir(tmp_path)
     cfg = t_config.ForensicsConfig(verbose=False)
     det = TDetectorConfig.tiny()
@@ -392,6 +394,10 @@ def test_reference_checkpoints_are_refused(tmp_path, monkeypatch, name):
     assert engine.load_report["error"]
     native = cfg.replace(paths=dataclasses.replace(cfg.paths,
                                                    orbax_dir="ckpt"))
-    with pytest.raises(NotImplementedError, match="M16"):
+    engine = t_forensics.MisinfoForensics(config=native, det_cfg=det,
+                                          device="cpu")
+    assert engine.load_report["mode"] == "init"
+    (tmp_path / "ckpt" / "params").mkdir(parents=True)
+    with pytest.raises(ValueError, match="orbax params/ tree"):
         t_forensics.MisinfoForensics(config=native, det_cfg=det,
                                      device="cpu")

@@ -3,8 +3,10 @@
 Each copy must match exactly: config defaults, token ids (hash fallback
 and BPE), packed arrays, image arrays, the vault round trip, the
 explanation text, and the transcript path's audio frontend and Whisper
-tokenizers. Also checks that importing the port's engine loads
-neither JAX nor the JAX package.
+tokenizers, and the training host code (metrics, the median pruner,
+the train/val split and eval batching, the datasets' augmentations and
+batches, the stream packer). Also checks that importing the port's engine
+and trainers loads neither JAX nor the JAX package.
 """
 
 import dataclasses
@@ -25,6 +27,9 @@ from misinfo_tpu.preprocess import packing as j_packing
 from misinfo_tpu.preprocess import tokenizer as j_tok
 from misinfo_tpu.preprocess import whisper_tokenizer as j_wtok
 from misinfo_tpu.preprocess.bpe import bytes_to_unicode
+from misinfo_tpu.train import datasets as j_data
+from misinfo_tpu.train import harness as j_harness
+from misinfo_tpu.train import metrics as j_metrics
 from misinfo_tpu.vault.store import TruthVault as JVault
 
 from misinfo_tpu_torch.core import config as t_config
@@ -35,6 +40,9 @@ from misinfo_tpu_torch.preprocess import image as t_image
 from misinfo_tpu_torch.preprocess import packing as t_packing
 from misinfo_tpu_torch.preprocess import tokenizer as t_tok
 from misinfo_tpu_torch.preprocess import whisper_tokenizer as t_wtok
+from misinfo_tpu_torch.train import datasets as t_data
+from misinfo_tpu_torch.train import harness as t_harness
+from misinfo_tpu_torch.train import metrics as t_metrics
 from misinfo_tpu_torch.vault.store import TruthVault as TVault
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -383,6 +391,156 @@ def test_serving_modules_import_no_jax():
             "import misinfo_tpu_torch.engine.batching, "
             "misinfo_tpu_torch.checkpoints.torch_convert, "
             "misinfo_tpu_torch.preprocess.hostprobe; "
+            "assert 'jax' not in sys.modules; "
+            "assert not any(m == 'misinfo_tpu' or m.startswith('misinfo_tpu.')"
+            " for m in sys.modules)")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+# ------------------------------------------------------ training host code
+
+def test_train_metrics_identical():
+    rng = np.random.default_rng(3)
+    y, p = rng.integers(0, 3, 50), rng.integers(0, 3, 50)
+    np.testing.assert_array_equal(t_metrics.confusion_matrix(y, p),
+                                  j_metrics.confusion_matrix(y, p))
+    for names in (None, ["real", "fake", "other"]):
+        a = t_metrics.classification_report(y, p, names)
+        assert a == j_metrics.classification_report(y, p, names)
+        assert t_metrics.format_report(a) == j_metrics.format_report(a)
+
+
+def test_median_pruner_identical():
+    rng = np.random.default_rng(4)
+    for mode, warm in (("max", 0), ("min", 1)):
+        pruners = [m.MedianPruner(mode=mode, n_startup_trials=2,
+                                  n_warmup_steps=warm)
+                   for m in (j_harness, t_harness)]
+        for trial in range(8):
+            for pr in pruners:
+                pr.start_trial()
+            vals = rng.uniform(size=4)
+            for epoch, v in enumerate(vals):
+                out = [pr.report(epoch, v) for pr in pruners]
+                assert out[0] == out[1], (mode, trial, epoch)
+                if out[0]:
+                    break
+            for pr in pruners:
+                pr.complete_trial(pruned=out[0])
+        assert pruners[0].trials == pruners[1].trials
+
+
+def test_split_and_eval_batches_identical():
+    items = [f"s{i}" for i in range(23)]
+    for frac, seed in ((0.2, 42), (0.5, 1)):
+        assert (t_harness.split_train_val(items, frac, seed)
+                == j_harness.split_train_val(items, frac, seed))
+
+    def batches(size, n=5):
+        return [list(range(s, s + size)) for s in range(0, n - size + 1,
+                                                        size)]
+    for n_items, bs in ((5, 2), (5, 8), (0, 4)):
+        got = list(t_harness.eval_batches(lambda b: batches(b, n_items),
+                                          n_items, bs))
+        assert got == list(j_harness.eval_batches(
+            lambda b: batches(b, n_items), n_items, bs))
+
+
+def _pngs(tmp_path, n, size=40):
+    from PIL import Image
+    rng = np.random.default_rng(5)
+    paths = []
+    for i in range(n):
+        p = str(tmp_path / f"img{i}.png")
+        Image.fromarray(rng.integers(0, 256, (size, size + 8, 3),
+                                     dtype=np.uint8)).save(p)
+        paths.append(p)
+    return paths
+
+
+def test_augmentations_identical():
+    img = np.random.default_rng(6).integers(0, 256, (48, 40, 3),
+                                            dtype=np.uint8)
+    for fn in ("color_jitter", "gaussian_blur", "random_jpeg_compress"):
+        for seed in range(4):
+            a = getattr(t_data, fn)(img, np.random.default_rng(seed))
+            b = getattr(j_data, fn)(img, np.random.default_rng(seed))
+            np.testing.assert_array_equal(a, b)
+    for jpeg in (True, False):
+        for seed in range(6):
+            np.testing.assert_array_equal(
+                t_data.train_augment(img, np.random.default_rng(seed), jpeg),
+                j_data.train_augment(img, np.random.default_rng(seed), jpeg))
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_dataset_batches_identical(tmp_path, train):
+    paths = _pngs(tmp_path, 4)
+    texts = TEXTS * 2
+    rows = [dict(text=t, image_path=(paths[i % 4] if i % 3 else None),
+                 label=i % 2) for i, t in enumerate(texts)]
+    sets = []
+    for m, tok in ((t_data, t_tok), (j_data, j_tok)):
+        samples = [m.Sample(**r) for r in rows]
+        sets.append(m.MisinfoDataset(
+            samples, tok.HashTokenizer("roberta", 1024),
+            tok.HashTokenizer("clip", 512), image_size=32, roberta_len=24,
+            clip_len=16, train=train, seed=3))
+    for bs, drop in ((3, False), (4, True)):
+        got = list(sets[0].batches(bs, drop_remainder=drop))
+        want = list(sets[1].batches(bs, drop_remainder=drop))
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    got = list(sets[0].packed_batches(n_rows=2, n_slots=4))
+    want = list(sets[1].packed_batches(n_rows=2, n_slots=4))
+    assert len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    part = {k: v[:2] for k, v in want[0].items()}
+    for k, v in t_data.pad_batch_to(part, 5).items():
+        np.testing.assert_array_equal(v, j_data.pad_batch_to(part, 5)[k])
+    assert list(t_data.prefetch(iter(range(7)), depth=2)) == list(range(7))
+
+
+def test_stream_packer_identical():
+    rng = np.random.default_rng(8)
+    packers = [m.StreamPacker(row_len=16, pad_id=1, n_rows=3, n_slots=5)
+               for m in (t_packing, j_packing)]
+    outs = [[], []]
+    for i in range(40):
+        seq = rng.integers(3, 900, int(rng.integers(0, 17))).astype(np.int32)
+        for pk, out in zip(packers, outs):
+            r = pk.add(seq, i)
+            if r is not None:
+                out.append(r)
+    for pk, out in zip(packers, outs):
+        out.append(pk.flush())
+    assert len(outs[0]) == len(outs[1]) > 3
+    for (a, ma), (b, mb) in zip(*outs):
+        assert ma == mb and a.n_real == b.n_real
+        for f in ("ids", "mask", "position_ids", "segment_ids", "cls_rows",
+                  "cls_cols"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    with pytest.raises(ValueError, match="row_len"):
+        packers[0].add(np.zeros(17, np.int32))
+
+
+def test_trainers_import_no_jax():
+    code = ("import sys; "
+            "import misinfo_tpu_torch.train, misinfo_tpu_torch.train.steps; "
+            "import misinfo_tpu_torch.train.roberta_detective, "
+            "misinfo_tpu_torch.train.ai_head, "
+            "misinfo_tpu_torch.train.cifake_efficientnet, "
+            "misinfo_tpu_torch.train.clip_detective, "
+            "misinfo_tpu_torch.train.fusion_judge, "
+            "misinfo_tpu_torch.train.feature_fusion, "
+            "misinfo_tpu_torch.train.metrics; "
+            "import misinfo_tpu_torch.checkpoints.io, "
+            "misinfo_tpu_torch.checkpoints.convert; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m == 'misinfo_tpu' or m.startswith('misinfo_tpu.')"
             " for m in sys.modules)")

@@ -287,12 +287,14 @@ def test_port_cli_batch_file_and_vault_override(stub_engine, tmp_path):
 
 @pytest.mark.parametrize("argv,err,item", [
     (["--mesh", "data=4,model=2"], NotImplementedError, "M17"),
-    (["--checkpoint", "/ck"], NotImplementedError, "M16"),
+    (["--checkpoint", "/ck", "--mesh", "data=2"], NotImplementedError,
+     "M17"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
     (["--device", "auto"], RuntimeError, "no CUDA device")])
 def test_port_cli_and_api_refuse_by_name(stub_engine, argv, err, item):
     """What JAX's CLI and API accept and the port does not: a mesh
-    (multi-GPU, M17), a native checkpoint directory (M16), and the card
+    (multi-GPU, M17), with or without a native checkpoint directory
+    (which the port reads: tests/test_torch_native_ckpt.py), and the card
     where there is none (no fall back to the CPU)."""
     if err is RuntimeError and torch.cuda.is_available():
         pytest.skip("a card is present: --device cuda/auto select it")
@@ -682,9 +684,11 @@ def test_port_similarity_engine_matches_jax():
         assert abs(a["similarity"] - b["similarity"]) <= 1e-3
         assert (a["label"], a["explanation"]) == (b["label"],
                                                   b["explanation"])
-    with pytest.raises(NotImplementedError, match="M16"):
-        t_sim.ClipSimilarityEngine(det_cfg=DET, checkpoint="/ck",
+    # a checkpoint path that holds nothing leaves the seeded init, as JAX's
+    t = t_sim.ClipSimilarityEngine(det_cfg=DET, checkpoint="/ck",
                                    device="cpu")
+    assert torch.equal(t.params["logit_scale"],
+                       detector_init(0, DET)["clip"]["logit_scale"])
 
 
 def test_port_asset_verifier_equals_jax(tmp_path):

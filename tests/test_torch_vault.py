@@ -11,6 +11,8 @@ tests/test_vault.py asserts of JAX's. Digests and both sidecars (int4,
 IVF) must cross between the packages both ways.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -155,7 +157,7 @@ def test_ivf_topk_on_jax_index_matches_jax(vault, jax_index, emb16, dtype,
 def test_vault_search_ivf_matches_jax(vault, jax_index):
     dev_j = {f"ivf_{k}": jnp.asarray(getattr(jax_index, k))
              for k in ("centroids", "lists", "spill")}
-    dev_t = t_ivf.IVFIndex(*jax_index).device_arrays()
+    dev_t = t_ivf.IVFIndex(*jax_index).device_arrays(device="cpu")
     e, s, t, ts = _planes(vault, "float32")
     a = _jax_search(vault, e, s, t, ts, ivf=dev_j, nprobe=4)
     b = _torch_search(vault, e, s, t, ts, ivf=dev_t, nprobe=4)
@@ -165,7 +167,7 @@ def test_vault_search_ivf_matches_jax(vault, jax_index):
 @pytest.fixture(scope="module")
 def torch_index(vault):
     return t_ivf.build_ivf(vault["emb"], vault["valid"], n_clusters=16,
-                           seed=0, cap_factor=1.0)
+                           seed=0, cap_factor=1.0, device="cpu")
 
 
 def test_build_ivf_every_row_exactly_once(vault, torch_index):
@@ -191,7 +193,7 @@ def test_build_ivf_full_probe_equals_brute_force(vault, torch_index):
 
 def test_build_ivf_near_duplicate_recall(vault):
     idx = t_ivf.build_ivf(vault["emb"], vault["valid"], n_clusters=16,
-                          seed=0)
+                          seed=0, device="cpu")
     rng = np.random.default_rng(11)
     rows = rng.choice(np.flatnonzero(vault["valid"]), size=16, replace=False)
     q = vault["emb"][rows] + 0.02 * rng.standard_normal((16, D))
@@ -206,7 +208,15 @@ def test_build_ivf_near_duplicate_recall(vault):
 def test_build_ivf_empty_vault_raises():
     with pytest.raises(ValueError, match="empty"):
         t_ivf.build_ivf(np.zeros((128, 32), np.float32),
-                        np.zeros((128,), bool))
+                        np.zeros((128,), bool), device="cpu")
+
+
+@pytest.mark.parametrize("fn", [t_ivf.build_ivf,
+                                t_ivf.IVFIndex.device_arrays])
+def test_ivf_entry_points_default_to_the_card(fn):
+    # F10: JAX's build_ivf and device_arrays use the default device; the
+    # port's entry points run on the card unless the caller asks otherwise
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("n_valid", [2048, 2000, 0])
@@ -255,8 +265,11 @@ def test_int4_sidecar_crosses_packages(tmp_path, writer, text):
 def test_ivf_sidecar_crosses_packages(tmp_path, writer):
     p, jv, _ = _saved_vault(tmp_path, "v.npz", 7)
     side = p + ".ivf.npz"
-    build = j_ivf.build_ivf if writer == "jax" else t_ivf.build_ivf
-    idx = build(jv.embeddings, jv.row_valid, n_clusters=8)
+    if writer == "jax":
+        idx = j_ivf.build_ivf(jv.embeddings, jv.row_valid, n_clusters=8)
+    else:
+        idx = t_ivf.build_ivf(jv.embeddings, jv.row_valid, n_clusters=8,
+                              device="cpu")
     idx.save(side)
     back = (t_ivf.IVFIndex if writer == "jax" else j_ivf.IVFIndex).load(side)
     assert back is not None
