@@ -247,6 +247,33 @@ Phases (any failure exits non-zero before the result line):
      27's transcriber) its HF .pt through checkpoints/convert.py
      --whisper: the directory's transcriber has phase 6's config and
      greedy tokens torch.equal to phase 6's;
+ 29. (after phase 28) (a) serving's QKV fuse: K2 at the fused widths
+     (N = 3D: RoBERTa and CLIP vision 768 → 2,304, CLIP text 512 →
+     1,536, b32 rows) bit for bit its plain version and the three unfused
+     launches, with CUDA-event ms, device µs (fused and the three unfused
+     launches), the plain version, torch._int_mm of the product and the
+     bound; phase 4's seeded tree fused and not in quant="int8" engines:
+     the mixed batch's and the b32 batch's reports equal (==), K2 72
+     launches per full program against 144, K1 36; with use_pallas=True
+     K3 36 in both and the scores within 2e-2; a fused int8_ffn engine
+     against phase 4's within 2e-2, K1 36; b32 verdicts/s fused against
+     unfused in turns (printed only). (c) the data path: a generated
+     archive of 600 pages (og tags to seeded 224² PNGs; some pages with
+     only <h1>/<img>, a broken image or no title) through
+     train/guardian_prep.main (15 workers): the article count for the bs4
+     or regex branch, the 80/20 article-level CSVs with one matched and
+     one mismatched pair per article, vector_db_seed.json;
+     clip_detective.build_vault on the card; an engine on that vault
+     ranking an article's own title and image first with the gate open;
+     data_prep.prepare_fusion_dataset with generated HC3 and WELFake CSVs;
+     fusion_judge.train through that engine (K1 36 × the sweep's
+     programs, the engine's tree untouched); harmonize_datasets on a
+     generated CIFAKE tree and Fakeddit TSV; rows/s of each step and the
+     build's images/s. (b) (after phase 26's transcriber) transcribe() of
+     the 20 s clip with MISINFO_TPU_TRANSCRIPT_ISOLATION=0, then 1 twice:
+     phase 6's text each time, one pool reused, the worker a spawned
+     process with niceness 10 above this one and no CUDA context; the host
+     prep's ms inline and in the worker;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -1020,8 +1047,10 @@ def transcript_phases(engine, image, card, profile):
         launches["cross_ffn_step" + suffix] = l7
         trs[want] = tr, text, sec, (l6, l7)
     tr = trs["kernels"][0]
-    transcriber_graphs(*trs["kernels"], weights, cfg, wav,    # phase 26
-                       card)
+    tg = transcriber_graphs(*trs["kernels"], weights, cfg,    # phase 26
+                            wav, card)
+    isolation_phase(tg, wav, trs["kernels"][1], card)         # 29 (b)
+    del tg
     transcriber_from_pt(trs["kernels"], weights, cfg, wav,    # phase 27
                         engine, image, W, K6, K7)
     transcriber_from_native(trs["kernels"], weights, cfg, wav)  # phase 28
@@ -1625,6 +1654,7 @@ def transcriber_graphs(te, text, sec, launches, weights, cfg, wav, card):
           + f" [{card}]", flush=True)
     if not same:
         raise AssertionError("graph decode tokens differ from eager")
+    return tg
 
 
 # ------------------------------------------------- entry points (phase 27)
@@ -3818,6 +3848,461 @@ def whisper_int8_modes(tr, weights, cfg, wav, card):
     return {"cross_ffn_step_i8cc": c8["K8"], "layer_step": c9["K9"]}
 
 
+# ------------------------------------------------------------- phase 29
+
+# K2 at serving's fused QKV widths (N = 3D) at b32: RoBERTa, CLIP text,
+# CLIP vision
+QKV_SHAPES = (("roberta_b32", 32 * 512, 768, 3 * 768),
+              ("clip_text_b32", 32 * 77, 512, 3 * 512),
+              ("clip_vision_b32", 32 * 50, 768, 3 * 768))
+# K2 launches of one full program at b32 (every tower's rows reach 256):
+# q, k, v and o of the 36 attention blocks, or their qkv and o
+K2_PER_FULL = {"unfused": 144, "fused": 72}
+FUSED_BAND = 2e-2          # JAX's bf16 band for the fuse (test_serving_opt)
+FUSED_SCORES = ("ai_score", "misinfo_score", "deepfake_score",
+                "clip_similarity", "fake_probability")
+
+
+def qkv_kernel_rows(card):
+    """Phase 29 (a), K2 alone at QKV_SHAPES: bit for bit its plain version
+    and the three unfused launches (ops/kernel_checks.py), then CUDA-event
+    ms, device µs (fused, and the three unfused launches), the plain
+    version, torch._int_mm of the same integer product and the bound."""
+    from misinfo_tpu_torch.ops import int8_dense as K2
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    rows = {}
+    for name, M, K, N in QKV_SHAPES:
+        case = KC.int8_dense_case(M, K, N)
+        res = KC.check_int8_dense_fused(case)
+        a = (case["x"], case["wq"], case["w_scale"], case["bias"])
+        parts = [(c["x"], c["wq"], c["w_scale"], c["bias"])
+                 for c in KC.split_qkv_case(case)]
+        fn = lambda a=a: K2.int8_dense(*a)                      # noqa: E731
+        row = {"err": 0.0, **_timed(
+            f"int8_dense fused qkv {name} M={M} K={K} N={N}", fn,
+            lambda a=a: K2.int8_dense_plain(*a), None,
+            nbytes(*a) + M * N * 2, 2 * M * K * N, "int8", card)}
+        row["device_us"] = device_us(fn, 50)[0]
+        row["unfused_device_us"] = device_us(
+            lambda: [K2.int8_dense(*p) for p in parts], 20)[0]
+        row["int_mm_ms"] = int_mm_ms(M, K, N)
+        print(f"int8_dense fused qkv {name}: bitwise equal to its plain "
+              f"version and to the three unfused launches (a one-ulp scale "
+              f"fault moves {res['fault_elements']} outputs); device "
+              f"{row['device_us']} us, the three unfused launches "
+              f"{row['unfused_device_us']} us; torch._int_mm of the product "
+              f"{row['int_mm_ms']} ms [{card}]", flush=True)
+        rows[name] = row
+    return rows
+
+
+def fused_qkv_phase(default, vault_path, batch, b32, card):
+    """Phase 29 (a): serving's QKV fuse at full width. K2 alone at the
+    fused shapes (qkv_kernel_rows); then phase 4's seeded tree, fused and
+    not, in two quant="int8" engines: the mixed batch's and the b32
+    batch's reports equal (==), K2 launched 72 times per full program
+    against 144, K1 36 times in both; two more such engines with
+    use_pallas=True: K3 36 times in both and the scores within
+    FUSED_BAND; and a fused int8_ffn engine
+    (quant "auto") against phase 4's unfused one within FUSED_BAND, K1 36
+    times. b32/S512 verdicts/s fused against unfused, in turns (printed
+    only). Returns (K2's fused rows by shape, the launches of the fused
+    int8 engine's b32 run)."""
+    import gc
+    from misinfo_tpu_torch.core.config import ForensicsConfig
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
+    from misinfo_tpu_torch.ops import fused_attention as K3
+    from misinfo_tpu_torch.ops import int8_dense as K2
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.ops.serving import fuse_qkv_params
+    start = time.perf_counter()
+    rows = qkv_kernel_rows(card)
+    det = DetectorConfig()
+    tree = detector_init(default.cfg.seed, det)     # phase 4's weights
+    fused_tree = fuse_qkv_params(tree)
+    mods = {"int8_dense": K2, "int8_ffn": K1, "fused_attention": K3}
+
+    def engine(quant, params, use_pallas=False):
+        cfg = ForensicsConfig(verbose=False)
+        cfg = cfg.replace(
+            paths=dataclasses.replace(cfg.paths, vault_path=vault_path),
+            precision=dataclasses.replace(cfg.precision, quant=quant))
+        eng = MisinfoForensics(cfg, det, params=params, device="cuda",
+                               use_pallas=use_pallas, cuda_graphs=False)
+        qkv = eng.params["roberta"]["layers"][0]["attn"].get("qkv")
+        if (qkv is not None) != (params is fused_tree):
+            raise AssertionError("phase 29: the engine's tree is not the "
+                                 "one it was given")
+        D = det.roberta.hidden_size
+        if quant == "int8" and qkv is not None and not (
+                tuple(qkv["kernel_q"].shape) == (D, 3 * D)
+                and (qkv["kernel_q"].t().is_contiguous()
+                     or not qkv["kernel_q"].is_cuda)):
+            raise AssertionError(f"phase 29: the fused int8 kernel is not "
+                                 f"a K-major [{D}, {3 * D}]")
+        return eng
+
+    def counted(eng, reqs):
+        for m in mods.values():
+            m.launches = 0          # this path's run starts here
+        reports = eng.analyze_batch(reqs)
+        torch.cuda.synchronize()
+        return reports, {n: m.launches for n, m in mods.items()}
+
+    def drift(a, b):
+        return max(abs(x["scores"][k] - y["scores"][k])
+                   for x, y in zip(a, b) for k in FUSED_SCORES)
+
+    engines = {label: engine("int8", params) for label, params in
+               (("unfused", tree), ("fused", fused_tree))}
+    out = {}
+    for label, eng in engines.items():
+        eng.analyze_batch(batch)                    # build, warm up
+        mixed, _ = counted(eng, batch)
+        big, counts = counted(eng, b32)
+        k3 = engine("int8", tree if label == "unfused" else fused_tree,
+                    use_pallas=True)    # the fused attention kernel (K3)
+        k3.analyze_batch(batch)
+        with_k3, counts_k3 = counted(k3, b32)
+        del k3
+        check_reports(mixed + big + with_k3, f"phase 29 int8 {label}")
+        out[label] = (mixed, big, with_k3, counts, counts_k3)
+        print(f"phase 29 int8 engine, {label} QKV: launches of the b32 full "
+              f"program {counts} (K2 want {K2_PER_FULL[label]}), with "
+              f"use_pallas=True {counts_k3} [{card}]", flush=True)
+        if counts != {"int8_dense": K2_PER_FULL[label],
+                      "int8_ffn": PER_PROGRAM["full"],
+                      "fused_attention": 0} or counts_k3 != {
+                **counts, "fused_attention": PER_PROGRAM["full"]}:
+            raise AssertionError(f"phase 29: {label} launches {counts}, "
+                                 f"with K3 {counts_k3}")
+    u, f = out["unfused"], out["fused"]
+    same = (u[0] == f[0], u[1] == f[1])
+    k3_drift = drift(u[2], f[2])
+    print(f"phase 29 int8: fused reports == unfused: mixed batch {same[0]}, "
+          f"b32 {same[1]}; with K3 max score drift {k3_drift} (band "
+          f"{FUSED_BAND}; equal {u[2] == f[2]})", flush=True)
+    if not (all(same) and k3_drift <= FUSED_BAND):
+        raise AssertionError("phase 29: the fused int8 engine differs")
+    vps = {}
+    for label in ("unfused", "fused", "fused again", "unfused again"):
+        vps[label] = verdicts_per_s(engines[label.split()[0]], b32)
+    print("phase 29 int8 b32/S512 verdicts/s, fused QKV against unfused, "
+          "in turns: " + ", ".join(f"{k} {v}" for k, v in vps.items())
+          + f" [{card}]", flush=True)
+    launches = u[3]["int8_dense"], f[3]["int8_dense"]
+    del engines, out, u, f
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ffn = engine("auto", fused_tree)
+    if ffn.quant != "int8_ffn":
+        raise AssertionError(f"phase 29: quant='auto' resolved to {ffn.quant}")
+    ffn.analyze_batch(batch)
+    got, counts = counted(ffn, batch)
+    want = default.analyze_batch(batch)
+    d = drift(want, got)
+    big, counts_b32 = counted(ffn, b32)
+    check_reports(got + big, "phase 29 int8_ffn fused")
+    vps = {}
+    for label, eng in (("unfused (phase 4)", default), ("fused", ffn),
+                       ("fused again", ffn), ("unfused again", default)):
+        vps[label] = verdicts_per_s(eng, b32)
+    print(f"phase 29 int8_ffn (bf16 QKV): fused against phase 4's unfused "
+          f"engine, mixed batch max score drift {d} (band {FUSED_BAND}); "
+          f"launches mixed {counts}, b32 {counts_b32} (K1 want "
+          f"{PER_PROGRAM['full']}); b32/S512 verdicts/s "
+          + ", ".join(f"{k} {v}" for k, v in vps.items()) + f" [{card}]",
+          flush=True)
+    if not (d <= FUSED_BAND and counts_b32 == {
+            "int8_dense": 0, "int8_ffn": PER_PROGRAM["full"],
+            "fused_attention": 0}):
+        raise AssertionError(f"phase 29: int8_ffn fused drift {d}, "
+                             f"launches {counts_b32}")
+    del ffn
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 29 (a): {time.perf_counter() - start} s", flush=True)
+    return rows, launches[1]
+
+
+def isolation_phase(tr, wav, text, card):
+    """Phase 29 (b): transcribe() of the 20 s clip on a warmed transcriber
+    with MISINFO_TPU_TRANSCRIPT_ISOLATION=0, then 1 twice: the text of all
+    three equal to ``text`` (phase 6's), one pool (the class's, made at
+    the first transcribe() of the script with isolation on) reused; the
+    worker a
+    process of its own, its niceness 10 above this one's, no CUDA context
+    in it; the host prep's ms inline and in the worker (printed)."""
+    from statistics import median
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    env = "MISINFO_TPU_TRANSCRIPT_ISOLATION"
+    saved = os.environ.get(env)
+    before = WhisperTranscriber._POOL   # made by an earlier transcribe()
+    texts, walls, pools, prep = [], [], [], {}
+    try:
+        for value in ("0", "1", "1"):
+            os.environ[env] = value
+            t0 = time.perf_counter()
+            texts.append(tr.transcribe(wav))
+            walls.append(time.perf_counter() - t0)
+            pools.append(WhisperTranscriber._POOL)
+        for value in ("0", "1"):
+            os.environ[env] = value
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                tr._host_prep(wav)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            prep["inline" if value == "0" else "worker"] = median(ms)
+    finally:
+        if saved is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = saved
+    pool = pools[-1]
+    if pool is None:
+        raise AssertionError("phase 29: no host-prep worker pool")
+    ask = lambda expr: pool.submit(eval, expr).result()      # noqa: E731
+    pid = ask("__import__('os').getpid()")
+    nice = ask("__import__('os').nice(0)")
+    torch_in = ask("'torch' in __import__('sys').modules")
+    cuda = ask("(lambda t: t is not None and t.cuda.is_initialized())("
+               "__import__('sys').modules.get('torch'))")
+    method = ask("__import__('multiprocessing').get_start_method()")
+    want_nice = min(os.nice(0) + 10, 19)
+    print(f"phase 29 (b) isolation: transcribe() at 0, 1, 1: wall s "
+          f"{walls}, texts equal to phase 6's {[t == text for t in texts]}; "
+          f"one pool, reused {pools[1] is pools[2]} (made by an earlier "
+          f"phase's transcribe() {pools[1] is before}); worker pid {pid} "
+          f"(this process "
+          f"{os.getpid()}), start method {method}, niceness {nice} (want "
+          f"{want_nice}), torch imported in it {torch_in} (the spawned "
+          f"child re-imports this script), CUDA initialized in it {cuda}; "
+          f"host prep ms of the clip: inline {prep['inline']}, worker "
+          f"{prep['worker']} [{card}]", flush=True)
+    if not (all(t == text for t in texts) and pools[1] is not None
+            and pools[1] is pools[2]
+            and pid != os.getpid() and method == "spawn"
+            and nice == want_nice and cuda is False):
+        raise AssertionError("phase 29: the isolated host prep")
+
+
+ARCHIVE_PAGES = 600
+PREP_FUSION_ROWS, PREP_EPOCHS = 192, 3
+
+
+def write_archive(root: str, rng):
+    """ARCHIVE_PAGES pages in ten folders. Page i: og:title and og:image
+    pointing at a seeded local 224² PNG (block_image), but every 20th page
+    (i % 20 == 0) has only <h1> and <img>, i % 20 == 1 points at a broken
+    image file and i % 20 == 2 has no title. Returns {title: image} of the
+    pages with a title and a readable image, with and without bs4 (the
+    regex fallback reads og tags only)."""
+    from PIL import Image
+    imgs = os.path.join(root, "images")
+    os.makedirs(imgs)
+    want = {"bs4": {}, "regex": {}}
+    for i in range(ARCHIVE_PAGES):
+        d = os.path.join(root, "site", f"sec{i % 10}")
+        os.makedirs(d, exist_ok=True)
+        img = os.path.join(imgs, f"{i}.png")
+        kind = i % 20
+        if kind == 1:
+            with open(img, "wb") as f:
+                f.write(b"\x89PNG broken")
+        else:
+            Image.fromarray(block_image(5000 + i)).save(img, compress_level=1)
+        title = f"Archive story {i}: {words(rng, 8)}"
+        if kind == 0:
+            page = f"<h1>{title}</h1><p>{words(rng, 20)}</p><img src=\"{img}\">"
+        elif kind == 2:
+            page = f'<meta property="og:image" content="{img}">'
+        else:
+            page = (f'<html><head><meta property="og:title" content="{title}">'
+                    f'<meta property="og:image" content="{img}"></head>'
+                    f"<body><h1>{title}</h1><p>{words(rng, 40)}</p></body>"
+                    "</html>")
+        with open(os.path.join(d, f"story{i:04d}.html"), "w") as f:
+            f.write(page)
+        if kind not in (1, 2):
+            want["bs4"][title] = img
+            if kind != 0:
+                want["regex"][title] = img
+    return want
+
+
+def write_harmonize_sources(root: str, rng):
+    """A CIFAKE tree (train/test × REAL/FAKE, 32² PNGs) and a Fakeddit TSV
+    whose every fourth post has no image."""
+    from PIL import Image
+    n = 0
+    for split in ("train", "test"):
+        for sub in ("REAL", "FAKE"):
+            d = os.path.join(root, "cifake", split, sub)
+            os.makedirs(d)
+            for i in range(40):
+                Image.fromarray(rng.integers(0, 256, (32, 32, 3),
+                                             dtype=np.uint8)).save(
+                    os.path.join(d, f"{i}.png"))
+                n += 1
+    imgs = os.path.join(root, "fakeddit")
+    os.makedirs(imgs)
+    rows = []
+    for i in range(160):
+        if i % 4:
+            with open(os.path.join(imgs, f"fd{i}.jpg"), "wb") as f:
+                f.write(b"x")
+        rows.append(f"fd{i}\t{words(rng, 6)}\t{i % 2}")
+    tsv = os.path.join(root, "fakeddit.tsv")
+    with open(tsv, "w") as f:
+        f.write("id\tclean_title\t2_way_label\n" + "\n".join(rows) + "\n")
+    return os.path.join(root, "cifake"), tsv, imgs, n + 120
+
+
+def data_path_phase(rng, card):
+    """Phase 29 (c): a generated archive of ARCHIVE_PAGES pages through
+    the port's guardian_prep.main (15 workers): the article count, the
+    CSVs (80/20 at the article level, one matched and one mismatched pair
+    per article) and vector_db_seed.json; clip_detective.build_vault on
+    the card; an engine on that vault (seeded weights, vision class and
+    position embeddings zeroed: vault_params) whose analyze() of an
+    article's own title and saved image ranks the article first with the
+    gate open; data_prep.prepare_fusion_dataset over clip_train.csv and
+    generated HC3 and WELFake CSVs; fusion_judge.train on its first
+    PREP_FUSION_ROWS rows through that engine for PREP_EPOCHS epochs (K1
+    36 × the sweep's programs, the engine's tree untouched); and
+    harmonize_datasets on a generated CIFAKE tree and Fakeddit TSV. Rows/s
+    of each prep step and the build's images/s printed. Returns K1's
+    launches in the sweep."""
+    import gc
+    import importlib.util
+    import pickle
+    import pandas as pd
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.train import (
+        clip_detective, data_prep, fusion_judge, guardian_prep)
+    from misinfo_tpu_torch.utils.tree import clone_tree
+    start = time.perf_counter()
+    quiet = lambda *_: None     # noqa: E731
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    try:
+        with contextlib.chdir(tmp):
+            branch = ("bs4" if importlib.util.find_spec("bs4") is not None
+                      else "regex")
+            want = write_archive("archive", rng)[branch]
+            t0 = time.perf_counter()
+            guardian_prep.main(["--archive-dir", "archive"])
+            prep_s = time.perf_counter() - t0
+            with open("vector_db_seed.json", encoding="utf-8") as f:
+                seed = json.load(f)
+            train, val = (pd.read_csv(f"clip_{s}.csv")
+                          for s in ("train", "val"))
+            n = len(seed)
+            n_val = int(n * 0.2)
+            titles = {a["image_local_path"]: a["text_content"] for a in seed}
+            pairs_ok = all(
+                (df["label"] == 0).sum() == (df["label"] == 1).sum()
+                and all((r.text == titles[r.image_path]) == (r.label == 0)
+                        for r in df.itertuples()) for df in (train, val))
+            print(f"phase 29 (c) guardian_prep.main ({branch} branch): "
+                  f"{ARCHIVE_PAGES} pages -> {n} articles (want {len(want)})"
+                  f" in {prep_s} s, {ARCHIVE_PAGES / prep_s} pages/s; "
+                  f"clip_train {len(train)} rows, clip_val {len(val)}; "
+                  f"pairs ok {pairs_ok} [{card}]", flush=True)
+            if not (n == len(want) and {a["text_content"] for a in seed}
+                    == set(want) and len(val) == 2 * n_val
+                    and len(train) == 2 * (n - n_val) and pairs_ok
+                    and not set(train.image_path) & set(val.image_path)):
+                raise AssertionError("phase 29: guardian_prep's outputs")
+
+            tree = vault_params()
+            t0 = time.perf_counter()
+            vault = clip_detective.build_vault(
+                "vector_db_seed.json", "guardian_embeddings.npz",
+                params=tree, log=quiet, device="cuda")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            eng, boot_s = vault_engine(tree, "guardian_embeddings.npz")
+            art = seed[n // 2]
+            report = eng.analyze(art["text_content"],
+                                 art["image_local_path"], verbose=False)
+            check_reports([report], "phase 29 analyze on the built vault")
+            title, sim = top(report)
+            gate = report["scores"]["vault_discrepancy"]
+            print(f"phase 29 (c) build_vault: {vault.num_articles} rows in "
+                  f"{build_s} s, {vault.num_articles / build_s} images/s; "
+                  f"engine booted on it in {boot_s} s; analyze of "
+                  f"{art['article_id']}'s title and image: top match "
+                  f"{title == art['text_content']} at {sim}, gate {gate} "
+                  f"[{card}]", flush=True)
+            if not (vault.num_articles == n and title == art["text_content"]
+                    and gate > 0.85):
+                raise AssertionError("phase 29: the built vault's top match")
+
+            for name in ("hc3", "welfake"):
+                pd.DataFrame([{"text": words(rng, int(rng.integers(30, 120))),
+                               "label": i % 2} for i in range(300)]
+                             ).to_csv(f"{name}.csv", index=False)
+            t0 = time.perf_counter()
+            df = data_prep.prepare_fusion_dataset(
+                "clip_train.csv", "hc3.csv", "welfake.csv",
+                "Final_Fusion_Train.csv", log=quiet)
+            fusion_s = time.perf_counter() - t0
+            fusion_before = clone_tree(eng.params["fusion"])
+            K1.launches = 0         # this path's run starts here
+            with counting_runs(eng) as seen:
+                res = fusion_judge.train(
+                    "Final_Fusion_Train.csv", "fusion_out", engine=eng,
+                    epochs=PREP_EPOCHS, max_samples=PREP_FUSION_ROWS,
+                    log=quiet)
+            launches = K1.launches  # read just after the sweep
+            want_k1 = sum(PER_PROGRAM[v] for v in seen)
+            intact = same_leaves(fusion_before, eng.params["fusion"])
+            only_fusion = same_leaves(eng.params, res.params,
+                                      ("roberta", "ai_head", "misinfo_head",
+                                       "efficientnet", "clip"))
+            print(f"phase 29 (c) prepare_fusion_dataset: {len(df)} rows "
+                  f"({int(df['label'].sum())} fake) in {fusion_s} s, "
+                  f"{len(df) / fusion_s} rows/s; fusion_judge on "
+                  f"{PREP_FUSION_ROWS} of them, {PREP_EPOCHS} epochs: "
+                  f"programs {seen}, K1 launches {launches} (want {want_k1}"
+                  f" = 36 x programs), best accuracy {res.best_metric}; the "
+                  f"engine's fusion leaves untouched {intact}, the other "
+                  f"branches of the trained tree the engine's {only_fusion}",
+                  flush=True)
+            if not (seen and launches == want_k1 and intact and only_fusion
+                    and len(df) > PREP_FUSION_ROWS):
+                raise AssertionError("phase 29: the fusion judge's sweep")
+            del eng, res, tree
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            cifake, tsv, imgs, n_items = write_harmonize_sources("h", rng)
+            t0 = time.perf_counter()
+            items = data_prep.harmonize_datasets(
+                cifake, tsv, imgs, n_per_label=60, out_pkl="h.pkl",
+                out_seed_json="h_seed.json", log=quiet)
+            harm_s = time.perf_counter() - t0
+            with open("h.pkl", "rb") as f:
+                kept = pickle.load(f)
+            with open("h_seed.json", encoding="utf-8") as f:
+                genuine = json.load(f)
+            labels = sorted(it["label"] for it in kept)
+            print(f"phase 29 (c) harmonize_datasets: {n_items} items -> "
+                  f"{len(kept)} balanced ({labels.count(0)} real, "
+                  f"{labels.count(1)} fake), seed JSON {len(genuine)} in "
+                  f"{harm_s} s, {n_items / harm_s} rows/s", flush=True)
+            if not (kept == items and labels == [0] * 60 + [1] * 60
+                    and genuine == [it for it in kept if it["label"] == 0]):
+                raise AssertionError("phase 29: harmonize_datasets")
+        print(f"phase 29 (c): {time.perf_counter() - start} s", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -3955,6 +4440,9 @@ def main() -> int:
                                      card)
     train_launches = trainers_phase(engine, vault_path, rng,  # phase 28
                                     card)
+    qkv_rows, qkv_launches = fused_qkv_phase(                 # 29 (a)
+        engine, vault_path, batch, b32, card)
+    prep_launches = data_path_phase(rng, card)                # 29 (c)
     shutil.rmtree(clip_dir)
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
@@ -3983,9 +4471,9 @@ def main() -> int:
                                               "bound_by", "library_ms")}}
         for name, shape, launches in (
             ("int8_ffn", "roberta",
-             main_launches + ep_launches + train_launches),
+             main_launches + ep_launches + train_launches + prep_launches),
             ("int8_ffn_b32", "roberta_b32",
-             main_launches + ep_launches + train_launches),
+             main_launches + ep_launches + train_launches + prep_launches),
             ("int8_ffn_video", "clip_vision_video", video_launches))]
     replaces = {"self_attn_step": "misinfo_tpu/ops/pallas_decode.py:52",
                 "self_attn_step_i8": "misinfo_tpu/ops/pallas_decode.py:148",
@@ -4034,6 +4522,17 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    row = qkv_rows["roberta_b32"]
+    kernels.append({
+        "name": "int8_dense_qkv", "route": "cuda",
+        "source": "misinfo_tpu_torch/csrc/int8_dense.cu",
+        "replaces": "misinfo_tpu/ops/pallas_int8.py:123",
+        "launches": qkv_launches, "max_abs_err": row["err"],
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}})
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    if WhisperTranscriber._POOL is not None:      # the host-prep worker
+        WhisperTranscriber._POOL.shutdown()
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ it rounds in other places than the reference). ``use_pallas=True`` runs
 the fused attention kernel K3 (ops/fused_attention.py) wherever rows are
 not packed, as the JAX package does; ``use_pallas="flash"`` selects JAX's
 library TPU flash-attention kernel there, which is not this repository's
-code, and is refused.
+code, and is refused. A fused ``qkv`` param dict (serving's
+``fuse_qkv_params``) runs one [D, 3D] product and splits its output.
 """
 
 from __future__ import annotations
@@ -68,9 +69,19 @@ def multi_head_attention(
     kv = x if kv is None else kv
     S_kv = kv.shape[1]
     hd = D // num_heads
-    q = dense(params["q"], x, policy).reshape(B, S, num_heads, hd)
-    k = dense(params["k"], kv, policy).reshape(B, S_kv, num_heads, hd)
-    v = dense(params["v"], kv, policy).reshape(B, S_kv, num_heads, hd)
+    if "qkv" in params:
+        # the serving-fused projection (ops/serving.py::fuse_qkv_params):
+        # one [D, 3D] product, the same math as three. Self-attention only
+        # (k and v would need the other operand). Each third is copied out
+        # contiguous: the unfused path's layout, which K3 reads
+        assert kv is x, "fused qkv params require self-attention"
+        qkv = dense(params["qkv"], x, policy)
+        q, k, v = (t.reshape(B, S, num_heads, hd).contiguous()
+                   for t in torch.split(qkv, D, dim=-1))
+    else:
+        q = dense(params["q"], x, policy).reshape(B, S, num_heads, hd)
+        k = dense(params["k"], kv, policy).reshape(B, S_kv, num_heads, hd)
+        v = dense(params["v"], kv, policy).reshape(B, S_kv, num_heads, hd)
     if use_pallas and segment_ids is None:
         ctx = K3.fused_attention(q, k, v, mask=mask, causal=causal)
         return dense(params["o"], ctx.reshape(B, S, D), policy)

@@ -25,7 +25,9 @@ Bands, elementwise (ulp: one step of the output dtype at |plain|):
   ragged last 128-row tile left unwritten (zeros).
 * K2, bit for bit. Its plain version repeats the kernel's arithmetic
   operation for operation (integer sums, IEEE scales, one rounding of the
-  epilogue's multiply-add). Fault: one row's scale one ulp high.
+  epilogue's multiply-add). Fault: one row's scale one ulp high. On a
+  fused QKV weight (N = 3D) the one launch also equals the three unfused
+  launches bit for bit.
 * K3, per element ``Σ_j ulp(p_j)·|v_j| + 2·ε·Σ_j p_j·|v_j| + ulp``, p
   the plain version's probabilities. The output is Σ_j p_j·v_j. The
   kernel sums scores, softmax and PV in other orders than PyTorch: a
@@ -270,6 +272,40 @@ def check_int8_dense(case: Dict) -> Dict:
         raise AssertionError(f"{what}: a one-ulp scale fault goes unseen")
     return {"err": 0.0, "band": 0.0, "faults": 1,
             "fault_elements": int((fault != want).sum())}
+
+
+def split_qkv_case(case: Dict) -> List[Dict]:
+    """A fused QKV case (N = 3D, as ``serving.fuse_qkv_params`` makes it)
+    as its three unfused denses: each third of the weight K-major in a
+    buffer of its own, its scales and bias contiguous copies."""
+    wq, ws, b = case["wq"], case["w_scale"], case["bias"]
+    D = wq.shape[1] // 3
+    return [{"x": case["x"], "wq": kmajor(wq[:, i * D:(i + 1) * D]),
+             "w_scale": ws[i * D:(i + 1) * D].contiguous(),
+             "bias": None if b is None else b[i * D:(i + 1) * D].contiguous()}
+            for i in range(3)]
+
+
+def check_int8_dense_fused(case: Dict) -> Dict:
+    """K2 on a fused QKV weight (N = 3D): ``check_int8_dense``, and the
+    fused launch equal bit for bit to the three unfused launches side by
+    side (per-column weight scales, one activation scale per row, exact
+    integer sums and a per-element epilogue), with bf16 and f32 output."""
+    res = check_int8_dense(case)
+    parts = split_qkv_case(case)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        fused = K2.int8_dense(case["x"], case["wq"], case["w_scale"],
+                              case["bias"], out_dtype=out_dtype)
+        three = torch.cat([K2.int8_dense(c["x"], c["wq"], c["w_scale"],
+                                         c["bias"], out_dtype=out_dtype)
+                           for c in parts], dim=-1)
+        if not torch.equal(fused, three):
+            d = (fused.float() - three.float()).abs()
+            raise AssertionError(
+                f"int8_dense fused N={case['wq'].shape[1]} differs from its "
+                f"three unfused launches in {int((d > 0).sum())} elements "
+                f"(max {d.max()}, {out_dtype} out)")
+    return res
 
 
 # -------------------------------------------------------- K3 fused attention

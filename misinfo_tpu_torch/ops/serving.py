@@ -6,9 +6,10 @@ Counterpart of ``misinfo_tpu/ops/serving.py``: ``quant="int8_ffn"``
 int8 dense kernel K2 for the rest), ``cast_big_kernels`` (large dense
 kernels stored in bf16), and Whisper's bf16 storage and int8
 decoder/embedding transforms. All are pure tree rewrites; models are
-unchanged. ``deoptimize_params`` undoes them for a checkpoint. (The JAX
-package's QKV fuse and unfuse have no caller here: its engine keeps the
-fuse off.)
+unchanged. ``fuse_qkv_params`` concatenates each self-attention block's
+q/k/v kernels into one [D, 3D] product (``optimize_for_serving(...,
+fuse=True)``; off by default, as in the JAX package, whose engine never
+fuses); ``deoptimize_params`` undoes every transform for a checkpoint.
 
 On a CUDA device the detector's int8 kernels are stored K-major
 (``kmajor``): each ``kernel_q`` keeps JAX's name, [in, out] shape and
@@ -32,9 +33,11 @@ mode that turns one off raises there.
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 import torch
 
+from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.ops.quant import (
     MIN_KERNEL_ELEMS, int8_scale, quantize_dense, quantize_ffn_params,
     quantize_params)
@@ -74,6 +77,56 @@ def ffn_kernel_enabled(policy, device) -> bool:
 
 def dense_kernel_enabled(policy, device) -> bool:
     return quant_mode(policy, device) in ("dense", "all")
+
+
+def _is_attn_params(d: Dict) -> bool:
+    return (isinstance(d, dict) and all(k in d for k in ("q", "k", "v", "o"))
+            and isinstance(d.get("q"), dict) and "kernel" in d["q"])
+
+
+def fuse_qkv_params(tree):
+    """Rewrite every attention param dict {q,k,v,o} → {qkv,o}: the q, k
+    and v kernels concatenated along their output dimension into one
+    [D, 3D] kernel (biases likewise). Each output column is still its own
+    dot product, so the math is unchanged.
+
+    SELF-ATTENTION ONLY: a fused dict is invalid for cross-attention
+    (k/v project the other operand; ops.attention asserts this). Safe on
+    the detector tree (all towers are self-attention); do NOT apply to
+    Whisper decoder params, whose cross-attention blocks share the same
+    {q,k,v,o} shape."""
+    if isinstance(tree, dict):
+        if _is_attn_params(tree):
+            q, k, v = tree["q"], tree["k"], tree["v"]
+            qkv = {"kernel": torch.cat(
+                [q["kernel"], k["kernel"], v["kernel"]], dim=1)}
+            if "bias" in q:
+                qkv["bias"] = torch.cat([q["bias"], k["bias"], v["bias"]])
+            return {"qkv": qkv, "o": tree["o"]}
+        return {key: fuse_qkv_params(v) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fuse_qkv_params(v) for v in tree)
+    return tree
+
+
+def unfuse_qkv_params(tree):
+    """Inverse of ``fuse_qkv_params``: {qkv,o} → {q,k,v,o}, each leaf a
+    contiguous [in, out] tensor (as a checkpoint writes it)."""
+    if isinstance(tree, dict):
+        if "qkv" in tree and isinstance(tree["qkv"], dict) and "o" in tree:
+            qkv = tree["qkv"]
+            ks = qkv["kernel"].chunk(3, dim=1)
+            out = {n: {"kernel": k.contiguous()}
+                   for n, k in zip(("q", "k", "v"), ks)}
+            if "bias" in qkv:
+                for n, b in zip(("q", "k", "v"), qkv["bias"].chunk(3)):
+                    out[n]["bias"] = b.contiguous()
+            out["o"] = tree["o"]
+            return out
+        return {key: unfuse_qkv_params(v) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unfuse_qkv_params(v) for v in tree)
+    return tree
 
 
 def cast_big_kernels(tree, dtype=torch.bfloat16,
@@ -129,23 +182,38 @@ def _first_tensor(tree):
     return tree if isinstance(tree, torch.Tensor) else None
 
 
-def optimize_for_serving(params, policy, quant: str):
-    """The engine's serving pipeline: quantize every large dense
-    (``quant="int8"``; nothing big is left to cast) or the tower FFNs
-    (``"int8_ffn"``), and in bf16 mode store the remaining big kernels in
-    bf16. ``quant`` is resolved (``resolve_quant``). On a CUDA device the
-    int8 kernels are laid out K-major (``kmajor_kernels``), as K1 and K2
-    read them."""
+def optimize_for_serving(params, policy, quant: str = "none",
+                         fuse: bool = False, cast: bool = True, mesh=None):
+    """The engine's serving pipeline, in the JAX package's order: resolve
+    ``quant`` ("auto" against the tree's device, ``resolve_quant``),
+    optionally fuse QKV (``fuse_qkv_params``), then quantize every large
+    dense (``quant="int8"``: nothing big is left to cast) or the tower
+    FFNs (``"int8_ffn"``), and with ``cast`` in bf16 mode store the
+    remaining big kernels in bf16. The fuse comes first, so that a fused
+    [D, 3D] kernel is quantized with one scale per output column: the
+    three unfused kernels' scales. On a CUDA device the int8 kernels are
+    laid out K-major (``kmajor_kernels``), as K1 and K2 read them.
+
+    The fuse is off by default, as in the JAX package: the attention
+    layer copies q, k and v apart again from the [B, S, 3D] output
+    (PERF.md §6 has both timed on the card). ``mesh`` (a sharded tree)
+    is not ported (M17)."""
+    if mesh is not None:
+        not_ported("optimize_for_serving(mesh=...) (sharded serving)", "M17")
+    t = _first_tensor(params)
+    quant = resolve_quant(quant, policy,
+                          t.device if t is not None else "cpu")
     if quant not in ("none", "int8", "int8_ffn"):
         raise ValueError(f"optimize_for_serving: unknown quant {quant!r}")
+    if fuse:
+        params = fuse_qkv_params(params)
     if quant == "int8":
         params = quantize_params(params)
     elif quant == "int8_ffn":
         params = quantize_ffn_params(params)
-    t = _first_tensor(params)
     if quant != "none" and t is not None and t.is_cuda:
         params = kmajor_kernels(params)
-    if quant != "int8" and policy.compute == torch.bfloat16:
+    if quant != "int8" and cast and policy.compute == torch.bfloat16:
         params = cast_big_kernels(params, torch.bfloat16)
     return params
 
@@ -155,20 +223,26 @@ def deoptimize_params(tree):
     structure, f32 kernels), for persisting params that went through
     ``optimize_for_serving``: int8 kernels dequantized (``kernel_q`` ·
     ``w_scale`` in f32, lossy: the quantization error stays), bf16 leaves
-    upcast, every leaf contiguous in [in, out] order."""
-    if isinstance(tree, dict):
-        if "kernel_q" in tree:
-            out = {"kernel": (tree["kernel_q"].float()
-                              * tree["w_scale"]).contiguous()}
-            if "bias" in tree:
-                out["bias"] = tree["bias"]
-            return out
-        return {k: deoptimize_params(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(deoptimize_params(v) for v in tree)
-    if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
-        return tree.float()
-    return tree
+    upcast, QKV unfused, every leaf contiguous in [in, out] order.
+    Dequantization runs before the unfuse (a fused int8 dict carries
+    ``kernel_q``, which the unfuse expects as ``kernel``)."""
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "kernel_q" in t:
+                out = {"kernel": (t["kernel_q"].float()
+                                  * t["w_scale"]).contiguous()}
+                if "bias" in t:
+                    out["bias"] = t["bias"]
+                return out
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+            return t.float()
+        return t
+
+    return unfuse_qkv_params(walk(tree))
 
 
 def optimize_whisper_for_serving(params, policy,

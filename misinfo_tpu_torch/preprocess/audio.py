@@ -185,8 +185,21 @@ def mel_windows(audio: np.ndarray, frames: int, max_windows: int):
 
 def prep_mel_windows(path: str, frames: int, max_windows: int):
     """The transcript's host-side half in one call: audio decode → 30 s
-    windowing → log-mel (``(mels or None, full_window_count)``)."""
+    windowing → log-mel (``(mels or None, full_window_count)``). Imports
+    no device framework: this is the body that the transcriber's isolated
+    host-prep worker runs (serve/transcript.py)."""
     audio = decode_audio(path)
     if audio is None or len(audio) == 0:
         return None, 0
     return mel_windows(audio, frames, max_windows)
+
+
+def _isolation_worker_init(niceness: int = 10):
+    """Initializer of the transcript's host-prep worker process: drop its
+    OS priority, so that the decode and mel bursts yield to the serving
+    threads on a small host."""
+    try:
+        import os
+        os.nice(niceness)
+    except Exception:
+        pass

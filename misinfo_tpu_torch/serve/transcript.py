@@ -29,9 +29,20 @@ a ``.pt``/``.pth``/``.bin`` in HF or openai-whisper layout,
 checkpoints/torch_convert.py) whose own shapes set the architecture, or
 from a native checkpoint directory (checkpoints/io.py, written by
 checkpoints/convert.py) whose metadata's ``whisper_config`` sets it and
-whose ``tokenizer/`` holds the vocabulary. Not ported yet: mesh sharding
-(M17), the AOT / compile-cache plumbing and the isolated host-prep
-worker (M11).
+whose ``tokenizer/`` holds the vocabulary.
+
+The host half of a transcript (audio decode, windowing, log-mel) runs by
+default in an isolated, low-priority worker process
+(``MISINFO_TPU_TRANSCRIPT_ISOLATION=auto|1|0``; ``0``/``off``/``false``
+run it inline), so that its CPU bursts do not starve the serving threads
+through the GIL or a shared core. The worker is spawned, never forked
+(the parent holds a live CUDA context), and imports
+``preprocess/audio.py`` (numpy and the standard library) besides the
+launching script, which a spawned child re-imports as ``__mp_main__``
+(so a script keeps its work under ``if __name__ == "__main__"``); it
+makes no CUDA context. Where it cannot start or fails, the prep runs
+inline with a warning. Not ported yet: mesh
+sharding (M17); the AOT / compile-cache plumbing is not carried (M15).
 """
 
 from __future__ import annotations
@@ -63,7 +74,7 @@ from misinfo_tpu_torch.ops.serving import (
     optimize_whisper_for_serving, quantize_whisper_decoder,
     quantize_whisper_embedding)
 from misinfo_tpu_torch.preprocess.audio import (
-    HOP_LENGTH, mel_windows, prep_mel_windows)
+    HOP_LENGTH, _isolation_worker_init, mel_windows, prep_mel_windows)
 from misinfo_tpu_torch.preprocess.whisper_tokenizer import (
     load_whisper_tokenizer, specials_for_vocab)
 
@@ -99,6 +110,12 @@ def needs_fallback(text: str, avg_logprob: float,
             return True
     return avg_logprob < logprob_threshold
 
+
+def _isolation_on() -> bool:
+    """False when MISINFO_TPU_TRANSCRIPT_ISOLATION is 0, off or false (the
+    default is auto: the isolated worker)."""
+    return os.environ.get("MISINFO_TPU_TRANSCRIPT_ISOLATION",
+                          "auto") not in ("0", "off", "false")
 
 
 class WhisperTranscriber:
@@ -315,12 +332,15 @@ class WhisperTranscriber:
         and the sampled decode (one set of step blocks serves every rung),
         and ``detect_language`` on a 1-window encoding when no language is
         pinned. On the card each is captured as CUDA graphs after one
-        eager pass of zero inputs. The JAX transcriber also starts its
-        isolated host-prep worker here; the port has no such worker yet
-        (ROADMAP.md M11). Returns the warmed buckets, ``[]`` when the
-        capability is degraded (no weights / tokenizer mismatch)."""
+        eager pass of zero inputs. Unless isolation is off, the host-prep
+        worker process is started here too, so that the first request
+        does not pay the process start. Returns the warmed buckets, ``[]``
+        when the capability is degraded (no weights / tokenizer
+        mismatch)."""
         if not self.has_weights or not self.tokenizer_compatible:
             return []
+        if _isolation_on():
+            self._start_host_worker()
         frames = 2 * self.cfg.max_source_positions
         shape = (frames, self.cfg.num_mel_bins)
         language = self.decode_cfg.language or "en"
@@ -353,10 +373,36 @@ class WhisperTranscriber:
                          full, self.decode_cfg.max_windows)
         return mels
 
+    def _start_host_worker(self) -> None:
+        """Make the host-prep pool and start its worker process: the
+        executor spawns it at its first task, so one empty task is sent
+        and waited for. A pool that fails is given up, as in
+        ``_host_prep``."""
+        pool = self._host_pool()
+        if pool is not None:
+            try:
+                pool.submit(int).result()
+            except Exception:
+                self._give_up_pool("failed to start")
+
     def _host_prep(self, media_path: str):
+        """Audio decode → windowing → log-mel (preprocess/audio.py::
+        prep_mel_windows): in the isolated worker process unless
+        ``MISINFO_TPU_TRANSCRIPT_ISOLATION`` is 0/off/false, inline where
+        the worker cannot start or fails (with a warning; the pool is then
+        given up for the process)."""
         frames = 2 * self.cfg.max_source_positions
-        mels, full = prep_mel_windows(media_path, frames,
-                                      self.decode_cfg.max_windows)
+        max_w = self.decode_cfg.max_windows
+        pool = self._host_pool() if _isolation_on() else None
+        if pool is not None:
+            try:
+                mels, full = pool.submit(
+                    prep_mel_windows, media_path, frames, max_w).result()
+            except Exception:
+                self._give_up_pool("failed")
+                mels, full = prep_mel_windows(media_path, frames, max_w)
+        else:
+            mels, full = prep_mel_windows(media_path, frames, max_w)
         if mels is not None and full > mels.shape[0]:
             _log.warning(
                 "transcribe: audio is %d windows but max_windows=%d — "
@@ -364,6 +410,35 @@ class WhisperTranscriber:
                 full, self.decode_cfg.max_windows,
                 mels.shape[0] * frames * HOP_LENGTH / 16000)
         return mels
+
+    _POOL = None
+    _POOL_BROKEN = False
+
+    @classmethod
+    def _host_pool(cls):
+        """The shared one-worker process pool of the host prep, made at
+        first use: the spawn context (a forked child cannot use the
+        parent's CUDA context), ``_isolation_worker_init`` as initializer.
+        None once it could not be made."""
+        if cls._POOL is None and not cls._POOL_BROKEN:
+            try:
+                import concurrent.futures as cf
+                import multiprocessing as mp
+                cls._POOL = cf.ProcessPoolExecutor(
+                    max_workers=1, mp_context=mp.get_context("spawn"),
+                    initializer=_isolation_worker_init)
+            except Exception:
+                cls._POOL_BROKEN = True
+        return cls._POOL
+
+    @classmethod
+    def _give_up_pool(cls, what: str) -> None:
+        """Log the worker's failure (with its traceback) and run the host
+        prep inline from now on."""
+        _log.warning("transcript host worker %s; running inline", what,
+                     exc_info=True)
+        cls._POOL = None
+        cls._POOL_BROKEN = True
 
     def transcribe(self, media_path: str) -> str:
         """Transcribe a media file's audio track: successive 30 s windows

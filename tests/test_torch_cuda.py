@@ -50,7 +50,11 @@ The detector's opt-in kernels (K2 int8 dense, K3 fused attention, K4
 LayerNorm, K5 fused FFN) are held to their plain versions at the main
 path's shapes through misinfo_tpu_torch/ops/kernel_checks.py: K2 bit for
 bit, K3-K5 within the bands that module derives, with its planted faults
-outside them.
+outside them. Serving's fused QKV (N = 3D): K2 bit for bit its plain
+version and the three unfused launches; K3 on q, k and v cut from one
+[B, S, 3·H·64] output (copied out contiguous; the strided views are
+refused); the fused attention layer equal to the unfused one bit for bit
+under int8, with and without K3.
 
 Training (misinfo_tpu_torch/train/): an f32 text step on the card against
 the same step on the CPU at a small width (loss within 1e-4 relative, the
@@ -470,6 +474,77 @@ def test_fused_attention_kernel_matches_plain(card, dtype, B, S, H, mask,
     KC.check_attention(KC.attention_case(B, S, H, mask, causal, dtype))
     torch.cuda.synchronize()
     assert K3.launches == before + 1
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(32 * 512, 768, 3 * 768),
+                                   (32 * 77, 512, 3 * 512),
+                                   (32 * 50, 768, 3 * 768)])
+def test_int8_dense_kernel_at_the_fused_qkv_widths(card, x_dtype, M, K, N):
+    """K2 at N = 3D (serving's fused QKV: RoBERTa, CLIP text, CLIP
+    vision at b32): bit for bit its plain version, and the one launch
+    equal to the three unfused launches."""
+    before = K2.launches
+    res = KC.check_int8_dense_fused(KC.int8_dense_case(M, K, N, x_dtype))
+    torch.cuda.synchronize()
+    assert K2.launches == before + 2 + 2 * 4 and res["fault_elements"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,mask,causal", [(32, 512, 12, True, False),
+                                               (32, 77, 8, True, True)])
+def test_fused_attention_kernel_on_split_fused_qkv(card, dtype, B, S, H,
+                                                   mask, causal):
+    """K3 on q, k, v cut from one [B, S, 3·H·64] product output as the
+    fused attention layer cuts them (each third copied out contiguous):
+    within its band of the plain version. The strided views themselves
+    are refused."""
+    case = KC.attention_case(B, S, H, mask, causal, dtype)
+    qkv = torch.cat([case[n].reshape(B, S, -1) for n in "qkv"], dim=-1)
+    views = [t.reshape(B, S, H, 64) for t in qkv.split(H * 64, dim=-1)]
+    with pytest.raises(ValueError, match="contiguous"):
+        K3.fused_attention(*views, mask=case["mask"], causal=causal)
+    for n, t in zip("qkv", views):
+        case[n] = t.contiguous()
+    before = K3.launches
+    KC.check_attention(case)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+
+
+def test_fused_qkv_attention_on_the_card(card):
+    """multi_head_attention on a fused int8 dict at RoBERTa's width, b32
+    × 512: equal bit for bit to the unfused dict, with the kernel (K2 one
+    launch for qkv and one for o, against four) and through K3."""
+    from misinfo_tpu_torch.ops.attention import multi_head_attention
+    from misinfo_tpu_torch.ops.common import Policy
+    from misinfo_tpu_torch.ops.serving import (
+        fuse_qkv_params, optimize_for_serving)
+    gen = torch.Generator().manual_seed(15)
+    attn = {n: {"kernel": torch.randn(768, 768, generator=gen) * 0.03,
+                "bias": torch.randn(768, generator=gen) * 0.01}
+            for n in "qkvo"}
+    x = torch.randn(32, 512, 768, generator=gen).to(torch.bfloat16).cuda()
+    mask = (torch.arange(512)[None] < torch.tensor([512 - 7 * b for b in
+                                                    range(32)])[:, None])
+    mask = mask.float().cuda()
+    pol = Policy()
+    out = {}
+    for fuse in (False, True):
+        p = optimize_for_serving(
+            {n: {k: t.cuda() for k, t in d.items()} for n, d in attn.items()},
+            pol, quant="int8", fuse=fuse)
+        assert ("qkv" in p) == fuse and p["o"]["kernel_q"].t().is_contiguous()
+        for pallas in (False, True):
+            k2, k3 = K2.launches, K3.launches
+            out[fuse, pallas] = multi_head_attention(
+                p, x, 12, mask=mask, policy=pol, use_pallas=pallas)
+            torch.cuda.synchronize()
+            assert K2.launches - k2 == (2 if fuse else 4)
+            assert K3.launches - k3 == int(pallas)
+    assert torch.equal(out[True, False], out[False, False])
+    assert torch.equal(out[True, True], out[False, True])
+    assert fuse_qkv_params(attn)["qkv"]["kernel"].shape == (768, 2304)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
