@@ -47,9 +47,11 @@ Phases (any failure exits non-zero before the result line):
      3; K7 5, K8 5, K9 1);
   6. the Whisper transcriber at whisper-base widths (byte tokenizer,
      seeded weights through the JAX-layout bridge, device="cuda"):
-     pallas on and quant="kernels" (K6/K7 int8 bodies, the whole
-     temperature ladder: 26 decodes), then quant="embedding" (the bf16
-     bodies, the ladder cut to its greedy rung); each transcribes a 20 s
+     pallas on and quant="kernels" (K6/K7 int8 bodies, the temperature
+     ladder's first two rungs: greedy, then best_of 2 at T = 0.2, 3
+     decodes; phases 26-29 repeat that config), then quant="embedding"
+     (the bf16 bodies, the ladder cut to its greedy rung); each
+     transcribes a 20 s
      two-tone-plus-noise WAV (wall time printed), and K6 and K7 must each
      launch once per decoder layer per fused decode step, every launch
      with the weight type of that transcriber's body;
@@ -274,6 +276,34 @@ Phases (any failure exits non-zero before the result line):
      phase 6's text each time, one pool reused, the worker a spawned
      process with niceness 10 above this one and no CUDA context; the host
      prep's ms inline and in the worker;
+ 30. serving over a device mesh (core/mesh.py), the one card named once
+     per grid position: (a) (after phase 29) make_mesh() → data=1 serves
+     the b32 batch with reports == the engine without a mesh (quant
+     "none" in both, CUDA graphs in both), and data=2 serves it through
+     one CUDA graph per data position with reports == the same mesh run
+     eagerly; (d) data=1 × model=2 in f32 parity mode, scores within 1e-3
+     of the single-device f32 engine, and quant="int8" within 0.01 of the
+     single-device int8 engine, every split product through K2 (K1 not
+     launched), K2 held against its plain version on the first input of
+     each of the run's shapes (the row-split ones at K + 64) with max abs
+     error 0, and the batch's reports == those with K2's plain version in
+     its place; (f) the CLI with --mesh data=1 (the engine and
+     the transcriber get the mesh) and --mesh data=2 refused by
+     make_mesh; (b) (in phase 11) data=2 over phase 10's 1,048,576-row
+     f32 vault row-sharded (vault_shard_min_rows below its rows): an
+     analyze_batch of 32 == the replicated mesh engine's, and a
+     vault_search at B = 32 torch.equal to vault_search_sharded's; (c) the
+     same in int4, K10b launched once per shard per vault program and
+     each shard's K10b torch.equal to its plain version; (e) (after phase
+     6) a 60 s clip's two windows transcribed under data=2 and without a
+     mesh at the full 448 decoder positions, the ladder's decodes (the
+     greedy rung, two sampled draws at t 0.2) recorded call by call: each
+     decode's tokens torch.equal, or else each position's torch.equal to
+     the witness, its windows decoded without a mesh (batch 1, as the
+     position decodes them) on the same noise, which shows a difference
+     to be the batch size's rounding and not the mesh's; every position
+     drawing the unsplit decode's noise; transcribe() texts equal; sharded and replicated vault_search ms and
+     verdicts/s of every mesh engine beside the unsharded ones;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -1028,7 +1058,11 @@ def transcript_phases(engine, image, card, profile):
     write_wav(wav)
     launches = {}
     trs = {}
-    for quant, cut in (("auto", {}),
+    # the kernels transcriber walks the ladder's first two rungs (greedy,
+    # then best_of 2 at T = 0.2: 3 decodes), which every later phase's
+    # transcriber of its config repeats; the embedding one, the greedy rung
+    for quant, cut in (("auto", {"fallback_temperatures": (0.0, 0.2),
+                                 "best_of": 2}),
                        ("embedding", {"fallback_temperatures": (0.0,)})):
         tr = WhisperTranscriber(weights, config=cfg, device="cuda",
                                 decode_cfg=dataclasses.replace(
@@ -1046,6 +1080,7 @@ def transcript_phases(engine, image, card, profile):
         launches["self_attn_step" + suffix] = l6
         launches["cross_ffn_step" + suffix] = l7
         trs[want] = tr, text, sec, (l6, l7)
+    mesh_transcript_phase(weights, cfg, card)                 # phase 30 (e)
     tr = trs["kernels"][0]
     tg = transcriber_graphs(*trs["kernels"], weights, cfg,    # phase 26
                             wav, card)
@@ -1116,10 +1151,10 @@ def seeded_sampler(frames_of):
 
 
 @contextlib.contextmanager
-def counting_video_programs(F):
+def counting_video_programs(S):
     """Record each video program the engine runs: has_text, the frame
     mask's shape and the host time at which its host prep ended."""
-    real = F.video_program
+    real = S.video_program
     seen = []
 
     def spy(params, batch, **kw):
@@ -1127,11 +1162,11 @@ def counting_video_programs(F):
                      "frames": tuple(batch["frame_valid"].shape),
                      "t": time.perf_counter()})
         return real(params, batch, **kw)
-    F.video_program = spy
+    S.video_program = spy
     try:
         yield seen
     finally:
-        F.video_program = real
+        S.video_program = real
 
 
 def program_device_ms(fn):
@@ -1186,6 +1221,7 @@ def video_phase(engine, rng, card):
     decodes the clips, which stay for phase 26 in the returned directory)."""
     from misinfo_tpu_torch.core.config import WhisperDecodeConfig
     from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.engine import signals as S
     from misinfo_tpu_torch.models import whisper as W
     from misinfo_tpu_torch.ops import cross_ffn_step as K7
     from misinfo_tpu_torch.ops import int8_ffn as K1
@@ -1236,7 +1272,7 @@ def video_phase(engine, rng, card):
     group = [{"video": clips[i % len(clips)], "text": words(rng, 20 + i)}
              for i in range(VIDEO_GROUP)]
     launches = {}
-    with sampler, counting_video_programs(F) as seen:
+    with sampler, counting_video_programs(S) as seen:
         K1.launches = 0                 # this path's run starts here
         one = [engine.analyze(merged, video_path=clip, verbose=False)]
         torch.cuda.synchronize()
@@ -1284,7 +1320,7 @@ def video_phase(engine, rng, card):
         kw = dict(has_text=True, det_cfg=engine.det_cfg, cfg=engine.cfg,
                   policy=engine.policy)
         with torch.inference_mode():
-            dev = program_device_ms(lambda: F.video_program(
+            dev = program_device_ms(lambda: S.video_program(
                 engine.params, batch, **kw))
         serving = engine.cfg.serving
         engine.cfg = engine.cfg.replace(serving=dataclasses.replace(
@@ -1300,7 +1336,7 @@ def video_phase(engine, rng, card):
             prep_staged = seen[-1]["t"] - t0
             staged_batch = seen[-1]["batch"]
             with torch.inference_mode():
-                staged_dev = program_device_ms(lambda: F.video_program(
+                staged_dev = program_device_ms(lambda: S.video_program(
                     engine.params, staged_batch, **kw))
         finally:
             engine.cfg = engine.cfg.replace(serving=serving)
@@ -2591,7 +2627,7 @@ def vault_params():
     return params
 
 
-def vault_engine(params, path, cuda_graphs=False, **serving):
+def vault_engine(params, path, cuda_graphs=False, mesh=None, **serving):
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
     from misinfo_tpu_torch.models.detector import DetectorConfig
@@ -2599,7 +2635,7 @@ def vault_engine(params, path, cuda_graphs=False, **serving):
     cfg = cfg.replace(paths=dataclasses.replace(cfg.paths, vault_path=path),
                       serving=dataclasses.replace(cfg.serving, **serving))
     t0 = time.perf_counter()
-    eng = MisinfoForensics(cfg, DetectorConfig(), params=params,
+    eng = MisinfoForensics(cfg, DetectorConfig(), params=params, mesh=mesh,
                            device="cuda", cuda_graphs=cuda_graphs)
     torch.cuda.synchronize()
     return eng, time.perf_counter() - t0
@@ -2689,21 +2725,21 @@ def write_vault(path, rows, titles, n, planted, seed):
 
 
 @contextlib.contextmanager
-def counting_programs(F):
+def counting_programs(S):
     """Count the engine's visual program calls (full, visual_only) for
     the duration of the block."""
-    real = F.signals_program
+    real = S.signals_program
     seen = {"visual": 0}
 
     def spy(params, batch, *, variant, **kw):
         if variant in ("full", "visual_only"):
             seen["visual"] += 1
         return real(params, batch, variant=variant, **kw)
-    F.signals_program = spy
+    S.signals_program = spy
     try:
         yield seen
     finally:
-        F.signals_program = real
+        S.signals_program = real
 
 
 def top(report):
@@ -2750,6 +2786,7 @@ def vault_phases(card, small_vault, profile=None):
     ``profile``, appends profiler tables of the int4 engine's batch of 32
     and of one int4 vault_search at B = 32."""
     from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.engine import signals as S
     from misinfo_tpu_torch.vault import int4 as K10
     from misinfo_tpu_torch.vault import ivf as IVF
     from misinfo_tpu_torch.vault import prepack
@@ -2804,7 +2841,7 @@ def vault_phases(card, small_vault, profile=None):
            for e in (eng, geng)):
         raise AssertionError("int4 device plane shape")
 
-    with counting_programs(F) as seen:
+    with counting_programs(S) as seen:
         K10.launches = K10.launches_i8 = 0      # this path's run starts here
         t0 = time.perf_counter()
         single = eng.analyze(reqs[0]["text"], reqs[0]["image"],
@@ -2837,7 +2874,7 @@ def vault_phases(card, small_vault, profile=None):
              + [{"video": f"video {v}", "text": words(rng, 20)}
                 for v in range(1, VIDEO_GROUP)])
     sampler = (F, "sample_video_frames", seeded_sampler(frames_of.get))
-    with swapped(sampler), counting_video_programs(F) as vseen:
+    with swapped(sampler), counting_video_programs(S) as vseen:
         K10.launches = K10.launches_i8 = 0      # this path's run starts here
         t0 = time.perf_counter()
         vbatch = eng.analyze_batch(vreqs)
@@ -2920,6 +2957,7 @@ def vault_phases(card, small_vault, profile=None):
     if not drift < 0.05:
         raise AssertionError(f"int4 sims drift {drift} from f32's")
     report["float32"] = (f32.memory_report(), search_ms(f32, q32))
+    host_vault = f32.vault          # phase 30 (b, c) boots on it
     del f32
     for dt in ("bfloat16", "int8"):
         e, boot = vault_engine(params, path, vault_dtype=dt)
@@ -2929,6 +2967,10 @@ def vault_phases(card, small_vault, profile=None):
     for dt, (mem, ms) in report.items():
         print(f"vault_dtype={dt}: vault_search B=32 {ms} ms; memory_report "
               f"{json.dumps(mem)} [{card}]", flush=True)
+
+    k10_mesh = mesh_vault_phase(params, path, reqs, plants, q32,  # 30 (b, c)
+                                card, host_vault)
+    del host_vault
 
     # phase 12: IVF over the same f32 vault, built on the card
     real_ivf = IVF.build_ivf
@@ -2986,7 +3028,7 @@ def vault_phases(card, small_vault, profile=None):
     rng = np.random.default_rng(8)
     small_reqs = ([{"image": pool[i]} for i in others[:3]]
                   + [{"text": words(rng, 20), "image": pool[planted[0]]}])
-    with counting_programs(F) as seen:
+    with counting_programs(S) as seen:
         K10.launches = K10.launches_i8 = 0      # this path's run starts here
         out = small.analyze_batch(small_reqs)
         torch.cuda.synchronize()
@@ -2998,7 +3040,8 @@ def vault_phases(card, small_vault, profile=None):
     if k10a != (seen["visual"], 0) or not seen["visual"]:
         raise AssertionError(f"K10 launches {k10a} on the small vault")
     shutil.rmtree(tmp)
-    return {"int4_sims": k10a[0], "int4_sims_i8": k10[1] + k10v[1]}
+    return {"int4_sims": k10a[0],
+            "int4_sims_i8": k10[1] + k10v[1] + k10_mesh}
 
 
 # ------------------------------------------------------- opt-in kernel modes
@@ -4303,6 +4346,463 @@ def data_path_phase(rng, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------- mesh serving (phase 30)
+
+def one_card_mesh(data: int = 1, model: int = 1):
+    """A data × model grid naming the one card once per position."""
+    from misinfo_tpu_torch.core.config import MeshConfig
+    from misinfo_tpu_torch.core.mesh import make_mesh
+    return make_mesh(MeshConfig(data=data, model=model),
+                     devices=["cuda:0"] * (data * model))
+
+
+@contextlib.contextmanager
+def counting_mesh_programs(S):
+    """Count the mesh programs that search the vault (every kind but
+    text_only) for the duration of the block."""
+    real = S.mesh_program
+    seen = {"visual": 0}
+
+    def spy(params, batch, *, kind, **kw):
+        if kind != "text_only":
+            seen["visual"] += 1
+        return real(params, batch, kind=kind, **kw)
+    S.mesh_program = spy
+    try:
+        yield seen
+    finally:
+        S.mesh_program = real
+
+
+def mesh_runners(engine) -> tuple:
+    """An engine's runners, and how many of them hold a CUDA graph."""
+    return (len(engine._runners),
+            sum(r.graph is not None for r in engine._runners.values()))
+
+
+def score_drift(a, b) -> float:
+    return max(abs(x["scores"][k] - y["scores"][k]) for x, y in zip(a, b)
+               for k in ("ai_score", "misinfo_score", "deepfake_score",
+                         "clip_similarity", "vault_discrepancy",
+                         "text_similarity", "fake_probability"))
+
+
+def mesh_engine_phase(engine, vault_path, batch, b32, image, card):
+    """Phase 30 (a), (d) and (f) on phase 4's weights (their f32 canonical
+    tree) and vault. Returns K2's launches in (d)'s int8 run."""
+    from misinfo_tpu_torch.core.config import ForensicsConfig, PrecisionConfig
+    from misinfo_tpu_torch.core.mesh import make_mesh
+    from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.ops import int8_dense as K2
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    from misinfo_tpu_torch.ops.serving import deoptimize_params
+    from misinfo_tpu_torch.serve import cli
+    from misinfo_tpu_torch.serve import transcript as T
+    start = time.perf_counter()
+    tree = deoptimize_params(engine.params)
+    base = ForensicsConfig(verbose=False)
+    base = base.replace(paths=dataclasses.replace(base.paths,
+                                                  vault_path=vault_path))
+    real = F.MisinfoForensics
+
+    def boot(precision, mesh=None, graphs=False):
+        t0 = time.perf_counter()
+        e = real(base.replace(precision=precision), DetectorConfig(),
+                 params=tree, mesh=mesh, device="cuda", cuda_graphs=graphs)
+        torch.cuda.synchronize()
+        return e, time.perf_counter() - t0
+
+    # (a) make_mesh() over the visible card: data=1 serves the b32 batch
+    # as the engine without a mesh does (quant "auto" → "none" under a
+    # mesh; the single engine is given "none"), both through CUDA graphs;
+    # then data=2 over cuda:0 twice, one graph per data position, against
+    # the same mesh run eagerly
+    mesh1 = make_mesh()
+    if mesh1.shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"make_mesh() on one card: {mesh1}")
+    none = dataclasses.replace(base.precision, quant="none")
+    single, boot_1 = boot(none, graphs=True)
+    meshed, boot_m = boot(base.precision, mesh1, graphs=True)
+    if meshed.quant != "none":
+        raise AssertionError(f"quant under a mesh resolved to {meshed.quant}")
+    want, got = single.analyze_batch(b32), meshed.analyze_batch(b32)
+    check_reports(got, "phase 30 (a) mesh data=1")
+    same = got == want
+    vps = {"no mesh": verdicts_per_s(single, b32),
+           "mesh data=1": verdicts_per_s(meshed, b32)}
+    runs = mesh_runners(meshed)
+    del single, meshed
+    eager2, _ = boot(none, one_card_mesh(2))
+    graph2, boot_2 = boot(none, one_card_mesh(2), graphs=True)
+    want, got = eager2.analyze_batch(b32), graph2.analyze_batch(b32)
+    same2 = got == want
+    runs2 = mesh_runners(graph2)
+    vps.update({"mesh data=2 eager": verdicts_per_s(eager2, b32),
+                "mesh data=2 graphs": verdicts_per_s(graph2, b32)})
+    print(f"phase 30 (a): make_mesh() → {mesh1}; b32 reports == the "
+          f"engine without a mesh: {same} (runners, graphs: {runs}); "
+          f"data=2 over cuda:0 twice, graphed per position == eager: "
+          f"{same2} (runners, graphs: {runs2}); boots {boot_1:.1f} / "
+          f"{boot_m:.1f} / {boot_2:.1f} s; verdicts/s {json.dumps(vps)} "
+          f"[{card}]", flush=True)
+    if not (same and same2 and runs[0] == runs[1] > 0
+            and runs2[0] == runs2[1] > 0 and runs2[0] % 2 == 0):
+        raise AssertionError("phase 30 (a): mesh reports or graphs")
+    del eager2, graph2
+
+    # (d) data=1 × model=2 over cuda:0 twice, f32 parity: heads and FFN
+    # columns split, the o / mlp_out partials summed before the bias
+    tp_mesh = one_card_mesh(1, 2)
+    f32 = PrecisionConfig.highest()
+    s32, _ = boot(f32)
+    t32, boot_t = boot(f32, tp_mesh)
+    want, got = s32.analyze_batch(batch), t32.analyze_batch(batch)
+    check_reports(got, "phase 30 (d) model=2 f32")
+    drift = score_drift(got, want)
+    verdicts = all(a["verdict"] == b["verdict"] or abs(
+        b["scores"]["fake_probability"] - 0.5) < 1e-3
+        for a, b in zip(got, want))
+    vps = {"f32 no mesh": verdicts_per_s(s32, b32, reps=1),
+           "f32 model=2": verdicts_per_s(t32, b32, reps=1)}
+    print(f"phase 30 (d): data=1 × model=2 f32 against the single-device "
+          f"f32 engine: max score drift {drift} (limit 1e-3), verdicts "
+          f"equal {verdicts}; boot {boot_t:.1f} s; b32 verdicts/s "
+          f"{json.dumps(vps)} [{card}]", flush=True)
+    if not (drift < 1e-3 and verdicts):
+        raise AssertionError(f"phase 30 (d): model=2 drift {drift}")
+    del s32, t32
+
+    # (d) int8 under model=2: the column-split products per position, the
+    # row-split inputs quantized with the group's abs-max (one more column,
+    # padded to K + 64), all through K2. The first input of each K2 shape
+    # is kept and the kernel held against its plain version on it; the
+    # whole batch is served again with K2's plain version in its place
+    i8 = dataclasses.replace(base.precision, quant="int8")
+    si8, _ = boot(i8)
+    ti8, _ = boot(i8, tp_mesh)
+    want = si8.analyze_batch(batch)
+    torch.cuda.synchronize()
+    real_k2, first = K2.int8_dense, {}
+
+    def keep(x, wq, w_scale, bias=None, **kw):
+        key = (x.shape[-1], wq.shape[1], kw.get("out_dtype"))
+        if key not in first:
+            first[key] = (x.clone(), wq, w_scale, bias, kw)
+        return real_k2(x, wq, w_scale, bias, **kw)
+    with swapped((K2, "int8_dense", keep)):
+        K1.launches = K2.launches = 0       # this path's run starts here
+        got = ti8.analyze_batch(batch)
+        torch.cuda.synchronize()
+        k1, k2 = K1.launches, K2.launches  # read just after the path
+    check_reports(got, "phase 30 (d) model=2 int8")
+    drift = score_drift(got, want)
+    errs = {f"K={k} N={n}": float((real_k2(x, w, s, b, **kw)
+                                   - K2.int8_dense_plain(x, w, s, b, **kw))
+                                  .abs().max())
+            for (k, n, _), (x, w, s, b, kw) in first.items()}
+    with swapped((K2, "int8_dense", K2.int8_dense_plain)):
+        plain = ti8.analyze_batch(batch)
+    print(f"phase 30 (d): data=1 × model=2 quant='int8' against the "
+          f"single-device int8 engine (K1 FFNs there): max score drift "
+          f"{drift} (limit 0.01); K2 launches {k2}, K1 {k1}; K2 against "
+          f"its plain version at each of the run's shapes, max abs error "
+          f"{json.dumps(errs)}; reports with K2's plain version == the "
+          f"kernel's {plain == got} (max score drift "
+          f"{score_drift(plain, got)}) [{card}]", flush=True)
+    if not (drift < 0.01 and k2 > 0 and k1 == 0 and plain == got
+            and not any(errs.values())):
+        raise AssertionError(f"phase 30 (d) int8: drift {drift}, K2 {k2}, "
+                             f"K1 {k1}, errors {errs}")
+    del si8, ti8
+
+    # (f) the CLI: --mesh data=1 serves and reaches the transcriber;
+    # --mesh data=2 is make_mesh's ValueError on one card
+    built = []
+
+    def factory(config=None, device="cuda", mesh=None, **kw):
+        built.append(real(config, DetectorConfig(), params=tree, mesh=mesh,
+                          device=device, cuda_graphs=False))
+        return built[-1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_cli_")
+    png = png_path(image, os.path.join(tmp, "image.png"))
+    out = os.path.join(tmp, "report.json")
+    argv = ["--text", "a caption for the mesh", "--image", png, "--device",
+            "cuda", "--quiet", "--vault", vault_path, "--output", out]
+    try:
+        with swapped((F, "MisinfoForensics", factory)):
+            rc = cli.main(argv + ["--mesh", "data=1"])
+            mesh_set = T._default_mesh is built[-1].mesh
+            try:
+                cli.main(argv + ["--mesh", "data=2"])
+                refused = "not refused"
+            except ValueError as e:
+                refused = str(e)
+    finally:
+        T.reset_transcriber()
+    with open(out) as f:
+        report = json.load(f)
+    check_reports([report], "phase 30 (f) CLI")
+    print(f"phase 30 (f): CLI --mesh data=1 rc {rc}, engine mesh "
+          f"{built[0].mesh.shape}, transcriber mesh set {mesh_set}, verdict "
+          f"{report['verdict_text']}; --mesh data=2: {refused!r}; engines "
+          f"built {len(built)}", flush=True)
+    if (rc != 0 or not mesh_set or len(built) != 1
+            or refused != "mesh 2x1 != 1 devices"):
+        raise AssertionError("phase 30 (f): the CLI's --mesh")
+    shutil.rmtree(tmp)
+    print(f"phase 30 (a, d, f): {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return k2
+
+
+def mesh_vault_phase(params, path, reqs, plants, q32, card, host_vault):
+    """Phase 30 (b) and (c) on phase 10's 1,048,576-row vault: data=2 over
+    cuda:0 twice, the vault replicated on both positions against the
+    vault row-sharded over them (vault_shard_min_rows below its rows), in
+    f32 and int4; every boot reads ``host_vault``, phase 11's load of
+    ``path``. Returns K10b's launches in (c)'s run."""
+    from misinfo_tpu_torch.engine import signals as S
+    from misinfo_tpu_torch.vault import int4 as K10
+    from misinfo_tpu_torch.vault import store
+    from misinfo_tpu_torch.vault.search import (
+        vault_search, vault_search_sharded)
+    start = time.perf_counter()
+    mesh = one_card_mesh(2)
+    def load_once(p):           # one host load for the four boots
+        if p != path:
+            raise AssertionError(f"phase 30 (b, c): a boot loaded {p}")
+        return host_vault
+    k10_run = 0
+    with swapped((store.TruthVault, "load", load_once)):
+        for dt in ("float32", "int4"):
+            rep, boot_r = vault_engine(params, path, mesh=mesh,
+                                       vault_dtype=dt)
+            shd, boot_s = vault_engine(params, path, mesh=mesh,
+                                       vault_dtype=dt,
+                                       vault_shard_min_rows=BIG_ROWS // 2)
+            if rep._vault_sharded or not shd._vault_sharded:
+                raise AssertionError(f"phase 30 {dt}: shard decision")
+            want = rep.analyze_batch(reqs)
+            torch.cuda.synchronize()
+            with counting_mesh_programs(S) as seen:
+                K10.launches = K10.launches_i8 = 0   # the run starts here
+                got = shd.analyze_batch(reqs)
+                torch.cuda.synchronize()
+                k10 = (K10.launches, K10.launches_i8)  # read just after
+            check_vault_reports(got, plants, f"phase 30 {dt} sharded")
+            same = got == want
+            # the replicated engine scores each position's 16 queries, the
+            # sharded one all 32 against each shard (JAX's layouts): the
+            # f32 product may round differently for another row count
+            idx_same = all(
+                [m["title"] for m in a["vault_matches"]]
+                == [m["title"] for m in b["vault_matches"]]
+                and a["verdict"] == b["verdict"] for a, b in zip(got, want))
+            sim_diff = max(abs(x["similarity"] - y["similarity"])
+                           for a, b in zip(got, want)
+                           for x, y in zip(a["vault_matches"],
+                                           b["vault_matches"]))
+            rd, sd = rep._vault_device, shd._vault_device
+            scale_r = rd.get("vault_scale")
+
+            def full():
+                return vault_search(
+                    q32, rd["vault_emb"][0], rd["vault_valid"][0], top_k=5,
+                    vault_scale=None if scale_r is None else scale_r[0])
+
+            def sharded():
+                return vault_search_sharded(
+                    q32, sd["vault_emb"], sd["vault_valid"], mesh=mesh,
+                    top_k=5, vault_scale=sd.get("vault_scale"))
+            r1, r2 = full(), sharded()
+            fn_same = (torch.equal(r1.top_idx, r2.top_idx)
+                       and torch.equal(r1.top_sims, r2.top_sims))
+            ms = {"replicated": cuda_ms(full, 10),
+                  "sharded": cuda_ms(sharded, 10)}
+            vps = {"replicated": verdicts_per_s(rep, reqs, reps=2),
+                   "sharded": verdicts_per_s(shd, reqs, reps=2)}
+            line = (f"phase 30 ({'b' if dt == 'float32' else 'c'}) {dt}: "
+                    f"data=2 over cuda:0 twice, {BIG_ROWS} rows in shards "
+                    f"of {sd['vault_emb'][0].shape[0]}; analyze_batch of "
+                    f"{len(reqs)}: top-k rows and verdicts equal the "
+                    f"replicated engine's {idx_same}, max top-k sim "
+                    f"difference {sim_diff} (limit 1e-6), reports == "
+                    f"{same} (planted rows at top-1); vault_search of one "
+                    f"B=32 batch, sharded against replicated: top-k "
+                    f"torch.equal {fn_same}, ms {json.dumps(ms)}; "
+                    f"verdicts/s {json.dumps(vps)}; boots {boot_r:.1f} / "
+                    f"{boot_s:.1f} s")
+            if dt == "int4":
+                per_shard = all(torch.equal(
+                    K10.int4_sims_i8(q32, p, s),
+                    K10.int4_sims_i8_plain(q32, p, s))
+                    for p, s in zip(sd["vault_emb"], sd["vault_scale"]))
+                line += (f"; K10b launches {k10[1]} for {seen['visual']} "
+                         f"vault programs × 2 shards, K10a {k10[0]}; each "
+                         f"shard's K10b torch.equal to its plain version: "
+                         f"{per_shard}")
+                if k10 != (0, 2 * seen["visual"]) or not per_shard:
+                    raise AssertionError(f"phase 30 (c): K10 {k10} for "
+                                         f"{seen['visual']} programs")
+                k10_run = k10[1]
+            print(line + f" [{card}]", flush=True)
+            if not (idx_same and sim_diff <= 1e-6 and fn_same
+                    and (same or dt == "float32")):
+                raise AssertionError(f"phase 30 {dt}: sharded differs from "
+                                     "replicated")
+            del rep, shd, rd, sd
+    print(f"phase 30 (b, c): {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return k10_run
+
+
+def mesh_transcript_phase(weights, cfg, card):
+    """Phase 30 (e): a 60 s clip (two windows) transcribed under data=2
+    over cuda:0 twice and without a mesh in the same decode mode (pallas
+    and quant "auto" resolve off under a mesh), at the full 448 decoder
+    positions, the ladder's greedy rung and its sampled rung (t 0.2, two
+    draws) recorded call by call: each decode's tokens torch.equal, or
+    else torch.equal to the witness: each position's windows decoded
+    without a mesh, in a batch of that size, on the same noise, so that a
+    difference is the batch size's rounding and not the mesh's; every
+    position draws the unsplit decode's noise; transcribe() texts
+    equal."""
+    from misinfo_tpu_torch.core.config import WhisperDecodeConfig
+    from misinfo_tpu_torch.models import whisper as W
+    from misinfo_tpu_torch.serve import transcript as T
+    start = time.perf_counter()
+    wav = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_wav60_"),
+                       "clip60.wav")
+    write_wav(wav, seconds=60.0)
+    dc = dataclasses.replace(WhisperDecodeConfig(),
+                             fallback_temperatures=(0.0, 0.2), best_of=2)
+    plain = T.WhisperTranscriber(weights, config=cfg, device="cuda",
+                                 decode_cfg=dataclasses.replace(
+                                     dc, pallas="off", quant="none"),
+                                 cuda_graphs=False)
+    mesh = one_card_mesh(2)
+    meshed = T.WhisperTranscriber(weights, config=cfg, decode_cfg=dc,
+                                  mesh=mesh)
+    if meshed.pallas or meshed.quant_kernels or meshed.quant:
+        raise AssertionError("phase 30 (e): the mesh transcriber's mode")
+    state = {"draws": None}
+    calls = {"plain": [], "mesh": []}
+
+    def recorded(real):
+        def draw(shape, gen, dev):
+            g = real(shape, gen, dev)
+            if state["draws"] is not None:
+                state["draws"].append(g.clone())
+            return g
+        return draw
+
+    def spy(which, tr):
+        real = tr._decode
+
+        def decode(enc, prompt, temperature=0.0, seed=None):
+            state["draws"] = []
+            t0 = time.perf_counter()
+            out = real(enc, prompt, temperature, seed)
+            torch.cuda.synchronize()
+            calls[which].append({
+                "t": temperature, "seed": seed, "split": isinstance(enc, list),
+                "tokens": out[0].clone(), "draws": state["draws"],
+                "prompt": prompt, "s": time.perf_counter() - t0})
+            state["draws"] = None
+            return out
+        return (tr, "_decode", decode)
+
+    def alone(lo, hi, t, seed, prompt):
+        """Windows lo:hi decoded without a mesh, drawing rows lo:hi of the
+        whole batch's noise, as their data position does."""
+        gumbel = None
+        if t != 0:
+            gen = torch.Generator(plain.device)
+            gen.manual_seed(seed)
+
+            def gumbel(step):
+                return T.gumbel_noise((len(mels), cfg.vocab_size), gen,
+                                      plain.device)[lo:hi]
+        return W.decode_transcript(
+            plain.params, None, cfg, plain.policy,
+            prompt_tokens=prompt[lo:hi], temperature=t,
+            enc_out=plain._encode(mels[lo:hi]),
+            nospeech_id=plain.tokenizer.specials.no_speech,
+            quant=plain.quant, gumbel=gumbel)[0]
+    saved = os.environ.get("MISINFO_TPU_TRANSCRIPT_ISOLATION")
+    os.environ["MISINFO_TPU_TRANSCRIPT_ISOLATION"] = "0"
+    try:
+        mels = plain._host_prep(wav)
+        with swapped((W, "gumbel_noise", recorded(W.gumbel_noise)),
+                     (T, "gumbel_noise", recorded(T.gumbel_noise)),
+                     spy("plain", plain), spy("mesh", meshed)):
+            texts = (plain.transcribe(wav), meshed.transcribe(wav))
+        pc, mc = calls["plain"], calls["mesh"]
+        same = [torch.equal(p["tokens"], m["tokens"]) for p, m in zip(pc, mc)]
+        pieces = [(int(c[0]), int(c[-1]) + 1) for c in
+                  torch.chunk(torch.arange(len(mels)), mesh.data)]
+        # the witness, for each decode the mesh changed: each position's
+        # tokens against its windows decoded without a mesh
+        with torch.inference_mode():
+            wit = [eq or all(
+                torch.equal(m["tokens"][lo:hi],
+                            alone(lo, hi, p["t"], p["seed"], p["prompt"]))
+                for lo, hi in pieces)
+                for (p, m), eq in zip(zip(pc, mc), same)]
+    finally:
+        if saved is None:
+            del os.environ["MISINFO_TPU_TRANSCRIPT_ISOLATION"]
+        else:
+            os.environ["MISINFO_TPU_TRANSCRIPT_ISOLATION"] = saved
+    same_calls = ([(c["t"], c["seed"]) for c in pc]
+                  == [(c["t"], c["seed"]) for c in mc]
+                  and all(c["split"] for c in mc))
+
+    def noise_same(p, m):
+        """The mesh call's draws (position 0's steps, then position 1's)
+        each a prefix of the unsplit call's, row for row."""
+        cut = [j for j, g in enumerate(m) if torch.equal(g, p[0])]
+        segs = [m[lo:hi] for lo, hi in zip(cut, cut[1:] + [len(m)])]
+        return len(segs) == mesh.data and all(
+            len(seg) <= len(p) and all(torch.equal(g, p[i])
+                                       for i, g in enumerate(seg))
+            for seg in segs)
+    s_noise = [noise_same(p["draws"], m["draws"])
+               for p, m in zip(pc, mc) if p["t"] != 0]
+    first = [None if eq else int((p["tokens"] != m["tokens"])
+                                 .any(dim=0).nonzero()[0])
+             for (p, m), eq in zip(zip(pc, mc), same)]
+    walls = [(p["t"], round(p["s"], 3), round(m["s"], 3))
+             for p, m in zip(pc, mc)]
+    print(f"phase 30 (e): {len(mels)} windows split over data=2 by "
+          f"transcribe() (every mesh decode split: {same_calls}), "
+          f"{cfg.max_target_positions} decoder positions; the ladder's "
+          f"decodes (t, seed) {[(c['t'], c['seed']) for c in pc]} on both; "
+          f"tokens torch.equal to the unsplit decode {same} (first "
+          f"differing steps {first}); the sampled draws' positions drew "
+          f"the unsplit decode's noise {s_noise}; equal or else each "
+          f"position's tokens torch.equal to the witness, its windows "
+          f"decoded without a mesh (on the same noise): {wit}; "
+          f"decode wall s (t, no mesh, mesh) "
+          f"{walls}; transcribe() texts equal {texts[0] == texts[1]} "
+          f"({len(texts[0])} chars); {time.perf_counter() - start:.1f} s "
+          f"[{card}]", flush=True)
+    if not (same_calls and pc[0]["t"] == 0 and s_noise and all(s_noise)
+            and all(wit) and texts[0] == texts[1]):
+        raise AssertionError("phase 30 (e): the mesh transcriber differs")
+    shutil.rmtree(os.path.dirname(wav))
+
+
+_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """The script's wall seconds so far, after phase ``what``."""
+    print(f"[{time.perf_counter() - _START:.1f} s] after phase {what}",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -4360,8 +4860,10 @@ def main() -> int:
                for m in (K1, K2, K3, K5, K6, K7, K9, K10)]
               + [(K3, "_ln_library", "ln_build_log"),
                  (K7, "_library_i8cc", "build_log_i8cc")])
+    stamp("2")
     kernel_rows = check_kernel(card)                          # phase 3
     opt_rows = check_opt_in_kernels(card)                     # phase 15
+    stamp("3, 15")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     vault_path = os.path.join(tmp, "vault.npz")
@@ -4431,35 +4933,48 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
         open(args.profile, "w").close()
+    stamp("4")
     video_launches, group, seeded, clip_dir = video_phase(    # phase 25
         engine, rng, card)
     engine_surface(engine, batch, image, rng, card)           # phase 24
+    stamp("25, 24")
     graph_phase(engine, batch, b32, text, image, group,       # phase 26
                 seeded, card, args.profile)
+    stamp("26")
     ep_launches = entry_points_phase(batch, vault_path, rng,  # phase 27
                                      card)
+    stamp("27")
     train_launches = trainers_phase(engine, vault_path, rng,  # phase 28
                                     card)
+    stamp("28")
     qkv_rows, qkv_launches = fused_qkv_phase(                 # 29 (a)
         engine, vault_path, batch, b32, card)
     prep_launches = data_path_phase(rng, card)                # 29 (c)
+    stamp("29")
+    tp_k2 = mesh_engine_phase(engine, vault_path, batch, b32,  # 30 (a, d,
+                              image, card)                    # f)
+    stamp("30 (a, d, f)")
     shutil.rmtree(clip_dir)
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
+    stamp("16-17")
     decode_rows = check_decode_kernels(K6, K7)                # phase 5
     decode_step_times(card)
     decode_rows["cross_ffn_step_i8cc"] = check_i8cc_kernel(K7, card)    # 19
     decode_rows["layer_step"] = check_layer_kernel(K6, K7, K9, card)    # 20
+    stamp("5, 19, 20")
     if args.profile:
         append_profile(args.profile, "full b32/S512 analyze_batch",
                        lambda: engine.analyze_batch(b32), rows=40)
 
     decode_launches = transcript_phases(engine, image, card,  # phases 6-8,
                                         args.profile)         # 18, 21-23
+    stamp("6-8, 18, 21-23, 26-29 (transcriber), 30 (e)")
     del engine
     int4_rows = check_int4_kernels(K10, IC, card)             # phase 9
     int4_launches = vault_phases(card, vault_path,            # phases 10-14
-                                 args.profile)
+                                 args.profile)                # and 30 (b, c)
+    stamp("9-14, 30 (b, c)")
 
     err_k1 = max(r["err"] for r in kernel_rows.values())
     kernels = [{
@@ -4505,7 +5020,7 @@ def main() -> int:
     for name, src, where, launches in (
             ("int8_dense", "int8_dense.cu",
              "misinfo_tpu/ops/pallas_int8.py:123",
-             opt_launches["int8_dense"]),
+             opt_launches["int8_dense"] + tp_k2),
             ("fused_attention", "fused_attention.cu",
              "misinfo_tpu/ops/pallas_attention.py:32",
              opt_launches["fused_attention"]),

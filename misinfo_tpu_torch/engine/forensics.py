@@ -42,7 +42,12 @@ runs the eager program over the same input buffers. ``warmup()`` makes
 the runners of the serving grid before traffic arrives; a signature not
 warmed gets its runner at first use, whose eager pass answers that
 request. ``reload_vault`` re-captures the warmed signatures against the
-new vault before it publishes it.
+new vault before it publishes it. Over a mesh, a program that stays
+within each data position (``model=1``, the vault replicated, rows not
+packed; or a ``data=1`` mesh) runs through one runner per position, each
+on its position's device and, on the card, its own CUDA graph; one that
+exchanges between positions (a model group's partial sums, a row-sharded
+vault, packed rows) runs eagerly (``_positions``).
 
 Without ``params`` the engine starts from its seeded init and loads a
 native checkpoint directory (``paths.orbax_dir``, checkpoints/io.py: the
@@ -52,9 +57,20 @@ overlays the reference's ``.pth`` files where ``ModelPaths`` finds them
 per-branch ones); ``load_report`` says which mode loaded.
 ``host_prep_report`` measures this host's image prep once.
 
-Not carried yet, and refused with NotImplementedError: meshes, the AOT
-cache (the runners play its role) and ``use_pallas="flash"`` (JAX's
-library TPU kernel).
+``MisinfoForensics(mesh=...)`` serves over a device mesh (core/mesh.py),
+in the JAX constructor's order: quant resolves under the mesh ("auto" →
+"none"), the serving transforms run, then ``shard_params`` places the
+tree (parallel/sharding.py); the vault is row-sharded over the data axis
+when ``data > 1`` and its rows reach ``serving.vault_shard_min_rows``
+(padded with invalid rows to a multiple of ``data``), else replicated on
+each data position; request buckets round up to a multiple of ``data``,
+and each batch splits over the data positions, each running its program
+on its own device (engine/signals.py::mesh_program). Programs over a mesh
+run eagerly: no CUDA graphs (the numbers are the same).
+
+Not carried, and refused with NotImplementedError: the AOT cache (the
+runners play its role) and ``use_pallas="flash"`` (JAX's library TPU
+kernel).
 """
 
 from __future__ import annotations
@@ -77,18 +93,20 @@ from misinfo_tpu_torch.checkpoints.io import load_checkpoint, load_metadata
 from misinfo_tpu_torch.checkpoints.torch_convert import (
     load_detector_from_reference_ckpts)
 from misinfo_tpu_torch.core.config import ForensicsConfig
+from misinfo_tpu_torch.core.mesh import Mesh, pad_to_multiple
 from misinfo_tpu_torch.engine.explain import Explainer
 from misinfo_tpu_torch.engine.signals import (
-    SignalOutput, pack_signal_output, signals_program, unpack_signal_output,
-    video_program)
+    SignalOutput, SignalPrograms, pack_signal_output, unpack_signal_output)
 from misinfo_tpu_torch.models.clip import clip_text_features
 from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
 from misinfo_tpu_torch.models.fusion import fusion_apply
-from misinfo_tpu_torch.ops.common import Policy, l2_normalize, set_exact_f32
+from misinfo_tpu_torch.ops.common import (
+    Policy, check_accum, l2_normalize, set_exact_f32)
 from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.graphs import Runner
 from misinfo_tpu_torch.ops.serving import (
     optimize_for_serving, quant_mode, resolve_quant)
+from misinfo_tpu_torch.parallel.sharding import shard_params
 from misinfo_tpu_torch.preprocess.hostprobe import recommend
 from misinfo_tpu_torch.preprocess.image import (
     batch_images, choose_staging_bucket, decode_rgb, image_to_array,
@@ -98,7 +116,8 @@ from misinfo_tpu_torch.preprocess.packing import (
 from misinfo_tpu_torch.preprocess.tokenizer import (
     load_clip_tokenizer, load_roberta_tokenizer)
 from misinfo_tpu_torch.preprocess.video import sample_video_frames
-from misinfo_tpu_torch.vault.int4 import Int4Vault, pad_int4_vault
+from misinfo_tpu_torch.vault.int4 import (
+    INT4_TILE_ROWS, Int4Vault, pad_int4_vault)
 from misinfo_tpu_torch.vault import ivf as vault_ivf
 from misinfo_tpu_torch.vault.prepack import get_or_build
 from misinfo_tpu_torch.vault.search import quantize_rows_int8
@@ -106,10 +125,19 @@ from misinfo_tpu_torch.utils.tracing import GLOBAL_TRACER, stage_timer
 from misinfo_tpu_torch.vault.store import TruthVault
 
 _UNSET = object()  # distinguishes "default to self.vault" from vault=None
+# the vault arrays that a row-sharded vault splits over the data axis
+_ROW_KEYS = ("vault_emb", "vault_valid", "vault_text_emb", "vault_scale",
+             "vault_text_scale")
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _per_device(v) -> torch.Tensor:
+    """A vault entry as one device holds it: a tensor, or under a mesh the
+    first data position's replica or row shard."""
+    return v[0] if isinstance(v, (list, tuple)) else v
 
 
 def _tree_bytes(tree) -> int:
@@ -129,8 +157,10 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 class MisinfoForensics:
     """Batched forensics engine on one device: the CUDA card by default,
-    the CPU when the caller asks for it (``device="cpu"``). On the card
-    each signature's program is a captured CUDA graph unless
+    the CPU when the caller asks for it (``device="cpu"``), or over a
+    ``mesh`` of devices (``device`` is then its first). On the card each
+    signature's program (over a mesh, each data position's, where it stays
+    within the position) is a captured CUDA graph unless
     ``cuda_graphs=False``."""
 
     _TEXT_BUCKETS = (64, 128, 256, 512)
@@ -141,11 +171,15 @@ class MisinfoForensics:
                  use_pallas=False, device="cuda", cuda_graphs: bool = True):
         self.cfg = config or ForensicsConfig.from_env()
         self.det_cfg = det_cfg or DetectorConfig()
-        self.device = torch.device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("MisinfoForensics(mesh=...): expected a "
+                            "misinfo_tpu_torch.core.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.device = (mesh.data_devices[0] if mesh is not None
+                       else torch.device(device))
         self.policy = Policy(self.cfg.precision)
         sv = self.cfg.serving
-        if mesh is not None:
-            not_ported("a device mesh (multi-GPU serving)", "M17")
         if use_pallas == "flash":
             not_ported("use_pallas='flash' (JAX's library TPU flash-attention "
                        "kernel, not this repository's code)", "queue 2, K3")
@@ -197,20 +231,33 @@ class MisinfoForensics:
         self.load_report["tokenizer_parity"] = self.tokenizer_parity
         self.load_report["tokenizer_grades"] = dict(self.tokenizer_grades)
         self.quant = resolve_quant(self.cfg.precision.quant, self.policy,
-                                   self.device)
+                                   mesh, self.device)
+        if self.quant != "none" or self.use_pallas:
+            # the card's int8 and opt-in kernels sum in f32 only
+            check_accum(self.policy, f"quant={self.quant!r} / use_pallas="
+                        f"{self.use_pallas!r}")
         if self.quant != "none":
-            quant_mode(self.policy, self.device)    # raises on a bad mode
+            for dev in ([self.device] if mesh is None
+                        else set(mesh.devices.flat)):
+                quant_mode(self.policy, dev)     # raises on a bad mode
         params = to_device(params, self.device)
-        self.params = optimize_for_serving(params, self.policy, self.quant)
+        params = optimize_for_serving(params, self.policy, self.quant)
+        self._params_bytes = _tree_bytes(params)
+        # under a mesh: the serving transforms first, then the placement
+        # (cast and quantize are per-leaf rewrites, which commute with it)
+        self.params = (params if mesh is None
+                       else shard_params(mesh, params))
 
         self.vault = TruthVault.load(self.cfg.paths.vault_path)
         self.vault_loaded = self.vault is not None
+        self._vault_sharded = self._shards_vault(self.vault)
         self._vault_device = self._prepare_vault()
         self._warn_vault_capacity(self._vault_device)
         self._reload_lock = threading.Lock()  # serializes reload_vault
-        # signature → Runner; the lock covers a runner's copy-in, run and
-        # copy-out, so that no two threads replay one graph at once, and
-        # the runners share their input buffers (graphs.Runner)
+        # signature (over a mesh, (signature, data position)) → Runner;
+        # the lock covers a runner's copy-in, run and copy-out, so that no
+        # two threads replay one graph at once, and the runners of one
+        # device share their input buffers (graphs.Runner)
         self._runners: Dict[tuple, Runner] = {}
         self._buffers: Dict[tuple, torch.Tensor] = {}
         # warmed signature → its synthetic host inputs (a function), which
@@ -219,10 +266,19 @@ class MisinfoForensics:
         self._runner_lock = threading.Lock()
         on_card = self.device.type == "cuda"
         self.cuda_graphs = bool(cuda_graphs) and on_card
+        self.programs = self._make_programs(self._vault_sharded)
+        # a data position's single-device programs (_positions)
+        self._position_programs = (
+            None if mesh is None else SignalPrograms(
+                self.det_cfg, self.cfg, self.policy,
+                use_pallas=self.use_pallas))
         self._stream = (torch.cuda.Stream(self.device) if self.cuda_graphs
                         else None)
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.cuda_graphs else None)
+        # device → its runners' capture stream, graph pool and buffers
+        self._lanes = {self.device: (self._stream, self._graph_pool,
+                                     self._buffers)}
         self._prep_pool = None  # lazy image-prep thread pool (_prep_map)
         self.explainer = Explainer(self.cfg.gemini_api_key,
                                    self.cfg.gemini_model,
@@ -233,8 +289,10 @@ class MisinfoForensics:
             tok = ("parity" if self.tokenizer_parity else
                    "HASH-FALLBACK (scores not reference-comparable; "
                    "fetch vocab assets via serve/download.py)")
+            where = (f"mesh={self.mesh.shape}" if self.mesh is not None
+                     else f"device={self.device}")
             print(f"MisinfoForensics ready in {self.init_seconds:.1f}s "
-                  f"(device={self.device}, quant={self.quant}, "
+                  f"({where}, quant={self.quant}, "
                   f"use_pallas={self.use_pallas}, "
                   f"cuda_graphs={self.cuda_graphs}, "
                   f"vault={'loaded' if self.vault_loaded else 'absent'}, "
@@ -253,6 +311,40 @@ class MisinfoForensics:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _data_axis_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data
+
+    def _shards_vault(self, vault) -> bool:
+        """Row-shard ``vault`` over the data axis: under a mesh with
+        ``data > 1`` once its rows reach ``serving.vault_shard_min_rows``
+        (JAX's rule); smaller vaults replicate on each data position."""
+        return (self.mesh is not None and self._data_axis_size() > 1
+                and vault is not None
+                and vault.embeddings.shape[0]
+                >= self.cfg.serving.vault_shard_min_rows)
+
+    def _make_programs(self, sharded: bool) -> SignalPrograms:
+        return SignalPrograms(
+            self.det_cfg, self.cfg, self.policy, use_pallas=self.use_pallas,
+            vault_mesh=self.mesh if sharded else None, data_mesh=self.mesh)
+
+    def _place_vault(self, out: Dict[str, torch.Tensor],
+                     sharded: bool) -> Dict:
+        """Under a mesh, each vault array as one entry per data position:
+        its row shard (``sharded``; rows padded before) or a replica on
+        that position's device (one copy per distinct device)."""
+        if self.mesh is None:
+            return out
+        devs = self.mesh.data_devices
+        placed = {}
+        for k, v in out.items():
+            if sharded and k in _ROW_KEYS:
+                placed[k] = [c.to(dev) for c, dev in
+                             zip(torch.chunk(v, len(devs), dim=0), devs)]
+            else:
+                placed[k] = [v.to(dev) for dev in devs]
+        return placed
 
     @staticmethod
     def _stage(a) -> torch.Tensor:
@@ -285,20 +377,24 @@ class MisinfoForensics:
         vault = self.vault if vault is _UNSET else vault
         vault_path = (self.cfg.paths.vault_path
                       if vault_path is _UNSET else vault_path)
+        sharded = self._shards_vault(vault)
         dev = self.device
         if vault is None:
             # 128-row dummy so program shapes stay static; no valid rows
             d = self.det_cfg.clip.projection_dim
-            return {"vault_emb": torch.zeros(128, d, device=dev),
-                    "vault_valid": torch.zeros(128, dtype=torch.bool,
-                                               device=dev),
-                    "vault_text_emb": torch.zeros(128, d, device=dev)}
+            return self._place_vault({
+                "vault_emb": torch.zeros(128, d, device=dev),
+                "vault_valid": torch.zeros(128, dtype=torch.bool,
+                                           device=dev),
+                "vault_text_emb": torch.zeros(128, d, device=dev)}, sharded)
         sv = self.cfg.serving
         # IVF index first: its k-means needs a transient bf16 row copy on
         # the device before the vault planes occupy it; the index is
         # cached beside the vault file and invalidated by a content digest
         index = None
-        ivf_engages = sv.vault_ivf and vault.num_articles > 0
+        # IVF and row-sharding are mutually exclusive search strategies;
+        # sharding wins at scale, as in JAX
+        ivf_engages = sv.vault_ivf and vault.num_articles > 0 and not sharded
         if ivf_engages and sv.vault_dtype == "int4":
             raise ValueError(
                 "vault_dtype='int4' and vault_ivf are mutually exclusive "
@@ -321,24 +417,29 @@ class MisinfoForensics:
         if sv.vault_dtype == "int4":
             # packed nibbles, 8× f32's articles per card on both planes:
             # image rows feed the int4 kernels, title rows are a [B]-row
-            # gather. Rows pad to the kernel tile, row_valid alongside.
+            # gather. Rows pad to the kernel tile (row-sharded, to tile ×
+            # data, so that every shard stays tile-aligned), row_valid
+            # alongside.
+            mult = INT4_TILE_ROWS * (self._data_axis_size() if sharded
+                                     else 1)
             pre = get_or_build(vault_path, vault)
-            q4 = pad_int4_vault(pre.image)
+            q4 = pad_int4_vault(pre.image, multiple=mult)
             n_pad = q4.packed.shape[0]
             valid = np.zeros((n_pad,), bool)
             valid[: vault.row_valid.shape[0]] = vault.row_valid
             if pre.text is not None:
-                t4 = pad_int4_vault(pre.text)
+                t4 = pad_int4_vault(pre.text, multiple=mult)
             else:
                 # no titles: the packed-zero plane directly, not an
                 # [N, D] f32 zeros array through the quantizer
                 t4 = Int4Vault(packed=np.zeros_like(q4.packed),
                                scale=np.zeros((n_pad,), np.float32))
-            return {"vault_emb": self._tensor(q4.packed),
-                    "vault_scale": self._tensor(q4.scale),
-                    "vault_valid": self._tensor(valid),
-                    "vault_text_emb": self._tensor(t4.packed),
-                    "vault_text_scale": self._tensor(t4.scale)}
+            return self._place_vault({
+                "vault_emb": self._tensor(q4.packed),
+                "vault_scale": self._tensor(q4.scale),
+                "vault_valid": self._tensor(valid),
+                "vault_text_emb": self._tensor(t4.packed),
+                "vault_text_scale": self._tensor(t4.scale)}, sharded)
         if sv.vault_dtype == "int8":
             def cast(a):
                 return self._tensor(quantize_rows_int8(a))
@@ -347,18 +448,25 @@ class MisinfoForensics:
                 return torch.from_numpy(a).to(torch.bfloat16).to(dev)
         else:
             cast = self._tensor
-        out = {"vault_emb": cast(vault.embeddings),
-               "vault_valid": self._tensor(vault.row_valid)}
+        emb, valid = vault.embeddings, vault.row_valid
+        text = vault.text_embeddings
+        if sharded:
+            # invalid pad rows up to a multiple of the data axis
+            pad = pad_to_multiple(emb.shape[0], self._data_axis_size()) \
+                - emb.shape[0]
+            emb = np.pad(emb, ((0, pad), (0, 0)))
+            valid = np.pad(valid, (0, pad))
+            text = None if text is None else np.pad(text, ((0, pad), (0, 0)))
+        out = {"vault_emb": cast(emb), "vault_valid": self._tensor(valid)}
         out["vault_text_emb"] = (
-            cast(vault.text_embeddings)
-            if vault.text_embeddings is not None
+            cast(text) if text is not None
             else torch.zeros_like(out["vault_emb"]))
         if index is not None:
             out.update(index.device_arrays(dev))
             if sv.ivf_bf16_gather:
                 out["ivf_emb16"] = torch.from_numpy(vault.embeddings).to(
                     torch.bfloat16).to(dev)
-        return out
+        return self._place_vault(out, sharded)
 
     # warn when the vault's device residency crosses this fraction of the
     # card's memory: past it, the 2× headroom a staged reload_vault needs
@@ -381,11 +489,14 @@ class MisinfoForensics:
         if mem is None:
             return
         limit = mem[1]
-        used = sum(_nbytes(t) for t in dev.values())
+        used = sum(_nbytes(_per_device(t)) for t in dev.values())
         if used <= self._VAULT_HBM_WARN_FRACTION * limit:
             return
         vdt = self.cfg.serving.vault_dtype
-        nxt = {"int4": "row-sharding across cards (ROADMAP.md M17)",
+        nxt = {"int4": ("a wider data axis (more cards)"
+                        if self._vault_sharded else
+                        "row-sharding across cards (MisinfoForensics("
+                        "mesh=...))"),
                "int8": 'vault_dtype="int4" (2× more capacity)'}.get(
             vdt, 'vault_dtype="int8" (4× capacity) or "int4" (8×)')
         logging.getLogger("misinfo_tpu_torch.engine").warning(
@@ -394,12 +505,17 @@ class MisinfoForensics:
             "drop_first=True) — consider %s",
             100.0 * used / limit, used / 2**30, limit / 2**30, vdt, nxt)
 
-    def _publish_vault(self, vault, dev: Dict[str, torch.Tensor]) -> None:
+    def _publish_vault(self, vault, dev: Dict[str, torch.Tensor],
+                       sharded: bool = False) -> None:
         """Swap the serving vault in a few reference assignments (atomic
-        under the GIL)."""
+        under the GIL); a flip of the shard decision swaps the program
+        set."""
+        if sharded != self._vault_sharded:
+            self.programs = self._make_programs(sharded)
         self.vault_loaded = vault is not None
         self.vault = vault
         self._vault_device = dev
+        self._vault_sharded = sharded
 
     def reload_vault(self, path: Optional[str] = None,
                      drop_first: bool = False) -> Dict:
@@ -411,7 +527,8 @@ class MisinfoForensics:
         publish it and, for an explicit ``path``, the engine config. A
         failed staging leaves both untouched. A missing file soft-fails
         to the vault-less dummy, as a missing vault does at start.
-        Concurrent reloads serialize on a lock.
+        Concurrent reloads serialize on a lock. Under a mesh the shard
+        decision is taken again for the new vault (``vault_shard_min_rows``).
 
         Device memory: the staged swap holds both vaults' arrays briefly,
         2× the footprint ``memory_report()`` shows. ``drop_first=True``
@@ -433,42 +550,58 @@ class MisinfoForensics:
                     self._runners = {}
                     self._publish_vault(None, self._prepare_vault(None, None))
             dev = self._prepare_vault(new_vault, vault_path=new_path)
+            sharded = self._shards_vault(new_vault)
             self._warn_vault_capacity(dev)
             with self._runner_lock:
                 runners = {}
                 for sig, make_inputs in self._warmed.items():
-                    inputs = make_inputs()
-                    runner = self._new_runner(sig, inputs, dev)
-                    runner.start(inputs)
-                    runners[sig] = runner
+                    if self.mesh is None:
+                        inputs = make_inputs()
+                        runner = self._new_runner(sig, inputs, dev)
+                        runner.start(inputs)
+                        runners[sig] = runner
+                        continue
+                    n = self._positions(sig, sharded)   # 0: runs eagerly
+                    for d, piece in enumerate(
+                            self._pieces(make_inputs(), n) if n else ()):
+                        runner = self._new_runner(sig, piece, dev,
+                                                  position=d)
+                        runner.start(piece)
+                        runners[(sig, d)] = runner
                 if path is not None:  # publish config only after staging
                     self.cfg = self.cfg.replace(
                         paths=dataclasses.replace(self.cfg.paths,
                                                   vault_path=path))
                 self._runners = runners
-                self._publish_vault(new_vault, dev)
+                self._publish_vault(new_vault, dev, sharded)
             return {"articles": (0 if new_vault is None
                                  else new_vault.num_articles),
-                    "rows": int(dev["vault_emb"].shape[0]),
-                    "sharded": False}
+                    "rows": int(_per_device(dev["vault_emb"]).shape[0]
+                                * (self.mesh.data if sharded else 1)),
+                    "sharded": bool(sharded)}
 
     def memory_report(self) -> Dict:
         """Device-memory accounting for capacity planning: detector
         params, vault planes by key and, on a card, PyTorch's allocated
         bytes against the card's total (the JAX engine's keys)."""
-        vault_by_key = {k: _nbytes(v) for k, v in self._vault_device.items()}
+        shards = len(self.mesh.data_devices) if self._vault_sharded else 1
+        per_dev = {k: _nbytes(_per_device(v))
+                   for k, v in self._vault_device.items()}
+        vault_by_key = {k: b * (shards if k in _ROW_KEYS else 1)
+                        for k, b in per_dev.items()}
         out = {
-            "params_bytes": _tree_bytes(self.params),
+            "params_bytes": self._params_bytes,
             "vault_bytes": sum(vault_by_key.values()),
-            "vault_bytes_per_device": sum(vault_by_key.values()),
+            "vault_bytes_per_device": sum(per_dev.values()),
             "vault_bytes_by_key": vault_by_key,
             "vault_dtype": self.cfg.serving.vault_dtype,
             "vault_articles": (self.vault.num_articles
                                if self.vault is not None else 0),
             "vault_rows_padded": int(
-                self._vault_device["vault_emb"].shape[0]),
-            "vault_sharded": False,
-            "devices": 1,
+                _per_device(self._vault_device["vault_emb"]).shape[0]
+                * shards),
+            "vault_sharded": bool(self._vault_sharded),
+            "devices": 1 if self.mesh is None else self.mesh.size,
         }
         mem = self._device_memory()
         if mem is not None:
@@ -491,44 +624,79 @@ class MisinfoForensics:
 
     # ------------------------------------------------------------ runners
 
-    def _program(self, sig: tuple, vault: Dict[str, torch.Tensor]):
+    def _program(self, sig: tuple, vault: Dict[str, torch.Tensor],
+                 position: Optional[int] = None):
         """The device program of signature ``sig`` over its input dict,
-        reading ``vault``'s device arrays. The signal programs are looked
-        up by name at every run, so that a caller can wrap them."""
+        reading ``vault``'s device arrays, through the program set
+        (``SignalPrograms``). With ``position``, data position
+        ``position``'s single-device program over its piece of the batch,
+        with its tree and its vault replica."""
         variant, r = sig[0], sig[3]
         if variant == "caption_title_sim":
             def run(b):
                 with torch.inference_mode():
                     return l2_normalize(clip_text_features(
-                        self.params["clip"], b["clip_ids"], b["clip_mask"],
-                        self.det_cfg.clip, self.policy))
-            return run
-        kw = dict(det_cfg=self.det_cfg, policy=self.policy,
-                  use_pallas=self.use_pallas)
-        if variant.startswith("video"):
-            def run(b):
-                with torch.inference_mode():
-                    return pack_signal_output(video_program(
-                        self.params, {**b, **vault}, cfg=self.cfg,
-                        has_text=variant == "video_text", **kw))
+                        self.params["clip"], b["clip_ids"].to(self.device),
+                        b["clip_mask"].to(self.device), self.det_cfg.clip,
+                        self.policy))
             return run
         program = "text_packed" if r and variant == "text_only" else variant
+        programs, params = self.programs, self.params
+        if position is not None:
+            programs = self._position_programs
+            params = self.params.row(position)
+            vault = {k: v[position] for k, v in vault.items()}
 
         def run(b):
             with torch.inference_mode():
-                return pack_signal_output(signals_program(
-                    self.params, {**b, **vault}, variant=program,
-                    cfg=self.cfg, **kw))
+                return pack_signal_output(programs.call(
+                    program, params, {**b, **vault}))
         return run
 
+    def _lane(self, dev: torch.device) -> tuple:
+        """``dev``'s capture stream, graph pool and input buffers, made at
+        its first runner."""
+        if dev not in self._lanes:
+            self._lanes[dev] = (
+                torch.cuda.Stream(dev) if self.cuda_graphs else None,
+                torch.cuda.graph_pool_handle() if self.cuda_graphs else None,
+                {})
+        return self._lanes[dev]
+
     def _new_runner(self, sig: tuple, inputs: Dict[str, torch.Tensor],
-                    vault: Optional[Dict[str, torch.Tensor]] = None
-                    ) -> Runner:
+                    vault: Optional[Dict[str, torch.Tensor]] = None,
+                    position: Optional[int] = None) -> Runner:
+        dev = (self.device if position is None
+               else self.mesh.data_devices[position])
+        stream, pool, buffers = self._lane(dev)
         return Runner(sig, self._program(
-            sig, self._vault_device if vault is None else vault), inputs,
-            device=self.device, capture=self.cuda_graphs,
-            stream=self._stream, pool=self._graph_pool,
-            buffers=self._buffers)
+            sig, self._vault_device if vault is None else vault, position),
+            inputs, device=dev, capture=self.cuda_graphs, stream=stream,
+            pool=pool, buffers=buffers)
+
+    def _positions(self, sig: tuple, sharded: Optional[bool] = None) -> int:
+        """Over a mesh, how many data positions run ``sig``'s program as a
+        single-device program each, through a runner of their own: the
+        data axis (one for the caption-title program, which runs on the
+        first position); 0 where the program exchanges between positions
+        (a model group's partial sums, a vault row-sharded over them
+        (``sharded``, default the vault's), packed rows whose requests
+        straddle two positions), which then runs eagerly."""
+        m = self.mesh
+        sharded = self._vault_sharded if sharded is None else sharded
+        if m.model > 1:
+            return 0
+        if m.data == 1 or sig[0] == "caption_title_sim":
+            return 1
+        return 0 if sharded or sig[3] else m.data
+
+    @staticmethod
+    def _pieces(inputs: Dict[str, torch.Tensor], n: int) -> List[Dict]:
+        """The host inputs' leading axis in ``n`` equal pieces."""
+        if n == 1:
+            return [inputs]
+        parts = {k: torch.chunk(v, n) for k, v in inputs.items()}
+        return [{k: v[d] for k, v in parts.items()} for d in range(n)]
 
     def _sig(self, variant: str, n: int, inputs: Dict) -> tuple:
         """The signature ``warmup()`` lists for a program over ``inputs``:
@@ -546,9 +714,23 @@ class MisinfoForensics:
     def _run(self, sig: tuple, inputs: Dict[str, torch.Tensor]):
         """Run ``sig``'s program on ``inputs`` through its runner, made (and
         on the card captured) at first use; the output is the request's
-        own (copied out of the graph)."""
-        return graphs.run(lambda: self._runners, self._runner_lock, sig,
-                          inputs, lambda: self._new_runner(sig, inputs))
+        own (copied out of the graph). Over a mesh each data position runs
+        its piece of the inputs through its runner and the outputs are
+        gathered on the first position's device; a program that exchanges
+        between positions runs eagerly on the host inputs, which it splits
+        over them (``_positions``)."""
+        if self.mesh is None:
+            return graphs.run(lambda: self._runners, self._runner_lock, sig,
+                              inputs, lambda: self._new_runner(sig, inputs))
+        n = self._positions(sig)
+        if not n:
+            return self._program(sig, self._vault_device)(inputs)
+        outs = [graphs.run(lambda: self._runners, self._runner_lock,
+                           (sig, d), piece,
+                           lambda d=d, piece=piece: self._new_runner(
+                               sig, piece, position=d))
+                for d, piece in enumerate(self._pieces(inputs, n))]
+        return torch.cat([o.to(self.device) for o in outs])
 
     # ------------------------------------------------------------ warmup
 
@@ -628,7 +810,7 @@ class MisinfoForensics:
         def _dispatch(sig, make_inputs):
             if sig in done:   # e.g. two batch_sizes rounding to one bucket
                 return
-            if sig not in self._runners:
+            if sig not in self._runners and (sig, 0) not in self._runners:
                 self._run(sig, make_inputs())
             self._warmed.setdefault(sig, make_inputs)
             done.append(sig)
@@ -756,9 +938,11 @@ class MisinfoForensics:
     def _req_bucket(self, n: int, buckets: Optional[Sequence[int]] = None
                     ) -> int:
         """Bucket a request count (``buckets`` default: the request batch
-        buckets)."""
-        return _bucket(n, self.cfg.serving.batch_buckets
-                       if buckets is None else buckets)
+        buckets); under a mesh the batch axis must divide evenly across
+        the data axis, so a bucket rounds up to a multiple of it."""
+        b = _bucket(n, self.cfg.serving.batch_buckets
+                    if buckets is None else buckets)
+        return pad_to_multiple(b, self._data_axis_size())
 
     def _tokenize_batch(self, texts: List[str], bucket: int):
         """Dense RoBERTa rows for `bucket` requests, cut to the smallest

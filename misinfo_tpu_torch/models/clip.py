@@ -7,7 +7,9 @@ bias, NHWC at the public function), class token, learned positions,
 pre/post LayerNorm and a bias-free ``visual_projection``. Int8-quantized
 FFNs run through the fused int8 FFN (ops/int8_ffn.py, quick mode);
 ``use_pallas`` selects the fused FFN (``"ffn"``) or fused attention
-(``True``) kernels as in models/roberta.py.
+(``True``) kernels as in models/roberta.py. Under a mesh's model axis
+the blocks' attention and FFN pieces are ``ModelSplit``s
+(parallel/tensor.py) and run split over the group.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from misinfo_tpu_torch.ops.common import (
     layer_norm_init, quick_gelu)
 from misinfo_tpu_torch.ops.fused_ffn import ffn_apply
 from misinfo_tpu_torch.ops.int8_ffn import int8_ffn_apply
+from misinfo_tpu_torch.parallel.tensor import ModelSplit, tp_ffn
 
 
 @dataclass(frozen=True)
@@ -62,7 +65,7 @@ class ClipConfig:
 
 
 def _block_init(gen: torch.Generator, width: int, mlp: int) -> Dict:
-    return {"ln1": layer_norm_init(width), "attn": attention_init(gen, width),
+    return {"ln1": layer_norm_init(width), "attn": attention_init(gen, width, 1),
             "ln2": layer_norm_init(width),
             "mlp_in": dense_init(gen, width, mlp),
             "mlp_out": dense_init(gen, mlp, width)}
@@ -78,7 +81,9 @@ def _encoder_apply(blocks, x, num_heads, *, mask=None, causal=False,
                                      causal=causal, policy=policy,
                                      use_pallas=attn_pallas)
         h = layer_norm(blk["ln2"], x, eps, policy)
-        if "kernel_q" in blk["mlp_in"]:
+        if isinstance(blk["mlp_in"], ModelSplit):
+            h = tp_ffn(blk["mlp_in"], blk["mlp_out"], h, policy, quick_gelu)
+        elif "kernel_q" in blk["mlp_in"]:
             h = int8_ffn_apply(blk["mlp_in"], blk["mlp_out"], h,
                                policy=policy, mode="quick")
         elif ffn_fused:

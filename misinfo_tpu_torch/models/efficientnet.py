@@ -177,11 +177,21 @@ def _forward(params: Dict, images: torch.Tensor, policy: Policy,
                  policy).float()
 
 
-def effnet_apply(params: Dict, images: torch.Tensor,
-                 policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
-    """images [B,H,W,3] normalized NHWC → logits [B, num_classes] f32,
-    BatchNorm on the running statistics."""
-    return _forward(params, images, policy, None, None, 0.0)
+def effnet_apply(params: Dict, images: torch.Tensor, *,
+                 train: bool = False,
+                 rng: Optional[torch.Generator] = None,
+                 policy: Policy = DEFAULT_POLICY,
+                 dropout_rate: float = 0.2
+                 ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
+    """images [B,H,W,3] normalized NHWC → (logits [B, num_classes] f32,
+    None), BatchNorm on the running statistics: JAX's call form. With
+    ``train=True`` it is ``effnet_train_apply`` (``rng`` a generator on the
+    images' device) and the second element holds the updated running
+    statistics for ``merge_bn_updates``."""
+    if train:
+        return effnet_train_apply(params, images, policy, gen=rng,
+                                  dropout_rate=dropout_rate)
+    return _forward(params, images, policy, None, None, 0.0), None
 
 
 def effnet_train_apply(params: Dict, images: torch.Tensor,

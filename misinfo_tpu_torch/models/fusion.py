@@ -12,7 +12,8 @@ from typing import Dict, Optional
 
 import torch
 
-from misinfo_tpu_torch.ops.common import F32_POLICY, dense, dense_init, dropout
+from misinfo_tpu_torch.ops.common import (
+    F32_POLICY, Policy, dense, dense_init, dropout)
 
 FUSION_DIMS = (5, 64, 32, 2)
 FUSION_DROPOUT = 0.2  # reference misinfo_forensics.py:86
@@ -25,9 +26,11 @@ def fusion_init(gen: torch.Generator) -> Dict:
 
 def fusion_apply(params: Dict, scores: torch.Tensor, *,
                  gen: Optional[torch.Generator] = None,
-                 deterministic: bool = True) -> torch.Tensor:
+                 deterministic: bool = True,
+                 policy: Optional[Policy] = None) -> torch.Tensor:
     """scores [B,5] → logits [B,2] f32. Dropout runs only in training and
-    with a generator (JAX's ``rng is not None``)."""
+    with a generator (JAX's ``rng is not None``). ``policy`` is taken, as
+    JAX's, and the MLP runs in f32 regardless."""
     h = torch.relu(dense(params["fc1"], scores.float(), F32_POLICY))
     h = dropout(gen, h, FUSION_DROPOUT, deterministic or gen is None)
     h = torch.relu(dense(params["fc2"], h, F32_POLICY))

@@ -8,6 +8,8 @@ and ``segment_ids`` (block-diagonal attention). Int8-quantized FFNs run
 through the fused int8 FFN (ops/int8_ffn.py); ``use_pallas="ffn"`` runs
 the other FFNs through the fused FFN kernel (ops/fused_ffn.py) and keeps
 the einsum attention, ``use_pallas=True`` the fused attention kernel.
+Under a mesh's model axis the attention and FFN pieces are
+``ModelSplit``s (parallel/tensor.py) and run split over the group.
 Training (``deterministic=False``) applies hidden dropout to the
 embeddings and to each attention and MLP output, its masks drawn from a
 ``torch.Generator``; ``dual_head_logits`` never applies the heads'
@@ -27,6 +29,7 @@ from misinfo_tpu_torch.ops.common import (
     layer_norm_init)
 from misinfo_tpu_torch.ops.fused_ffn import ffn_apply
 from misinfo_tpu_torch.ops.int8_ffn import int8_ffn_apply
+from misinfo_tpu_torch.parallel.tensor import ModelSplit, tp_ffn
 
 
 @dataclass(frozen=True)
@@ -79,7 +82,7 @@ def roberta_init(gen: torch.Generator,
             "ln": layer_norm_init(d),
         },
         "layers": [{
-            "attn": attention_init(gen, d),
+            "attn": attention_init(gen, d, cfg.num_heads),
             "attn_ln": layer_norm_init(d),
             "mlp_in": dense_init(gen, d, cfg.intermediate_size),
             "mlp_out": dense_init(gen, cfg.intermediate_size, d),
@@ -125,7 +128,10 @@ def roberta_encode(
         attn_out = dropout(gen, attn_out, rate, deterministic)
         x = layer_norm(layer["attn_ln"], x + attn_out, cfg.layer_norm_eps,
                        policy)
-        if "kernel_q" in layer["mlp_in"]:
+        if isinstance(layer["mlp_in"], ModelSplit):
+            mlp = tp_ffn(layer["mlp_in"], layer["mlp_out"], x, policy,
+                         lambda h: gelu(h, policy))
+        elif "kernel_q" in layer["mlp_in"]:
             mlp = int8_ffn_apply(layer["mlp_in"], layer["mlp_out"], x,
                                  policy=policy, mode=policy.gelu_mode)
         elif ffn_fused:

@@ -90,7 +90,7 @@ def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
 
 def _enc_block_init(gen, cfg):
     return {"ln1": layer_norm_init(cfg.d_model),
-            "attn": attention_init(gen, cfg.d_model),
+            "attn": attention_init(gen, cfg.d_model, cfg.num_heads),
             "ln2": layer_norm_init(cfg.d_model),
             "mlp_in": dense_init(gen, cfg.d_model, cfg.ffn_dim),
             "mlp_out": dense_init(gen, cfg.ffn_dim, cfg.d_model)}
@@ -98,9 +98,9 @@ def _enc_block_init(gen, cfg):
 
 def _dec_block_init(gen, cfg):
     return {"ln1": layer_norm_init(cfg.d_model),
-            "self_attn": attention_init(gen, cfg.d_model),
+            "self_attn": attention_init(gen, cfg.d_model, cfg.num_heads),
             "ln_cross": layer_norm_init(cfg.d_model),
-            "cross_attn": attention_init(gen, cfg.d_model),
+            "cross_attn": attention_init(gen, cfg.d_model, cfg.num_heads),
             "ln2": layer_norm_init(cfg.d_model),
             "mlp_in": dense_init(gen, cfg.d_model, cfg.ffn_dim),
             "mlp_out": dense_init(gen, cfg.ffn_dim, cfg.d_model)}

@@ -8,7 +8,10 @@ the fused attention kernel K3 (ops/fused_attention.py) wherever rows are
 not packed, as the JAX package does; ``use_pallas="flash"`` selects JAX's
 library TPU flash-attention kernel there, which is not this repository's
 code, and is refused. A fused ``qkv`` param dict (serving's
-``fuse_qkv_params``) runs one [D, 3D] product and splits its output.
+``fuse_qkv_params``) runs one [D, 3D] product and splits its output. A
+``ModelSplit`` runs over a model group (parallel/tensor.py). A non-f32
+``policy.accum`` rounds the context product to it, as JAX's
+``preferred_element_type``; K3 sums in f32 only and refuses it.
 """
 
 from __future__ import annotations
@@ -20,14 +23,18 @@ import torch
 
 from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.ops.common import (
-    DEFAULT_POLICY, Policy, dense, dense_init)
+    DEFAULT_POLICY, Policy, check_accum, dense, dense_init)
 from misinfo_tpu_torch.ops import fused_attention as K3
+from misinfo_tpu_torch.parallel.tensor import ModelSplit, row_dense
 
 _NEG_INF = -1e9  # additive mask value, as the JAX package
 
 
-def attention_init(gen: torch.Generator, dim: int,
+def attention_init(gen: torch.Generator, dim: int, num_heads: int,
                    out_dim: Optional[int] = None) -> Dict:
+    """q, k, v and o dense dicts; ``num_heads`` is JAX's argument (the
+    layout does not depend on it)."""
+    del num_heads
     out_dim = out_dim or dim
     return {"q": dense_init(gen, dim, dim), "k": dense_init(gen, dim, dim),
             "v": dense_init(gen, dim, dim), "o": dense_init(gen, dim, out_dim)}
@@ -54,21 +61,44 @@ def multi_head_attention(
     num_heads: int,
     mask: Optional[torch.Tensor] = None,      # [B, S] 1 = valid, 0 = pad
     causal: bool = False,
-    policy: Policy = DEFAULT_POLICY,
-    segment_ids: Optional[torch.Tensor] = None,  # [B, S] int, 0 = padding
     kv: Optional[torch.Tensor] = None,        # [B, S_kv, D] cross-attention
+    policy: Policy = DEFAULT_POLICY,
     use_pallas=False,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, S] int, 0 = padding
 ) -> torch.Tensor:
     """Self- or cross-attention with padding, causal or block-diagonal
-    (packed segments) masking; bf16 matmuls in serving mode, f32 softmax."""
+    (packed segments) masking; bf16 matmuls in serving mode, f32 softmax.
+    The positional order is JAX's. ``params`` may be a ``ModelSplit``
+    (parallel/tensor.py): each position of the model group attends with
+    its heads and the ``o`` partials are summed before the bias."""
     if use_pallas == "flash":
         not_ported("use_pallas='flash' (JAX's library TPU flash-attention "
                    "kernel, not this repository's code; use_pallas=True "
                    "runs the fused attention kernel)", "queue 2, K3")
-    B, S, D = x.shape
+    hd = x.shape[-1] // num_heads
+    if isinstance(params, ModelSplit):
+        heads = num_heads // len(params)
+        ctxs = [_context(p, x.to(d), heads, hd,
+                         None if mask is None else mask.to(d), causal,
+                         None if kv is None else kv.to(d), policy,
+                         use_pallas,
+                         None if segment_ids is None else segment_ids.to(d))
+                for p, d in zip(params.parts, params.devices)]
+        return row_dense(params, [p["o"] for p in params.parts], ctxs,
+                         policy)
+    ctx = _context(params, x, num_heads, hd, mask, causal, kv, policy,
+                   use_pallas, segment_ids)
+    return dense(params["o"], ctx, policy)
+
+
+def _context(params, x, heads, hd, mask, causal, kv, policy, use_pallas,
+             segment_ids) -> torch.Tensor:
+    """The attention context [B, S, heads·hd] of ``heads`` heads of width
+    ``hd`` (all of them, or a model position's share), before ``o``."""
+    B, S, _ = x.shape
     kv = x if kv is None else kv
     S_kv = kv.shape[1]
-    hd = D // num_heads
+    W = heads * hd
     if "qkv" in params:
         # the serving-fused projection (ops/serving.py::fuse_qkv_params):
         # one [D, 3D] product, the same math as three. Self-attention only
@@ -76,15 +106,16 @@ def multi_head_attention(
         # contiguous: the unfused path's layout, which K3 reads
         assert kv is x, "fused qkv params require self-attention"
         qkv = dense(params["qkv"], x, policy)
-        q, k, v = (t.reshape(B, S, num_heads, hd).contiguous()
-                   for t in torch.split(qkv, D, dim=-1))
+        q, k, v = (t.reshape(B, S, heads, hd).contiguous()
+                   for t in torch.split(qkv, W, dim=-1))
     else:
-        q = dense(params["q"], x, policy).reshape(B, S, num_heads, hd)
-        k = dense(params["k"], kv, policy).reshape(B, S_kv, num_heads, hd)
-        v = dense(params["v"], kv, policy).reshape(B, S_kv, num_heads, hd)
+        q = dense(params["q"], x, policy).reshape(B, S, heads, hd)
+        k = dense(params["k"], kv, policy).reshape(B, S_kv, heads, hd)
+        v = dense(params["v"], kv, policy).reshape(B, S_kv, heads, hd)
     if use_pallas and segment_ids is None:
-        ctx = K3.fused_attention(q, k, v, mask=mask, causal=causal)
-        return dense(params["o"], ctx.reshape(B, S, D), policy)
+        check_accum(policy, "the fused attention kernel K3")
+        return K3.fused_attention(q, k, v, mask=mask,
+                                  causal=causal).reshape(B, S, W)
 
     sdt = policy.score
     scores = torch.einsum("bshd,bthd->bhst", q.to(sdt), k.to(sdt))
@@ -102,5 +133,11 @@ def multi_head_attention(
                  ).float()
         scores = scores + _additive(cmask[None, None], sdt)
     probs = torch.softmax(scores.float(), dim=-1).to(policy.compute)
-    ctx = torch.einsum("bhst,bthd->bshd", probs, v)
-    return dense(params["o"], ctx.reshape(B, S, D), policy)
+    if policy.accum == torch.float32:
+        ctx = torch.einsum("bhst,bthd->bshd", probs, v)
+    else:
+        # JAX's context product comes out in ``accum``, then the compute
+        # dtype
+        ctx = torch.einsum("bhst,bthd->bshd", probs.float(), v.float()
+                           ).to(policy.accum).to(policy.compute)
+    return ctx.reshape(B, S, W)

@@ -28,13 +28,20 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 
 class Policy:
-    """Resolved dtype policy: compute dtype (bf16 serving / f32 parity),
-    attention-score dtype and GELU flavor. Products accumulate in f32 and
-    softmaxes run in f32 in both modes."""
+    """Resolved dtype policy, JAX's attributes: ``compute`` (bf16 serving /
+    f32 parity), ``param`` (master weights), ``accum`` (the dtype a dense
+    product and the attention context come out in, the bias added in it),
+    ``softmax``, the attention-score dtype ``score``, the GELU flavor and
+    ``precision`` ("highest" in f32 parity mode, else "default": the name
+    of JAX's ``jax.lax.Precision`` member; the card's f32 products are
+    exact whatever it says, ``set_exact_f32``)."""
 
     def __init__(self, cfg: Optional[PrecisionConfig] = None):
         cfg = cfg or PrecisionConfig()
         self.compute = _DTYPES[cfg.compute_dtype]
+        self.param = _DTYPES[cfg.param_dtype]
+        self.accum = _DTYPES[cfg.accum_dtype]
+        self.softmax = _DTYPES[cfg.softmax_dtype]
         if cfg.score_dtype == "auto":
             self.score = (torch.bfloat16 if self.compute == torch.bfloat16
                           else torch.float32)
@@ -44,8 +51,23 @@ class Policy:
         if gm == "auto":
             gm = "tanh" if self.compute == torch.bfloat16 else "erf"
         self.gelu_mode = gm
+        self.precision = ("highest" if self.compute == torch.float32
+                          else "default")
         # which int8 kernels serve quantized denses (ops/serving.quant_mode)
         self.quant_pallas = cfg.quant_pallas
+
+    def cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute)
+
+
+def check_accum(policy: Policy, what: str) -> None:
+    """Refuse a non-f32 ``accum`` where a hand-written kernel sums in f32
+    and cannot round its products to another dtype."""
+    if policy.accum != torch.float32:
+        raise NotImplementedError(
+            f"{what} accumulates in float32 only; accum_dtype="
+            f"{str(policy.accum).removeprefix('torch.')} is served by the "
+            "plain products (use_pallas=False, quant='none')")
 
 
 DEFAULT_POLICY = Policy()
@@ -111,7 +133,9 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def dense(params: Dict, x: torch.Tensor,
           policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
-    """y = x @ W + b: product in f32, bias added in f32, one rounding.
+    """y = x @ W + b: the product summed in f32 and rounded to
+    ``policy.accum``, the bias added in ``accum``, then one rounding to the
+    compute dtype (with the default f32 ``accum``: one rounding in all).
 
     int8 params ({kernel_q, w_scale, bias?}) route as the JAX package's
     ``dense_int8_dispatch``: from 256 rows, with the dense kernel enabled
@@ -126,9 +150,9 @@ def dense(params: Dict, x: torch.Tensor,
                                  params.get("bias"), out_dtype=policy.compute)
         return dense_int8(params, x, policy.compute)
     w = params["kernel"].to(policy.compute)
-    y = matmul_f32(x.to(policy.compute), w)
+    y = matmul_f32(x.to(policy.compute), w).to(policy.accum)
     if "bias" in params:
-        y = y + params["bias"].float()
+        y = y + params["bias"].to(policy.accum)
     return y.to(policy.compute)
 
 

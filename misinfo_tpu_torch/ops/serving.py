@@ -37,7 +37,6 @@ from typing import Dict
 
 import torch
 
-from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.ops.quant import (
     MIN_KERNEL_ELEMS, int8_scale, quantize_dense, quantize_ffn_params,
     quantize_params)
@@ -143,14 +142,21 @@ def cast_big_kernels(tree, dtype=torch.bfloat16,
     return tree
 
 
-def resolve_quant(quant: str, policy, device) -> str:
+def resolve_quant(quant: str, policy, mesh=None, device=None) -> str:
     """"auto" (the default) → "int8_ffn" for bf16 serving on one CUDA
-    device, "none" on the CPU and in f32 parity mode (as the JAX package
-    resolves it for a single TPU chip)."""
+    device, "none" on the CPU, in f32 parity mode and under a mesh, as the
+    JAX package resolves it for a single TPU chip and for a mesh. The
+    device defaults to the card when there is one; a ``str`` or
+    ``torch.device`` in the third position is read as the device (the
+    port's older positional form)."""
+    if isinstance(mesh, (str, torch.device)):
+        mesh, device = None, mesh
     if quant != "auto":
         return quant
-    if policy.compute != torch.bfloat16:
+    if policy.compute != torch.bfloat16 or mesh is not None:
         return "none"
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
     return "int8_ffn" if torch.device(device).type == "cuda" else "none"
 
 
@@ -196,12 +202,11 @@ def optimize_for_serving(params, policy, quant: str = "none",
 
     The fuse is off by default, as in the JAX package: the attention
     layer copies q, k and v apart again from the [B, S, 3D] output
-    (PERF.md §6 has both timed on the card). ``mesh`` (a sharded tree)
-    is not ported (M17)."""
-    if mesh is not None:
-        not_ported("optimize_for_serving(mesh=...) (sharded serving)", "M17")
+    (PERF.md §6 has both timed on the card). With a ``mesh``, "auto"
+    resolves to "none", as JAX's; the engine shards the tree afterwards
+    (parallel/sharding.py)."""
     t = _first_tensor(params)
-    quant = resolve_quant(quant, policy,
+    quant = resolve_quant(quant, policy, mesh,
                           t.device if t is not None else "cpu")
     if quant not in ("none", "int8", "int8_ffn"):
         raise ValueError(f"optimize_for_serving: unknown quant {quant!r}")

@@ -13,7 +13,8 @@ warmed signature is a CUDA graph, replayed per batch.
     curl -X POST localhost:8080/analyze -d '{"text": "some claim"}'
 
 ``--device`` is ``auto`` or ``cuda`` (the card; they raise without one) or
-``cpu``. ``--mesh`` (multi-GPU, ROADMAP.md M17) is refused by name.
+``cpu``. ``--mesh data=N[,model=M]`` serves over a device mesh of the
+visible cards (or, with ``--device cpu``, of that many CPU entries).
 ``--checkpoint`` names a native checkpoint directory (checkpoints/io.py),
 which comes before the reference ``.pth`` files in ``ModelPaths`` (the
 working directory), as in JAX.
@@ -49,7 +50,7 @@ from typing import Dict, Optional
 
 import torch
 
-from misinfo_tpu_torch.serve.device import DEVICE_CHOICES, select_device
+from misinfo_tpu_torch.serve.device import DEVICE_CHOICES, select
 
 
 def _decode_request_image(req: Dict):
@@ -281,8 +282,8 @@ def main(argv=None) -> int:
                    help="auto and cuda: the card (an error without one); "
                         "cpu: the CPU")
     p.add_argument("--mesh", default=None,
-                   help="Serve over a device mesh: 'data=N[,model=M]' (not "
-                        "ported: refused)")
+                   help="Serve over a device mesh: 'data=N[,model=M]' "
+                        "(with --device cpu: that many CPU entries)")
     p.add_argument("--warmup", nargs="?", const="default",
                    choices=["default", "full", "background"], default=None,
                    help="Capture serving signatures as CUDA graphs before "
@@ -299,7 +300,7 @@ def main(argv=None) -> int:
                         "that reads operator-named files — only behind a "
                         "trusted network)")
     args = p.parse_args(argv)
-    device = select_device(args.device, args.mesh)
+    device, mesh = select(args.device, args.mesh)
 
     from misinfo_tpu_torch.core.config import ForensicsConfig
 
@@ -312,8 +313,8 @@ def main(argv=None) -> int:
     if updates:
         import dataclasses
         cfg = cfg.replace(paths=dataclasses.replace(cfg.paths, **updates))
-    api = ForensicsAPI(config=cfg, allow_reload=args.allow_reload,
-                       device=device)
+    api = ForensicsAPI(config=cfg, mesh=mesh,
+                       allow_reload=args.allow_reload, device=device)
     if args.warmup:
         # all modes warm the default endpoint shapes before the socket
         # opens; "full" finishes the whole grid first, "background" fills

@@ -5,8 +5,9 @@ optional JSON dump of the report. Adds --batch-file for the batched path.
 
 Counterpart of ``misinfo_tpu/serve/cli.py``. ``--device`` is ``auto`` or
 ``cuda`` (the card; they raise without one) or ``cpu``, for the engine and
-the transcriber alike. ``--mesh`` (multi-GPU, ROADMAP.md M17) is refused
-by name. ``--checkpoint`` names a native checkpoint directory
+the transcriber alike. ``--mesh data=N[,model=M]`` serves over a device
+mesh of the visible cards (or, with ``--device cpu``, of that many CPU
+entries) and shards the transcriber alongside. ``--checkpoint`` names a native checkpoint directory
 (checkpoints/io.py: the trainers' output, or the JAX package's saved
 without orbax), which comes before the reference ``.pth`` files in
 ``ModelPaths`` (the working directory), as in JAX.
@@ -21,7 +22,7 @@ import json
 import os
 import sys
 
-from misinfo_tpu_torch.serve.device import DEVICE_CHOICES, select_device
+from misinfo_tpu_torch.serve.device import DEVICE_CHOICES, select
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,8 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto and cuda: the card (an error without one); "
                         "cpu: the CPU")
     p.add_argument("--mesh", type=str, default=None,
-                   help="Serve over a device mesh: 'data=N[,model=M]' (not "
-                        "ported: refused)")
+                   help="Serve over a device mesh: 'data=N[,model=M]' "
+                        "(with --device cpu: that many CPU entries)")
     p.add_argument("--warmup", nargs="?", const="default",
                    choices=["default", "full"], default=None,
                    help="Capture serving signatures as CUDA graphs before "
@@ -74,7 +75,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not (args.text or args.image or args.video or args.batch_file):
         build_parser().error("Provide at least one of --text, --image, --video, or --batch-file")
-    device = select_device(args.device, args.mesh)
+    device, mesh = select(args.device, args.mesh)
 
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
@@ -89,7 +90,7 @@ def main(argv=None) -> int:
         cfg = cfg.replace(paths=cfg.paths.__class__(
             **{**cfg.paths.__dict__, "orbax_dir": args.checkpoint}))
 
-    engine = MisinfoForensics(config=cfg, device=device)
+    engine = MisinfoForensics(config=cfg, device=device, mesh=mesh)
     if args.warmup:
         engine.warmup(full_grid=args.warmup == "full")
         if os.getenv("WHISPER_CHECKPOINT"):

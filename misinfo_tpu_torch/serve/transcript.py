@@ -41,8 +41,16 @@ through the GIL or a shared core. The worker is spawned, never forked
 launching script, which a spawned child re-imports as ``__mp_main__``
 (so a script keeps its work under ``if __name__ == "__main__"``); it
 makes no CUDA context. Where it cannot start or fails, the prep runs
-inline with a warning. Not ported yet: mesh
-sharding (M17); the AOT / compile-cache plumbing is not carried (M15).
+inline with a warning. With a ``mesh`` (core/mesh.py) the params
+replicate on each data position and a window batch that the data axis
+divides splits over it, each position encoding and decoding its windows
+on its device; a sampled rung draws each step's noise for the whole
+batch on every position and keeps its rows, so that a position's draws
+are those of the same decode without the mesh. A split batch runs
+eagerly (the captured decode blocks draw their own batch's noise, not a
+slice of the whole batch's); a batch that is not split runs through the
+runners, CUDA graphs on the card, as without a mesh. The AOT /
+compile-cache plumbing is not carried (M15).
 """
 
 from __future__ import annotations
@@ -56,16 +64,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.checkpoints.from_jax import params_from_jax, to_device
 from misinfo_tpu_torch.checkpoints.io import load_checkpoint, load_metadata
 from misinfo_tpu_torch.checkpoints.torch_convert import (
     apply_updates, convert_whisper, whisper_config_from_torch,
     whisper_state_dict)
 from misinfo_tpu_torch.core.config import WhisperDecodeConfig
+from misinfo_tpu_torch.core.mesh import Mesh
 from misinfo_tpu_torch.models.whisper import (
     DecodeRunner, WhisperConfig, decode_transcript, detect_language,
-    fuse_whisper_decoder_qkv, whisper_encode, whisper_init)
+    fuse_whisper_decoder_qkv, gumbel_noise, whisper_encode, whisper_init)
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, set_exact_f32
 from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.graphs import Runner
@@ -134,9 +142,13 @@ class WhisperTranscriber:
         if checkpoint_dir and (params is not None or config is not None):
             raise ValueError("WhisperTranscriber: pass params/config or "
                              "checkpoint_dir, not both")
-        if mesh is not None:
-            not_ported("a device mesh (multi-GPU transcription)", "M17")
-        self.device = torch.device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("WhisperTranscriber(mesh=...): expected a "
+                            "misinfo_tpu_torch.core.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.device = (mesh.data_devices[0] if mesh is not None
+                       else torch.device(device))
         self.decode_cfg = decode_cfg
         self.policy = DEFAULT_POLICY
         set_exact_f32(parity=self.policy.compute == torch.float32)
@@ -221,7 +233,8 @@ class WhisperTranscriber:
         if decode_cfg.pallas in ("on", "off"):
             pallas = decode_cfg.pallas == "on"
         else:
-            pallas = quant_req != "int8" and on_card
+            # off under a mesh, as JAX's "auto"
+            pallas = quant_req != "int8" and on_card and mesh is None
         if quant_req in ("auto", ""):
             quant_req = "kernels" if pallas and on_card else "none"
         # "int8": the streaming decode, int8 weights, embedding and (at
@@ -244,6 +257,10 @@ class WhisperTranscriber:
         # runners by signature; the lock covers a whole program's copy-in,
         # run (every decode block) and copy-out
         self.cuda_graphs = bool(cuda_graphs) and on_card
+        # the params on each data position (one copy per distinct device)
+        self._pos_params = ([to_device(params, d)
+                             for d in mesh.data_devices]
+                            if mesh is not None else None)
         self._stream = (torch.cuda.Stream(self.device) if self.cuda_graphs
                         else None)
         self._graph_pool = (torch.cuda.graph_pool_handle()
@@ -269,8 +286,22 @@ class WhisperTranscriber:
                                                  stream=self._stream,
                                                  pool=self._graph_pool))
 
-    def _encode(self, mels: np.ndarray) -> torch.Tensor:
+    def _split(self, n: int) -> bool:
+        """Split an ``n``-window batch over the mesh's data axis: when
+        there is one of more than one position and it divides ``n`` (JAX's
+        rule; else the batch runs replicated, on the first position)."""
+        return (self.mesh is not None and self.mesh.data > 1
+                and n % self.mesh.data == 0)
+
+    def _encode(self, mels: np.ndarray):
+        """The window batch's encoding: a tensor, or under a split mesh one
+        piece per data position, on its device."""
         mel = torch.from_numpy(np.ascontiguousarray(mels, np.float32))
+        if self._split(mel.shape[0]):
+            return [whisper_encode(p, c.to(d), self.cfg, self.policy)
+                    for p, c, d in zip(self._pos_params,
+                                       torch.chunk(mel, self.mesh.data),
+                                       self.mesh.data_devices)]
 
         def encode(b):
             with torch.inference_mode():
@@ -298,11 +329,44 @@ class WhisperTranscriber:
         its XLA path."""
         return self.pallas and enc.shape[0] <= MAX_BATCH
 
+    def _decode_split(self, encs, prompt, temperature, seed):
+        """``_decode`` of window pieces, one per data position, each on its
+        device; the outputs are gathered on the first. A sampled rung
+        draws each step's noise for the WHOLE batch from a generator per
+        position seeded as the transcriber's, and keeps its rows: the
+        draws of the decode without the mesh."""
+        total = sum(e.shape[0] for e in encs)
+        outs, lo = [], 0
+        for p, e, d in zip(self._pos_params, encs, self.mesh.data_devices):
+            n, gumbel = e.shape[0], None
+            if temperature != 0:
+                gen = torch.Generator(d)
+                gen.manual_seed(0 if seed is None else seed)
+
+                def gumbel(i, gen=gen, lo=lo, n=n, d=d):
+                    return gumbel_noise((total, self.cfg.vocab_size), gen,
+                                        d)[lo:lo + n]
+            fused = self._fused(e)
+            outs.append(decode_transcript(
+                p, None, self.cfg, self.policy,
+                prompt_tokens=prompt[lo:lo + n].to(d),
+                temperature=temperature, enc_out=e,
+                nospeech_id=self.tokenizer.specials.no_speech,
+                quant=self.quant, pallas_self_attn=fused,
+                pallas_cross=fused, gumbel=gumbel))
+            lo += n
+        dev0 = self.device
+        return tuple(torch.cat([o[i].to(dev0) for o in outs])
+                     for i in range(len(outs[0])))
+
     def _decode(self, enc, prompt, temperature: float = 0.0,
                 seed: Optional[int] = None):
         """One decode of the window batch ``enc`` through the runner of its
         (window batch, prompt length); a sampled one draws from the
-        transcriber's generator seeded with ``seed``."""
+        transcriber's generator seeded with ``seed``. Window pieces (a
+        list, under a split mesh) decode on their positions."""
+        if isinstance(enc, list):
+            return self._decode_split(enc, prompt, temperature, seed)
         fused = self._fused(enc)
         sig = ("decode", enc.shape[0],
                0 if prompt is None else prompt.shape[1])
@@ -565,6 +629,7 @@ _lock = threading.Lock()
 _engine = None
 _engine_failed = False
 _default_device = "cuda"
+_default_mesh = None
 
 
 def set_transcriber_device(device) -> None:
@@ -575,6 +640,16 @@ def set_transcriber_device(device) -> None:
     global _default_device
     with _lock:
         _default_device = str(device)
+
+
+def set_transcriber_mesh(mesh) -> None:
+    """Make the lazily-built module transcriber ride the given device mesh
+    (the CLI/API ``--mesh`` path sets it, so that transcription shards
+    alongside the engine). Applies to the next ``_get_engine`` build; call
+    ``reset_transcriber()`` first if one exists already."""
+    global _default_mesh
+    with _lock:
+        _default_mesh = mesh
 
 
 def _get_engine() -> Optional[WhisperTranscriber]:
@@ -598,7 +673,8 @@ def _get_engine() -> Optional[WhisperTranscriber]:
                                      _DECODE_DEFAULTS.pallas))
                 _engine = WhisperTranscriber(
                     checkpoint_dir=os.getenv("WHISPER_CHECKPOINT"),
-                    decode_cfg=dc, device=_default_device)
+                    decode_cfg=dc, device=_default_device,
+                    mesh=_default_mesh)
             except Exception:
                 _log.warning("transcriber construction failed",
                              exc_info=True)
@@ -632,10 +708,12 @@ def warmup_transcriber(buckets=(1,)) -> list:
 
 
 def reset_transcriber() -> None:
-    """Drop the module-cached transcriber and its device choice (tests /
-    configuration swaps)."""
-    global _engine, _engine_failed, _default_device
+    """Drop the module-cached transcriber, its device choice AND its mesh
+    (tests / configuration swaps): a mesh set once must not leak into
+    every later build."""
+    global _engine, _engine_failed, _default_device, _default_mesh
     with _lock:
         _engine = None
         _engine_failed = False
         _default_device = "cuda"
+        _default_mesh = None

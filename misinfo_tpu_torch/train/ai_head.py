@@ -54,7 +54,7 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--max-samples", type=int, default=None)
     p.add_argument("--mesh", default=None,
-                   help="device mesh for multi-GPU training (not ported)")
+                   help="device mesh for training (not ported: M17b)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)

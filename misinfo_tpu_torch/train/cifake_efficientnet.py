@@ -115,7 +115,7 @@ def train(cifake_root: str, out_dir: str = "efficientnet_cifake_best",
     @torch.no_grad()
     def eval_step(params, batch):
         imgs = normalize_images(batch["images_u8"], "clip", policy.compute)
-        logits = effnet_apply(params["efficientnet"], imgs, policy)
+        logits, _ = effnet_apply(params["efficientnet"], imgs, policy=policy)
         return (cross_entropy(logits, batch["labels"]),
                 binary_accuracy(logits, batch["labels"]))
 
@@ -154,7 +154,7 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--per-label", type=int, default=2500)
     p.add_argument("--mesh", default=None,
-                   help="device mesh for multi-GPU training (not ported)")
+                   help="device mesh for training (not ported: M17b)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)

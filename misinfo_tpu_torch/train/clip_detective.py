@@ -389,7 +389,7 @@ def main(argv=None):
     p.add_argument("--search-image", default=None)
     p.add_argument("--vault", default="guardian_embeddings.npz")
     p.add_argument("--mesh", default=None,
-                   help="device mesh for multi-GPU training (not ported)")
+                   help="device mesh for training (not ported: M17b)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)

@@ -62,7 +62,8 @@ def feature_fusion_forward(params: Dict, batch: Dict,
     sim = torch.sum(l2_normalize(ci) * l2_normalize(ct), dim=-1)
     rb = roberta_cls(params["roberta"], batch["input_ids"],
                      batch["attention_mask"], det_cfg.roberta, policy)
-    eff_logits = effnet_apply(params["efficientnet"], imgs_eff, policy)
+    eff_logits, _ = effnet_apply(params["efficientnet"], imgs_eff,
+                                 policy=policy)
     deep_p = softmax_f32(eff_logits)[:, 1]
 
     feats = torch.cat([ci.float(), ct.float(), rb.float(), sim[:, None],

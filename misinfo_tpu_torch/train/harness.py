@@ -191,10 +191,10 @@ def eval_batches(batches_fn, n_items: int, batch_size: int):
 # ------------------------------------------------ the trainers' preamble
 
 def refuse_mesh(mesh_spec: Optional[str]) -> None:
-    """Training over a device mesh is not ported: refuse it by name."""
+    """Training over a device mesh is not ported (M17b): refuse it by name."""
     if mesh_spec:
-        not_ported(f"mesh_spec / --mesh {mesh_spec} (multi-GPU training)",
-                   "M17")
+        not_ported(f"mesh_spec / --mesh {mesh_spec} (training over a "
+                   "device mesh)", "M17b")
 
 
 def select_device(device: str = "auto") -> torch.device:

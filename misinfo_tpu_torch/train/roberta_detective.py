@@ -164,7 +164,7 @@ def main(argv=None):
     p.add_argument("--pack", action="store_true",
                    help="sequence-packed batches (perf mode)")
     p.add_argument("--mesh", default=None,
-                   help="device mesh for multi-GPU training (not ported)")
+                   help="device mesh for training (not ported: M17b)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)

@@ -163,10 +163,12 @@ def make_fusion_step(tx):
     return make_step(tx, loss_fn, "accuracy")
 
 
-def make_full_step(tx, det_cfg: DetectorConfig, policy: Policy):
+def make_full_step(tx, det_cfg: DetectorConfig, policy: Policy,
+                   jit: bool = True):
     """Joint full-detector step: dual-head CE + EfficientNet CE (inference
     BatchNorm) + CLIP InfoNCE + fusion CE in one backward pass. The fusion
-    MLP's dropout always runs here, as in JAX."""
+    MLP's dropout always runs here, as in JAX. ``jit`` is JAX's flag and
+    changes nothing here: PyTorch runs the step eagerly either way."""
 
     def loss_fn(params, batch, gen):
         ai, mis = dual_head_logits(
@@ -177,7 +179,8 @@ def make_full_step(tx, det_cfg: DetectorConfig, policy: Policy):
                                      policy.compute)
         imgs_eff = normalize_images(batch["images_u8"], "imagenet",
                                     policy.compute)
-        eff_logits = effnet_apply(params["efficientnet"], imgs_eff, policy)
+        eff_logits, _ = effnet_apply(params["efficientnet"], imgs_eff,
+                                     policy=policy)
         te = clip_text_features(params["clip"], batch["clip_ids"],
                                 batch["clip_mask"], det_cfg.clip, policy)
         ie = clip_image_features(params["clip"], imgs_clip, det_cfg.clip,

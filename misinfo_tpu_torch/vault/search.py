@@ -1,8 +1,7 @@
 """On-device vault kNN: one similarity product + top-k per batch.
 
-Counterpart of ``misinfo_tpu/vault/search.py`` (single device; the
-row-sharded search is ROADMAP.md M17). ``vault_sims`` takes every row
-type of ``ServingConfig.vault_dtype``:
+Counterpart of ``misinfo_tpu/vault/search.py``. ``vault_sims`` takes
+every row type of ``ServingConfig.vault_dtype``:
 
 * f32 rows (the default): exact f32, no TF32 (the 0.85 reuse gate
   depends on it);
@@ -20,6 +19,8 @@ in results). Then the reuse gate and the caption-vs-headline similarity
 gather, with int8 or int4 title rows dequantized after the gather.
 ``vault_search(ivf=...)`` scores only the probed clusters' rows
 (``vault/ivf.py``); IVF and int4 rows are mutually exclusive.
+``vault_search_sharded`` serves a vault row-sharded over a mesh's data
+axis: a local top-k per shard, then one merge.
 """
 
 from __future__ import annotations
@@ -143,11 +144,33 @@ def vault_search(
                           vault_text_scale=vault_text_scale)
 
 
+def _matched_rows(emb, i: torch.Tensor) -> torch.Tensor:
+    """Rows ``i`` of ``emb``: a tensor, or a list of equal row shards (a
+    row-sharded plane), gathered onto ``i``'s device. Each shard gives
+    its candidate for every row and the owner's is kept, so that nothing
+    waits on the indices' values."""
+    if not isinstance(emb, (list, tuple)):
+        return emb[i]
+    n = emb[0].shape[0]
+    out = None
+    for d, shard in enumerate(emb):
+        local = (i - d * n).clamp(0, n - 1).to(shard.device)
+        rows = shard[local].to(i.device)
+        own = (i // n) == d
+        if out is None:
+            out = rows
+        else:
+            out = torch.where(own[:, None] if rows.dim() > 1 else own,
+                              rows, out)
+    return out
+
+
 def _gate_and_text(top_sims, top_idx, reuse_threshold,
                    caption_text_emb=None, vault_text_emb=None,
                    has_caption=None, vault_text_scale=None) -> VaultResult:
     """The exact 0.85 reuse gate + the conditional caption-vs-headline
-    text similarity (only the B matched title rows are dequantized)."""
+    text similarity (only the B matched title rows are dequantized; the
+    title plane may be row-sharded, a list of shards)."""
     max_sim = top_sims[:, 0]
     gate = max_sim > reuse_threshold
     zero = max_sim.new_zeros(())
@@ -156,10 +179,10 @@ def _gate_and_text(top_sims, top_idx, reuse_threshold,
         i = top_idx[:, 0].long()
         if vault_text_scale is not None:
             from misinfo_tpu_torch.vault.int4 import unpack_int4
-            matched = (unpack_int4(vault_text_emb[i]).float()
-                       * vault_text_scale[i][:, None])
+            matched = (unpack_int4(_matched_rows(vault_text_emb, i)).float()
+                       * _matched_rows(vault_text_scale, i)[:, None])
         else:
-            matched = _dequant(vault_text_emb[i])
+            matched = _dequant(_matched_rows(vault_text_emb, i))
         tsim = (caption_text_emb * matched).sum(dim=-1)
         if has_caption is not None:
             gate = gate & has_caption
@@ -168,3 +191,86 @@ def _gate_and_text(top_sims, top_idx, reuse_threshold,
         text_similarity = torch.zeros_like(max_sim)
     return VaultResult(top_sims, top_idx.to(torch.int32), vault_discrepancy,
                        text_similarity)
+
+
+def _gathered(x, dev: torch.device) -> Optional[torch.Tensor]:
+    """A batch-sharded operand (a list of per-position pieces) or a whole
+    one, as one tensor on ``dev``."""
+    if x is None:
+        return None
+    if isinstance(x, (list, tuple)):
+        return torch.cat([c.to(dev) for c in x], dim=0)
+    return x.to(dev)
+
+
+def sharded_vault_sims(query, vault_shard, shard_offset, row_valid_shard,
+                       top_k: int, axis_name: str = "data", row_scale=None):
+    """Local product + local top-k per row shard, then the K·shards
+    candidates merged by one more top-k: O(K·shards) moved instead of N.
+    ``vault_shard``, ``shard_offset`` (each shard's first global row),
+    ``row_valid_shard`` and ``row_scale`` (int4 rows) hold one entry per
+    data position, each on its device; ``query`` is the whole batch (or
+    its per-position pieces), scored against every shard. Returns
+    (top_sims, top_idx) [B, K] on the first shard's device. Candidates
+    are merged in shard order, so that equal sims keep the lowest global
+    index, as one top-k over all rows does (``topk_first``)."""
+    del axis_name     # the shards' order is the data axis
+    dev0 = vault_shard[0].device
+    q_all = _gathered(query, dev0)
+    cand_s, cand_i = [], []
+    for d, shard in enumerate(vault_shard):
+        dev = shard.device
+        sims = vault_sims(q_all.to(dev), shard,
+                          row_scale=None if row_scale is None
+                          else row_scale[d])
+        sims = torch.where(row_valid_shard[d][None, :], sims,
+                           sims.new_full((), -2.0))
+        loc_s, loc_i = topk_first(sims, min(top_k, shard.shape[0]))
+        cand_s.append(loc_s.to(dev0))
+        cand_i.append((loc_i + int(shard_offset[d])).to(dev0))
+    all_s = torch.cat(cand_s, dim=1)
+    all_i = torch.cat(cand_i, dim=1)
+    top_s, pos = topk_first(all_s, top_k)
+    return top_s, all_i.gather(1, pos.long())
+
+
+def vault_search_sharded(
+    query_image_emb,              # [B, D], or its per-position pieces
+    vault_emb,                    # [N, D] row shards, one per position
+    row_valid,                    # [N] row shards
+    *,
+    mesh,
+    top_k: int = 5,
+    reuse_threshold: float = 0.85,
+    caption_text_emb=None,        # [B, D] or its pieces
+    vault_text_emb=None,          # row shards like vault_emb
+    has_caption=None,             # [B] or its pieces
+    axis_name: str = "data",
+    vault_scale=None,             # [N] shards → int4-packed rows
+    vault_text_scale=None,        # [N] shards → int4 titles
+) -> VaultResult:
+    """The engine's row-sharded vault: the vault lives split across the
+    mesh's data axis (a list of equal row shards, shard d on data position
+    d's device), each position scores the full query batch against its
+    shard with ``vault_sims`` (K10a/K10b for int4 rows on the card, the
+    exact f32 product for f32 rows) and contributes only K candidates,
+    and the final top-k merges O(K·positions) values on the first
+    position's device (``sharded_vault_sims``). The result, for all B rows
+    on that device, equals the exact replicated search bit for bit, ties
+    included (``topk_first``'s lowest-index rule holds across shards).
+    The gate and text-similarity tail is ``vault_search``'s; the matched
+    titles are gathered from their shards."""
+    n_pos = mesh.shape[axis_name]
+    if len(vault_emb) != n_pos or len(row_valid) != n_pos:
+        raise ValueError(f"vault_search_sharded: expected {n_pos} row "
+                         f"shards on the {axis_name!r} axis, got "
+                         f"{len(vault_emb)}")
+    rows = vault_emb[0].shape[0]
+    top_sims, top_idx = sharded_vault_sims(
+        query_image_emb, vault_emb, [d * rows for d in range(n_pos)],
+        row_valid, top_k, axis_name, row_scale=vault_scale)
+    dev0 = top_sims.device
+    return _gate_and_text(top_sims, top_idx, reuse_threshold,
+                          _gathered(caption_text_emb, dev0), vault_text_emb,
+                          _gathered(has_caption, dev0),
+                          vault_text_scale=vault_text_scale)

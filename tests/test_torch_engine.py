@@ -29,6 +29,7 @@ from misinfo_tpu.vault.store import TruthVault
 from misinfo_tpu_torch.checkpoints.from_jax import params_from_jax
 from misinfo_tpu_torch.core import config as t_config
 from misinfo_tpu_torch.engine import forensics as t_forensics
+from misinfo_tpu_torch.engine import signals as t_signals
 from misinfo_tpu_torch.models.detector import (
     DetectorConfig as TDetectorConfig, detector_init)
 
@@ -98,12 +99,12 @@ def run_both(j_eng, t_eng, monkeypatch):
     kernels run on the CPU."""
     from jax.experimental.pallas import tpu as pltpu
     seen = []
-    prog = t_forensics.signals_program
+    prog = t_signals.signals_program
 
     def spy(params, batch, *, variant, **kw):
         seen.append((variant, "roberta_seg" in batch))
         return prog(params, batch, variant=variant, **kw)
-    monkeypatch.setattr(t_forensics, "signals_program", spy)
+    monkeypatch.setattr(t_signals, "signals_program", spy)
     reqs = requests()
     with pltpu.force_tpu_interpret_mode():
         a = j_eng.analyze_batch(reqs)
@@ -141,12 +142,12 @@ def test_f32_dense_text_only_parity(f32_engines, monkeypatch):
     ``text_only`` program (``pack_text="auto"`` declines to pack)."""
     j_eng, t_eng = f32_engines
     seen = []
-    prog = t_forensics.signals_program
+    prog = t_signals.signals_program
 
     def spy(params, batch, *, variant, **kw):
         seen.append((variant, "roberta_seg" in batch))
         return prog(params, batch, variant=variant, **kw)
-    monkeypatch.setattr(t_forensics, "signals_program", spy)
+    monkeypatch.setattr(t_signals, "signals_program", spy)
     rng = np.random.default_rng(12)
     reqs = [{"text": " ".join(f"w{i}" for i in rng.integers(0, 999, n))}
             for n in (22, 26)]

@@ -112,7 +112,9 @@ def test_efficientnet_and_fusion_match(params):
     rng = np.random.default_rng(3)
     img = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
     a, _ = j_effnet(jp["efficientnet"], jnp.asarray(img), policy=JP)
-    _close(a, t_effnet(tp["efficientnet"], torch.from_numpy(img), TP))
+    b, none = t_effnet(tp["efficientnet"], torch.from_numpy(img), policy=TP)
+    assert none is None
+    _close(a, b)
     s = rng.random((4, 5)).astype(np.float32)
     _close(j_fusion(jp["fusion"], jnp.asarray(s)),
            t_fusion(tp["fusion"], torch.from_numpy(s)))

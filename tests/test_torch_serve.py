@@ -11,8 +11,8 @@ directory leaves out agree too). They must report the same
 entry points: the CLIs on one JSONL file, the REST APIs on ephemeral
 ports (``/analyze``, ``/analyze_batch``, ``/predict``). The cases of
 tests/test_api.py, tests/test_cli.py and tests/test_webui.py are mirrored
-on the port's surfaces, with the port's refusals by name (``--mesh``
-M17, ``--checkpoint`` M16, ``--device cuda`` without a card), the
+on the port's surfaces, with the port's refusals (``--device cuda``
+without a card, with or without ``--mesh``; a bad mesh spec), the
 micro-batcher, the similarity engine, the dashboard's host functions and
 the asset verifier.
 """
@@ -286,16 +286,16 @@ def test_port_cli_batch_file_and_vault_override(stub_engine, tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,item", [
-    (["--mesh", "data=4,model=2"], NotImplementedError, "M17"),
-    (["--checkpoint", "/ck", "--mesh", "data=2"], NotImplementedError,
-     "M17"),
+    (["--mesh", "data=4,model=2"], RuntimeError, "no CUDA device"),
+    (["--device", "cpu", "--checkpoint", "/ck", "--mesh", "data=0"],
+     ValueError, "bad mesh spec"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
     (["--device", "auto"], RuntimeError, "no CUDA device")])
 def test_port_cli_and_api_refuse_by_name(stub_engine, argv, err, item):
-    """What JAX's CLI and API accept and the port does not: a mesh
-    (multi-GPU, M17), with or without a native checkpoint directory
-    (which the port reads: tests/test_torch_native_ckpt.py), and the card
-    where there is none (no fall back to the CPU)."""
+    """What the port's CLI and API refuse: the card where there is none (no
+    fall back to the CPU, with or without a mesh: a mesh of CPU entries
+    needs ``--device cpu``), and a bad mesh spec with JAX's error, before
+    any engine is built. (A mesh is served: tests/test_torch_mesh.py.)"""
     if err is RuntimeError and torch.cuda.is_available():
         pytest.skip("a card is present: --device cuda/auto select it")
     with pytest.raises(err, match=item):

@@ -5,8 +5,8 @@
   with every leaf contiguous.
 * ``optimize_for_serving`` with JAX's signature (F12): every ``fuse`` ×
   ``quant`` × ``cast`` gives JAX's tree, int8 ``kernel_q`` and
-  ``w_scale`` exactly, other leaves exactly too; ``mesh=`` refused by
-  name (M17).
+  ``w_scale`` exactly, other leaves exactly too; under ``mesh=``
+  ``quant="auto"`` resolves to "none" in both packages.
 * ``deoptimize_params`` unfuses (F13): a fused int8 JAX tree carried
   across by ``params_from_jax`` deoptimizes to JAX's q/k/v tree exactly.
 * ``multi_head_attention`` serves a fused dict (F14): against JAX's fused
@@ -40,6 +40,7 @@ from misinfo_tpu.ops.common import Policy as JPolicy
 from misinfo_tpu_torch.checkpoints.from_jax import params_from_jax
 from misinfo_tpu_torch.core import config as t_config
 from misinfo_tpu_torch.engine import forensics as t_forensics
+from misinfo_tpu_torch.engine import signals as t_signals
 from misinfo_tpu_torch.models.detector import (
     DetectorConfig as TDetectorConfig, detector_init)
 from misinfo_tpu_torch.ops import attention as t_attention
@@ -147,9 +148,12 @@ def test_optimize_for_serving_defaults_as_jax(tree):
     want = j_serving.optimize_for_serving(tree, J_F32)
     got = t_serving.optimize_for_serving(params_from_jax(tree), T_F32)
     assert_same_tree(got, want)
-    with pytest.raises(NotImplementedError, match="M17"):
+    # under a mesh "auto" resolves to "none" in both packages
+    assert_same_tree(
         t_serving.optimize_for_serving(params_from_jax(tree), T_BF16,
-                                       mesh=object())
+                                       quant="auto", mesh=object()),
+        j_serving.optimize_for_serving(tree, JPolicy(), quant="auto",
+                                       mesh=object()))
 
 
 def test_deoptimize_fused_int8_matches_jax(tree):
@@ -263,14 +267,14 @@ def _programs(eng, monkeypatch):
     """analyze_batch of the mixed requests → ({variant: SignalOutput},
     reports)."""
     out = {}
-    prog = t_forensics.signals_program
+    prog = t_signals.signals_program
 
     def spy(params, batch, *, variant, **kw):
         out[variant] = prog(params, batch, variant=variant, **kw)
         return out[variant]
-    monkeypatch.setattr(t_forensics, "signals_program", spy)
+    monkeypatch.setattr(t_signals, "signals_program", spy)
     reports = eng.analyze_batch(requests())
-    monkeypatch.setattr(t_forensics, "signals_program", prog)
+    monkeypatch.setattr(t_signals, "signals_program", prog)
     return out, reports
 
 

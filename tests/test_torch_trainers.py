@@ -11,7 +11,7 @@ package's on generated rows, tiny configs, f32.
   parity here: tests/test_torch_train_steps.py holds the step), the AI-head
   recipe, the native median-pruner search, the vault builder and search
   (equal to JAX's), the feature-fusion forward (equal to JAX's) and demo;
-- ``--mesh`` / ``mesh_spec`` refused by name (M17), ``--device cuda``
+- ``--mesh`` / ``mesh_spec`` refused by name (M17b), ``--device cuda``
   refused without a card.
 """
 

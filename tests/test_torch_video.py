@@ -299,13 +299,13 @@ def test_mixed_batch_with_videos_matches_jax_engine(tree, clips, vault_path,
             {"video": b_mp4, "text": "second clip, other words"},
             {"video": a_mp4}]
     seen = []
-    prog = t_forensics.video_program
+    prog = t_signals.video_program
 
     def spy(params, batch, **kw):
         seen.append((kw["has_text"], tuple(batch["frame_valid"].shape),
                      "image_staged" in batch))
         return prog(params, batch, **kw)
-    monkeypatch.setattr(t_forensics, "video_program", spy)
+    monkeypatch.setattr(t_signals, "video_program", spy)
     a, b = j_eng.analyze_batch(reqs), t_eng.analyze_batch(reqs)
     assert sorted(seen) == [(False, (2, F), device_resize),
                             (True, (2, F), device_resize)]
@@ -343,12 +343,12 @@ def test_video_groups_split_at_the_largest_video_bucket(tree, clips,
         det_cfg=DET, params=params_from_jax(tree), device="cpu")
     reqs = [{"video": clips[i % 2]} for i in range(5)]
     seen = []
-    prog = t_forensics.video_program
+    prog = t_signals.video_program
 
     def spy(params, batch, **kw):
         seen.append(tuple(batch["frame_valid"].shape))
         return prog(params, batch, **kw)
-    monkeypatch.setattr(t_forensics, "video_program", spy)
+    monkeypatch.setattr(t_signals, "video_program", spy)
     batched = eng.analyze_batch(reqs)
     assert seen == [(2, F), (2, F), (1, F)]
     singles = [eng.analyze(video_path=r["video"], verbose=False)

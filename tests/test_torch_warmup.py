@@ -415,7 +415,7 @@ def test_attention_scale_is_the_old_expression(precision, case, hd):
                     else t_config.PrecisionConfig())
     H, D = 4, 4 * hd
     gen = torch.Generator().manual_seed(hd)
-    params = t_attention.attention_init(gen, D)
+    params = t_attention.attention_init(gen, D, H)
     x = torch.randn(2, 24, D, generator=gen).to(policy.compute)
     kw = ({"mask": (torch.arange(24)[None, :] < torch.tensor([[20], [24]])
                     ).int()} if case == "mask"

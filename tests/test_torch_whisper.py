@@ -235,13 +235,14 @@ def test_weight_bridge_whisper_tree(transform):
 
 
 def test_options_not_carried_are_refused(model):
-    """What the port still refuses by name, and JAX's order rule for the
-    qkv fuse. (``quant``, ``cross_int8`` and ``pallas_layer`` were
+    """What the port refuses (a mesh that is not a core.mesh.Mesh: the
+    mesh itself is served, tests/test_torch_mesh.py), and JAX's order rule
+    for the qkv fuse. (``quant``, ``cross_int8`` and ``pallas_layer`` were
     refused here once; their parity cases are in
     tests/test_torch_whisper_quant.py and tests/test_torch_layer_step.py.)"""
     from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
     _, tp, _, enc = model
-    with pytest.raises(NotImplementedError, match="M17"):
+    with pytest.raises(TypeError, match="Mesh"):
         WhisperTranscriber(size="tiny", device="cpu", mesh=object())
     with pytest.raises(ValueError, match="AFTER"):
         tw.fuse_whisper_decoder_qkv(t_serving.quantize_whisper_decoder(tp))
