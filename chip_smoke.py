@@ -304,6 +304,23 @@ Phases (any failure exits non-zero before the result line):
      to be the batch size's rounding and not the mesh's; every position
      drawing the unsplit decode's noise; transcribe() texts equal; sharded and replicated vault_search ms and
      verdicts/s of every mesh engine beside the unsharded ones;
+ 31. training over a device mesh (after phase 30 (a, d, f)): (a) in one
+     process over grids naming the card more than once, each step held
+     to the single-card step from the same tree and batch: the f32 text
+     step (RoBERTa-base, B 4 × 64, dropout off) under data=2 and
+     data=1,model=2, loss and every gradient within 1e-5; in bf16 at full
+     size the RoBERTa detective step (B 16 × 256) under both, the CLIP
+     and EfficientNet-B0 steps (B 32) under data=2, make_full_step under
+     data=2,model=2: first loss within 1e-2 relative and the gradients'
+     global norm within 5e-2, replicas bit for bit after the steps, step
+     ms and peak memory beside the single card's; (b) the CLIP trainer's
+     own CLI with --mesh data=2 in two processes on the card
+     (init_multihost's JAX_* env path, gloo), which gloo collectives take
+     CUDA tensors, the ranks' trees torch.equal, the trained leaves
+     within 1e-6 of the same training in one process over the card named
+     twice, one checkpoint directory written by rank 0 alone, the engine
+     booted from it; (c) --mesh data=2 in one process refused ("mesh 2x1
+     != 1 devices"). ``--only 31`` runs phase 31 alone;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -2543,6 +2560,421 @@ def transcriber_from_native(want, weights, cfg, wav):
           f"torch.equal to phase 6's {same}", flush=True)
     if not (rc == 0 and tr.has_weights and tr.cfg == cfg and same):
         raise AssertionError("phase 28: the converted transcriber differs")
+
+
+# ------------------------------------------ training over a mesh (phase 31)
+
+MESH_TEXT_B, MESH_TEXT_S = 16, 256
+MESH_IMAGE_B = 32
+MESH_FULL_B, MESH_FULL_S = 8, 128
+MESH_F32_B, MESH_F32_S = 4, 64
+# a bf16 mesh step's first loss against the single card's, relative, and
+# its gradients' global norm (stated before the first card run)
+MESH_BF16_LOSS, MESH_BF16_NORM = 1e-2, 5e-2
+MESH_CLI_ROWS, MESH_CLI_BATCH = 80, 16
+
+
+class CaptureTx:
+    """An optimizer that keeps the gradients its first update gets (the
+    first replica's, summed over data) before updating."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def update(self, grads, state):
+        if self.grads is None:              # None: a leaf the loss skips
+            self.grads = [(p, (torch.zeros_like(t) if g is None else g)
+                           .detach().float().cpu())
+                          for p, g, t in zip(state.paths, grads,
+                                             state.leaves)]
+        self.tx.update(grads, state)
+
+
+def mesh_train_run(make, tree, mask, batch, grid, reps, lr=2e-5):
+    """``reps`` steps of ``make(tx)`` from ``tree`` on one card (``grid``
+    None) or over a (data, model) grid of the card named once a position:
+    the first loss, the first update's gradients {path: g} (split pieces
+    put back), the step ms (median after the first), the peak memory over
+    what was allocated before, and whether every replica holds the same
+    bits after the last step."""
+    from misinfo_tpu_torch.core.mesh import place_train_batch
+    from misinfo_tpu_torch.parallel.sharding import (
+        merge_pieces, replica_leaves, shard_train_params)
+    from misinfo_tpu_torch.train import optim, steps
+    from misinfo_tpu_torch.utils.tree import clone_tree
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if grid is None:
+        mesh, params = None, clone_tree(tree, "cuda")
+        placed = steps.batch_to(batch, "cuda")
+    else:
+        mesh = one_card_mesh(*grid)
+        params = shard_train_params(mesh, tree)
+        placed = place_train_batch(mesh, batch)
+    tx = optim.make_optimizer(optim.OptimConfig(
+        lr=lr, warmup_fraction=0.0, total_steps=100), mask)
+    cap = CaptureTx(tx)
+    step = make(cap)
+    state = tx.init(params)
+    gen = torch.Generator("cuda").manual_seed(31)
+    ms, losses = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, placed, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    same = True
+    if mesh is not None:
+        first = replica_leaves(params.rows[0])
+        same = all(torch.equal(a, b) for row in params.rows[1:]
+                   for (_, _, a), (_, _, b) in zip(first, replica_leaves(row)))
+    grads = dict(merge_pieces([(p, 0, g) for p, g in cap.grads], "cpu"))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del params, state, placed
+    return {"loss": losses[0], "losses": losses, "grads": grads,
+            "ms": float(np.median(ms[1:])) if reps > 1 else ms[0],
+            "peak_gb": peak, "replicas_equal": same}
+
+
+def grads_apart(a, b) -> tuple:
+    """(max |Δg| over every leaf / the largest |g|, the relative gap of
+    the global norms) between two runs' gradients."""
+    top = max(float(g.abs().max()) for g in a.values())
+    diff = max(float((a[p] - b[p]).abs().max()) for p in a)
+    na = math.sqrt(sum(float(g.double().square().sum()) for g in a.values()))
+    nb = math.sqrt(sum(float(g.double().square().sum()) for g in b.values()))
+    return diff / top, abs(na - nb) / na
+
+
+def mesh_steps_phase(card):
+    """Phase 31 (a): the training steps over grids of the one card named
+    more than once, each held to the single-card step from the same tree
+    and batch: f32 at a small batch within the CPU tests' band, bf16 at
+    full size within the stated band; step ms and peak memory."""
+    from misinfo_tpu_torch.core.config import PrecisionConfig
+    from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
+    from misinfo_tpu_torch.ops.common import Policy, set_exact_f32
+    from misinfo_tpu_torch.train import optim, steps
+    from misinfo_tpu_torch.train.clip_detective import clip_trainable_mask
+    start = time.perf_counter()
+    rng = np.random.default_rng(31)
+    det = DetectorConfig()
+    tree = detector_init(0, det)
+
+    def branches(*names):          # a step places only what it reads
+        return {k: tree[k] for k in names}
+    text = branches("roberta", "ai_head", "misinfo_head")
+    text_mask = optim.branch_mask(text, list(text))
+
+    def text_batch(b, s):
+        ids = rng.integers(3, det.roberta.vocab_size, (b, s)).astype(np.int32)
+        mask = np.ones((b, s), np.int32)
+        for i in range(1, b, 2):            # every other row padded
+            n = int(rng.integers(s // 4, s))
+            ids[i, n:], mask[i, n:] = det.roberta.pad_token_id, 0
+        return {"input_ids": ids, "attention_mask": mask,
+                "labels": (np.arange(b) % 2).astype(np.int32)}
+
+    def images(b):
+        return rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8)
+
+    def clip_ids(b):
+        ids = rng.integers(1, det.clip.vocab_size - 2, (b, 77)).astype(
+            np.int32)
+        mask = np.ones((b, 77), np.int32)
+        ids[:, 40] = det.clip.eos_token_id
+        mask[:, 41:] = 0
+        return ids, mask
+
+    # f32 parity at a small batch, dropout off: within the CPU band
+    cold = dataclasses.replace(det, roberta=dataclasses.replace(
+        det.roberta, hidden_dropout=0.0))
+    f32 = Policy(PrecisionConfig.highest())
+    tf32 = torch.backends.cudnn.allow_tf32
+    set_exact_f32(parity=True)
+    try:
+        batch = text_batch(MESH_F32_B, MESH_F32_S)
+        runs = {g: mesh_train_run(
+            lambda tx: steps.make_text_head_step(tx, cold, f32), text,
+            text_mask, batch, g, 1) for g in (None, (2, 1), (1, 2))}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for g in ((2, 1), (1, 2)):
+        r, s = runs[g], runs[None]
+        gap, norm = grads_apart(s["grads"], r["grads"])
+        print(f"phase 31 (a) f32 text step (RoBERTa-base, B {MESH_F32_B} × "
+              f"{MESH_F32_S}) data={g[0]},model={g[1]} against one card: "
+              f"loss {r['loss']} / {s['loss']} (|Δ| "
+              f"{abs(r['loss'] - s['loss'])}, band 1e-5), max |Δg| / max|g| "
+              f"{gap} (band 1e-5), norm gap {norm}, replicas equal "
+              f"{r['replicas_equal']}", flush=True)
+        if not (abs(r["loss"] - s["loss"]) <= 1e-5 and gap <= 1e-5
+                and r["replicas_equal"]):
+            raise AssertionError(f"phase 31 (a): the f32 mesh step {g}")
+    del runs
+
+    bf16 = Policy(PrecisionConfig(compute_dtype="bfloat16", gelu_mode="erf"))
+    ids, mask = clip_ids(MESH_FULL_B)
+    full_batch = {**text_batch(MESH_FULL_B, MESH_FULL_S), "clip_ids": ids,
+                  "clip_mask": mask, "images_u8": images(MESH_FULL_B)}
+    ids, mask = clip_ids(MESH_IMAGE_B)
+    clip, effnet = branches("clip"), branches("efficientnet")
+    cases = [
+        ("text", f"RoBERTa detective B {MESH_TEXT_B} × {MESH_TEXT_S}",
+         lambda tx: steps.make_text_head_step(tx, det, bf16), text,
+         text_mask, text_batch(MESH_TEXT_B, MESH_TEXT_S), ((2, 1), (1, 2)),
+         "tokens", MESH_TEXT_B * MESH_TEXT_S),
+        ("clip", f"CLIP B {MESH_IMAGE_B}",
+         lambda tx: steps.make_clip_step(tx, det, bf16), clip,
+         clip_trainable_mask(clip),
+         {"input_ids": ids, "attention_mask": mask,
+          "images_u8": images(MESH_IMAGE_B)}, ((2, 1),), "pairs",
+         MESH_IMAGE_B),
+        ("effnet", f"EfficientNet-B0 B {MESH_IMAGE_B}",
+         lambda tx: steps.make_effnet_step(tx, bf16), effnet,
+         optim.branch_mask(effnet, ["efficientnet"]),
+         {"images_u8": images(MESH_IMAGE_B),
+          "labels": (np.arange(MESH_IMAGE_B) % 2).astype(np.int32)},
+         ((2, 1),), "images", MESH_IMAGE_B),
+        ("full", f"make_full_step B {MESH_FULL_B} × {MESH_FULL_S}",
+         lambda tx: steps.make_full_step(tx, det, bf16), tree, None,
+         full_batch, ((2, 2),), "rows", MESH_FULL_B)]
+    rows = {}
+    for kind, what, make, sub, m, batch, grids, unit, per in cases:
+        reps = 2 if kind == "full" else 3
+        single = mesh_train_run(make, sub, m, batch, None, reps)
+        for g in grids:
+            r = mesh_train_run(make, sub, m, batch, g, reps)
+            rel = abs(r["loss"] - single["loss"]) / abs(single["loss"])
+            _, norm = grads_apart(single["grads"], r["grads"])
+            rows[kind, g] = {"ms": r["ms"], "single_ms": single["ms"],
+                             "peak_gb": r["peak_gb"],
+                             "single_peak_gb": single["peak_gb"]}
+            print(f"phase 31 (a) bf16 {what} data={g[0]},model={g[1]}: step "
+                  f"ms {r['ms']} against one card's {single['ms']} "
+                  f"({per / r['ms'] * 1e3} against "
+                  f"{per / single['ms'] * 1e3} {unit}/s), peak memory "
+                  f"{r['peak_gb']} GB against {single['peak_gb']}; first "
+                  f"loss {r['loss']} / {single['loss']} (rel {rel}, band "
+                  f"{MESH_BF16_LOSS}), gradient norm gap {norm} (band "
+                  f"{MESH_BF16_NORM}), replicas equal {r['replicas_equal']} "
+                  f"[{card}]", flush=True)
+            if not (rel <= MESH_BF16_LOSS and norm <= MESH_BF16_NORM
+                    and r["replicas_equal"]
+                    and all(math.isfinite(v) for v in r["losses"])):
+                raise AssertionError(f"phase 31 (a): the bf16 {kind} step "
+                                     f"over {g}")
+        del single
+        gc_cuda()
+    print(f"phase 31 (a): {time.perf_counter() - start:.1f} s", flush=True)
+    return rows
+
+
+def gc_cuda() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+MESH_WORKER = r"""
+import hashlib, sys, time
+import torch
+import torch.distributed as dist
+from misinfo_tpu_torch.checkpoints import io as ckpt_io
+from misinfo_tpu_torch.core import mesh as M
+from misinfo_tpu_torch.train import clip_detective
+from misinfo_tpu_torch.utils.tree import leaves_with_paths
+
+csv, out, res_path = sys.argv[1:4]
+t0 = time.perf_counter()
+assert M.init_multihost() is True          # the JAX_* env path
+rank, backend = dist.get_rank(), dist.get_backend()
+probe = {}
+x = torch.arange(4.0, device="cuda")
+for name, fn in (
+        ("all_reduce", lambda: dist.all_reduce(x.clone())),
+        ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+        ("all_gather", lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(2)], x))):
+    try:
+        fn()
+        torch.cuda.synchronize()
+        probe[name] = "ok"
+    except Exception as e:                 # gloo refuses some on CUDA
+        probe[name] = f"{type(e).__name__}: {str(e)[:100]}"
+saves = []
+real_save = ckpt_io.save_checkpoint
+ckpt_io.save_checkpoint = lambda *a, **k: (saves.append(1), real_save(*a, **k))
+t1 = time.perf_counter()
+res = clip_detective.main(["--train-csv", csv, "--out", out, "--epochs",
+                           "1", "--batch-size", "%d", "--mesh", "data=2",
+                           "--device", "cuda"])
+train_s = time.perf_counter() - t1
+digest = hashlib.sha256()
+trained = {}
+for p, t in leaves_with_paths(res.params):
+    digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                  .tobytes())
+    if p[:2] in (("clip", "text_projection"), ("clip", "visual_projection"),
+                 ("clip", "logit_scale")):
+        trained[p] = t.detach().cpu()
+torch.save({"rank": rank, "backend": backend, "probe": probe,
+            "digest": digest.hexdigest(), "trained": trained,
+            "history": res.history, "saves": len(saves),
+            "train_s": train_s, "wall_s": time.perf_counter() - t0},
+           res_path)
+M.shutdown_multihost()
+print("MESH_WORKER_OK", rank, flush=True)
+""" % MESH_CLI_BATCH
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def two_process_phase(vault_path, rng, card):
+    """Phase 31 (b) and (c): the CLIP trainer's own CLI with ``--mesh
+    data=2`` in two processes on the one card (init_multihost's JAX_*
+    env path; gloo, as NCCL refuses two ranks on one device), held to the
+    same training in one process over the card named twice; the engine
+    boots from the one checkpoint directory; then ``--mesh data=2`` in
+    one process refused."""
+    import hashlib
+    import pandas as pd
+    from misinfo_tpu_torch.core import mesh as M
+    from misinfo_tpu_torch.core.config import ForensicsConfig
+    from misinfo_tpu_torch.engine import forensics as F
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.ops.serving import optimize_for_serving
+    from misinfo_tpu_torch.train import clip_detective
+    from misinfo_tpu_torch.utils.tree import leaves_with_paths
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    quiet = lambda *_: None     # noqa: E731
+    try:
+        pngs = write_pngs(tmp, 24, seed=31)
+        csv = os.path.join(tmp, "pairs.csv")
+        pd.DataFrame([{"image_path": pngs[i % len(pngs)],
+                       "text": words(rng, 12), "label": int(i % 4 == 3)}
+                      for i in range(MESH_CLI_ROWS)]).to_csv(csv, index=False)
+        worker = os.path.join(tmp, "worker.py")
+        with open(worker, "w") as f:
+            f.write(MESH_WORKER)
+        out = os.path.join(tmp, "clip_mesh")
+        port = free_port()
+        procs, results = [], []
+        for pid in range(2):
+            env = dict(os.environ)
+            env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
+                       MISINFO_TPU_DIST_TIMEOUT_S="120",
+                       PYTHONPATH=os.pathsep.join(
+                           [os.getcwd(), env.get("PYTHONPATH", "")]))
+            results.append(os.path.join(tmp, f"rank{pid}.pt"))
+            procs.append(subprocess.Popen(
+                [sys.executable, worker, csv, out, results[-1]], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=240)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for pid, (p, log) in enumerate(zip(procs, logs)):
+            taken = [ln for ln in log.splitlines()
+                     if ln.startswith("init_multihost:")]
+            print(f"phase 31 (b) rank {pid}: rc {p.returncode}; {taken}",
+                  flush=True)
+            if p.returncode != 0 or "MESH_WORKER_OK" not in log:
+                print(log[-4000:], flush=True)
+                raise AssertionError(f"phase 31 (b): rank {pid} failed")
+        r0, r1 = (torch.load(r, weights_only=False) for r in results)
+
+        # the same training in one process, the card named twice
+        entries = [(0, torch.device("cuda", 0))] * 2
+        with swapped((M, "_global_entries", lambda: entries)):
+            t0 = time.perf_counter()
+            one = clip_detective.train(csv, out_dir=os.path.join(
+                tmp, "clip_one"), epochs=1, batch_size=MESH_CLI_BATCH,
+                mesh_spec="data=2", log=quiet, device="cuda")
+            one_s = time.perf_counter() - t0
+        digest = hashlib.sha256()
+        gap = 0.0
+        for p, t in leaves_with_paths(one.params):
+            digest.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                          .numpy().tobytes())
+            if p in r0["trained"]:
+                gap = max(gap, float((t.detach().cpu() - r0["trained"][p])
+                                     .abs().max()))
+        ranks_equal = (r0["digest"] == r1["digest"] and all(
+            torch.equal(a, r1["trained"][p]) for p, a in r0["trained"].items()))
+        steps_run = len(r0["history"])
+        dirs = sorted(d for d in os.listdir(tmp) if d.startswith("clip_"))
+        print(f"phase 31 (b): backends {r0['backend']} / {r1['backend']}; "
+              f"gloo on CUDA tensors: {r0['probe']}; ranks' trees "
+              f"torch.equal {ranks_equal}; the trained leaves against one "
+              f"process's data=2 run: max |Δ| {gap} (band 1e-6), whole "
+              f"trees' digests equal {digest.hexdigest() == r0['digest']}; "
+              f"checkpoint saves rank 0 {r0['saves']}, rank 1 "
+              f"{r1['saves']}; directories {dirs}; train s {r0['train_s']} "
+              f"/ {r1['train_s']} (one process {one_s}), worker wall "
+              f"{r0['wall_s']} / {r1['wall_s']} [{card}]", flush=True)
+        if not (r0["backend"] == r1["backend"] == "gloo" and ranks_equal
+                and gap <= 1e-6 and r0["saves"] >= 1 and r1["saves"] == 0
+                and steps_run >= 1):
+            raise AssertionError("phase 31 (b): the two-process run")
+
+        cfg = ForensicsConfig(verbose=False)
+        cfg = cfg.replace(paths=dataclasses.replace(
+            cfg.paths, vault_path=vault_path, orbax_dir=out))
+        t0 = time.perf_counter()
+        served = F.MisinfoForensics(cfg, DetectorConfig(), device="cuda",
+                                    cuda_graphs=False)
+        boot_s = time.perf_counter() - t0
+        rep = served.load_report
+        report = served.analyze(words(rng, 30), verbose=False)
+        check_reports([report], "phase 31 (b) engine")
+        want = optimize_for_serving(one.params, served.policy, served.quant)
+        same = same_leaves(want, served.params, ("clip",))
+        print(f"phase 31 (b): engine booted from the two-process run's "
+              f"directory in {boot_s} s: load_report mode {rep['mode']} (trainer "
+              f"{rep.get('trainer')}, epoch {rep.get('epoch')}), its CLIP "
+              f"branch torch.equal to the trained one {same}, verdict "
+              f"{report['verdict']}", flush=True)
+        if not (rep["mode"] == "native" and rep.get("trainer")
+                == "clip_detective" and same):
+            raise AssertionError("phase 31 (b): the engine's boot")
+        del served, one, want
+        gc_cuda()
+
+        # (c) in one process on one card, data=2 is refused
+        try:
+            clip_detective.main(["--train-csv", csv, "--out", os.path.join(
+                tmp, "refused"), "--epochs", "1", "--mesh", "data=2",
+                "--device", "cuda"])
+            refused = "not refused"
+        except ValueError as e:
+            refused = str(e)
+        print(f"phase 31 (c): --mesh data=2 in one process on one card: "
+              f"{refused!r}", flush=True)
+        if refused != "mesh 2x1 != 1 devices":
+            raise AssertionError("phase 31 (c): not refused")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 31 (b, c): {time.perf_counter() - start:.1f} s",
+          flush=True)
 
 
 # ------------------------------------------------------------------- bounds
@@ -4818,10 +5250,24 @@ def main() -> int:
                     help="with --times: which kernels to time, a comma list "
                     "of attention, layer_norm, decode, i8cc_layer, int8, ffn, "
                     "int4")
+    ap.add_argument("--only", choices=["31"],
+                    help="run phase 31 alone (training over meshes of the "
+                    "card) and stop there, without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.only == "31":
+        card = card_line()
+        print(card, flush=True)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        vault_path = os.path.join(tmp, "vault.npz")
+        make_vault(vault_path)
+        mesh_steps_phase(card)
+        two_process_phase(vault_path, np.random.default_rng(2), card)
+        stamp("31")
+        shutil.rmtree(tmp)
+        return 0
     if args.times:
         card = card_line()
         print(card, flush=True)
@@ -4954,6 +5400,9 @@ def main() -> int:
     tp_k2 = mesh_engine_phase(engine, vault_path, batch, b32,  # 30 (a, d,
                               image, card)                    # f)
     stamp("30 (a, d, f)")
+    mesh_steps_phase(card)                                    # phase 31 (a)
+    two_process_phase(vault_path, rng, card)                  # 31 (b, c)
+    stamp("31")
     shutil.rmtree(clip_dir)
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)

@@ -15,14 +15,21 @@ axis names or None per dimension (``PartitionSpec``). A batch placed
 with ``shard_batch`` is a dict of lists: one tensor per data position,
 on that position's first device.
 
-Training over a mesh (``setup_train_mesh``, ``place_train_batch``) and
-the multi-process runtime (``init_multihost`` with a coordinator) need
-more than one process and are ROADMAP.md M17b: refused by name.
+Training over a mesh (``setup_train_mesh``, ``place_train_batch``) gives
+each data position a replica of the tree (parallel/sharding.py::
+``shard_train_params``) and sums gradients over ``data``
+(parallel/collectives.py). ``init_multihost`` opens a
+``torch.distributed`` group; ``make_mesh()`` then spans every process's
+entries in rank order (``Mesh.ranks``), and each process runs the data
+positions it holds (``Mesh.local_data``). A model group across processes
+is M17c: refused by name.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
+import sys
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,10 +41,13 @@ from misinfo_tpu_torch.core.config import MeshConfig
 
 class Mesh:
     """A ``[data, model]`` grid of ``torch.device``. ``shape`` maps each
-    axis name to its size, as JAX's (``mesh.shape["data"]``)."""
+    axis name to its size, as JAX's (``mesh.shape["data"]``). ``ranks``
+    holds the process that owns each entry (all 0 in one process); a
+    device is a device of its owner's process."""
 
     def __init__(self, devices, axis_names: Tuple[str, ...] = ("data",
-                                                              "model")):
+                                                              "model"),
+                 ranks=None):
         rows = [list(r) for r in devices]
         if (len(axis_names) != 2 or not rows
                 or len({len(r) for r in rows}) != 1 or not rows[0]):
@@ -48,6 +58,12 @@ class Mesh:
                 arr[i, j] = torch.device(d)
         self.devices = arr
         self.axis_names = tuple(axis_names)
+        self.ranks = (np.zeros(arr.shape, dtype=int) if ranks is None
+                      else np.asarray(ranks, dtype=int).reshape(arr.shape))
+        for d in range(arr.shape[0]):
+            if len(set(self.ranks[d].tolist())) > 1:
+                not_ported(f"a model group across processes (data position "
+                           f"{d} on ranks {self.ranks[d].tolist()})", "M17c")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -74,6 +90,24 @@ class Mesh:
         """Each data position's first device: where its batch shard and
         its replicated leaves live."""
         return [self.devices[d, 0] for d in range(self.data)]
+
+    @property
+    def local_data(self) -> List[int]:
+        """The data positions this process runs (all of them in one
+        process)."""
+        me = process_index()
+        return [d for d in range(self.data) if self.ranks[d, 0] == me]
+
+    @property
+    def multiprocess(self) -> bool:
+        return bool((self.ranks != self.ranks.flat[0]).any())
+
+    def require_local(self, what: str) -> None:
+        """Refuse ``what`` over a mesh with positions in another process:
+        only training runs across processes (M17c)."""
+        if self.multiprocess:
+            not_ported(f"{what} over a mesh with positions in another "
+                       "process", "M17c")
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, devices="
@@ -106,27 +140,75 @@ _num_cpu_devices = int(os.environ.get("MISINFO_TPU_NUM_CPU_DEVICES", "1")
                        or 1)
 
 
-def default_devices() -> List[torch.device]:
-    """``make_mesh``'s default grid entries: the visible CUDA cards, and
-    a RuntimeError where there is none; after ``apply_device_override(
-    "cpu")``, ``MISINFO_TPU_NUM_CPU_DEVICES`` (or ``provision_cpu_devices``'s
-    count) ``cpu`` entries. A mesh never falls back to the CPU unasked."""
+def process_index() -> int:
+    """This process's rank in the ``torch.distributed`` group (0 without
+    one)."""
+    import torch.distributed as dist
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)
+
+
+def process_count() -> int:
+    import torch.distributed as dist
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def local_card(rank: Optional[int] = None) -> int:
+    """A rank's card: ``cuda:(local_rank % device_count)``, the local rank
+    from ``LOCAL_RANK`` (else the rank; default this process's)."""
+    rank = process_index() if rank is None else rank
+    return (int(os.environ.get("LOCAL_RANK", rank))
+            % max(1, torch.cuda.device_count()))
+
+
+def _local_devices() -> List[torch.device]:
+    """This process's entries: ``cpu`` entries after
+    ``apply_device_override("cpu")`` (in a run of several processes, each
+    provides its share of the provisioned count), else the visible cards
+    (one card, ``local_card()``, per process in a run of several)."""
+    world = process_count()
     if _platform == "cpu":
-        return [torch.device("cpu")] * _num_cpu_devices
+        return [torch.device("cpu")] * max(1, _num_cpu_devices // world)
     if not torch.cuda.is_available():
         raise RuntimeError("make_mesh: no CUDA device is available (pass "
                            "--device cpu for a mesh of CPU entries)")
+    if world > 1:
+        return [torch.device("cuda", local_card())]
     return [torch.device("cuda", i)
             for i in range(torch.cuda.device_count())]
+
+
+def _global_entries() -> List[Tuple[int, torch.device]]:
+    """``make_mesh``'s default grid entries with their owners' ranks: the
+    visible CUDA cards, and a RuntimeError where there is none; after
+    ``apply_device_override("cpu")``, ``MISINFO_TPU_NUM_CPU_DEVICES`` (or
+    ``provision_cpu_devices``'s count) ``cpu`` entries. A mesh never falls
+    back to the CPU unasked. After ``init_multihost``, every process's
+    entries in rank order (a collective: every process calls it), as
+    ``jax.devices()`` is global."""
+    local = _local_devices()
+    if process_count() == 1:
+        return [(0, d) for d in local]
+    import torch.distributed as dist
+    every = [None] * process_count()
+    dist.all_gather_object(every, [str(d) for d in local])
+    return [(r, torch.device(d)) for r, ds in enumerate(every) for d in ds]
 
 
 def make_mesh(cfg: Optional[MeshConfig] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """Build a (data, model) mesh over ``devices`` (default: the visible
-    cards, ``default_devices``). ``data=-1`` takes every device not
+    cards, ``_global_entries``). ``data=-1`` takes every device not
     claimed by ``model``. An explicit list may repeat a device."""
     cfg = cfg or MeshConfig()
-    devices = list(devices if devices is not None else default_devices())
+    if devices is None:
+        entries = _global_entries()
+        devices = [d for _, d in entries]
+        ranks = [r for r, _ in entries]
+    else:
+        devices = list(devices)
+        ranks = [0] * len(devices)
     n = len(devices)
     model = max(1, cfg.model)
     if n % model != 0:
@@ -137,7 +219,7 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
     grid = np.empty((data, model), dtype=object)
     for i, d in enumerate(devices):
         grid[i // model, i % model] = torch.device(d)
-    return Mesh(grid, cfg.axis_names)
+    return Mesh(grid, cfg.axis_names, ranks=ranks)
 
 
 def data_sharding(mesh: Mesh, ndim: int = 1) -> NamedSharding:
@@ -224,36 +306,150 @@ def apply_device_override(device: str,
 
 
 def setup_train_mesh(mesh_spec: Optional[str], params, batch_size: int):
-    """The trainers' ``--mesh`` plumbing: ``(None, params)`` unchanged
-    without a spec; training over a mesh is M17b."""
+    """The trainers' ``--mesh`` plumbing: parse the spec, build the (data,
+    model) mesh, check that the batch divides the data axis, and place the
+    tree for training (parallel/sharding.py::shard_train_params: a
+    replica a data position, the model axis split per
+    ``detector_pspecs``). Returns ``(mesh, params)``; ``(None, params)``
+    unchanged without a spec."""
     if not mesh_spec:
         return None, params
-    not_ported(f"setup_train_mesh({mesh_spec!r}) (training over a device "
-               "mesh)", "M17b")
+    from misinfo_tpu_torch.parallel.sharding import shard_train_params
+
+    mesh = make_mesh(parse_mesh_spec(mesh_spec))
+    n_data = mesh.shape["data"]
+    if batch_size % n_data:
+        raise ValueError(
+            f"batch_size {batch_size} not divisible by data axis {n_data}")
+    return mesh, shard_train_params(mesh, params)
+
+
+# the per-slot keys of a packed batch (preprocess/packing.py): they index
+# the batch's rows, so they go with the rows they point into
+SLOT_KEYS = ("cls_rows", "cls_cols", "labels", "slot_valid")
 
 
 def place_train_batch(mesh: Optional[Mesh], batch):
-    """Host batch dict → tensors (no mesh); a mesh is M17b."""
-    if mesh is not None:
-        not_ported("place_train_batch(mesh=...) (training over a device "
-                   "mesh)", "M17b")
-    return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+    """Host batch dict → tensors. Under a mesh the leading axis splits
+    over ``data`` and this process keeps its positions' rows: each key
+    becomes a list of pieces, one per ``mesh.local_data`` position, on
+    that position's first device (every process passes the same global
+    batch, as ``jax.device_put`` of a global array onto a sharding of
+    several processes). A packed batch's per-slot arrays (``SLOT_KEYS``,
+    with ``cls_rows``) go with the rows their CLS sits in: position d
+    gets the slots whose row is one of its rows, ``cls_rows`` made local,
+    padded to the batch's slot count with invalid slots (row 0, weight
+    0)."""
+    if mesh is None:
+        return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+    batch = {k: np.asarray(v) for k, v in batch.items()}
+    n = mesh.data
+    packed = "cls_rows" in batch
+    out = {k: [] for k in batch}
+    for d in mesh.local_data:
+        dev = mesh.devices[d, 0]
+        for k, v in batch.items():
+            if packed and k in SLOT_KEYS:
+                continue
+            if v.shape[0] % n:
+                raise ValueError(f"{k}: leading axis {v.shape[0]} not "
+                                 f"divisible by the data axis {n}")
+            m = v.shape[0] // n
+            out[k].append(torch.as_tensor(v[d * m:(d + 1) * m]).to(dev))
+        if packed:
+            r = batch["input_ids"].shape[0] // n
+            rows = batch["cls_rows"]
+            mine = np.flatnonzero((rows >= d * r) & (rows < (d + 1) * r)
+                                  & (batch["slot_valid"] > 0))
+            for k in SLOT_KEYS:
+                v = batch[k]
+                piece = np.zeros_like(v)
+                piece[:len(mine)] = v[mine] - (d * r if k == "cls_rows"
+                                               else 0)
+                out[k].append(torch.as_tensor(piece).to(dev))
+    return out
+
+
+_MULTIHOST_READY = False
+
+
+def _timeout() -> datetime.timedelta:
+    return datetime.timedelta(seconds=float(
+        os.environ.get("MISINFO_TPU_DIST_TIMEOUT_S", "300")))
+
+
+def dist_backend(num_processes: int) -> Tuple[str, str]:
+    """The group's backend and why: ``gloo`` for CPU entries (``--device
+    cpu``, or no card); ``nccl`` where each local rank has a card of its
+    own (``LOCAL_WORLD_SIZE``, else every process counted local, against
+    the visible cards); ``gloo`` where ranks share a card, which NCCL
+    refuses ("Duplicate GPU detected")."""
+    if _platform == "cpu" or not torch.cuda.is_available():
+        return "gloo", "CPU entries"
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
+    cards = torch.cuda.device_count()
+    if local <= cards:
+        return "nccl", f"{local} local ranks, {cards} cards"
+    return "gloo", f"{local} local ranks share {cards} card(s)"
 
 
 def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None) -> bool:
-    """The single-process no-op of JAX's ``init_multihost``: False with no
-    arguments and no ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-    ``JAX_PROCESS_ID`` / ``MISINFO_TPU_MULTIHOST`` hint. Any hint asks for
-    a multi-process runtime, which is M17b."""
-    hinted = (coordinator_address is not None or num_processes is not None
-              or process_id is not None
-              or any(os.getenv(k) for k in ("JAX_COORDINATOR_ADDRESS",
-                                            "JAX_NUM_PROCESSES",
-                                            "JAX_PROCESS_ID"))
-              or os.getenv("MISINFO_TPU_MULTIHOST") in ("1", "true", "on"))
-    if hinted:
-        not_ported("init_multihost with a multi-process hint (one process "
-                   "per card, torch.distributed)", "M17b")
-    return False
+    """Open the ``torch.distributed`` group so that ``make_mesh()`` spans
+    every process's entries. Sources, as JAX's: the arguments, or the
+    ``JAX_COORDINATOR_ADDRESS`` (``host:port``, taken as
+    ``tcp://host:port``) / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
+    env vars; ``MISINFO_TPU_MULTIHOST=1`` takes torch's own ``env://``
+    rendezvous (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``), the counterpart of JAX's TPU-pod probe. The rendezvous
+    waits ``MISINFO_TPU_DIST_TIMEOUT_S`` seconds (300). The backend
+    follows ``dist_backend`` and is logged; a failed init raises (no
+    retry on another backend). Returns True when the group was opened,
+    False for the single-process no-op (no arguments, no hint) or when
+    a group is already open."""
+    global _MULTIHOST_READY
+    import torch.distributed as dist
+
+    if _MULTIHOST_READY or dist.is_initialized():
+        return False
+    coordinator_address = coordinator_address or os.getenv(
+        "JAX_COORDINATOR_ADDRESS")
+    if num_processes is None and os.getenv("JAX_NUM_PROCESSES"):
+        num_processes = int(os.environ["JAX_NUM_PROCESSES"])
+    if process_id is None and os.getenv("JAX_PROCESS_ID"):
+        process_id = int(os.environ["JAX_PROCESS_ID"])
+    if coordinator_address is None and num_processes is None:
+        if os.getenv("MISINFO_TPU_MULTIHOST") not in ("1", "true", "on"):
+            return False  # single-process: nothing to initialize
+        init = "env://"
+        num_processes = int(os.environ["WORLD_SIZE"])
+        process_id = int(os.environ["RANK"])
+    else:
+        missing = [n for n, v in (("coordinator_address",
+                                   coordinator_address),
+                                  ("num_processes", num_processes),
+                                  ("process_id", process_id)) if v is None]
+        if missing:
+            raise ValueError(f"init_multihost: {', '.join(missing)} not "
+                             "given (argument or JAX_* env var)")
+        init = f"tcp://{coordinator_address}"
+    backend, why = dist_backend(num_processes)
+    if backend == "nccl":
+        torch.cuda.set_device(local_card(process_id))
+    print(f"init_multihost: rank {process_id} of {num_processes}, backend "
+          f"{backend} ({why}), {init}", file=sys.stderr, flush=True)
+    dist.init_process_group(backend, init_method=init,
+                            world_size=num_processes, rank=process_id,
+                            timeout=_timeout())
+    _MULTIHOST_READY = True
+    return True
+
+
+def shutdown_multihost() -> None:
+    """Close the group ``init_multihost`` opened (a no-op without one)."""
+    global _MULTIHOST_READY
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _MULTIHOST_READY = False

@@ -175,6 +175,8 @@ class MisinfoForensics:
             raise TypeError("MisinfoForensics(mesh=...): expected a "
                             "misinfo_tpu_torch.core.mesh.Mesh, got "
                             f"{type(mesh).__name__}")
+        if mesh is not None:
+            mesh.require_local("MisinfoForensics(mesh=...)")
         self.mesh = mesh
         self.device = (mesh.data_devices[0] if mesh is not None
                        else torch.device(device))

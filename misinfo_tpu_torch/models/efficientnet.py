@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from misinfo_tpu_torch.ops.common import (
-    DEFAULT_POLICY, Policy, dense, dense_init, dropout, silu)
+    DEFAULT_POLICY, Policy, dense, dense_init, dropout, rand_rows, silu)
 
 # (expand_ratio, kernel, stride, in_ch, out_ch, num_blocks) — B0 stages
 B0_STAGES = (
@@ -98,22 +98,41 @@ def _conv(x, kernel, stride: int, groups: int = 1, policy=DEFAULT_POLICY):
                     padding=(k - 1) // 2, groups=groups)
 
 
-def _bn(bn: Dict, x, policy=DEFAULT_POLICY, stats: Optional[list] = None):
-    """BatchNorm, math in f32 (channels on dim 1): on the running
-    statistics, or with ``stats`` (a list) on the batch's, appending the
-    updated running statistics to it."""
+def _bn(bns: List[Dict], xs: List[torch.Tensor], policy=DEFAULT_POLICY,
+        stats: Optional[List[list]] = None, axis=None) -> List[torch.Tensor]:
+    """BatchNorm of each data position's piece ``xs[i]`` with its own
+    ``bns[i]``, math in f32 (channels on dim 1): on the running
+    statistics, or with ``stats`` (a list a position) on the batch's,
+    appending the updated running statistics to each. Without ``axis``
+    (one position) the batch is ``xs[0]``; with it (a training mesh,
+    parallel/collectives.py) over more than one data position, the
+    statistics are the global batch's, as
+    JAX's two-pass ``jnp.var`` over it: the global mean, then the global
+    mean of squared deviations, both through ``axis.sum``."""
     c = (-1, 1, 1)
-    xf = x.float()
+    xfs = [x.float() for x in xs]
     if stats is None:
-        mean, var = bn["mean"], bn["var"]
-    else:
+        means = [bn["mean"] for bn in bns]
+        vars_ = [bn["var"] for bn in bns]
+    elif axis is None or axis.size == 1:
+        xf = xfs[0]
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3]
         mean = xf.mean(dim=(0, 2, 3))
-        var = (xf - mean.view(c)).square().mean(dim=(0, 2, 3))
-        stats.append(_update_bn_state(bn, mean.detach(), var.detach(),
-                                      x.shape[0] * x.shape[2] * x.shape[3]))
-    y = ((xf - mean.view(c)) * torch.rsqrt(var.view(c) + BN_EPS)
-         * bn["scale"].view(c) + bn["bias"].view(c))
-    return y.to(policy.compute)
+        means = [mean]
+        vars_ = [(xf - mean.view(c)).square().mean(dim=(0, 2, 3))]
+    else:
+        n = xfs[0].shape[0] * xfs[0].shape[2] * xfs[0].shape[3] * axis.size
+        means = [t / n for t in axis.sum([xf.sum(dim=(0, 2, 3))
+                                          for xf in xfs])]
+        vars_ = [t / n for t in axis.sum(
+            [(xf - m.view(c)).square().sum(dim=(0, 2, 3))
+             for xf, m in zip(xfs, means)])]
+    if stats is not None:
+        for st, bn, m, v in zip(stats, bns, means, vars_):
+            st.append(_update_bn_state(bn, m.detach(), v.detach(), n))
+    return [((xf - m.view(c)) * torch.rsqrt(v.view(c) + BN_EPS)
+             * bn["scale"].view(c) + bn["bias"].view(c)).to(policy.compute)
+            for xf, bn, m, v in zip(xfs, bns, means, vars_)]
 
 
 def _update_bn_state(bn: Dict, mean, var, n_elem: int) -> Dict:
@@ -136,45 +155,46 @@ def _se(se: Dict, x, policy=DEFAULT_POLICY):
     return x * gate[:, :, None, None].to(x.dtype)
 
 
-def _forward(params: Dict, images: torch.Tensor, policy: Policy,
-             stats: Optional[list], gen: Optional[torch.Generator],
-             dropout_rate: float) -> torch.Tensor:
-    """The network; ``stats`` is None at inference, else the list that
+def _forward(params: List[Dict], images: List[torch.Tensor],
+             policy: Policy, stats: Optional[List[list]], gens: list,
+             dropout_rate: float, axis=None) -> List[torch.Tensor]:
+    """The network over the data positions' pieces (one without a mesh),
+    layer by layer, so that BatchNorm can take global statistics
+    (``_bn``); ``params[i]``, ``images[i]`` and ``gens[i]`` are position
+    i's. ``stats`` is None at inference, else a list a position that
     collects each BatchNorm's updated running statistics in tree order
     (stem, each block's expand/dw/project, head)."""
-    x = images.permute(0, 3, 1, 2)
-    x = silu(_bn(params["stem"]["bn"],
-                 _conv(x, params["stem"]["conv"], 2, policy=policy), policy,
-                 stats))
-    num_blocks = len(params["blocks"])
-    for bi, (blk, cfg) in enumerate(zip(params["blocks"], BLOCK_CFGS)):
-        inp = x
-        if "expand" in blk:
-            x = silu(_bn(blk["expand"]["bn"],
-                         _conv(x, blk["expand"]["conv"], 1, policy=policy),
-                         policy, stats))
-        x = _conv(x, blk["dw"]["conv"], cfg["stride"], groups=x.shape[1],
-                  policy=policy)
-        x = _se(blk["se"], silu(_bn(blk["dw"]["bn"], x, policy, stats)),
-                policy)
-        x = _bn(blk["project"]["bn"],
-                _conv(x, blk["project"]["conv"], 1, policy=policy), policy,
-                stats)
+    def conv_bn(key, xs, blks, stride=1, groups=False):
+        ys = [_conv(x, b[key]["conv"], stride,
+                    groups=x.shape[1] if groups else 1, policy=policy)
+              for x, b in zip(xs, blks)]
+        return _bn([b[key]["bn"] for b in blks], ys, policy, stats, axis)
+
+    xs = [silu(y) for y in conv_bn(
+        "stem", [im.permute(0, 3, 1, 2) for im in images], params, 2)]
+    num_blocks = len(params[0]["blocks"])
+    for bi, cfg in enumerate(BLOCK_CFGS[:num_blocks]):
+        blks = [p["blocks"][bi] for p in params]
+        inp = xs
+        if "expand" in blks[0]:
+            xs = [silu(y) for y in conv_bn("expand", xs, blks)]
+        xs = [_se(b["se"], silu(y), policy) for b, y in zip(
+            blks, conv_bn("dw", xs, blks, cfg["stride"], groups=True))]
+        xs = conv_bn("project", xs, blks)
         if cfg["stride"] == 1 and cfg["cin"] == cfg["cout"]:
-            if gen is not None:
+            if gens[0] is not None:
                 # stochastic depth (row mode), survival linearly decayed
                 sd_p = STOCHASTIC_DEPTH_P * bi / num_blocks
-                keep = torch.rand((x.shape[0], 1, 1, 1), generator=gen,
-                                  device=x.device) < 1.0 - sd_p
-                x = torch.where(keep, x / (1.0 - sd_p), 0.0).to(x.dtype)
-            x = x + inp
-    x = silu(_bn(params["head"]["bn"],
-                 _conv(x, params["head"]["conv"], 1, policy=policy), policy,
-                 stats))
-    pooled = dropout(gen, x.float().mean(dim=(2, 3)), dropout_rate,
-                     gen is None)
-    return dense(params["classifier"], pooled.to(policy.compute),
-                 policy).float()
+                xs = [torch.where(
+                    rand_rows(g, (x.shape[0], 1, 1, 1), x.device)
+                    < 1.0 - sd_p, x / (1.0 - sd_p), 0.0).to(x.dtype)
+                    for x, g in zip(xs, gens)]
+            xs = [x + i for x, i in zip(xs, inp)]
+    xs = [silu(y) for y in conv_bn("head", xs, params)]
+    return [dense(p["classifier"],
+                  dropout(g, x.float().mean(dim=(2, 3)), dropout_rate,
+                          g is None).to(policy.compute), policy).float()
+            for p, x, g in zip(params, xs, gens)]
 
 
 def effnet_apply(params: Dict, images: torch.Tensor, *,
@@ -191,7 +211,7 @@ def effnet_apply(params: Dict, images: torch.Tensor, *,
     if train:
         return effnet_train_apply(params, images, policy, gen=rng,
                                   dropout_rate=dropout_rate)
-    return _forward(params, images, policy, None, None, 0.0), None
+    return _forward([params], [images], policy, None, [None], 0.0)[0], None
 
 
 def effnet_train_apply(params: Dict, images: torch.Tensor,
@@ -204,8 +224,24 @@ def effnet_train_apply(params: Dict, images: torch.Tensor,
     statistics for ``merge_bn_updates``). Stochastic depth and the
     classifier dropout run only with ``gen``."""
     stats: List[Dict] = []
-    logits = _forward(params, images, policy, stats, gen, dropout_rate)
+    logits, = _forward([params], [images], policy, [stats], [gen],
+                       dropout_rate)
     return logits, stats
+
+
+def effnet_train_apply_shards(params: List[Dict],
+                              images: List[torch.Tensor], policy: Policy,
+                              gens: list, axis, dropout_rate: float = 0.2
+                              ) -> Tuple[List[torch.Tensor], List[List]]:
+    """``effnet_train_apply`` over a training mesh's local data positions
+    (``params[i]`` position i's replica, ``images[i]`` its rows,
+    ``gens[i]`` its ``RowShare`` or None): BatchNorm on the global
+    batch's statistics through ``axis`` (parallel/collectives.py), the
+    global ``n_elem`` in the unbiased running variance. Returns each
+    position's logits and BatchNorm state."""
+    stats = [[] for _ in params]
+    return (_forward(params, images, policy, stats, gens, dropout_rate,
+                     axis), stats)
 
 
 def _bn_leaves(params: Dict) -> List[Dict]:

@@ -13,7 +13,7 @@ bf16 serving and erf in f32 parity mode.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -198,16 +198,38 @@ def softmax_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.softmax(x.float(), dim=dim)
 
 
+class RowShare(NamedTuple):
+    """Data position ``index`` of ``parts``' share of a draw over the
+    global batch: ``rand_rows`` draws the whole batch's numbers from
+    ``gen`` and keeps the position's rows, so that positions with copies
+    of one generator state draw the single-device masks
+    (parallel/collectives.py)."""
+    gen: torch.Generator
+    index: int
+    parts: int
+
+
+def rand_rows(gen, shape, device) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``gen`` (a generator or a ``RowShare``,
+    whose leading axis is the batch's)."""
+    if isinstance(gen, RowShare):
+        n = shape[0]
+        full = torch.rand((n * gen.parts, *shape[1:]), generator=gen.gen,
+                          device=device)
+        return full[gen.index * n:(gen.index + 1) * n]
+    return torch.rand(shape, generator=gen, device=device)
+
+
 def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
             deterministic: bool) -> torch.Tensor:
     """Inverted dropout (JAX's ``ops/common.dropout``): each element kept
     with probability 1 − rate and scaled by 1/(1 − rate), the mask drawn
-    from ``gen`` (a generator on x's device). The identity when
-    ``deterministic`` or at rate 0."""
+    from ``gen`` (a generator on x's device, or a data position's
+    ``RowShare``). The identity when ``deterministic`` or at rate 0."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = rand_rows(gen, x.shape, x.device) < keep
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 

@@ -20,16 +20,22 @@ on its device, and whose ``row(d)`` is the tree data position d runs,
 with each split piece a ``ModelSplit`` over its model group. A fused
 ``qkv`` kernel [D, 3D] is split per third (position m takes its heads'
 columns of q, of k and of v): the heads a column split must keep whole.
+
+Training (``shard_train_params``) places a ``TrainParams``: a replica of
+the tree for each of this process's data positions, every leaf a tensor
+of its own (the optimizer updates them in place), the model axis split
+as above; ``gather`` puts one replica back into the plain tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
 from misinfo_tpu_torch.core.mesh import Mesh, P, PartitionSpec, split_rows
 from misinfo_tpu_torch.ops.serving import kmajor
+from misinfo_tpu_torch.parallel.collectives import DataAxis
 from misinfo_tpu_torch.parallel.tensor import AMAX_PAD, ModelSplit
 
 
@@ -132,7 +138,7 @@ def _splits(tree, slices: List, devices: List[torch.device], path=()):
             return ModelSplit(
                 [{k: v for k, v in s.items()}
                  | {"o": {k: v for k, v in s["o"].items() if k != "bias"}}
-                 for s in slices], devices, o.get("bias"))
+                 for s in slices], devices, o.get("bias"), ("o", "bias"))
         if path and str(path[-1]) == "mlp_in":
             return ModelSplit(slices, devices)
         if path and str(path[-1]) == "mlp_out":
@@ -196,3 +202,130 @@ def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
     return {k: (split_rows(v, mesh) if specs[k]
                 else [v.to(dev) for dev in mesh.data_devices])
             for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------- training
+
+class TrainParams:
+    """The tree placed for training over a mesh (``shard_train_params``):
+    ``rows[i]`` is the replica that this process's i-th data position
+    (``mesh.local_data[i]``) runs, on its model group's devices, with
+    each split piece a ``ModelSplit``; ``axis`` does the data axis's
+    exchanges (parallel/collectives.py). Replicas end every step with
+    the same bits."""
+
+    def __init__(self, mesh: Mesh, rows: List[Dict]):
+        self.mesh = mesh
+        self.rows = rows
+        self.axis = DataAxis(mesh)
+
+    @property
+    def devices(self) -> List[torch.device]:
+        """Each local data position's first device."""
+        return self.axis.devices
+
+    def gather(self) -> Dict:
+        """The plain tree from the first local replica: split leaves put
+        back whole, every leaf a copy on the first position's device."""
+        return build_tree(merge_pieces(replica_leaves(self.rows[0]),
+                                       self.devices[0]))
+
+
+def replica_leaves(tree, prefix=()) -> List[Tuple[tuple, int, object]]:
+    """``(path, j, leaf)`` for every leaf of a replica in the plain tree's
+    flatten order (utils/tree.py), paths the plain tree's; ``j`` is the
+    model position of a split piece (0 for a whole leaf)."""
+    if isinstance(tree, ModelSplit):
+        return tree.leaves_with_paths(prefix)
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in replica_leaves(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in replica_leaves(v, prefix + (i,))]
+    if tree is None:
+        return []
+    return [(prefix, 0, tree)]
+
+
+def merge_pieces(pieces, device) -> List[Tuple[tuple, object]]:
+    """``replica_leaves``-ordered ``(path, j, tensor)`` → ``(path,
+    tensor)`` with each split leaf's pieces put back along its
+    ``detector_pspecs`` axis (a fused ``qkv`` per third), copies on
+    ``device``."""
+    out = []
+    i = 0
+    while i < len(pieces):
+        path, _, x = pieces[i]
+        group = [x]
+        i += 1
+        while i < len(pieces) and pieces[i][0] == path:
+            group.append(pieces[i][2])
+            i += 1
+        if not isinstance(x, torch.Tensor):
+            out.append((path, x))
+            continue
+        group = [g.detach().to(device, copy=True) for g in group]
+        if len(group) == 1:
+            out.append((path, group[0]))
+            continue
+        spec = _spec_for_path([str(k) for k in path], x)
+        dim = spec.index("model")
+        if "qkv" in path:
+            thirds = [torch.chunk(g, 3, dim=dim) for g in group]
+            whole = torch.cat([torch.cat([t[k] for t in thirds], dim=dim)
+                               for k in range(3)], dim=dim)
+        else:
+            whole = torch.cat(group, dim=dim)
+        out.append((path, whole))
+    return out
+
+
+def build_tree(pairs) -> Dict:
+    """Nested dicts (lists where the keys are indices) from ``(path,
+    leaf)`` pairs."""
+    root: Dict = {}
+    for path, leaf in pairs:
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+
+    def listed(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [listed(node[k]) for k in sorted(node)]
+        return {k: listed(v) for k, v in node.items()}
+    return listed(root)
+
+
+def shard_train_params(mesh: Mesh, params: Dict) -> TrainParams:
+    """Place ``params`` for training over ``mesh``: for each of this
+    process's data positions a replica of its own on the position's model
+    group, the ``model`` axis split per ``detector_pspecs`` into leaf
+    tensors that AdamW updates. Float trees only (training runs float
+    policies; an int8 ``kernel_q`` is refused)."""
+    specs = detector_pspecs(params)
+    n = mesh.model
+    rows = []
+    for d in mesh.local_data:
+        devs = mesh.row(d)
+        slices = []
+        for m, dev in enumerate(devs):
+            def piece(path, x, m=m, dev=dev):
+                if not isinstance(x, torch.Tensor):
+                    return x
+                if path[-1] == "kernel_q":
+                    raise ValueError("shard_train_params: an int8 tree "
+                                     f"({'/'.join(path)}); training runs "
+                                     "float trees")
+                spec = _lookup(specs, path)
+                if m and "model" not in spec:
+                    return x          # position 0's copy serves the group
+                return _slice(x, spec, m, n, "qkv" in path).detach().to(
+                    dev, copy=True, memory_format=torch.contiguous_format)
+            slices.append(_map_with_path(piece, params))
+        rows.append(slices[0] if n == 1
+                    else _splits(slices[0], slices, devs))
+    return TrainParams(mesh, rows)

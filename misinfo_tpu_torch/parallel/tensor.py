@@ -17,11 +17,15 @@ more column that holds that abs-max, padded to ``AMAX_PAD`` columns, so
 that the kernel K2 on the card, or the plain version on the CPU, derives
 the group's scale while the extra columns add nothing: ``shard_params``
 places each int8 row-split kernel with ``AMAX_PAD`` zero rows under it.
+
+The float products are differentiable: training over a mesh
+(parallel/sharding.py::shard_train_params) runs autograd through the
+column and row splits, and AdamW updates each position's pieces.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +34,7 @@ from misinfo_tpu_torch.ops.common import (
     INT8_DENSE_MIN_ROWS, Policy, dense, matmul_f32)
 from misinfo_tpu_torch.ops.quant import dense_int8
 from misinfo_tpu_torch.ops.serving import dense_kernel_enabled
+from misinfo_tpu_torch.utils.tree import leaves_with_paths
 
 # the abs-max column is padded to this many columns (zero weight rows
 # under all of them), so that the kernel's K keeps its alignment
@@ -43,13 +48,36 @@ class ModelSplit:
     sums; None for a column split."""
 
     def __init__(self, parts: Sequence[Dict], devices: Sequence,
-                 bias: Optional[torch.Tensor] = None):
+                 bias: Optional[torch.Tensor] = None,
+                 bias_path: Tuple[str, ...] = ("bias",)):
         self.parts = list(parts)
         self.devices = [torch.device(d) for d in devices]
         self.bias = bias
+        self.bias_path = tuple(bias_path)   # where ``bias`` sits unsplit
 
     def __len__(self) -> int:
         return len(self.parts)
+
+    def leaves_with_paths(self, prefix=()) -> List[Tuple[tuple, int,
+                                                         torch.Tensor]]:
+        """``(path, j, tensor)`` for every leaf, the paths the unsplit
+        tree's (``prefix`` + the piece's), in its flatten order
+        (utils/tree.py), position j's piece of a split leaf after j − 1's;
+        the bias held once has j 0."""
+        subs = [p for p, _ in leaves_with_paths(self.parts[0])]
+        if self.bias is not None:
+            subs.append(self.bias_path)
+        out = []
+        for sub in sorted(subs):
+            if self.bias is not None and sub == self.bias_path:
+                out.append((prefix + sub, 0, self.bias))
+                continue
+            for j, part in enumerate(self.parts):
+                t = part
+                for k in sub:
+                    t = t[k]
+                out.append((prefix + sub, j, t))
+        return out
 
 
 def _int8_partial(p: Dict, x: torch.Tensor, amax: torch.Tensor,

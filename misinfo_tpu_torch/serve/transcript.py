@@ -146,6 +146,8 @@ class WhisperTranscriber:
             raise TypeError("WhisperTranscriber(mesh=...): expected a "
                             "misinfo_tpu_torch.core.mesh.Mesh, got "
                             f"{type(mesh).__name__}")
+        if mesh is not None:
+            mesh.require_local("WhisperTranscriber(mesh=...)")
         self.mesh = mesh
         self.device = (mesh.data_devices[0] if mesh is not None
                        else torch.device(device))

@@ -15,7 +15,7 @@ import argparse
 from typing import Optional
 
 from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
-from misinfo_tpu_torch.train.harness import refuse_mesh, select_device
+from misinfo_tpu_torch.train.harness import multihost, select_device
 from misinfo_tpu_torch.train.roberta_detective import train as _train_text
 
 
@@ -25,7 +25,6 @@ def train(csv_path: str, out_dir: str = "ai_head_best",
           det_cfg: Optional[DetectorConfig] = None,
           max_samples: Optional[int] = None,
           mesh_spec: Optional[str] = None, log=print, device="cuda"):
-    refuse_mesh(mesh_spec)
     det_cfg = det_cfg or DetectorConfig()
     params = detector_init(0, det_cfg)
     if welfake_checkpoint:
@@ -38,7 +37,8 @@ def train(csv_path: str, out_dir: str = "ai_head_best",
     return _train_text(csv_path, out_dir, epochs, batch_size, lr,
                        max_len=256, det_cfg=det_cfg, params=params,
                        max_samples=max_samples, head="ai_head",
-                       freeze_backbone=True, log=log, device=device)
+                       freeze_backbone=True, mesh_spec=mesh_spec, log=log,
+                       device=device)
 
 
 def main(argv=None):
@@ -54,14 +54,17 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--max-samples", type=int, default=None)
     p.add_argument("--mesh", default=None,
-                   help="device mesh for training (not ported: M17b)")
+                   help="device mesh for training, e.g. 'data=8' or "
+                        "'data=4,model=2' (across processes: init_multihost's "
+                        "env vars)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)
-    refuse_mesh(args.mesh)
-    train(args.csv, args.out, args.base_checkpoint, args.epochs,
-          args.batch_size, args.lr, max_samples=args.max_samples,
-          device=select_device(args.device))
+    device = select_device(args.device, args.mesh)
+    with multihost():
+        return train(args.csv, args.out, args.base_checkpoint, args.epochs,
+                     args.batch_size, args.lr, max_samples=args.max_samples,
+                     mesh_spec=args.mesh, device=device)
 
 
 if __name__ == "__main__":

@@ -29,8 +29,8 @@ from misinfo_tpu_torch.ops.image_ops import normalize_images
 from misinfo_tpu_torch.preprocess.image import image_to_array
 from misinfo_tpu_torch.train.datasets import train_augment
 from misinfo_tpu_torch.train.harness import (
-    eval_batches, own_params, refuse_mesh, run_training, select_device,
-    split_train_val)
+    eval_batches, multihost, own_params, placer, run_training, select_device,
+    split_train_val, train_mesh)
 from misinfo_tpu_torch.train.losses import binary_accuracy, cross_entropy
 from misinfo_tpu_torch.train.optim import (
     OptimConfig, branch_mask, make_optimizer)
@@ -91,7 +91,6 @@ def train(cifake_root: str, out_dir: str = "efficientnet_cifake_best",
           params: Optional[Dict] = None, precision: str = "bfloat16",
           items: Optional[List[Tuple[str, int]]] = None,
           mesh_spec: Optional[str] = None, log=print, device="cuda"):
-    refuse_mesh(mesh_spec)
     det_cfg = det_cfg or DetectorConfig()
     policy = Policy(PrecisionConfig(compute_dtype=precision))
     set_exact_f32(parity=policy.compute == torch.float32)
@@ -108,6 +107,9 @@ def train(cifake_root: str, out_dir: str = "efficientnet_cifake_best",
         OptimConfig(lr=lr, weight_decay=0.0, warmup_fraction=0.0,
                     total_steps=steps, clip_norm=None, schedule="constant"),
         trainable_mask=branch_mask(params, ["efficientnet"]))
+    # '--mesh data=N': BatchNorm's statistics over the global batch
+    mesh, params, device = train_mesh(mesh_spec, params, batch_size, device)
+    place = placer(mesh, device)
     opt_state = tx.init(params)
     # CLIP-stat normalization quirk preserved (train_cifake_forensics.py:44,50)
     step = make_effnet_step(tx, policy, stats="clip")
@@ -131,7 +133,7 @@ def train(cifake_root: str, out_dir: str = "efficientnet_cifake_best",
     def train_batches():
         from misinfo_tpu_torch.train.datasets import prefetch
         for b in prefetch(train_b.batches(batch_size)):
-            yield batch_to(b, device)
+            yield place(b)
 
     def ckpt(params, opt_state, epoch, metrics):
         from misinfo_tpu_torch.checkpoints.io import save_checkpoint
@@ -154,13 +156,17 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--per-label", type=int, default=2500)
     p.add_argument("--mesh", default=None,
-                   help="device mesh for training (not ported: M17b)")
+                   help="device mesh for training, e.g. 'data=8' or "
+                        "'data=4,model=2' (across processes: init_multihost's "
+                        "env vars)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)
-    refuse_mesh(args.mesh)
-    train(args.cifake_root, args.out, args.epochs, args.batch_size,
-          args.lr, args.per_label, device=select_device(args.device))
+    device = select_device(args.device, args.mesh)
+    with multihost():
+        return train(args.cifake_root, args.out, args.epochs,
+                     args.batch_size, args.lr, args.per_label,
+                     mesh_spec=args.mesh, device=device)
 
 
 if __name__ == "__main__":

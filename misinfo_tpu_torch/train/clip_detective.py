@@ -39,7 +39,8 @@ from misinfo_tpu_torch.ops.image_ops import normalize_images
 from misinfo_tpu_torch.preprocess.image import image_to_array
 from misinfo_tpu_torch.preprocess.tokenizer import load_clip_tokenizer
 from misinfo_tpu_torch.train.harness import (
-    eval_batches, own_params, refuse_mesh, run_training, select_device)
+    eval_batches, multihost, own_params, placer, run_training, select_device,
+    train_mesh)
 from misinfo_tpu_torch.train.losses import (
     fixed_threshold_accuracy, median_threshold_accuracy)
 from misinfo_tpu_torch.train.optim import OptimConfig, make_optimizer
@@ -110,7 +111,6 @@ def train(train_csv: str, val_csv: Optional[str] = None,
           params: Optional[Dict] = None, precision: str = "bfloat16",
           mesh_spec: Optional[str] = None, epoch_callback=None, log=print,
           device="cuda"):
-    refuse_mesh(mesh_spec)
     det_cfg = det_cfg or DetectorConfig()
     policy = Policy(PrecisionConfig(compute_dtype=precision))
     set_exact_f32(parity=policy.compute == torch.float32)
@@ -130,6 +130,9 @@ def train(train_csv: str, val_csv: Optional[str] = None,
                                     warmup_fraction=0.0, total_steps=steps,
                                     clip_norm=1.0),
                         trainable_mask=clip_trainable_mask(params))
+    # '--mesh data=N': InfoNCE's negatives span the global batch
+    mesh, params, device = train_mesh(mesh_spec, params, batch_size, device)
+    place = placer(mesh, device)
     opt_state = tx.init(params)
     step = make_clip_step(tx, det_cfg, policy)
 
@@ -161,7 +164,7 @@ def train(train_csv: str, val_csv: Optional[str] = None,
     def train_batches():
         from misinfo_tpu_torch.train.datasets import prefetch
         for b in prefetch(train_b.batches(batch_size)):
-            yield batch_to(b, device)
+            yield place(b)
 
     def ckpt(params, opt_state, epoch, metrics):
         from misinfo_tpu_torch.checkpoints.io import save_checkpoint
@@ -389,12 +392,18 @@ def main(argv=None):
     p.add_argument("--search-image", default=None)
     p.add_argument("--vault", default="guardian_embeddings.npz")
     p.add_argument("--mesh", default=None,
-                   help="device mesh for training (not ported: M17b)")
+                   help="device mesh for training, e.g. 'data=8' or "
+                        "'data=4,model=2' (across processes: init_multihost's "
+                        "env vars)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)
-    refuse_mesh(args.mesh)
-    device = select_device(args.device)
+    device = select_device(args.device, args.mesh)
+    with multihost():
+        return _run(p, args, device)
+
+
+def _run(p, args, device):
 
     if args.generate_db:
         build_vault(args.json_file, args.db_out, checkpoint=args.checkpoint,
@@ -406,8 +415,9 @@ def main(argv=None):
     elif args.hpo and args.train_csv:
         hpo_search(args.train_csv, args.val_csv, device=device)
     elif args.train_csv:
-        train(args.train_csv, args.val_csv, args.out, args.epochs,
-              args.batch_size, args.lr, device=device)
+        return train(args.train_csv, args.val_csv, args.out, args.epochs,
+                     args.batch_size, args.lr, mesh_spec=args.mesh,
+                     device=device)
     else:
         p.error("nothing to do: pass --train-csv, --generate-db, or "
                 "--search-*")

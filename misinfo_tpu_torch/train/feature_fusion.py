@@ -77,11 +77,12 @@ def feature_fusion_forward(params: Dict, batch: Dict,
 
 
 def make_feature_fusion_step(tx, det_cfg: DetectorConfig, policy: Policy):
-    def loss_fn(params, batch, gen):
-        logits, _, _ = feature_fusion_forward(params, batch, det_cfg, policy,
-                                              gen=gen, deterministic=False)
-        return (cross_entropy(logits, batch["labels"]),
-                binary_accuracy(logits, batch["labels"]))
+    def loss_fn(axis, rows, batches, gens):
+        logits = axis.gather([feature_fusion_forward(
+            p, b, det_cfg, policy, gen=g, deterministic=False)[0]
+            for p, b, g in zip(rows, batches, gens)])
+        labels = axis.gather([b["labels"] for b in batches])
+        return cross_entropy(logits, labels), binary_accuracy(logits, labels)
 
     return make_step(tx, loss_fn, "accuracy")
 

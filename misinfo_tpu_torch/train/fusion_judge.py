@@ -25,7 +25,7 @@ import torch
 
 from misinfo_tpu_torch.models.fusion import fusion_apply
 from misinfo_tpu_torch.train.harness import (
-    refuse_mesh, run_training, select_device)
+    multihost, placer, run_training, select_device, train_mesh)
 from misinfo_tpu_torch.train.losses import binary_accuracy, cross_entropy
 from misinfo_tpu_torch.train.optim import (
     OptimConfig, branch_mask, make_optimizer)
@@ -80,7 +80,6 @@ def train_on_scores(score_vectors: np.ndarray, labels: np.ndarray,
                     epochs: int = 10, batch_size: int = 16, lr: float = 1e-3,
                     mesh_spec: Optional[str] = None, log=print,
                     device="cuda"):
-    refuse_mesh(mesh_spec)
     device = torch.device(device)
     # own the params: the steps update in place, and the caller's tree is
     # often a live engine's
@@ -96,6 +95,9 @@ def train_on_scores(score_vectors: np.ndarray, labels: np.ndarray,
                                     warmup_fraction=0.0, total_steps=steps,
                                     clip_norm=None),
                         trainable_mask=branch_mask(params, ["fusion"]))
+    # '--mesh data=N': plain data parallelism over the score matrix
+    mesh, params, device = train_mesh(mesh_spec, params, batch_size, device)
+    place = placer(mesh, device)
     opt_state = tx.init(params)
     step = make_fusion_step(tx)
 
@@ -103,8 +105,8 @@ def train_on_scores(score_vectors: np.ndarray, labels: np.ndarray,
         idx = rng.permutation(train_idx)
         for s in range(0, len(idx) - batch_size + 1, batch_size):
             chunk = idx[s:s + batch_size]
-            yield batch_to({"score_vectors": score_vectors[chunk],
-                            "labels": labels[chunk]}, device)
+            yield place({"score_vectors": score_vectors[chunk],
+                         "labels": labels[chunk]})
 
     val = batch_to({"vecs": score_vectors[val_idx],
                     "labels": labels[val_idx]}, device)
@@ -134,15 +136,14 @@ def train(csv_path: str, out_dir: str = "forensics_master_final",
           engine=None, epochs: int = 10, batch_size: int = 16,
           lr: float = 1e-3, max_samples: Optional[int] = None,
           mesh_spec: Optional[str] = None, log=print, device="cuda"):
-    refuse_mesh(mesh_spec)
     if engine is None:
         from misinfo_tpu_torch.engine.forensics import MisinfoForensics
         engine = MisinfoForensics(device=device)
     rows = load_fusion_csv(csv_path, max_samples)
     vectors, labels = precompute_scores(engine, rows, log=log)
     return train_on_scores(vectors, labels, engine.params, out_dir,
-                           epochs, batch_size, lr, log=log,
-                           device=engine.device)
+                           epochs, batch_size, lr, mesh_spec=mesh_spec,
+                           log=log, device=engine.device)
 
 
 def test_fusion_model(engine=None,
@@ -171,18 +172,20 @@ def main(argv=None):
     p.add_argument("--max-samples", type=int, default=None)
     p.add_argument("--test", action="store_true")
     p.add_argument("--mesh", default=None,
-                   help="device mesh for training (not ported: M17b)")
+                   help="device mesh for training, e.g. 'data=8' or "
+                        "'data=4,model=2' (across processes: init_multihost's "
+                        "env vars)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)
-    refuse_mesh(args.mesh)
-    device = select_device(args.device)
+    device = select_device(args.device, args.mesh)
     if args.test:
-        test_fusion_model(device=device)
-    else:
-        train(args.csv, args.out, epochs=args.epochs,
-              batch_size=args.batch_size, lr=args.lr,
-              max_samples=args.max_samples, device=device)
+        return test_fusion_model(device=device)
+    with multihost():
+        return train(args.csv, args.out, epochs=args.epochs,
+                     batch_size=args.batch_size, lr=args.lr,
+                     max_samples=args.max_samples, mesh_spec=args.mesh,
+                     device=device)
 
 
 if __name__ == "__main__":

@@ -8,10 +8,18 @@ step's dropout masks from one ``torch.Generator`` seeded with ``seed`` on
 the tree's device, reads each step's metrics (device tensors) once per
 epoch, and keeps a copy of the best epoch's tree: the steps update the
 tree in place.
+
+Over a mesh (``train_mesh``) the tree is a ``TrainParams``: eval runs on
+the first local replica, the best tree and the checkpoints are the
+gathered plain tree and optimizer state, and in a run of several
+processes process 0 writes the checkpoint while the others wait at a
+barrier. Every process evaluates the same replica bits on the same
+rows, so all of them take the same best epoch and stop together.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, Optional
@@ -19,7 +27,11 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from misinfo_tpu_torch import not_ported
+from misinfo_tpu_torch.core.mesh import (
+    apply_device_override, init_multihost, place_train_batch, process_index,
+    setup_train_mesh, shutdown_multihost)
+from misinfo_tpu_torch.parallel.sharding import TrainParams
+from misinfo_tpu_torch.train.steps import batch_to
 from misinfo_tpu_torch.utils.tree import clone_tree, tree_device
 
 
@@ -103,7 +115,9 @@ def run_training(
     epoch_callback: Optional[Callable] = None,  # (epoch, metrics) -> bool; False = prune
     log: Callable[[str], None] = print,
 ) -> TrainResult:
-    gen = torch.Generator(tree_device(params)).manual_seed(seed)
+    mesh = isinstance(params, TrainParams)
+    gen = torch.Generator(params.devices[0] if mesh
+                          else tree_device(params)).manual_seed(seed)
     best = np.inf if select_mode == "min" else -np.inf
     best_epoch = -1
     patience = 0
@@ -125,7 +139,8 @@ def run_training(
         train_metrics = {k: float(v) / max(1, n_batches)
                          for k, v in running.items()}
 
-        eval_metrics = eval_fn(params) if eval_fn else {}
+        eval_metrics = (eval_fn(params.rows[0] if mesh else params)
+                        if eval_fn else {})
         all_metrics = {**{f"train_{k}": v for k, v in train_metrics.items()},
                        **{f"val_{k}": v for k, v in eval_metrics.items()}}
         all_metrics["epoch"] = epoch
@@ -147,8 +162,13 @@ def run_training(
         improved = (current < best) if select_mode == "min" else (current > best)
         if improved:
             best, best_epoch, patience = current, epoch, 0
-            best_params = clone_tree(params)
-            if checkpoint_fn:
+            best_params = params.gather() if mesh else clone_tree(params)
+            if checkpoint_fn and mesh:
+                if process_index() == 0:
+                    checkpoint_fn(best_params, opt_state.gather(), epoch,
+                                  all_metrics)
+                params.axis.barrier()
+            elif checkpoint_fn:
                 checkpoint_fn(params, opt_state, epoch, all_metrics)
         else:
             patience += 1
@@ -190,25 +210,57 @@ def eval_batches(batches_fn, n_items: int, batch_size: int):
 
 # ------------------------------------------------ the trainers' preamble
 
-def refuse_mesh(mesh_spec: Optional[str]) -> None:
-    """Training over a device mesh is not ported (M17b): refuse it by name."""
-    if mesh_spec:
-        not_ported(f"mesh_spec / --mesh {mesh_spec} (training over a "
-                   "device mesh)", "M17b")
-
-
-def select_device(device: str = "auto") -> torch.device:
+def select_device(device: str = "auto",
+                  mesh_spec: Optional[str] = None) -> torch.device:
     """A trainer's ``--device``: ``auto`` and ``cuda`` mean the card and
     raise where there is none (no silent fall back to the CPU); ``cpu``
-    only when asked for."""
+    only when asked for. With ``--mesh`` it provisions the mesh's entries
+    as JAX's mains do (``apply_device_override(device, mesh_spec)``:
+    ``--device cpu --mesh data=8`` gives eight ``cpu`` entries)."""
     if device not in ("auto", "cuda", "cpu"):
         raise ValueError(f"--device {device!r}: expected auto, cuda or cpu")
+    if mesh_spec:
+        apply_device_override(device, mesh_spec)
     if device == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(f"--device {device}: no CUDA device is available "
                            "(pass --device cpu to train on the CPU)")
     return torch.device("cuda")
+
+
+def train_mesh(mesh_spec: Optional[str], params, batch_size: int,
+               device: torch.device):
+    """``setup_train_mesh`` over entries of ``device``'s type (``cpu``
+    entries for ``device="cpu"``, as ``--device cpu --mesh``); returns
+    ``(mesh, params, device)`` with the first local position's device,
+    or ``(None, params, device)`` unchanged without a spec."""
+    if not mesh_spec:
+        return None, params, device
+    apply_device_override(torch.device(device).type, mesh_spec)
+    mesh, params = setup_train_mesh(mesh_spec, params, batch_size)
+    return mesh, params, params.devices[0]
+
+
+def placer(mesh, device) -> Callable[[Dict], Dict]:
+    """A host batch → the step's input: ``place_train_batch`` under a
+    mesh, else tensors on ``device``."""
+    if mesh is not None:
+        return lambda b: place_train_batch(mesh, b)
+    return lambda b: batch_to(b, device)
+
+
+@contextlib.contextmanager
+def multihost():
+    """A trainer CLI's ``init_multihost()`` (a no-op without the
+    ``JAX_*`` or ``MISINFO_TPU_MULTIHOST`` env hints); a group it opened
+    is closed on the way out."""
+    opened = init_multihost()
+    try:
+        yield
+    finally:
+        if opened:
+            shutdown_multihost()
 
 
 def own_params(params, det_cfg, device):

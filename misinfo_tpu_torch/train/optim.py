@@ -93,11 +93,13 @@ class OptState:
     """AdamW state over a tree's trainable leaves: the leaves themselves
     (updated in place), their paths, the moments and the step count."""
 
-    def __init__(self, tx: "Optimizer", params):
+    def __init__(self, tx: "Optimizer", params, pairs=None):
         self.tx = tx
         mask = (None if tx.trainable_mask is None
                 else dict(leaves_with_paths(tx.trainable_mask)))
-        pairs = [(p, t) for p, t in leaves_with_paths(params)
+        if pairs is None:
+            pairs = leaves_with_paths(params)
+        pairs = [(p, t) for p, t in pairs
                  if isinstance(t, torch.Tensor) and (mask is None or mask[p])]
         self.paths: List[tuple] = [p for p, _ in pairs]
         self.leaves: List[torch.Tensor] = [t for _, t in pairs]
@@ -127,16 +129,61 @@ class OptState:
         self.count = int(state["count"])
 
 
+class MeshOptState:
+    """AdamW state over a tree placed for training on a mesh
+    (parallel/sharding.py::``TrainParams``): one ``OptState`` a local
+    replica, over its leaves with split pieces apart (a piece's path is
+    its unsplit leaf's, for the mask). The gradients reach every replica
+    summed over ``data`` (train/steps.py), so each replica's clip sees
+    the global norm and every replica ends the step with the same bits.
+    ``gather()`` is the state over the plain tree (a checkpoint's)."""
+
+    def __init__(self, tx: "Optimizer", params):
+        from misinfo_tpu_torch.parallel.sharding import replica_leaves
+        self.tx = tx
+        self.params = params
+        self.states = [OptState(tx, row, [(p, t) for p, _, t
+                                          in replica_leaves(row)])
+                       for row in params.rows]
+
+    def gather(self) -> OptState:
+        """The first replica's state over the plain tree: split leaves'
+        moments put back whole, on the first position's device."""
+        from misinfo_tpu_torch.parallel.sharding import merge_pieces
+        s0 = self.states[0]
+        dev = self.params.devices[0]
+
+        def merged(ts):
+            return merge_pieces([(p, 0, t) for p, t in zip(s0.paths, ts)],
+                                dev)
+        st = OptState.__new__(OptState)
+        st.tx = self.tx
+        pairs = merged(s0.leaves)
+        st.paths = [p for p, _ in pairs]
+        st.leaves = [t for _, t in pairs]
+        st.m = [t for _, t in merged(s0.m)]
+        st.v = [t for _, t in merged(s0.v)]
+        st.count = s0.count
+        return st
+
+    def state_dict(self) -> Dict:
+        return self.gather().state_dict()
+
+
 class Optimizer:
-    """The transformation: ``init(params)`` → ``OptState``;
-    ``update(grads, state)`` applies one step in place."""
+    """The transformation: ``init(params)`` → ``OptState`` (a
+    ``MeshOptState`` for a tree placed on a mesh); ``update(grads,
+    state)`` applies one step in place."""
 
     def __init__(self, cfg: OptimConfig, trainable_mask=None):
         self.cfg = cfg
         self.trainable_mask = trainable_mask
         self.schedule = make_schedule(cfg)
 
-    def init(self, params) -> OptState:
+    def init(self, params):
+        from misinfo_tpu_torch.parallel.sharding import TrainParams
+        if isinstance(params, TrainParams):
+            return MeshOptState(self, params)
         return OptState(self, params)
 
     @torch.no_grad()

@@ -29,7 +29,8 @@ from misinfo_tpu_torch.preprocess.tokenizer import (
     load_clip_tokenizer, load_roberta_tokenizer)
 from misinfo_tpu_torch.train.datasets import MisinfoDataset, Sample
 from misinfo_tpu_torch.train.harness import (
-    own_params, refuse_mesh, run_training, select_device, split_train_val)
+    multihost, own_params, placer, run_training, select_device,
+    split_train_val, train_mesh)
 from misinfo_tpu_torch.train.losses import binary_accuracy, cross_entropy
 from misinfo_tpu_torch.train.optim import (
     OptimConfig, branch_mask, make_optimizer)
@@ -81,7 +82,6 @@ def train(csv_path: str, out_dir: str = "roberta_detective_best",
           head: str = "misinfo_head", freeze_backbone: bool = False,
           precision: str = "bfloat16", pack: bool = False,
           mesh_spec: Optional[str] = None, log=print, device="cuda"):
-    refuse_mesh(mesh_spec)
     det_cfg = det_cfg or DetectorConfig()
     # training keeps HF-exact erf GELU even in bf16
     policy = Policy(PrecisionConfig(compute_dtype=precision, gelu_mode="erf"))
@@ -110,6 +110,10 @@ def train(csv_path: str, out_dir: str = "roberta_detective_best",
         OptimConfig(lr=lr, weight_decay=0.01, warmup_fraction=0.1,
                     total_steps=steps_per_epoch * epochs, clip_norm=1.0),
         trainable_mask=branch_mask(params, trainable))
+    # '--mesh data=N[,model=M]': a replica a data position, the batch's
+    # rows split over them, gradients summed over data (core/mesh.py)
+    mesh, params, device = train_mesh(mesh_spec, params, batch_size, device)
+    place = placer(mesh, device)
     opt_state = tx.init(params)
     if pack:
         # perf mode: ragged sequences packed into batch_size rows of
@@ -130,7 +134,7 @@ def train(csv_path: str, out_dir: str = "roberta_detective_best",
                    for b in train_ds.batches(batch_size,
                                              drop_remainder=True))
         for b in prefetch(gen):
-            yield batch_to(b, device)
+            yield place(b)
 
     def val_batches():
         from misinfo_tpu_torch.train.harness import eval_batches
@@ -164,14 +168,17 @@ def main(argv=None):
     p.add_argument("--pack", action="store_true",
                    help="sequence-packed batches (perf mode)")
     p.add_argument("--mesh", default=None,
-                   help="device mesh for training (not ported: M17b)")
+                   help="device mesh for training, e.g. 'data=8' or "
+                        "'data=4,model=2' (across processes: init_multihost's "
+                        "env vars)")
     p.add_argument("--device", choices=["auto", "cpu", "cuda"],
                    default="auto")
     args = p.parse_args(argv)
-    refuse_mesh(args.mesh)
-    train(args.csv, args.out, args.epochs, args.batch_size, args.lr,
-          args.max_len, max_samples=args.max_samples, pack=args.pack,
-          device=select_device(args.device))
+    device = select_device(args.device, args.mesh)
+    with multihost():
+        return train(args.csv, args.out, args.epochs, args.batch_size,
+                     args.lr, args.max_len, max_samples=args.max_samples,
+                     pack=args.pack, mesh_spec=args.mesh, device=device)
 
 
 if __name__ == "__main__":

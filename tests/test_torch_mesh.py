@@ -105,21 +105,38 @@ def test_mesh_grid_repeats_devices_and_defaults(monkeypatch):
     assert t_mesh.pad_to_multiple(5, 4) == j_mesh.pad_to_multiple(5, 4) == 8
 
 
-def test_train_and_multihost_entry_points_refuse_as_m17b(monkeypatch):
+def test_init_multihost_single_process_noop(monkeypatch):
+    """No arguments and no env hints: the single-process no-op, as JAX's
+    (tests/test_multichip.py::test_init_multihost_single_process_noop);
+    no group is opened. A spec's absence leaves the tree as it is."""
+    import torch.distributed as dist
     for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
               "JAX_PROCESS_ID", "MISINFO_TPU_MULTIHOST"):
         monkeypatch.delenv(k, raising=False)
     assert t_mesh.init_multihost() is False
+    assert not dist.is_initialized()
     assert t_mesh.setup_train_mesh(None, {"a": 1}, 4) == (None, {"a": 1})
-    with pytest.raises(NotImplementedError, match="M17b"):
-        t_mesh.init_multihost("localhost:1234", 2, 0)
-    monkeypatch.setenv("MISINFO_TPU_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="M17b"):
-        t_mesh.init_multihost()
-    with pytest.raises(NotImplementedError, match="M17b"):
-        t_mesh.setup_train_mesh("data=2", {}, 4)
-    with pytest.raises(NotImplementedError, match="M17b"):
-        t_mesh.place_train_batch(object(), {})
+    with pytest.raises(ValueError, match="process_id not given"):
+        t_mesh.init_multihost("localhost:1234", 2)
+
+
+def test_what_stays_in_one_process_is_refused_as_m17c():
+    """A model group across processes, and serving over a mesh with
+    positions in another process, are refused by name (ROADMAP.md M17c);
+    a mesh whose positions are all this process's is local."""
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    with pytest.raises(NotImplementedError, match="M17c"):
+        t_mesh.Mesh([["cpu", "cpu"]], ranks=[[0, 1]])
+    two = t_mesh.Mesh([["cpu"], ["cpu"]], ranks=[[0], [1]])
+    assert two.multiprocess and two.local_data == [0]
+    with pytest.raises(NotImplementedError, match="M17c"):
+        MisinfoForensics(mesh=two, device="cpu")
+    with pytest.raises(NotImplementedError, match="M17c"):
+        WhisperTranscriber(mesh=two, device="cpu")
+    one = t_mesh.make_mesh(MeshConfig(data=2), devices=["cpu"] * 2)
+    assert not one.multiprocess and one.local_data == [0, 1]
+    one.require_local("serving")
 
 
 # ------------------------------------------------------------ sharding

@@ -11,8 +11,8 @@ package's on generated rows, tiny configs, f32.
   parity here: tests/test_torch_train_steps.py holds the step), the AI-head
   recipe, the native median-pruner search, the vault builder and search
   (equal to JAX's), the feature-fusion forward (equal to JAX's) and demo;
-- ``--mesh`` / ``mesh_spec`` refused by name (M17b), ``--device cuda``
-  refused without a card.
+- a ``--mesh`` the CLI cannot build refused, ``--device cuda`` refused
+  without a card (training over a mesh: tests/test_torch_trainers_mesh.py).
 """
 
 import dataclasses
@@ -334,20 +334,19 @@ def test_feature_fusion_forward_equals_jax():
     (t_cifake.main, ["--cifake-root", "x"]),
     (t_clip.main, ["--train-csv", "x.csv"]),
     (t_fj.main, ["--csv", "x.csv"])])
-def test_trainer_cli_refuses_mesh_and_missing_card(main, argv):
-    with pytest.raises(NotImplementedError, match="M17"):
-        main(argv + ["--mesh", "data=2"])
+def test_trainer_cli_refuses_mesh_and_missing_card(main, argv, monkeypatch):
+    """A mesh the CLI cannot build is refused before any training: a bad
+    spec by name, and without a card a mesh of cards; ``--device
+    cuda|auto`` raise without a card. (Training over a mesh runs:
+    tests/test_torch_trainers_mesh.py.)"""
+    from misinfo_tpu_torch.core import mesh as t_mesh
+    monkeypatch.setattr(t_mesh, "_platform", t_mesh._platform)
+    monkeypatch.setattr(t_mesh, "_num_cpu_devices", t_mesh._num_cpu_devices)
+    with pytest.raises(ValueError, match="bad mesh spec"):
+        main(argv + ["--device", "cpu", "--mesh", "pipeline=2"])
     if not torch.cuda.is_available():
         for dev in ("cuda", "auto"):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 main(argv + ["--device", dev])
-
-
-def test_trainers_refuse_mesh_spec():
-    for fn, args in ((t_rd.train, ("x.csv",)), (t_clip.train, ("x.csv",)),
-                     (t_cifake.train, ("x",)), (t_ai.train, ("x.csv",))):
-        with pytest.raises(NotImplementedError, match="M17"):
-            fn(*args, mesh_spec="data=2")
-    with pytest.raises(NotImplementedError, match="M17"):
-        t_fj.train_on_scores(np.zeros((4, 5), np.float32),
-                             np.zeros(4, np.int32), {}, mesh_spec="data=2")
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(argv + ["--device", dev, "--mesh", "data=2"])
