@@ -5,10 +5,10 @@
 
 Phases (any failure exits non-zero before the result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the ten kernel sources in parallel, one nvcc each
+  2. build the eleven kernel sources in parallel, one nvcc each
      (misinfo_tpu_torch/csrc/{int8_ffn,int8_dense,fused_attention,
      layer_norm,fused_ffn,self_attn_step,cross_ffn_step,
-     cross_ffn_step_i8cc,layer_step,int4_sims}.cu);
+     cross_ffn_step_i8cc,layer_step,int4_sims,flash_attention}.cu);
   3. K1 (int8 FFN) against its plain PyTorch version on the card through
      misinfo_tpu_torch/ops/kernel_checks.py at the main path's three
      shapes (RoBERTa, CLIP text, CLIP vision; B = 3, the kernel's split
@@ -321,6 +321,30 @@ Phases (any failure exits non-zero before the result line):
      twice, one checkpoint directory written by rank 0 alone, the engine
      booted from it; (c) --mesh data=2 in one process refused ("mesh 2x1
      != 1 devices"). ``--only 31`` runs phase 31 alone;
+ 32. (after phases 16-17) use_pallas="flash": (a) K11 (flash attention
+     over segment ids, csrc/flash_attention.cu) against its plain version
+     through ops/kernel_checks.py::check_flash, bf16 and f32, at RoBERTa
+     b32/S512 (H = 12, D = 64) on packed rows (ragged requests and a
+     padding tail), the padded form and packed causal rows, at S = 128
+     (one key tile, JAX's single-step form) and B = 8 at S = 2,048: within
+     the band of the roundings of acc ± its error bound, with planted
+     faults (each key tile left out, the einsum path's kv_seg > 0 rule,
+     the alpha rescale dropped, p rounded on the other side of 1/l, the
+     causal mask one column late, sm_scale dropped) outside; CUDA-event
+     ms and device µs at b32/S512 packed and padded and at S = 2,048
+     beside the bound, its plain version and scaled_dot_product_attention
+     with the equivalent boolean mask; (b) engine III,
+     MisinfoForensics(use_pallas="flash") at full width with quant "auto"
+     (K1 on the FFNs) and phase 4's seeded weights and vault: one
+     analyze() of a 300-word request, the b32/S512 batch (dense rows) and
+     a ragged b32 batch with pack_text=True, each launching K11 12, K3 24
+     (CLIP's text and vision, JAX's fall-through below 128 tokens) and K1
+     36 times; the batches' scores within 0.05 of K11's plain version and
+     of the default engine, verdicts printed; a CUDA-graph engine III
+     warmed for the b32 signature, both batches replayed under sync debug
+     "error" bit for bit the eager engine's, K11 12 per replay; b32
+     verdicts/s beside the default engine's (printed). ``--only 32`` runs
+     phase 32 alone;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -329,8 +353,9 @@ kernel's device µs; K1 and K2 at the b32/S512 shapes and one request's
 beside torch._int_mm of the same integer products; K5 at the towers'
 b32/S512 shapes, one RoBERTa request and Whisper decode rows beside
 cuBLAS's two bf16 products; K10a/K10b at 1,048,576 rows for B = 1, 8, 32,
-64 beside torch._int_mm over unpacked rows; ``--kernels`` picks among
-attention, layer_norm, decode, i8cc_layer, int8, ffn and int4, where
+64 beside torch._int_mm over unpacked rows; K11 at b32/S512 packed and
+padded and at S = 2,048 beside SDPA; ``--kernels`` picks among
+attention, layer_norm, decode, i8cc_layer, int8, ffn, int4 and flash, where
 i8cc_layer times K8 and K9 alone at B = 1, 4, 32, K9's rows with the
 device µs of the two calls it replaces, K6b → K7b, on the same inputs)
 as JSON lines, with
@@ -4046,6 +4071,205 @@ def opt_in_engines(default, vault_path, b32, image, rng, card,
     return launches
 
 
+# ------------------------------------------ flash attention (phase 32)
+
+# phase 32 (a): K11 against its plain version, (B, S, H, layout, causal),
+# bf16 and f32 (ops/kernel_checks.py::flash_case: "packed" ragged
+# requests with a padding tail, "padded" the mask form)
+FLASH_CHECKS = ((32, 512, 12, "packed", False),
+                (32, 512, 12, "padded", False),
+                (32, 512, 12, "packed", True),
+                (32, 128, 12, "packed", False),
+                (8, 2048, 12, "packed", False))
+# its times: (name, B, S, H, layout, causal); the first is the kernels
+# line's row
+FLASH_TIMES = (("roberta_b32_packed", 32, 512, 12, "packed", False),
+               ("roberta_b32_padded", 32, 512, 12, "padded", False),
+               ("s2048_packed", 8, 2048, 12, "packed", False))
+
+
+def flash_work(case):
+    """(bytes, operations) of one bf16 K11 call on ``case``: q, k, v, the
+    output and the segment ids each moved once; 4·D operations per (query,
+    key) pair of the key tiles its blocks of 128 queries walk (the data
+    decides which: flash_attention.walked_tiles)."""
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    q, k, v, qs, ks = (case[n] for n in ("q", "k", "v", "q_seg", "kv_seg"))
+    B, S, H, D = q.shape
+    tiles = K11.walked_tiles(qs, ks, case["causal"], S, k.shape[1])
+    pairs = int(tiles.sum()) * (B if qs is None else 1) * 128 * 128
+    return nbytes(q, k, v, q, qs, ks), 4 * D * H * pairs
+
+
+def flash_times(card, reps=20):
+    """K11 (bf16) at FLASH_TIMES' shapes beside its plain version and
+    scaled_dot_product_attention with the equivalent boolean mask (the
+    port never calls it): CUDA-event ms, the kernel's device µs, the
+    bound; printed as JSON lines and returned by shape."""
+    import torch.nn.functional as F
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    rows = {}
+    for name, B, S, H, layout, causal in FLASH_TIMES:
+        c = KC.flash_case(B, S, H, layout, causal, torch.bfloat16)
+        q, k, v, qs, ks = (c[n] for n in ("q", "k", "v", "q_seg", "kv_seg"))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        seen = K11.visible(qs, ks, causal, S, S, q.device)
+        seen = None if seen is None else seen[:, None].contiguous()
+        kernel = (lambda q=q, k=k, v=v, qs=qs, ks=ks, causal=causal:
+                  K11.flash_attention(q, k, v, qs, ks, causal))
+        row = {"ms": cuda_ms(kernel, reps),
+               "plain_ms": cuda_ms(lambda: K11.flash_attention_plain(
+                   q, k, v, qs, ks, causal), 3),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=seen), reps),
+               "device_us": device_us(kernel, 10)[0],
+               **bound(*flash_work(c), "bf16")}
+        print(json.dumps({"kernel": "flash_attention", "shape": name,
+                          "B": B, "S": S, "H": H, "layout": layout,
+                          "causal": causal, **row, "card": card}),
+              flush=True)
+        rows[name] = row
+    return rows
+
+
+def flash_checks(card):
+    """Phase 32 (a): K11 against its plain version on the card at
+    FLASH_CHECKS' shapes, bf16 and f32, within ops/kernel_checks.py's
+    band with every planted fault outside; then its times. Returns the
+    kernels line's row (the b32/S512 packed shape) and every shape's."""
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    errs = []
+    for dt in (torch.bfloat16, torch.float32):
+        for B, S, H, layout, causal in FLASH_CHECKS:
+            res = KC.check_flash(KC.flash_case(B, S, H, layout, causal, dt))
+            torch.cuda.synchronize()
+            errs.append(res["err"])
+            _report(f"flash_attention B={B} S={S} H={H} {layout} "
+                    f"causal={causal} {dt}", res, card)
+    times = flash_times(card)
+    return {"err": max(errs), **times[FLASH_TIMES[0][0]]}, times
+
+
+def flash_engine_phase(default, vault_path, b32, image, rng, card):
+    """Phase 32 (b): engine III, MisinfoForensics(use_pallas="flash") at
+    full width with quant "auto" (K1 still serves the FFNs) and phase 4's
+    seeded weights and vault: one analyze() of a 300-word request, the
+    b32/S512 batch (dense rows, K11's padded form) and a ragged b32 batch
+    with pack_text=True (packed rows, K11 over segment ids), each with
+    exact K11, K3 and K1 launch counts (JAX's gate: K11 on RoBERTa's rows
+    of 512, one a layer; K3 on CLIP's 77 and 50, the fall-through); the
+    batches' scores within 0.05 of the same engine with K11's plain
+    version and of the default engine, verdicts printed; a second engine
+    III with CUDA graphs, warmup() of the b32 signature, the b32 batch
+    replayed (and the packed batch captured at first use, then replayed)
+    under sync debug "error", packed outputs bit for bit engine III's
+    eager ones, K11's launches per replay equal to eager's; b32 verdicts/s
+    beside the default engine's (printed only). Returns K11's launches in
+    the counted runs."""
+    from misinfo_tpu_torch.core.config import ForensicsConfig
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    from misinfo_tpu_torch.ops import fused_attention as K3
+    from misinfo_tpu_torch.ops import int8_ffn as K1
+    mods = {"flash_attention": K11, "fused_attention": K3, "int8_ffn": K1}
+    cfg = ForensicsConfig(verbose=False)
+    cfg = cfg.replace(paths=dataclasses.replace(cfg.paths,
+                                                vault_path=vault_path))
+    packed_cfg = cfg.replace(serving=dataclasses.replace(cfg.serving,
+                                                         pack_text=True))
+    eng = MisinfoForensics(cfg, DetectorConfig(), use_pallas="flash",
+                           device="cuda", cuda_graphs=False)
+    what = "engine III (use_pallas='flash')"
+    if eng.quant != "int8_ffn":
+        raise AssertionError(f"{what}: quant resolved to {eng.quant}")
+    det = eng.det_cfg
+    want = {"flash_attention": det.roberta.num_layers,
+            "fused_attention": det.clip.text_layers + det.clip.vision_layers,
+            "int8_ffn": PER_PROGRAM["full"]}
+    text = words(rng, 300)
+    ragged = [{"text": words(rng, int(n)), "image": image}
+              for n in rng.integers(5, 300, 32)]
+    eng.analyze(text, image, verbose=False)          # build, warm up
+    torch.cuda.synchronize()
+    runs = (("analyze", lambda: [eng.analyze(text, image, verbose=False)]),
+            ("b32", lambda: eng.analyze_batch(b32)),
+            ("packed b32", lambda: eng.analyze_batch(ragged)))
+    counts, reports, flash_launches = {}, {}, 0
+    for run, fn in runs:
+        with swapped(*([(eng, "cfg", packed_cfg)] if run == "packed b32"
+                       else [])):
+            for m in mods.values():
+                m.launches = 0          # this path's run starts here
+            reports[run] = fn()
+            torch.cuda.synchronize()
+            counts[run] = {n: m.launches for n, m in mods.items()}
+        flash_launches += counts[run]["flash_attention"]
+        check_reports(reports[run], f"{what} {run}")
+    print(f"{what}: launches {counts} (want {want} each run) [{card}]",
+          flush=True)
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"{what}: launch counts off")
+
+    keys = ("ai_score", "misinfo_score", "deepfake_score", "clip_similarity",
+            "fake_probability")
+
+    def drift(a, b):
+        return max(abs(x["scores"][k] - y["scores"][k])
+                   for x, y in zip(a, b) for k in keys)
+    for run, reqs in (("b32", b32), ("packed b32", ragged)):
+        swaps = [(eng, "cfg", packed_cfg)] if run == "packed b32" else []
+        with swapped(*swaps, (K11, "flash_attention",
+                              K11.flash_attention_plain)):
+            plain = eng.analyze_batch(reqs)
+        base = default.analyze_batch(reqs)
+        d_plain, d_default = (drift(reports[run], plain),
+                              drift(reports[run], base))
+        print(f"{what} {run}: max score drift against K11's plain version "
+              f"{d_plain}, against the default engine {d_default} (limit "
+              f"0.05); verdicts "
+              + "".join("F" if r["verdict"] else "R" for r in reports[run])
+              + f" (default engine "
+              + "".join("F" if r["verdict"] else "R" for r in base)
+              + f") [{card}]", flush=True)
+        if not (d_plain < 0.05 and d_default < 0.05):
+            raise AssertionError(f"{what} {run}: scores drift")
+
+    graphed = MisinfoForensics(cfg, DetectorConfig(), use_pallas="flash",
+                               device="cuda")
+    sigs = graphed.warmup(batch_sizes=(32,), text_buckets=(512,),
+                          variants=("full",), videos=())
+    for run, reqs in (("b32", b32), ("packed b32", ragged)):
+        swaps = [(e, "cfg", packed_cfg) for e in (eng, graphed)
+                 if run == "packed b32"]
+        with swapped(*swaps):
+            K11.launches = 0
+            want_out, _ = dispatch_outputs(eng, reqs)
+            torch.cuda.synchronize()
+            eager_n = K11.launches
+            if run == "packed b32":
+                dispatch_outputs(graphed, reqs)      # captured at first use
+            K11.launches = 0
+            got, _ = dispatch_outputs(graphed, reqs, "error")
+            torch.cuda.synchronize()
+            replay_n = K11.launches
+        same = same_bits(got, want_out)
+        print(f"{what} with CUDA graphs, {run}: warmed {sigs}; replay "
+              f"{'==' if same else '!='} eager; K11 launches per replay "
+              f"{replay_n}, eager {eager_n} [{card}]", flush=True)
+        if not same or replay_n != eager_n:
+            raise AssertionError(f"{what} {run}: graph replay differs from "
+                                 "eager")
+    vps = {"engine III": verdicts_per_s(eng, b32),
+           "engine III graphs": verdicts_per_s(graphed, b32),
+           "default": verdicts_per_s(default, b32)}
+    print("b32/S512 verdicts/s: " + ", ".join(
+        f"{k} {v}" for k, v in vps.items()) + f" [{card}]", flush=True)
+    del eng, graphed
+    return flash_launches
+
+
 def storage_report(tree):
     """(bytes of the distinct storages a param tree holds, int8 kernels);
     raises unless every ``kernel_q``'s transpose is contiguous."""
@@ -5229,6 +5453,31 @@ def mesh_transcript_phase(weights, cfg, card):
 _START = time.perf_counter()
 
 
+def only_flash() -> int:
+    """``--only 32``: phase 32 alone, on phase 4's default engine, vault and
+    b32/S512 requests (no result lines)."""
+    from misinfo_tpu_torch.core.config import ForensicsConfig
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    card = card_line()
+    print(card, flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    vault_path = os.path.join(tmp, "vault.npz")
+    make_vault(vault_path)
+    cfg = ForensicsConfig(verbose=False)
+    cfg = cfg.replace(paths=cfg.paths.__class__(vault_path=vault_path))
+    engine = MisinfoForensics(cfg, DetectorConfig(), device="cuda",
+                              cuda_graphs=False)
+    rng = np.random.default_rng(2)
+    image = rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
+    b32 = [{"text": words(rng, 400 + i), "image": image} for i in range(32)]
+    flash_checks(card)
+    flash_engine_phase(engine, vault_path, b32, image, rng, card)
+    stamp("32")
+    shutil.rmtree(tmp)
+    return 0
+
+
 def stamp(what: str) -> None:
     """The script's wall seconds so far, after phase ``what``."""
     print(f"[{time.perf_counter() - _START:.1f} s] after phase {what}",
@@ -5246,13 +5495,14 @@ def main() -> int:
                     help="with --times: also time the K4 of the tree at "
                     "DIR, interleaved with this tree's")
     ap.add_argument("--kernels",
-                    default="attention,layer_norm,decode,int8,ffn,int4",
+                    default="attention,layer_norm,decode,int8,ffn,int4,flash",
                     help="with --times: which kernels to time, a comma list "
                     "of attention, layer_norm, decode, i8cc_layer, int8, ffn, "
-                    "int4")
-    ap.add_argument("--only", choices=["31"],
-                    help="run phase 31 alone (training over meshes of the "
-                    "card) and stop there, without the result lines")
+                    "int4, flash")
+    ap.add_argument("--only", choices=["31", "32"],
+                    help="run phase 31 (training over meshes of the card) or "
+                    "phase 32 (flash attention) alone and stop there, "
+                    "without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5268,6 +5518,8 @@ def main() -> int:
         stamp("31")
         shutil.rmtree(tmp)
         return 0
+    if args.only == "32":
+        return only_flash()
     if args.times:
         card = card_line()
         print(card, flush=True)
@@ -5286,11 +5538,14 @@ def main() -> int:
             ffn_times(card)
         if "int4" in which:
             int4_times(card)
+        if "flash" in which:
+            flash_times(card)
         return 0
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
     from misinfo_tpu_torch.models.detector import DetectorConfig
     from misinfo_tpu_torch.ops import cross_ffn_step as K7
+    from misinfo_tpu_torch.ops import flash_attention as K11
     from misinfo_tpu_torch.ops import fused_attention as K3
     from misinfo_tpu_torch.ops import fused_ffn as K5
     from misinfo_tpu_torch.ops import int8_dense as K2
@@ -5303,7 +5558,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)                                   # phase 1
     build_all([(m, "_library", "build_log")                   # phase 2
-               for m in (K1, K2, K3, K5, K6, K7, K9, K10)]
+               for m in (K1, K2, K3, K5, K6, K7, K9, K10, K11)]
               + [(K3, "_ln_library", "ln_build_log"),
                  (K7, "_library_i8cc", "build_log_i8cc")])
     stamp("2")
@@ -5407,6 +5662,10 @@ def main() -> int:
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17
                                   image, rng, card, args.profile)
     stamp("16-17")
+    flash_row, _ = flash_checks(card)                         # phase 32 (a)
+    flash_launches = flash_engine_phase(engine, vault_path,   # phase 32 (b)
+                                        b32, image, rng, card)
+    stamp("32")
     decode_rows = check_decode_kernels(K6, K7)                # phase 5
     decode_step_times(card)
     decode_rows["cross_ffn_step_i8cc"] = check_i8cc_kernel(K7, card)    # 19
@@ -5486,6 +5745,13 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "misinfo_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "launches": flash_launches, "max_abs_err": flash_row["err"],
+        **{k: flash_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}})
     row = qkv_rows["roberta_b32"]
     kernels.append({
         "name": "int8_dense_qkv", "route": "cuda",

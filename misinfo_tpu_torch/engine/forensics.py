@@ -30,7 +30,9 @@ bfloat16, int8, int4 with its ``<vault>.int4.npz`` sidecar) and
 The opt-in kernel modes are carried: ``PrecisionConfig.quant="int8"``
 (every large dense in int8: the int8 dense kernel K2 from 256 rows, the
 fused int8 FFN K1), ``use_pallas=True`` (the fused attention kernel K3
-on unpacked rows) and ``use_pallas="ffn"`` (the fused FFN kernel K5).
+on unpacked rows), ``use_pallas="flash"`` (the flash attention kernel K11
+on RoBERTa's rows of 128 tokens and more, packed or padded; K3 on CLIP's)
+and ``use_pallas="ffn"`` (the fused FFN kernel K5).
 
 Each group runs through a runner of its signature (ops/graphs.py), the
 counterpart of the JAX engine's jit caches: (variant, batch bucket, text
@@ -69,8 +71,7 @@ on its own device (engine/signals.py::mesh_program). Programs over a mesh
 run eagerly: no CUDA graphs (the numbers are the same).
 
 Not carried, and refused with NotImplementedError: the AOT cache (the
-runners play its role) and ``use_pallas="flash"`` (JAX's library TPU
-kernel).
+runners play its role).
 """
 
 from __future__ import annotations
@@ -182,12 +183,9 @@ class MisinfoForensics:
                        else torch.device(device))
         self.policy = Policy(self.cfg.precision)
         sv = self.cfg.serving
-        if use_pallas == "flash":
-            not_ported("use_pallas='flash' (JAX's library TPU flash-attention "
-                       "kernel, not this repository's code)", "queue 2, K3")
-        if use_pallas not in (False, True, "ffn"):
+        if use_pallas not in (False, True, "ffn", "flash"):
             raise ValueError(f"use_pallas={use_pallas!r}: expected False, "
-                             "True or 'ffn'")
+                             "True, 'ffn' or 'flash'")
         self.use_pallas = use_pallas
         if sv.aot_cache:
             not_ported("serving.aot_cache", "M15")

@@ -7,7 +7,8 @@ bias, NHWC at the public function), class token, learned positions,
 pre/post LayerNorm and a bias-free ``visual_projection``. Int8-quantized
 FFNs run through the fused int8 FFN (ops/int8_ffn.py, quick mode);
 ``use_pallas`` selects the fused FFN (``"ffn"``) or fused attention
-(``True``) kernels as in models/roberta.py. Under a mesh's model axis
+(``True``; also ``"flash"``, whose gate CLIP's 77 and 50 tokens shut)
+kernels as in models/roberta.py. Under a mesh's model axis
 the blocks' attention and FFN pieces are ``ModelSplit``s
 (parallel/tensor.py) and run split over the group.
 """

@@ -7,7 +7,9 @@ mask, CLS pooling into the ``ai_head`` / ``misinfo_head`` MLPs
 and ``segment_ids`` (block-diagonal attention). Int8-quantized FFNs run
 through the fused int8 FFN (ops/int8_ffn.py); ``use_pallas="ffn"`` runs
 the other FFNs through the fused FFN kernel (ops/fused_ffn.py) and keeps
-the einsum attention, ``use_pallas=True`` the fused attention kernel.
+the einsum attention, ``use_pallas=True`` the fused attention kernel,
+``use_pallas="flash"`` the flash attention kernel on rows of 128 tokens
+and more (ops/attention.py's gate).
 Under a mesh's model axis the attention and FFN pieces are
 ``ModelSplit``s (parallel/tensor.py) and run split over the group.
 Training (``deterministic=False``) applies hidden dropout to the

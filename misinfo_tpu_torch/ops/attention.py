@@ -5,9 +5,13 @@ einsum attention: scores materialised in ``policy.score`` dtype with an
 f32 softmax (``scaled_dot_product_attention`` is deliberately not used:
 it rounds in other places than the reference). ``use_pallas=True`` runs
 the fused attention kernel K3 (ops/fused_attention.py) wherever rows are
-not packed, as the JAX package does; ``use_pallas="flash"`` selects JAX's
-library TPU flash-attention kernel there, which is not this repository's
-code, and is refused. A fused ``qkv`` param dict (serving's
+not packed, as the JAX package does. ``use_pallas="flash"`` runs the flash
+attention kernel K11 (ops/flash_attention.py, JAX's library TPU kernel's
+counterpart) where JAX's gate opens: S ≥ 128, S a multiple of 128 and
+S == S_kv; packed rows pass their segment ids as both query and key ids,
+padded rows all-ones query ids and the mask as key ids. Where the gate
+shuts, "flash" takes JAX's fall-through: K3 without segment ids, else the
+einsum path. A fused ``qkv`` param dict (serving's
 ``fuse_qkv_params``) runs one [D, 3D] product and splits its output. A
 ``ModelSplit`` runs over a model group (parallel/tensor.py). A non-f32
 ``policy.accum`` rounds the context product to it, as JAX's
@@ -21,9 +25,9 @@ from typing import Dict, Optional
 
 import torch
 
-from misinfo_tpu_torch import not_ported
 from misinfo_tpu_torch.ops.common import (
     DEFAULT_POLICY, Policy, check_accum, dense, dense_init)
+from misinfo_tpu_torch.ops import flash_attention as K11
 from misinfo_tpu_torch.ops import fused_attention as K3
 from misinfo_tpu_torch.parallel.tensor import ModelSplit, row_dense
 
@@ -71,10 +75,6 @@ def multi_head_attention(
     The positional order is JAX's. ``params`` may be a ``ModelSplit``
     (parallel/tensor.py): each position of the model group attends with
     its heads and the ``o`` partials are summed before the bias."""
-    if use_pallas == "flash":
-        not_ported("use_pallas='flash' (JAX's library TPU flash-attention "
-                   "kernel, not this repository's code; use_pallas=True "
-                   "runs the fused attention kernel)", "queue 2, K3")
     hd = x.shape[-1] // num_heads
     if isinstance(params, ModelSplit):
         heads = num_heads // len(params)
@@ -112,6 +112,16 @@ def _context(params, x, heads, hd, mask, causal, kv, policy, use_pallas,
         q = dense(params["q"], x, policy).reshape(B, S, heads, hd)
         k = dense(params["k"], kv, policy).reshape(B, S_kv, heads, hd)
         v = dense(params["v"], kv, policy).reshape(B, S_kv, heads, hd)
+    if use_pallas == "flash" and S >= 128 and S % 128 == 0 and S == S_kv:
+        # JAX's gate for its library flash kernel, and its segment ids
+        q_seg = kv_seg = None
+        if segment_ids is not None:
+            q_seg = kv_seg = segment_ids.to(torch.int32).contiguous()
+        elif mask is not None:
+            q_seg = torch.ones(B, S, dtype=torch.int32, device=x.device)
+            kv_seg = mask.to(torch.int32).contiguous()
+        return K11.flash_attention(q, k, v, q_seg, kv_seg, causal=causal,
+                                   sm_scale=1.0 / hd ** 0.5).reshape(B, S, W)
     if use_pallas and segment_ids is None:
         check_accum(policy, "the fused attention kernel K3")
         return K3.fused_attention(q, k, v, mask=mask,

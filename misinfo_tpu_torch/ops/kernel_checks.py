@@ -85,6 +85,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from misinfo_tpu_torch.ops import fused_attention as K3
+from misinfo_tpu_torch.ops import flash_attention as K11
 from misinfo_tpu_torch.ops import fused_ffn as K5
 from misinfo_tpu_torch.ops import int8_dense as K2
 from misinfo_tpu_torch.ops import int8_ffn as K1
@@ -96,6 +97,7 @@ from misinfo_tpu_torch.ops.serving import kmajor
 
 PLANT = 16.0            # score of a planted key
 PAIR = 40.125           # a bf16 rounding boundary: 40.0 and 40.25 round apart
+FLASH_PAIR = (24.0, 1.1)    # K11's pairs: a key at 24, its partner 1.1 lower
 KEY_TILE = 64           # keys per tile of csrc/fused_attention.cu
 BAND_K5 = {torch.bfloat16: 2.0 ** -12, torch.float32: 2.0 ** -16}
 
@@ -520,3 +522,175 @@ def check_ffn(case: Dict) -> Dict:
     return hold(got, want, band, ffn_faults(case),
                 f"fused_ffn M={x.shape[0]} K={w1.shape[0]} N={w1.shape[1]} "
                 f"{x.dtype} mode={mode}")
+
+
+# ------------------------------------------------------ K11 flash attention
+
+def flash_case(B: int, S: int, H: int, layout: str, causal: bool,
+               dtype=torch.bfloat16, seed: int = 0, device="cuda",
+               D: int = 64) -> Dict:
+    """Seeded q, k, v [B, S, H, D] and segment ids in one of three
+    layouts: "packed" (ragged requests of 16-200 tokens with ids 1, 2, ...
+    and a padding tail of segment 0, a different length per row, none in
+    row 0), "padded" (the padded form: q_seg all 1, kv_seg a padding mask
+    with a different valid length per row) or "none" (no segment ids).
+    Planted, in every 128-key tile of each row: key t0 + 10 (the last
+    seen key where that is padding) aimed at its own query (score PLANT);
+    pairs of keys o − 1, o aimed at query o at scores 22.9 and 24 with
+    value o − 1 zeroed, for o = t0 + 30, 50, 70 (the output is then
+    v_o·1/l, l ≈ 1.33, whose bf16 rounding sits anywhere between two
+    steps); causal, key t0 + 91 aimed at query t0 + 90 (visible one
+    column late)."""
+    gen = _gen(seed * 7919 + S + 1)
+    q, k, v = (torch.randn(B, S, H, D, generator=gen) for _ in range(3))
+    q_seg = kv_seg = None
+    seen = torch.ones(B, S)            # keys some query sees
+    if layout == "packed":
+        seg = torch.zeros(B, S, dtype=torch.int32)
+        for b in range(B):
+            end = S - (b * 53) % max(S // 4, 1)
+            pos, sid = 0, 1
+            while pos < end:
+                n = int(torch.randint(16, 201, (1,), generator=gen))
+                seg[b, pos:min(end, pos + n)] = sid
+                pos, sid = pos + n, sid + 1
+        q_seg = kv_seg = seg
+    elif layout == "padded":
+        valid = [S - (b * 37) % max(S // 3, 1) for b in range(B)]
+        kv_seg = torch.zeros(B, S, dtype=torch.int32)
+        for b, n in enumerate(valid):
+            kv_seg[b, :n] = 1
+            seen[b, n:] = 0
+        q_seg = torch.ones(B, S, dtype=torch.int32)
+    elif layout != "none":
+        raise ValueError(f"flash_case: layout {layout!r}")
+
+    def aim(b, key, query, score=PLANT):
+        qv = q[b, query]                              # [H, D]
+        k[b, key] = (score * math.sqrt(D) * qv
+                     / (qv * qv).sum(-1, keepdim=True))
+
+    hi, gap = FLASH_PAIR
+    for b in range(B):
+        n = int(seen[b].sum())
+        for t0 in range(0, S, K11.BLOCK):
+            j = min(t0 + 10, n - 1) if layout == "padded" else t0 + 10
+            aim(b, j, j)
+            for o in (t0 + 30, t0 + 50, t0 + 70):
+                aim(b, o - 1, o, hi - gap)
+                aim(b, o, o, hi)
+                v[b, o - 1] = 0.0
+            if causal:
+                aim(b, t0 + 91, t0 + 90)
+    cast = (lambda t: t.to(dtype).to(device))
+    seg = (lambda t: None if t is None else t.to(device))
+    return {"q": cast(q), "k": cast(k), "v": cast(v), "q_seg": seg(q_seg),
+            "kv_seg": seg(kv_seg), "causal": causal, "layout": layout,
+            "seen": seen.to(device)}
+
+
+def _flash_args(case: Dict):
+    return tuple(case[n] for n in ("q", "k", "v", "q_seg", "kv_seg",
+                                   "causal"))
+
+
+def flash_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
+    """The wrong kernels that differ from K11's function at this case:
+    each key tile that holds a key some query sees, left out; the einsum
+    path's ``kv_seg > 0`` rule (where some query is in segment 0); alpha
+    taken as 1 (more than one key tile); in bf16, p rounded on the other
+    side of the 1/l multiply; causal, the mask one column late; sm_scale
+    dropped."""
+    q, k, v, qs, ks, causal = _flash_args(case)
+    S_kv = k.shape[1]
+    nt = S_kv // K11.BLOCK
+
+    def run(**fault):
+        return K11.flash_core(q, k, v, qs, ks, causal, fault=fault)["out"]
+    out = []
+    seen = case["seen"].amax(0)
+    for t in range(nt):
+        t0 = t * K11.BLOCK
+        if bool(seen[t0:t0 + K11.BLOCK].any()):
+            out.append((f"key tile {t0}..{t0 + K11.BLOCK - 1} left out",
+                        run(skip=(t,))))
+    if qs is not None and bool((qs == 0).any()):
+        out.append(("the einsum path's kv_seg > 0 rule", run(rule="einsum")))
+    if nt > 1:
+        out.append(("alpha rescale dropped", run(no_alpha=True)))
+    if q.dtype == torch.bfloat16:
+        out.append(("p rounded before the divide" if nt == 1 else
+                    "p rounded after the 1/l multiply",
+                    run(swap_round=True)))
+    if causal:
+        out.append(("causal mask one column late", run(shift=1)))
+    out.append(("sm_scale dropped", run(no_scale=True)))
+    return out
+
+
+def flash_band(case: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the plain output, K11's band around it), elementwise [B, S, H, D].
+
+    The kernel's f32 accumulator differs from the plain version's by at
+    most E (below); its output is that accumulator rounded to q's dtype,
+    so it lies between the roundings of acc ± E, and the band is the
+    distance from the plain output to the farther of the two. Where E is
+    far from a rounding boundary of the output the band is (nearly) 0:
+    the kernel must then give the plain output exactly.
+
+    E = 2·Σ_j p_j·|v_j|·(γ·(A_j + A*) + (2·S_kv + 8·nt + 8)·2^-24
+    + 2^-7·[p_j near a bf16 boundary]), p_j the weight of key j in the
+    output, A_j = Σ_d|q_d·k_jd|·scale (A* its row's largest) and
+    γ = (D + 2)·2^-24: a D-term f32 score is off by at most γ·A_j, which
+    moves exp(s − m) by γ·(A_j + A*) of itself with the max's error; the
+    softmax and P·V sums (any order, tensor-core sums included), the
+    rescale at each of the nt key tiles (and at each tile the kernel
+    leaves out, l·(1/l)) and exp's last bits add the second term. In bf16
+    each p is rounded to bf16 before it meets V (after the divide in the
+    single-step form), and where the plain p lies within its own error
+    bound of a rounding boundary the kernel's may round to the other
+    side: one bf16 step, at most 2^-7 of p. The factor 2 is margin. The
+    band takes the kernel's key tile to be JAX's block of 128: with
+    another tile the running max, and with it the rounding of every p,
+    would move by more than these bounds."""
+    q, k, v, qs, ks, causal = _flash_args(case)
+    D, S_kv = q.shape[-1], k.shape[1]
+    nt = S_kv // K11.BLOCK
+    scale = 1.0 / math.sqrt(D)
+    r = K11.flash_core(q, k, v, qs, ks, causal, keep=True)
+    u = 2.0 ** -24
+    gamma = (D + 2) * u
+    A = torch.matmul(q.float().abs().permute(0, 2, 1, 3),
+                     k.float().abs().permute(0, 2, 3, 1)) * scale
+    mask = K11.visible(qs, ks, causal, q.shape[1], S_kv, q.device)
+    if mask is not None:
+        A = torch.where(mask[:, None], A, 0.0)
+    a_max = A.amax(-1, keepdim=True)
+    p = r["p"]
+    va = v.float().abs().permute(0, 2, 1, 3)                # [B, H, S_kv, D]
+    pv = torch.matmul(p, va)
+    E = gamma * (torch.matmul(p * A, va) + a_max * pv) \
+        + (2 * S_kv + 8 * nt + 8) * u * pv
+    if q.dtype == torch.bfloat16:
+        pre = r["p_pre"]
+        delta = 2 * (gamma * (A + a_max)
+                     + u * ((r["s"] - r["m"]).abs() + S_kv + 8))
+        near = ((pre * (1 - delta)).to(torch.bfloat16)
+                != (pre * (1 + delta)).to(torch.bfloat16))
+        E = E + 2.0 ** -7 * torch.matmul(p * near, va)
+    E = 2 * E
+    acc, want = r["acc"], r["out"].float()
+    gap = torch.maximum(
+        ((acc + E).to(q.dtype).float().permute(0, 2, 1, 3) - want).abs(),
+        ((acc - E).to(q.dtype).float().permute(0, 2, 1, 3) - want).abs())
+    return r["out"], gap + torch.finfo(torch.float32).tiny
+
+
+def check_flash(case: Dict) -> Dict:
+    q, k, v, qs, ks, causal = _flash_args(case)
+    got = K11.flash_attention(q, k, v, qs, ks, causal)
+    want, band = flash_band(case)
+    B, S, H, _ = q.shape
+    return hold(got, want, band, flash_faults(case),
+                f"flash_attention B={B} S={S} H={H} {q.dtype} "
+                f"{case['layout']} causal={causal}")

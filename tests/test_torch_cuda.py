@@ -54,7 +54,11 @@ outside them. Serving's fused QKV (N = 3D): K2 bit for bit its plain
 version and the three unfused launches; K3 on q, k and v cut from one
 [B, S, 3·H·64] output (copied out contiguous; the strided views are
 refused); the fused attention layer equal to the unfused one bit for bit
-under int8, with and without K3.
+under int8, with and without K3. K11 (flash attention over segment ids,
+``use_pallas="flash"``) is held to its plain version within that
+module's band (the roundings of acc ± its error bound) with its planted
+faults outside, on packed rows with a padding tail, the padded form,
+causal rows, one key tile and S = 2,048.
 
 Training (misinfo_tpu_torch/train/): an f32 text step on the card against
 the same step on the CPU at a small width (loss within 1e-4 relative, the
@@ -72,6 +76,7 @@ import torch
 
 from misinfo_tpu_torch.ops import cross_ffn_step as K7
 from misinfo_tpu_torch.ops import decode_checks as DC
+from misinfo_tpu_torch.ops import flash_attention as K11
 from misinfo_tpu_torch.ops import fused_attention as K3
 from misinfo_tpu_torch.ops import fused_ffn as K5
 from misinfo_tpu_torch.ops import int8_dense as K2
@@ -474,6 +479,36 @@ def test_fused_attention_kernel_matches_plain(card, dtype, B, S, H, mask,
     KC.check_attention(KC.attention_case(B, S, H, mask, causal, dtype))
     torch.cuda.synchronize()
     assert K3.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,layout,causal", [
+    (32, 512, 12, "packed", False), (32, 512, 12, "padded", False),
+    (32, 512, 12, "packed", True), (32, 128, 12, "packed", False),
+    (8, 2048, 12, "packed", False), (4, 256, 12, "none", True)])
+def test_flash_attention_kernel_matches_plain(card, dtype, B, S, H, layout,
+                                              causal):
+    before = K11.launches
+    KC.check_flash(KC.flash_case(B, S, H, layout, causal, dtype))
+    torch.cuda.synchronize()
+    assert K11.launches == before + 1
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_run(card):
+    c = KC.flash_case(2, 256, 4, "packed", False)
+    q, k, v, qs, ks = (c[n] for n in ("q", "k", "v", "q_seg", "kv_seg"))
+    with pytest.raises(ValueError):                   # head dim 32
+        K11.flash_attention(q.reshape(2, 256, 8, 32), k.reshape(2, 256, 8, 32),
+                            v.reshape(2, 256, 8, 32), qs, ks)
+    with pytest.raises(ValueError):                   # f16
+        K11.flash_attention(q.half(), k.half(), v.half(), qs, ks)
+    with pytest.raises(ValueError):                   # 200 queries
+        K11.flash_attention(q[:, :200].contiguous(), k, v)
+    with pytest.raises(ValueError):                   # int64 segment ids
+        K11.flash_attention(q, k, v, qs.long(), ks.long())
+    with pytest.raises(ValueError):                   # strided q
+        K11.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v, qs, ks)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])

@@ -72,6 +72,17 @@ def test_int8_mode_matches_jax(tmp_path, monkeypatch):
             == j_eng.memory_report()["params_bytes"])
 
 
-def test_flash_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="flash"):
-        build_engines(tmp_path, "float32", "none", False, use_pallas="flash")
+def test_flash_mode_below_its_gate_matches_jax(tmp_path, monkeypatch):
+    """``use_pallas="flash"`` at DetectorConfig.tiny()'s rows (32 tokens,
+    below JAX's 128) takes JAX's fall-through: K3 on every unpacked row,
+    the einsum attention on packed ones, K11 never (its gate opens in
+    tests/test_torch_flash_attention.py)."""
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    j_eng, t_eng = build_engines(tmp_path, "float32", "none", False,
+                                 use_pallas="flash")
+    assert t_eng.use_pallas == "flash"
+    k3 = _count(monkeypatch, K3, "fused_attention_plain")
+    k11 = _count(monkeypatch, K11, "flash_attention_plain")
+    a, b = run_both(j_eng, t_eng, monkeypatch)
+    assert (len(k3), len(k11)) == (6 + 2, 0)
+    assert_close(a, b, 1e-4)

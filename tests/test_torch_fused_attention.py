@@ -116,11 +116,25 @@ def test_attention_use_pallas_matches_jax(kind, monkeypatch):
     assert len(calls) == (0 if kind == "segments" else 1)
 
 
-def test_flash_is_refused_by_name():
-    x = torch.zeros(1, 4, 256)
-    p = {n: {"kernel": torch.zeros(256, 256)} for n in "qkvo"}
-    with pytest.raises(NotImplementedError, match="flash"):
-        t_attn.multi_head_attention(p, x, 4, use_pallas="flash")
+@pytest.mark.parametrize("S,k11,k3", [(128, 1, 0), (9, 0, 1)])
+def test_flash_mode_takes_jax_gate(S, k11, k3, monkeypatch):
+    """``use_pallas="flash"`` runs the flash kernel K11 where JAX's gate
+    opens (S ≥ 128, a multiple of 128) and K3 below it, as JAX falls
+    through (tests/test_torch_flash_attention.py holds both to JAX)."""
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    x = torch.randn(1, S, 256, generator=torch.Generator().manual_seed(S))
+    p = {n: {"kernel": torch.eye(256)} for n in "qkvo"}
+    calls = {}
+    for mod, name in ((K11, "flash_attention_plain"),
+                      (K3, "fused_attention_plain")):
+        plain = getattr(mod, name)
+        calls[name] = []
+        monkeypatch.setattr(mod, name, lambda *a, _c=calls[name], _p=plain,
+                            **kw: _c.append(1) or _p(*a, **kw))
+    out = t_attn.multi_head_attention(p, x, 4, use_pallas="flash")
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert (len(calls["flash_attention_plain"]),
+            len(calls["fused_attention_plain"])) == (k11, k3)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
