@@ -326,7 +326,9 @@ Phases (any failure exits non-zero before the result line):
      through ops/kernel_checks.py::check_flash, bf16 and f32, at RoBERTa
      b32/S512 (H = 12, D = 64) on packed rows (ragged requests and a
      padding tail), the padded form and packed causal rows, at S = 128
-     (one key tile, JAX's single-step form) and B = 8 at S = 2,048: within
+     (one key tile, JAX's single-step form), B = 8 at S = 2,048 and B = 3
+     at S = 384 with H = 5, packed and causal (a unit count that is no
+     multiple of the SMs, odd heads): within
      the band of the roundings of acc ± its error bound, with planted
      faults (each key tile left out, the einsum path's kv_seg > 0 rule,
      the alpha rescale dropped, p rounded on the other side of 1/l, the
@@ -363,8 +365,8 @@ whatever misinfo_tpu_torch is first on sys.path: run from another tree's
 root with ``python -c "import runpy, sys; sys.argv = ['chip_smoke.py',
 '--times']; runpy.run_path(PATH, run_name='__main__')"`` it times that
 tree's kernels. ``--parent DIR``
-also times the K4 source of the tree at DIR, interleaved with this
-tree's.
+also times the K4 and K11 sources of the tree at DIR, interleaved with
+this tree's.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds. ``--profile FILE``
 also writes torch.profiler tables of the b32 batch (default engine and
@@ -3737,19 +3739,26 @@ LN_CHECKS = ((LN_ROWS, LN_D), (4096, 512), (4096, 1024), (4096, 1280),
              (4096, 1000), (4096, 1001))
 
 
-def _parent_layer_norm(root: str):
-    """The K4 library of the tree at ``root`` (its csrc/layer_norm.cu built
-    beside this tree's libraries), as a callable with fused_layer_norm's
-    arguments."""
+def _parent_library(root: str, name: str):
+    """The library of csrc/<name>.cu in the tree at ``root``, built with
+    this tree's nvcc flags beside this tree's libraries."""
     import ctypes
     from misinfo_tpu_torch.ops import cuda_build as CB
-    src = os.path.join(root, "misinfo_tpu_torch", "csrc", "layer_norm.cu")
-    so = CB.BUILD_DIR / "parent_layer_norm.so"
+    src = os.path.join(root, "misinfo_tpu_torch", "csrc", f"{name}.cu")
+    tag = hashlib.sha256(os.path.abspath(root).encode()).hexdigest()[:8]
+    so = CB.BUILD_DIR / f"parent_{name}_{tag}.so"
     CB.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     subprocess.run([nvcc, *CB.NVCC_FLAGS, "-I", os.path.dirname(src), "-o",
                     str(so), src], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+def _parent_layer_norm(root: str):
+    """The K4 of the tree at ``root``, as a callable with
+    fused_layer_norm's arguments."""
+    import ctypes
+    lib = _parent_library(root, "layer_norm")
     lib.layer_norm_launch.restype = ctypes.c_int
     lib.layer_norm_launch.argtypes = ([ctypes.c_void_p] * 4
                                       + [ctypes.c_int] * 2
@@ -4080,7 +4089,8 @@ FLASH_CHECKS = ((32, 512, 12, "packed", False),
                 (32, 512, 12, "padded", False),
                 (32, 512, 12, "packed", True),
                 (32, 128, 12, "packed", False),
-                (8, 2048, 12, "packed", False))
+                (8, 2048, 12, "packed", False),
+                (3, 384, 5, "packed", True))
 # its times: (name, B, S, H, layout, causal); the first is the kernels
 # line's row
 FLASH_TIMES = (("roberta_b32_packed", 32, 512, 12, "packed", False),
@@ -4101,14 +4111,45 @@ def flash_work(case):
     return nbytes(q, k, v, q, qs, ks), 4 * D * H * pairs
 
 
-def flash_times(card, reps=20):
+def _parent_flash(root: str):
+    """The K11 of the tree at ``root``, as a callable with flash_attention's
+    arguments (bf16, the same C entry)."""
+    import ctypes
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    lib = _parent_library(root, "flash_attention")
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+    def run(q, k, v, qs, ks, causal):
+        B, S, H, D = q.shape
+        out = torch.empty_like(q)
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if qs is None else qs.data_ptr(),
+            None if ks is None else ks.data_ptr(), out.data_ptr(), B, S, H,
+            k.shape[1], D, int(causal), 0, 1.0 / math.sqrt(D),
+            K11.MASK_VALUE, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent flash_attention launch failed: {err}")
+        return out
+    return run
+
+
+def flash_times(card, reps=20, parent=None):
     """K11 (bf16) at FLASH_TIMES' shapes beside its plain version and
     scaled_dot_product_attention with the equivalent boolean mask (the
-    port never calls it): CUDA-event ms, the kernel's device µs, the
-    bound; printed as JSON lines and returned by shape."""
+    port never calls it): CUDA-event ms, the kernel's device µs (the
+    median of three readings), the bound; with ``parent`` (another tree's
+    root) that tree's K11 too, its device µs read in turn with this
+    tree's (this, parent, parent, this, this, parent) and the largest
+    difference between the two outputs. Printed as JSON lines and
+    returned by shape."""
     import torch.nn.functional as F
     from misinfo_tpu_torch.ops import flash_attention as K11
     from misinfo_tpu_torch.ops import kernel_checks as KC
+    prev = _parent_flash(parent) if parent else None
     rows = {}
     for name, B, S, H, layout, causal in FLASH_TIMES:
         c = KC.flash_case(B, S, H, layout, causal, torch.bfloat16)
@@ -4118,12 +4159,26 @@ def flash_times(card, reps=20):
         seen = None if seen is None else seen[:, None].contiguous()
         kernel = (lambda q=q, k=k, v=v, qs=qs, ks=ks, causal=causal:
                   K11.flash_attention(q, k, v, qs, ks, causal))
+        runs = {"device_us": kernel}
+        extra = {}
+        if prev:
+            runs["parent_device_us"] = (
+                lambda q=q, k=k, v=v, qs=qs, ks=ks, causal=causal:
+                prev(q, k, v, qs, ks, causal))
+            extra["parent_max_abs_diff"] = (
+                kernel().float() - runs["parent_device_us"]().float()
+            ).abs().max().item()
+        us = {key: [] for key in runs}
+        for r in range(3):
+            for key in (runs if r % 2 == 0 else reversed(list(runs))):
+                us[key].append(device_us(runs[key], 10)[0])
         row = {"ms": cuda_ms(kernel, reps),
                "plain_ms": cuda_ms(lambda: K11.flash_attention_plain(
                    q, k, v, qs, ks, causal), 3),
                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, attn_mask=seen), reps),
-               "device_us": device_us(kernel, 10)[0],
+               **{key: _median(v) for key, v in us.items()},
+               **{f"{key}_runs": v for key, v in us.items()}, **extra,
                **bound(*flash_work(c), "bf16")}
         print(json.dumps({"kernel": "flash_attention", "shape": name,
                           "B": B, "S": S, "H": H, "layout": layout,
@@ -4131,6 +4186,13 @@ def flash_times(card, reps=20):
               flush=True)
         rows[name] = row
     return rows
+
+
+def _median(xs):
+    """The median of readings, None if any reading is None (device_us
+    gives None where the host fell behind the card)."""
+    from statistics import median
+    return None if None in xs else median(xs)
 
 
 def flash_checks(card):
@@ -5492,8 +5554,8 @@ def main() -> int:
     ap.add_argument("--times", action="store_true",
                     help="print only the redesigned kernels' times")
     ap.add_argument("--parent", metavar="DIR",
-                    help="with --times: also time the K4 of the tree at "
-                    "DIR, interleaved with this tree's")
+                    help="with --times: also time the K4 and K11 of the "
+                    "tree at DIR, interleaved with this tree's")
     ap.add_argument("--kernels",
                     default="attention,layer_norm,decode,int8,ffn,int4,flash",
                     help="with --times: which kernels to time, a comma list "
@@ -5539,7 +5601,7 @@ def main() -> int:
         if "int4" in which:
             int4_times(card)
         if "flash" in which:
-            flash_times(card)
+            flash_times(card, parent=args.parent)
         return 0
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics

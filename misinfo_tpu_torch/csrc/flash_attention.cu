@@ -18,25 +18,44 @@
 //
 // What bounds it on this card: at RoBERTa b32/S512 (H = 12, D = 64) the
 // work is 4·B·H·S²·D = 25.8 GFLOP on 100.7 MB of q/k/v/out (the segment
-// ids add 0.13 MB), so on the bf16 tensor cores (989 TFLOP/s) it is bound
-// by the bytes: 0.0301 ms at 3.35 TB/s, against 0.026 ms of tensor-core
-// time. The design keeps every byte it reads once per query tile: K and V
-// tiles are read by each of the S/128 query tiles of a (row, head), so the
-// device reads K and V S/128 times from L2 (4 at S = 512); the scores and
-// probabilities live in registers.
+// ids add 0.13 MB): 0.0301 ms of bytes at 3.35 TB/s, 0.026 ms on the bf16
+// tensor cores (989 TFLOP/s), and one precise expf per (query, key) pair
+// walked, up to 100.7 M, ~0.026 ms at 16 a clock an SM. The floors are
+// close together, so the kernel is bound by whichever of the three units
+// it leaves idle: a design that runs the products, the softmax's CUDA-
+// core and special-function work and the copies at once sits near the
+// largest floor, one that takes them in turn near their sum.
 //
-// bf16 (the serving type), on the tensor cores. One block per (query tile
-// of 128 rows, head, batch row), eight warps of sixteen query rows. Q·Kᵀ
-// and P·V are mma.sync.m16n8k16 bf16 products with f32 sums. Q stays in
-// registers as A fragments; K and V tiles of 128 keys (JAX's block_k, so
-// that the running max, and with it every rounding of p, is the library's)
-// are staged with cp.async together with the tile's key segment ids
-// (rows of 128 B, 16-byte chunks swizzled by row so that ldmatrix reads no
-// bank twice), double-buffered. One walk over the key tiles: per tile a
-// warp takes its rows' scores, the scale and the mask, the tile's row max
-// and the new running max, p = exp(s − m_next) and its row sum, then packs
-// p as bf16 A fragments of P·V (P never leaves registers), multiplies them
-// into V and folds the tile into the accumulator as
+// bf16 (the serving type): a warp-specialised, persistent kernel, one
+// block of 384 threads an SM, walking work units of one 128-row query
+// tile of one (batch row, head), the query tiles of a (row, head) next to
+// each other so that its K and V stay in L2.
+//   * The producer warpgroup (40 registers) plans each unit's key tiles
+//     (below) with ballots and prefix popcounts, then one thread copies
+//     them by TMA: q, k and v are viewed as [rows, H·128 bytes] tensor
+//     maps, a box of 128 rows × 128 bytes at column 128·h in the 128-byte
+//     swizzle. Q (with its 128 segment ids, a bulk copy) goes into one of
+//     two buffers once per unit, ahead of the unit; each key tile's K, V
+//     and segment ids into a ring of STAGES stages, each with a full and
+//     an empty mbarrier, the tile's index and "last" flag beside them.
+//   * Two consumer warpgroups (232 registers) own 64 rows each.
+//     S = Q·Kᵀ is four wgmma.m64n128k16 with both operands K-major in
+//     shared memory; P·V eight wgmma.m64n64k16 with P in registers (the S
+//     accumulator packed to bf16 in place is exactly the A fragment) and
+//     V read MN-major through the transpose bit (wgmma_bf16.cuh).
+//   * Overlap: a warpgroup issues tile i's Q·Kᵀ and tile i − 1's P·V
+//     together, then takes tile i's softmax while P·V runs, and folds
+//     P·V into the accumulator after; the two warpgroups take turns to
+//     issue (named barriers), so one's softmax runs under the other's
+//     products. The ring hands a stage back once both have done its P·V.
+//   * The grid is min(units, SMs) with blocks striding over the units;
+//     the producer loads the next unit's Q and first tiles while the
+//     consumers finish the current one, and the output leaves registers
+//     in 16-byte stores after a transpose inside each quad of lanes.
+// Per tile a warpgroup takes its rows' scores (the wgmma fragment: row
+// 16w + g and + 8, keys 8i + 2q and + 1), the scale and the mask, the
+// tile's row max over the quad and the new running max, p = exp(s −
+// m_next) and its row sum, and folds the tile into the accumulator as
 // acc·((alpha·l_prev)·(1/l_next)) + (P·V)·(1/l_next), JAX's order.
 //
 // Tiles are chosen before the walk, per query tile, into a list in shared
@@ -60,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_bf16.cuh"
+
 namespace {
 
 constexpr int HD = 64;          // the head width (every tower)
@@ -71,7 +92,8 @@ __device__ __forceinline__ float neg_inf() {
 }
 
 // Into `tiles` the key tiles that the block's rows [s0, s0 + rows) walk;
-// returns their count. sh holds four ints of scratch. Every thread calls it.
+// returns their count. sh holds four ints of scratch. Every thread calls it
+// (the f32 kernel; the bf16 producer builds the same list in parallel).
 __device__ int plan_tiles(const int* __restrict__ qseg,
                           const int* __restrict__ kvseg, int b, int S, int Skv,
                           int s0, int rows, int causal, int* tiles,
@@ -130,253 +152,403 @@ __device__ int plan_tiles(const int* __restrict__ qseg,
 
 // ------------------------------------------------ bf16: the tensor cores
 
-constexpr int TQ = 128;                 // query rows per block
-constexpr int TC_THREADS = 256;         // eight warps of sixteen rows
-constexpr int TILE_BYTES = KT * HD * 2; // one bf16 K or V tile (16 KB)
+constexpr int TQ = 128;                   // query rows per work unit
+constexpr int TC_THREADS = 384;           // producer + two consumer groups
+constexpr int STAGES = 4;                 // key tiles in the ring
+constexpr int TILE_BYTES = KT * HD * 2;   // a bf16 K or V tile, or Q: 16 KB
+constexpr int SEG_BYTES = KT * 4;         // a tile's segment ids
+constexpr int PLAN_BAR = 1;               // the producer's named barrier
+constexpr int TURN_BAR = 2;               // + c: consumer c's turn to issue
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
+// shared memory, from a 1024-byte aligned base
+constexpr int OFF_Q = 0;                                 // [2][TILE_BYTES]
+constexpr int OFF_K = OFF_Q + 2 * TILE_BYTES;            // [STAGES][TILE]
+constexpr int OFF_V = OFF_K + STAGES * TILE_BYTES;       // [STAGES][TILE]
+constexpr int OFF_KSEG = OFF_V + STAGES * TILE_BYTES;    // [STAGES][KT] int
+constexpr int OFF_QSEG = OFF_KSEG + STAGES * SEG_BYTES;  // [2][KT] int
+constexpr int OFF_HDR = OFF_QSEG + 2 * SEG_BYTES;        // [STAGES] int2
+constexpr int OFF_BAR = OFF_HDR + STAGES * 8;  // full, empty [STAGES],
+                                               // qfull, qempty [2]
+constexpr int OFF_RED = OFF_BAR + (2 * STAGES + 4) * 8;  // [4] int4
+constexpr int OFF_KEEP = OFF_RED + 4 * 16;               // [MAX_SKV/KT] u8
+constexpr int OFF_LIST = OFF_KEEP + MAX_SKV / KT;        // [MAX_SKV/KT] int
+constexpr int BF16_SMEM = 1024 + OFF_LIST + MAX_SKV / KT * 4;
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-// c += a·b, a 16×16 bf16 (row), b 16×8 bf16 (col), c 16×8 f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-// byte offset of 16-byte chunk c (of 8) in row r of a [KT][HD] bf16 tile
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * (HD * 2) + ((c ^ (r & 7)) << 4);
+
+// work unit u: a query tile of (batch row, head) bh = u / nq, the nq
+// tiles of a bh next to each other, their order turned by bh. A block
+// walks units G apart (G the grid); were the tile u % nq, G a multiple of
+// nq (132 of 4 at S = 512) would hand a block the same query tile every
+// time, and the tiles that walk every key tile (the padding tail's) to a
+// fixed quarter of the SMs.
+struct Unit {
+  int b, h, s0;
+};
+__device__ __forceinline__ Unit unit_of(int u, int nq, int H) {
+  const int bh = u / nq;
+  return {bh / H, bh % H, (u - bh * nq + bh) % nq * TQ};
 }
 
-size_t bf16_smem_bytes(int nt) {
-  return 4 * (size_t)TILE_BYTES + 2 * KT * sizeof(int) + 4 * sizeof(int) +
-         nt * (sizeof(int) + 1);
+// One online-softmax step of a consumer thread's rows r0 (elements 4i,
+// 4i + 1 of sc) and r0 + 8 (4i + 2, 4i + 3) over a key tile's scores sc
+// (key 8i + 2q + (e & 1) of the tile in sc[4i + e]): sc becomes p (p / l
+// in the single-step form); m, l move on; c = (alpha·l_prev)·(1/l_next)
+// and inv = 1/l_next. ksg: the tile's key segment ids; lim: r0 − (the
+// tile's first key + 2q), for the causal test.
+template <bool SEG, bool CAUSAL>
+__device__ __forceinline__ void softmax_step(float (&sc)[64], const int* ksg,
+                                             int qs0, int qs1, int lim,
+                                             float scale, float mask_value,
+                                             bool single, float (&m)[2],
+                                             float (&l)[2], float (&c)[2],
+                                             float (&inv)[2]) {
+  const int q4 = threadIdx.x & 3;
+  float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    int2 ks = make_int2(0, 0);
+    if constexpr (SEG)
+      ks = *reinterpret_cast<const int2*>(ksg + 8 * i + 2 * q4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * i + e];
+      if (scale != 1.f) x = __fmul_rn(x, scale);
+      bool seen = true;
+      if constexpr (SEG) seen = ((e & 1) ? ks.y : ks.x) == (e < 2 ? qs0 : qs1);
+      if constexpr (CAUSAL)
+        seen = seen && 8 * i + (e & 1) - 8 * (e >> 1) <= lim;
+      if (!seen) x = __fadd_rn(x, mask_value);
+      sc[4 * i + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float mn[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 2));
+    mn[r] = fmaxf(m[r], t);
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float p = expf(__fsub_rn(sc[i], mn[(i >> 1) & 1]));
+    sc[i] = p;
+    sum[(i >> 1) & 1] = __fadd_rn(sum[(i >> 1) & 1], p);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
+    t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, 2));
+    const float alpha = expf(__fsub_rn(m[r], mn[r]));
+    const float l_corr = __fmul_rn(alpha, l[r]);
+    const float l_next = __fadd_rn(t, l_corr);
+    inv[r] = l_next == 0.f ? 1.f : __fdiv_rn(1.f, l_next);
+    c[r] = __fmul_rn(l_corr, inv[r]);
+    m[r] = mn[r];
+    l[r] = l_next;
+  }
+  if (single) {
+    // the single-step form: p / l, rounded after the divide
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = __fdiv_rn(sc[i], l[(i >> 1) & 1]);
+  }
 }
 
-// q [B, S, H, 64], k/v [B, Skv, H, 64] bf16, qseg [B, S] / kvseg [B, Skv]
-// int32 or null, out [B, S, H, 64] bf16. Grid (S / 128, H, B), TC_THREADS
-// threads, bf16_smem_bytes(Skv / 128) dynamic shared memory.
+// acc = acc·c + o·inv (o alone in the single-step form), per row
+__device__ __forceinline__ void fold(float (&acc)[32], const float (&o)[32],
+                                     const float (&c)[2],
+                                     const float (&inv)[2], bool single) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    acc[i] = single ? o[i]
+                    : __fadd_rn(__fmul_rn(acc[i], c[r]),
+                                __fmul_rn(o[i], inv[r]));
+  }
+}
+
+// o = P (bf16, registers) · V (the tile at v_tile, MN-major)
+__device__ __forceinline__ void issue_pv(float (&o)[32],
+                                         const uint32_t (&p)[32],
+                                         uint32_t v_tile) {
+  const uint64_t dv = bf16w::mn_desc(v_tile, TILE_BYTES);
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk)
+    bf16w::wgmma_bf16_rs64(o, p + 4 * kk, dv + 128 * kk, kk > 0);
+}
+
+// q [B, S, H, 64] (mq), k/v [B, Skv, H, 64] (mk, mv) bf16 through their
+// tensor maps, qseg [B, S] / kvseg [B, Skv] int32 (SEG), out [B, S, H,
+// 64] bf16. Grid min(units, SMs), TC_THREADS threads, BF16_SMEM bytes of
+// dynamic shared memory; units = B·H·S/128.
+template <bool SEG, bool CAUSAL>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-flash_bf16(const __nv_bfloat16* __restrict__ q,
-           const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v, const int* __restrict__ qseg,
-           const int* __restrict__ kvseg, __nv_bfloat16* __restrict__ out,
-           int S, int H, int Skv, int causal, float scale, float mask_value) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ks = smem;                       // [2][TILE_BYTES]
-  unsigned char* vs = ks + 2 * TILE_BYTES;        // [2][TILE_BYTES]
-  int* segs = reinterpret_cast<int*>(vs + 2 * TILE_BYTES);  // [2][KT]
-  int* sh = segs + 2 * KT;                        // [4]
-  const int nt = Skv / KT;
-  int* tiles = sh + 4;                            // [nt]
-  unsigned char* keep = reinterpret_cast<unsigned char*>(tiles + nt);
-
-  const int s0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const size_t rs = (size_t)H * HD;             // row stride, elements
-  const __nv_bfloat16* kb = k + ((size_t)b * Skv * H + h) * HD;
-  const __nv_bfloat16* vb = v + ((size_t)b * Skv * H + h) * HD;
-  const int n_run = plan_tiles(qseg, kvseg, b, S, Skv, s0, TQ, causal,
-                               tiles, keep, sh);
-  const bool single = nt == 1;                  // JAX's single-step form
-
-  // stage the i-th listed tile's keys, values and key segment ids into
-  // buffer i & 1: 2 × 1,024 chunks of 16 bytes, eight per thread
-  auto stage = [&](int i) {
-    const int t = tiles[i], buf = i & 1;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c16 = tid + j * TC_THREADS, r = c16 >> 3, c = c16 & 7;
-      const size_t off = (size_t)(t * KT + r) * rs + c * 8;
-      cp_async16(smem_addr(ks + buf * TILE_BYTES) + swz(r, c), kb + off);
-      cp_async16(smem_addr(vs + buf * TILE_BYTES) + swz(r, c), vb + off);
+flash_bf16(const __grid_constant__ CUtensorMap mq,
+           const __grid_constant__ CUtensorMap mk,
+           const __grid_constant__ CUtensorMap mv,
+           const int* __restrict__ qseg, const int* __restrict__ kvseg,
+           __nv_bfloat16* __restrict__ out, int S, int H, int Skv, int units,
+           float scale, float mask_value) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = i8g::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t full0 = base + OFF_BAR, empty0 = full0 + 8 * STAGES;
+  const uint32_t qfull0 = empty0 + 8 * STAGES, qempty0 = qfull0 + 16;
+  int2* hdr = reinterpret_cast<int2*>(sm + OFF_HDR);
+  const int nq = S / TQ, nt = Skv / KT;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      i8g::mbar_init(full0 + 8 * s, 1);
+      i8g::mbar_init(empty0 + 8 * s, 8);      // the consumers' eight warps
     }
-    if (kvseg && tid < KT / 4)
-      cp_async16(smem_addr(segs + buf * KT + tid * 4),
-                 kvseg + (size_t)b * Skv + t * KT + tid * 4);
-    cp_commit();
-  };
-
-  // this warp's sixteen rows: r0 = s0 + 16·warp + g and r1 = r0 + 8; Q as
-  // the A fragments of four 16-wide k steps
-  const int r0 = s0 + warp * 16 + g, r1 = r0 + 8;
-  const __nv_bfloat16* qb = q + ((size_t)b * S * H + h) * HD + 2 * tq;
-  uint32_t qf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t* a0 =
-        reinterpret_cast<const uint32_t*>(qb + (size_t)r0 * rs + 16 * kk);
-    const uint32_t* a1 =
-        reinterpret_cast<const uint32_t*>(qb + (size_t)r1 * rs + 16 * kk);
-    qf[kk][0] = a0[0];
-    qf[kk][1] = a1[0];
-    qf[kk][2] = a0[4];
-    qf[kk][3] = a1[4];
+    for (int i = 0; i < 2; ++i) {
+      i8g::mbar_init(qfull0 + 8 * i, 1);
+      i8g::mbar_init(qempty0 + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  const int qs0 = qseg ? qseg[(size_t)b * S + r0] : 0;
-  const int qs1 = qseg ? qseg[(size_t)b * S + r1] : 0;
+  __syncthreads();
 
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
-  float acc[8][4];
+  if (wg == 0) {
+    // ---- the producer: plan each unit's key tiles, copy them in
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+    int4* red = reinterpret_cast<int4*>(sm + OFF_RED);
+    unsigned char* keep = sm + OFF_KEEP;
+    int* list = reinterpret_cast<int*>(sm + OFF_LIST);
+    uint32_t it = 0;                          // stages filled so far
+    int k = 0;                                // units begun
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+      const Unit w = unit_of(u, nq, H);
+      const int last = CAUSAL ? min(nt - 1, w.s0 / KT) : nt - 1;
+      int n = last + 1;
+      bool listed = false;
+      if constexpr (SEG) {
+        // the query tile's segment range, and whether every row sees its
+        // own position (a thread a row)
+        const int* qs = qseg + (size_t)w.b * S;
+        const int* ks = kvseg + (size_t)w.b * Skv;
+        const int r = w.s0 + t;
+        const int qv = qs[r];
+        const bool own = r < Skv && ks[r] == qv;
+        int lo = qv, hi = qv;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+        for (int o = 16; o > 0; o >>= 1) {
+          lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+          hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+        }
+        const int all = __all_sync(0xffffffffu, own);
+        if (lane == 0) red[warp] = make_int4(lo, hi, all, 0);
+        i8g::named_sync(PLAN_BAR, 128);
+        int qmin = red[0].x, qmax = red[0].y, anchored = red[0].z;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  stage(0);
-  for (int i = 0; i < n_run; ++i) {
-    if (i + 1 < n_run) {
-      stage(i + 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const int buf = i & 1, key0 = tiles[i] * KT;
-    const uint32_t kbase = smem_addr(ks + buf * TILE_BYTES);
-    const uint32_t vbase = smem_addr(vs + buf * TILE_BYTES);
-    const int* ksg = segs + buf * KT;
-
-    // scores: s[j] holds keys key0 + 8j + 2tq (+1) of rows r0 (elements
-    // 0, 1) and r1 (2, 3)
-    float s[16][4];
+        for (int i = 1; i < 4; ++i) {
+          qmin = min(qmin, red[i].x);
+          qmax = max(qmax, red[i].y);
+          anchored &= red[i].z;
+        }
+        if (anchored) {
+          // keep[j]: tile j's segment range meets the query tile's (a
+          // warp a tile, four ids a lane)
+          for (int j = warp; j <= last; j += 4) {
+            const int4 kv =
+                *reinterpret_cast<const int4*>(ks + j * KT + lane * 4);
+            int kmin = min(min(kv.x, kv.y), min(kv.z, kv.w));
+            int kmax = max(max(kv.x, kv.y), max(kv.z, kv.w));
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const int r = j * 8 + (lane & 7);
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(kbase + swz(r, 4 * p + (lane >> 3)), b0, b1, b2, b3);
-        mma_bf16(s[j], qf[2 * p], b0, b1);
-        mma_bf16(s[j], qf[2 * p + 1], b2, b3);
+            for (int o = 16; o > 0; o >>= 1) {
+              kmin = min(kmin, __shfl_xor_sync(0xffffffffu, kmin, o));
+              kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, o));
+            }
+            if (lane == 0) keep[j] = !(kmax < qmin || kmin > qmax);
+          }
+          i8g::named_sync(PLAN_BAR, 128);
+          if (warp == 0) {
+            // the kept tiles in order: 32 at a time, each lane's place
+            // the count of kept tiles below it
+            int m = 0;
+            for (int j0 = 0; j0 <= last; j0 += 32) {
+              const int j = j0 + lane;
+              const bool kj = j <= last && keep[j];
+              const unsigned bal = __ballot_sync(0xffffffffu, kj);
+              if (kj) list[m + __popc(bal & ((1u << lane) - 1))] = j;
+              m += __popc(bal);
+            }
+            n = m;
+            __syncwarp();
+          }
+          listed = true;
+        }
       }
-    }
-    float mx[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = 8 * j + 2 * tq + (e & 1), row = e < 2 ? r0 : r1;
-        float x = s[j][e];
-        if (scale != 1.f) x = __fmul_rn(x, scale);
-        const bool seen = (!kvseg || ksg[kl] == (e < 2 ? qs0 : qs1)) &&
-                          (!causal || key0 + kl <= row);
-        if (!seen) x = __fadd_rn(x, mask_value);
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      if (t == 0) {
+        const int qb = k & 1;
+        i8g::mbar_wait(qempty0 + 8 * qb, ((k >> 1) & 1) ^ 1);
+        i8g::mbar_expect_tx(qfull0 + 8 * qb,
+                            TILE_BYTES + (SEG ? SEG_BYTES : 0));
+        i8g::tma_load(base + OFF_Q + qb * TILE_BYTES, &mq, qfull0 + 8 * qb,
+                      w.h * HD * 2, w.b * S + w.s0);
+        if constexpr (SEG)
+          bulk_load(base + OFF_QSEG + qb * SEG_BYTES,
+                    qseg + (size_t)w.b * S + w.s0, SEG_BYTES,
+                    qfull0 + 8 * qb);
+        for (int i = 0; i < n; ++i, ++it) {
+          const int j = listed ? list[i] : i;
+          const int s = it % STAGES;
+          i8g::mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+          hdr[s] = make_int2(j, i == n - 1);
+          i8g::mbar_expect_tx(full0 + 8 * s,
+                              2 * TILE_BYTES + (SEG ? SEG_BYTES : 0));
+          const int row = w.b * Skv + j * KT;
+          i8g::tma_load(base + OFF_K + s * TILE_BYTES, &mk, full0 + 8 * s,
+                        w.h * HD * 2, row);
+          i8g::tma_load(base + OFF_V + s * TILE_BYTES, &mv, full0 + 8 * s,
+                        w.h * HD * 2, row);
+          if constexpr (SEG)
+            bulk_load(base + OFF_KSEG + s * SEG_BYTES, kvseg + (size_t)row,
+                      SEG_BYTES, full0 + 8 * s);
+        }
       }
-    float mn[2], inv[2], c[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float t = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 2));
-      mn[r] = fmaxf(m[r], t);
+      // red, keep and list are the next unit's once thread 0 is done
+      if constexpr (SEG) i8g::named_sync(PLAN_BAR, 128);
     }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(__fsub_rn(s[j][e], mn[e >> 1]));
-        s[j][e] = p;
-        sum[e >> 1] = __fadd_rn(sum[e >> 1], p);
+  } else {
+    // ---- the consumers: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, q4 = lane & 3;
+    const int rl = 64 * c + 16 * warp + g;    // rows rl, rl + 8 of a unit
+    const bool single = nt == 1;              // JAX's single-step form
+    if (c == 1) named_arrive(TURN_BAR, 256);  // consumer 0 issues first
+    uint32_t it = 0;                          // stages taken so far
+    int k = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+      const Unit w = unit_of(u, nq, H);
+      const int qb = k & 1;
+      i8g::mbar_wait(qfull0 + 8 * qb, (k >> 1) & 1);
+      int qs0 = 0, qs1 = 0;
+      if constexpr (SEG) {
+        const int* qsm =
+            reinterpret_cast<const int*>(sm + OFF_QSEG + qb * SEG_BYTES);
+        qs0 = qsm[rl];
+        qs1 = qsm[rl + 8];
       }
+      const int row0 = w.s0 + rl;
+      const uint64_t dq = i8g::sw128_desc(base + OFF_Q + qb * TILE_BYTES +
+                                          c * (TILE_BYTES / 2));
+      float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+      float cc[2], ic[2], cp[2], ip[2];
+      float acc[32], sc[64], o[32];
+      uint32_t p[32];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float t = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
-      t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, 2));
-      const float alpha = expf(__fsub_rn(m[r], mn[r]));
-      const float l_corr = __fmul_rn(alpha, l[r]);
-      const float l_next = __fadd_rn(t, l_corr);
-      inv[r] = l_next == 0.f ? 1.f : __fdiv_rn(1.f, l_next);
-      c[r] = __fmul_rn(l_corr, inv[r]);
-      m[r] = mn[r];
-      l[r] = l_next;
-    }
-    if (single) {
-      // the single-step form: p / l, rounded after the divide
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = __fdiv_rn(s[j][e], l[e >> 1]);
-    }
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
-    // P (bf16, as the A fragments) · V
-    float o[8][4];
+      // S = Q·Kᵀ of the tile in stage s, issued in turn with the other
+      // consumer; with pv, also P·V of the tile in stage sp. Returns
+      // once S is done (P·V may still run).
+      auto scores = [&](int s, bool pv, int sp) {
+        bf16w::fence_acc<64>(sc);
+        bf16w::fence_acc<32>(o);
+        bf16w::fence_words<32>(p);
+        i8g::named_sync(TURN_BAR + c, 256);
+        i8g::wgmma_fence();
+        const uint64_t dk = i8g::sw128_desc(base + OFF_K + s * TILE_BYTES);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int r = 16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(vbase + swz(r, 2 * jj + (lane >> 4)), b0, b1, b2, b3);
-        mma_bf16(o[2 * jj], a, b0, b1);
-        mma_bf16(o[2 * jj + 1], a, b2, b3);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[j][e] = single ? o[j][e]
-                           : __fadd_rn(__fmul_rn(acc[j][e], c[e >> 1]),
-                                       __fmul_rn(o[j][e], inv[e >> 1]));
-    __syncthreads();
-  }
+        for (int kk = 0; kk < HD / 16; ++kk)
+          bf16w::wgmma_bf16<128, 0>(sc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+        i8g::wgmma_commit();
+        if (pv) issue_pv(o, p, base + OFF_V + sp * TILE_BYTES);
+        i8g::wgmma_commit();
+        named_arrive(TURN_BAR + 1 - c, 256);
+        i8g::wgmma_wait<1>();
+        bf16w::fence_acc<64>(sc);
+      };
+      auto step = [&](int s, bool last) {
+        if (last && lane == 0) i8g::mbar_arrive(qempty0 + 8 * qb);
+        const int2 hd = hdr[s];
+        softmax_step<SEG, CAUSAL>(
+            sc, reinterpret_cast<const int*>(sm + OFF_KSEG + s * SEG_BYTES),
+            qs0, qs1, row0 - hd.x * KT - 2 * q4, scale, mask_value, single,
+            m, l, cc, ic);
+      };
 
-  __nv_bfloat16* ob = out + ((size_t)b * S * H + h) * HD + 2 * tq;
+      // the first tile
+      int s = it % STAGES;
+      i8g::mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+      bool last = hdr[s].y;
+      scores(s, false, 0);
+      step(s, last);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * rs + 8 * j) =
-        pack_bf16(acc[j][0], acc[j][1]);
-    *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * rs + 8 * j) =
-        pack_bf16(acc[j][2], acc[j][3]);
+      for (int i = 0; i < 32; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      int sp = s;
+      cp[0] = cc[0], cp[1] = cc[1], ip[0] = ic[0], ip[1] = ic[1];
+      ++it;
+      // the others: this tile's scores beside the previous tile's P·V
+      while (!last) {
+        s = it % STAGES;
+        i8g::mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+        last = hdr[s].y;
+        scores(s, true, sp);
+        step(s, last);
+        i8g::wgmma_wait<0>();
+        bf16w::fence_acc<32>(o);
+        bf16w::fence_words<32>(p);
+        fold(acc, o, cp, ip, single);
+        if (lane == 0) i8g::mbar_arrive(empty0 + 8 * sp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+        sp = s;
+        cp[0] = cc[0], cp[1] = cc[1], ip[0] = ic[0], ip[1] = ic[1];
+        ++it;
+      }
+      // the last tile's P·V
+      bf16w::fence_acc<32>(o);
+      bf16w::fence_words<32>(p);
+      i8g::wgmma_fence();
+      issue_pv(o, p, base + OFF_V + sp * TILE_BYTES);
+      i8g::wgmma_commit();
+      i8g::wgmma_wait<0>();
+      bf16w::fence_acc<32>(o);
+      bf16w::fence_words<32>(p);
+      fold(acc, o, cp, ip, single);
+      if (lane == 0) i8g::mbar_arrive(empty0 + 8 * sp);
+
+      // out: each row's 64 values in 16-byte stores after a quad transpose
+      __nv_bfloat16* ob = out + (((size_t)w.b * S + row0) * H + w.h) * HD;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int blk = 0; blk < 2; ++blk) {
+          uint32_t wd[4];
+#pragma unroll
+          for (int gg = 0; gg < 4; ++gg) {
+            const int i = 4 * blk + gg;
+            wd[gg] = pack_bf16(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+          }
+          const uint4 v = i8g::gather_groups(wd);
+          *reinterpret_cast<uint4*>(ob + (size_t)hh * 8 * H * HD +
+                                    8 * (4 * blk + q4)) = v;
+        }
+    }
   }
 }
 
@@ -537,6 +709,48 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
       ob[(size_t)(s0 + r0 + r) * rs + tx + 16 * j] = acc[r][j];
 }
 
+
+// The card's SM count, read once per device (never on a capture path
+// after the first call)
+int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && cached[dev]) return cached[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) cached[dev] = n;
+  return n;
+}
+
+template <bool SEG, bool CAUSAL>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const int* qseg, const int* kvseg, void* out, int B,
+                        int S, int H, int Skv, float scale, float mask_value,
+                        cudaStream_t st) {
+  const long long units = (long long)B * H * (S / TQ);
+  const int sms = sm_count();
+  if (units > 0x7fffffff || (long long)B * S > 0x7fffffff ||
+      (long long)B * Skv > 0x7fffffff || sms <= 0)
+    return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = i8g::tensor_map(&mq, q, B * S, H * HD * 2, TQ)) != cudaSuccess ||
+      (e = i8g::tensor_map(&mk, k, B * Skv, H * HD * 2, KT)) != cudaSuccess ||
+      (e = i8g::tensor_map(&mv, v, B * Skv, H * HD * 2, KT)) != cudaSuccess)
+    return e;
+  if ((e = i8g::allow_smem<flash_bf16<SEG, CAUSAL>>(BF16_SMEM)) !=
+      cudaSuccess)
+    return e;
+  const int grid = (int)(units < sms ? units : sms);
+  flash_bf16<SEG, CAUSAL><<<grid, TC_THREADS, BF16_SMEM, st>>>(
+      mq, mk, mv, qseg, kvseg, static_cast<__nv_bfloat16*>(out), S, H, Skv,
+      (int)units, scale, mask_value);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry: q [B, S, H, D], k/v [B, Skv, H, D], out [B, S, H, D], all of one
@@ -559,17 +773,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int* ks = static_cast<const int*>(kvseg);
   const int nt = Skv / KT;
   if (!is_f32) {
-    const size_t smem = bf16_smem_bytes(nt);
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    flash_bf16<<<dim3(S / TQ, H, B), TC_THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), qs, ks,
-        static_cast<__nv_bfloat16*>(out), S, H, Skv, causal, scale,
-        mask_value);
-    return cudaGetLastError();
+    if (qs)
+      return causal ? launch_bf16<true, true>(q, k, v, qs, ks, out, B, S, H,
+                                              Skv, scale, mask_value, st)
+                    : launch_bf16<true, false>(q, k, v, qs, ks, out, B, S, H,
+                                               Skv, scale, mask_value, st);
+    return causal ? launch_bf16<false, true>(q, k, v, qs, ks, out, B, S, H,
+                                             Skv, scale, mask_value, st)
+                  : launch_bf16<false, false>(q, k, v, qs, ks, out, B, S, H,
+                                              Skv, scale, mask_value, st);
   }
   const size_t smem = f32_smem_bytes(nt);
   cudaError_t e = cudaFuncSetAttribute(

@@ -14,7 +14,7 @@
 // b32/S512: 154.6 GFLOP, ~156 µs at 989 TFLOP/s) on ~30 MB of operands:
 // compute-bound, so the products belong on wgmma. bf16 design, two
 // products on one tensor-core mainloop (the TMA ring, mbarriers and
-// 128-byte swizzle of int8_gemm.cuh):
+// 128-byte swizzle of int8_gemm.cuh, the bf16 wgmma of wgmma_bf16.cuh):
 //   1. up: g = act(bf16(x·W1 + b1)), written bf16 to an [M, N] scratch
 //      buffer. A block owns a BM × BN tile of g; one producer thread
 //      streams 64-element K slices of x (K-major, as stored) and of W1 by
@@ -50,7 +50,7 @@
 // Numerics: __fadd_rn for + b1 and + b2, bf16 roundings of h and g as the
 // plain version; never build with --use_fast_math.
 
-#include "int8_gemm.cuh"
+#include "wgmma_bf16.cuh"
 
 using int8k::act;
 
@@ -63,77 +63,6 @@ constexpr size_t SMEM_MAX = 227 * 1024;   // shared memory per block
 constexpr int KEL = i8g::BK / 2;          // bf16 elements per K slice (64)
 constexpr int STAGES = 4;
 constexpr int B_BOX = KEL * i8g::BK;      // bytes of a 64 × 64 W box (8 KB)
-
-// wgmma descriptor of an MN-major bf16 tile in the 128-byte swizzle, as
-// TMA lays out boxes of 64 columns × 64 K rows: 8-row groups 1024 bytes
-// apart (SBO) along K, 64-column boxes B_BOX bytes apart (LBO) along
-// M/N, tile 1024-byte aligned. Adding 128 to it steps 16 K rows.
-__device__ __forceinline__ uint64_t mn_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(B_BOX >> 4) << 16 |
-         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-template <int R>
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 × N] (+)= A[64 × 16] · B[16 × N], bf16 · bf16 → f32, A K-major
-// and B MN-major (transposed) in shared memory; `accumulate` 0
-// overwrites D.
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db,
-                                           int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t da,
-                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t da,
-                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // The producer (one thread): K slices [kb0, kb1) of A rows [m0, m0 + BM)
 // (K-major, boxes of 128 bytes × BM rows) and of B columns [n0, n0 + BN)
@@ -169,18 +98,18 @@ __device__ __forceinline__ void consume_bf16(
     const uint32_t s = it % STAGES;
     i8g::mbar_wait(ring.full(s), (it / STAGES) & 1);
     const uint64_t da = i8g::sw128_desc(ring.a(s) + a_off);
-    const uint64_t db = mn_desc(ring.b(s) + b_off);
-    fence_acc<WN / 2>(acc);
+    const uint64_t db = bf16w::mn_desc(ring.b(s) + b_off, B_BOX);
+    bf16w::fence_acc<WN / 2>(acc);
     i8g::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < KEL / 16; ++j)
-      wgmma_bf16<WN>(acc, da + 2 * j, db + 128 * j, i > 0 || j > 0);
+      bf16w::wgmma_bf16<WN, 1>(acc, da + 2 * j, db + 128 * j, i > 0 || j > 0);
     i8g::wgmma_commit();
     i8g::wgmma_wait<1>();             // slice i - 1's products are done
     if (i > 0 && lane == 0) i8g::mbar_arrive(ring.empty((it - 1) % STAGES));
   }
   i8g::wgmma_wait<0>();
-  fence_acc<WN / 2>(acc);
+  bf16w::fence_acc<WN / 2>(acc);
   if (kb1 > kb0 && lane == 0) i8g::mbar_arrive(ring.empty((it - 1) % STAGES));
 }
 

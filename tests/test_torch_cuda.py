@@ -58,7 +58,10 @@ under int8, with and without K3. K11 (flash attention over segment ids,
 ``use_pallas="flash"``) is held to its plain version within that
 module's band (the roundings of acc ± its error bound) with its planted
 faults outside, on packed rows with a padding tail, the padded form,
-causal rows, one key tile and S = 2,048.
+causal rows, one key tile and S = 2,048; and at the edges of the
+persistent bf16 design: B 3 × S 384 × H 5 packed and causal (a unit
+count that is no multiple of the SMs, odd heads) and B 2 × S 8,192
+packed (a tile list of 64 with skips).
 
 Training (misinfo_tpu_torch/train/): an f32 text step on the card against
 the same step on the CPU at a small width (loss within 1e-4 relative, the
@@ -485,7 +488,8 @@ def test_fused_attention_kernel_matches_plain(card, dtype, B, S, H, mask,
 @pytest.mark.parametrize("B,S,H,layout,causal", [
     (32, 512, 12, "packed", False), (32, 512, 12, "padded", False),
     (32, 512, 12, "packed", True), (32, 128, 12, "packed", False),
-    (8, 2048, 12, "packed", False), (4, 256, 12, "none", True)])
+    (8, 2048, 12, "packed", False), (4, 256, 12, "none", True),
+    (3, 384, 5, "packed", True), (2, 8192, 12, "packed", False)])
 def test_flash_attention_kernel_matches_plain(card, dtype, B, S, H, layout,
                                               causal):
     before = K11.launches
