@@ -5,10 +5,11 @@
 
 Phases (any failure exits non-zero before the result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the eleven kernel sources in parallel, one nvcc each
+  2. build the twelve kernel sources in parallel, one nvcc each
      (misinfo_tpu_torch/csrc/{int8_ffn,int8_dense,fused_attention,
      layer_norm,fused_ffn,self_attn_step,cross_ffn_step,
-     cross_ffn_step_i8cc,layer_step,int4_sims,flash_attention}.cu);
+     cross_ffn_step_i8cc,layer_step,int4_sims,flash_attention,
+     flash_attention_bwd}.cu);
   3. K1 (int8 FFN) against its plain PyTorch version on the card through
      misinfo_tpu_torch/ops/kernel_checks.py at the main path's three
      shapes (RoBERTa, CLIP text, CLIP vision; B = 3, the kernel's split
@@ -347,6 +348,31 @@ Phases (any failure exits non-zero before the result line):
      "error" bit for bit the eager engine's, K11 12 per replay; b32
      verdicts/s beside the default engine's (printed). ``--only 32`` runs
      phase 32 alone;
+ 33. (after phase 32) gradients through use_pallas="flash": (a) K11-bwd
+     (csrc/flash_attention_bwd.cu: the dK/dV and the dQ kernel) against
+     its plain version through ops/kernel_checks.py::check_flash_bwd,
+     bf16 and f32, fed the plain forward's residuals, at the training
+     step's rows (B 16 × S 256 × H 12 packed), RoBERTa b32/S512 packed,
+     padded (its last row all padding) and packed causal, S = 128 and B 3
+     × S 384 × H 5 packed causal: within the band of the roundings of
+     each f32 sum ± its error bound, with planted faults (each query tile
+     left out of dK/dV, each seen key tile out of dQ, di left out, p not
+     rounded before dV, sm_scale dropped from ds, the causal mask one
+     column late, the einsum path's kv_seg > 0 rule, l from the row
+     before) outside; K11's residuals l and m within their band; then
+     each kernel's CUDA-event ms and device µs at the training shape and
+     at b32/S512 packed and padded beside its bound, its plain version and
+     the backward of scaled_dot_product_attention, and K11 with and
+     without residuals; (b) RoBERTa-base with seeded weights, the packed
+     text-head loss (roberta_encode(use_pallas="flash") → CLS slots →
+     head_apply → weighted_cross_entropy) on train/datasets.py's
+     packed_batches(n_rows=16, n_slots=64) of 256 tokens: step one's
+     gradients against the same step with K11's and K11-bwd's plain
+     versions swapped in, f32 leaf by leaf within 1e-3 of each leaf's
+     largest and bf16 within 2^-4 of the largest gradient; three bf16
+     AdamW steps launching K11, dK/dV and dQ 12 times each a step, their
+     losses within 1e-2 of the einsum path's, step ms of both. ``--only
+     33`` runs phase 33 alone;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -356,8 +382,10 @@ beside torch._int_mm of the same integer products; K5 at the towers'
 b32/S512 shapes, one RoBERTa request and Whisper decode rows beside
 cuBLAS's two bf16 products; K10a/K10b at 1,048,576 rows for B = 1, 8, 32,
 64 beside torch._int_mm over unpacked rows; K11 at b32/S512 packed and
-padded and at S = 2,048 beside SDPA; ``--kernels`` picks among
-attention, layer_norm, decode, i8cc_layer, int8, ffn, int4 and flash, where
+padded and at S = 2,048 beside SDPA; K11-bwd's two kernels at the
+training shape and b32/S512 packed and padded beside SDPA's backward;
+``--kernels`` picks among attention, layer_norm, decode, i8cc_layer,
+int8, ffn, int4, flash and flash_bwd, where
 i8cc_layer times K8 and K9 alone at B = 1, 4, 32, K9's rows with the
 device µs of the two calls it replaces, K6b → K7b, on the same inputs)
 as JSON lines, with
@@ -4332,6 +4360,308 @@ def flash_engine_phase(default, vault_path, b32, image, rng, card):
     return flash_launches
 
 
+# ------------------------------- flash attention's backward (phase 33)
+
+# phase 33 (a): K11-bwd against its plain version, (B, S, H, layout,
+# causal), bf16 and f32: the training step's rows (16 × 256, packed),
+# RoBERTa b32/S512 packed, padded (its last row all padding) and packed
+# causal, one key tile (S = 128), and a unit count that is no multiple of
+# the SMs with odd heads
+FLASH_BWD_CHECKS = ((16, 256, 12, "packed", False),
+                    (32, 512, 12, "packed", False),
+                    (32, 512, 12, "padded", False),
+                    (32, 512, 12, "packed", True),
+                    (32, 128, 12, "packed", False),
+                    (3, 384, 5, "packed", True))
+# its times: (name, B, S, H, layout); the first is the kernels line's row
+FLASH_BWD_TIMES = (("train_16x256_packed", 16, 256, 12, "packed"),
+                   ("roberta_b32_packed", 32, 512, 12, "packed"),
+                   ("roberta_b32_padded", 32, 512, 12, "padded"))
+# phase 33 (b): the packed text-head training step through
+# use_pallas="flash"
+FLASH_TRAIN_ROWS, FLASH_TRAIN_SLOTS, FLASH_TRAIN_STEPS = 16, 64, 3
+# step one's gradients with K11 and K11-bwd against the same step with
+# their plain versions, leaf by leaf: in f32, where the kernels sit within
+# a few f32 roundings of the plain versions, within 1e-3 of the leaf's own
+# largest (phase 28's card-vs-CPU bar); in bf16, where a one-step flip of
+# a bf16 output is carried through twelve layers and the head's ReLU
+# (which a flipped sign switches for a whole slot), within 2^-4 (sixteen
+# bf16 roundings) of the largest gradient of any leaf. The attention key
+# biases, whose exact gradient is 0 (rounding noise on both sides), are
+# held to the largest gradient of any leaf in both.
+FLASH_GRAD_BAND = {"float32": 1e-3, "bfloat16": 2.0 ** -4}
+
+
+def flash_bwd_work(case, which: str):
+    """(bytes, operations) of K11-bwd on ``case``: "dkv" reads q, k, v, dO,
+    l, m, di and the segment ids once and writes dK and dV, four products
+    (s, dp, dV, dK) of 2·D operations a (query, key) pair; "dq" the same
+    reads, dQ written, three products (s, dp, dQ); "both", the function:
+    o in di's place, dQ, dK and dV written, five products. The pairs are
+    those of the key tiles the kernels walk (the data decides which:
+    flash_attention.walked_pairs)."""
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    q, k, v, qs, ks = (case[n] for n in ("q", "k", "v", "q_seg", "kv_seg"))
+    B, S, H, D = q.shape
+    walked = K11.walked_pairs(qs, ks, case["causal"], S, k.shape[1])
+    pairs = int(walked.sum()) * (B if qs is None else 1) * 128 * 128 * H
+    reads = nbytes(q, k, v, case["do"], case["l"], case["m"], qs, ks)
+    if which == "dkv":
+        return reads + nbytes(case["l"]) + nbytes(k, v), 8 * D * pairs
+    if which == "dq":
+        return reads + nbytes(case["l"]) + nbytes(q), 6 * D * pairs
+    return reads + nbytes(case["o"], q, k, v), 10 * D * pairs
+
+
+def flash_bwd_times(card, reps=20):
+    """K11-bwd (bf16) at FLASH_BWD_TIMES' shapes: each kernel's CUDA-event
+    ms and device µs (the median of three readings) beside its bound and
+    its plain version's ms, and as the library's time the backward alone
+    of scaled_dot_product_attention with the equivalent boolean mask
+    (torch.autograd.grad of its output; the port never calls it), which
+    computes dQ, dK and dV in one call; K11's forward with and without its
+    residuals. Printed as JSON lines, returned by (shape, kernel)."""
+    import torch.nn.functional as F
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    rows = {}
+    for name, B, S, H, layout in FLASH_BWD_TIMES:
+        c = KC.flash_bwd_case(B, S, H, layout, False, torch.bfloat16)
+        q, k, v, qs, ks = (c[n] for n in ("q", "k", "v", "q_seg", "kv_seg"))
+        args = (q, k, v, qs, ks, c["l"], c["m"], c["do"],
+                K11.flash_di(c["o"], c["do"]), False)
+        lt = [t.transpose(1, 2).contiguous().requires_grad_(True)
+              for t in (q, k, v)]
+        seen = K11.visible(qs, ks, False, S, S, q.device)[:, None]
+        lib_out = F.scaled_dot_product_attention(*lt, attn_mask=seen)
+        lib_do = c["do"].transpose(1, 2).contiguous()
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lt, lib_do, retain_graph=True), reps)
+        del lib_out
+        fwd = {"fwd_ms": cuda_ms(lambda: K11.flash_attention(
+                   q, k, v, qs, ks), reps),
+               "fwd_residuals_ms": cuda_ms(lambda: K11.flash_forward(
+                   q, k, v, qs, ks), reps),
+               "fwd_device_us": device_us(lambda: K11.flash_attention(
+                   q, k, v, qs, ks), 10)[0],
+               "fwd_residuals_device_us": device_us(
+                   lambda: K11.flash_forward(q, k, v, qs, ks), 10)[0]}
+        for which, fn, plain in (("dkv", K11.flash_dkv, K11.flash_dkv_plain),
+                                 ("dq", K11.flash_dq, K11.flash_dq_plain)):
+            us = [device_us(lambda: fn(*args), 10)[0] for _ in range(3)]
+            row = {"ms": cuda_ms(lambda: fn(*args), reps),
+                   "plain_ms": cuda_ms(lambda: plain(*args), 3),
+                   "library_ms": library_ms, "device_us": _median(us),
+                   "device_us_runs": us,
+                   **bound(*flash_bwd_work(c, which), "bf16")}
+            print(json.dumps({"kernel": f"flash_attention_bwd_{which}",
+                              "shape": name, "B": B, "S": S, "H": H,
+                              "layout": layout, **row, "card": card}),
+                  flush=True)
+            rows[(name, which)] = row
+        both = bound(*flash_bwd_work(c, "both"), "bf16")
+        print(json.dumps({"kernel": "flash_attention_bwd", "shape": name,
+                          "function_bound_ms": both["bound_ms"],
+                          "function_bound_by": both["bound_by"], **fwd,
+                          "card": card}), flush=True)
+    return rows
+
+
+def flash_bwd_checks(card):
+    """Phase 33 (a): K11-bwd against its plain version on the card at
+    FLASH_BWD_CHECKS' shapes, bf16 and f32, fed the plain forward's
+    residuals, within ops/kernel_checks.py's band with every planted fault
+    outside; K11's own l and m at the same shapes; then the times. Returns
+    the kernels line's rows (the training shape), by kernel."""
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    errs = {"dkv": [], "dq": []}
+    for dt in (torch.bfloat16, torch.float32):
+        for B, S, H, layout, causal in FLASH_BWD_CHECKS:
+            c = KC.flash_bwd_case(B, S, H, layout, causal, dt)
+            res = KC.check_flash_bwd(c)
+            lm = KC.check_flash_residuals(c)
+            torch.cuda.synchronize()
+            errs["dkv"].append(res["err_dkv"])
+            errs["dq"].append(res["err_dq"])
+            _report(f"flash_attention backward B={B} S={S} H={H} {layout} "
+                    f"causal={causal} {dt} (dQ {res['err_dq']}, dK/dV "
+                    f"{res['err_dkv']}; K11's l, m at {lm['worst']} of "
+                    f"their band)", res, card)
+    times = flash_bwd_times(card)
+    return {w: {"err": max(errs[w]), **times[(FLASH_BWD_TIMES[0][0], w)]}
+            for w in errs}
+
+
+def flash_train_phase(card):
+    """Phase 33 (b): the packed text-head training step (train/steps.py::
+    make_packed_text_head_step's loss, composed from the public functions:
+    roberta_encode(..., use_pallas="flash", deterministic=True) → CLS
+    slots → head_apply → weighted_cross_entropy, through make_step) on
+    RoBERTa-base with seeded weights in bf16 (quant "none": training
+    quantizes nothing), on packed_batches(n_rows=16, n_slots=64) of 256
+    tokens: step one's gradients held leaf by leaf (FLASH_GRAD_BAND)
+    against the same step with K11's and K11-bwd's plain versions swapped
+    in; three AdamW steps (make_optimizer), each launching K11, its dK/dV
+    and its dQ kernel once a layer, their losses within 1e-2 of the einsum
+    path's (use_pallas=False); step ms of both. The gradients are held in
+    f32 too (FLASH_GRAD_BAND). Returns the launches of the three steps, by
+    counter."""
+    from misinfo_tpu_torch.core.config import PrecisionConfig
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.models.roberta import (
+        head_apply, head_init, roberta_encode, roberta_init)
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    from misinfo_tpu_torch.ops.common import Policy, set_exact_f32
+    from misinfo_tpu_torch.preprocess.tokenizer import (
+        load_clip_tokenizer, load_roberta_tokenizer)
+    from misinfo_tpu_torch.train import optim, steps
+    from misinfo_tpu_torch.train.datasets import MisinfoDataset, Sample
+    from misinfo_tpu_torch.train.losses import (
+        weighted_accuracy, weighted_cross_entropy)
+    from misinfo_tpu_torch.utils.tree import clone_tree
+    start = time.perf_counter()
+    det = DetectorConfig()
+    rc = det.roberta
+    gen = torch.Generator().manual_seed(33)
+    tree = {"roberta": roberta_init(gen, rc),
+            "misinfo_head": head_init(gen, rc)}
+    policy = Policy(PrecisionConfig(compute_dtype="bfloat16",
+                                    gelu_mode="erf"))
+    rng = np.random.default_rng(33)
+    samples = [Sample(text=words(rng, int(rng.integers(10, 240))),
+                      label=i % 2) for i in range(200)]
+    ds = MisinfoDataset(samples, load_roberta_tokenizer(None, rc.vocab_size),
+                        load_clip_tokenizer(None, det.clip.vocab_size),
+                        image_size=det.clip.image_size, roberta_len=256,
+                        clip_len=det.clip.max_text_len, seed=33)
+    it = ds.packed_batches(n_rows=FLASH_TRAIN_ROWS,
+                           n_slots=FLASH_TRAIN_SLOTS)
+    batches = [steps.batch_to(next(it), "cuda")
+               for _ in range(FLASH_TRAIN_STEPS)]
+    segs = [int(b["slot_valid"].sum()) for b in batches]
+
+    def loss_for(use_pallas, policy=policy):
+        def loss_fn(axis, rows, bs, gens):
+            (p,), (b,) = rows, bs
+            hidden = roberta_encode(
+                p["roberta"], b["input_ids"], b["attention_mask"], rc,
+                policy, use_pallas=use_pallas,
+                position_ids=b["position_ids"],
+                segment_ids=b["segment_ids"], deterministic=True)
+            pooled = hidden[b["cls_rows"].long(), b["cls_cols"].long()]
+            logits = head_apply(p["misinfo_head"], pooled, policy,
+                                dropout_rate=rc.head_dropout)
+            w = b["slot_valid"]
+            return (weighted_cross_entropy(logits, b["labels"], w),
+                    weighted_accuracy(logits, b["labels"], w))
+        return loss_fn
+
+    def counts():
+        return (K11.launches, K11.bwd_dkv_launches, K11.bwd_dq_launches)
+
+    def zero():
+        K11.launches = K11.bwd_dkv_launches = K11.bwd_dq_launches = 0
+
+    def first_grads(pol, *swaps):
+        t = clone_tree(tree, "cuda")
+        state = optim.make_optimizer(optim.OptimConfig()).init(t)
+        cap = GradCapture()
+        with swapped(*swaps):
+            zero()
+            _, _, m = steps.make_step(cap, loss_for("flash", pol),
+                                      "accuracy")(t, state, batches[0])
+            torch.cuda.synchronize()
+            n = counts()
+        return float(m["loss"]), dict(zip(state.paths, cap.grads)), n
+
+    def plain_forward(q, k, v, qs, ks, causal, scale):
+        r = K11.flash_core(q, k, v, qs, ks, causal, scale)
+        return r["out"], r["l"], r["m"]
+    plain = ((K11, "flash_forward", plain_forward),
+             (K11, "flash_attention_bwd", K11.flash_attention_bwd_plain))
+    want = (rc.num_layers,) * 3
+    tf32 = torch.backends.cudnn.allow_tf32
+    ok = True
+    for dtype, band in FLASH_GRAD_BAND.items():
+        pol = Policy(PrecisionConfig(compute_dtype=dtype, gelu_mode="erf"))
+        set_exact_f32(parity=dtype == "float32")
+        try:
+            l_k, g_k, n_k = first_grads(pol)
+            l_p, g_p, n_p = first_grads(pol, *plain)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        top = max(float(g.abs().max()) for g in g_p.values())
+        worst, worst_at = 0.0, None
+        for path, gp in g_p.items():
+            diff = float((g_k[path].float() - gp.float()).abs().max())
+            scale = (float(gp.abs().max()) if dtype == "float32"
+                     and path[-2:] != ("k", "bias") else top)
+            r = diff / (band * scale) if scale else (
+                math.inf if diff else 0.0)
+            if r > worst:
+                worst, worst_at = r, path
+        apart, norm_gap = grads_apart(
+            {p: g.float() for p, g in g_p.items()},
+            {p: g.float() for p, g in g_k.items()})
+        print(f"phase 33 (b): {dtype} step one's gradients with K11/K11-bwd "
+              f"against their plain versions over {len(g_p)} leaves: worst "
+              f"{worst} of the band (at {worst_at}), max |Δg| / max |g| "
+              f"{apart}, global norms {norm_gap} apart; loss {l_k} / {l_p}; "
+              f"launches (K11, dK/dV, dQ) {n_k} and {n_p} with the plain "
+              f"versions [{card}]", flush=True)
+        ok = ok and worst <= 1.0 and n_k == want and n_p == (0, 0, 0)
+    if not ok:
+        raise AssertionError("phase 33 (b): the kernels' gradients are off "
+                             "their plain versions'")
+
+    def train(use_pallas):
+        t = clone_tree(tree, "cuda")
+        tx = optim.make_optimizer(optim.OptimConfig(
+            lr=2e-5, weight_decay=0.01, warmup_fraction=0.1,
+            total_steps=FLASH_TRAIN_STEPS, clip_norm=1.0))
+        state = tx.init(t)
+        step = steps.make_step(tx, loss_for(use_pallas), "accuracy")
+        losses, ms, ns = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            zero()                      # this step's run starts here
+            t0 = time.perf_counter()
+            t, state, m = step(t, state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ns.append(counts())         # read just after it
+            losses.append(float(m["loss"]))
+        return losses, ms, ns
+    l_f, ms_f, ns_f = train("flash")
+    l_e, ms_e, _ = train(False)
+    gap = max(abs(a - b) for a, b in zip(l_f, l_e))
+    print(f"phase 33 (b): RoBERTa-base packed text-head steps, bf16, "
+          f"{FLASH_TRAIN_ROWS} rows × 256 tokens ({segs} requests): losses "
+          f"through flash {l_f}, einsum path {l_e} (largest gap {gap}, "
+          f"bound 1e-2); launches a step (K11, dK/dV, dQ) {ns_f} (want "
+          f"{want}); step ms flash {ms_f}, einsum {ms_e}; "
+          f"{time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    if not (gap <= 1e-2 and all(n == want for n in ns_f)
+            and all(math.isfinite(x) for x in l_f)):
+        raise AssertionError("phase 33 (b): the flash training steps are "
+                             "off")
+    return {k: sum(n[i] for n in ns_f)
+            for i, k in enumerate(("forward", "dkv", "dq"))}
+
+
+def only_flash_bwd() -> int:
+    """``--only 33``: phase 33 alone (no result lines)."""
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    card = card_line()
+    print(card, flush=True)
+    build_all([(K11, "_library", "build_log"),
+               (K11, "_bwd_library", "bwd_build_log")])
+    flash_bwd_checks(card)
+    flash_train_phase(card)
+    stamp("33")
+    return 0
+
+
 def storage_report(tree):
     """(bytes of the distinct storages a param tree holds, int8 kernels);
     raises unless every ``kernel_q``'s transpose is contiguous."""
@@ -5557,14 +5887,15 @@ def main() -> int:
                     help="with --times: also time the K4 and K11 of the "
                     "tree at DIR, interleaved with this tree's")
     ap.add_argument("--kernels",
-                    default="attention,layer_norm,decode,int8,ffn,int4,flash",
+                    default="attention,layer_norm,decode,int8,ffn,int4,flash,"
+                    "flash_bwd",
                     help="with --times: which kernels to time, a comma list "
                     "of attention, layer_norm, decode, i8cc_layer, int8, ffn, "
-                    "int4, flash")
-    ap.add_argument("--only", choices=["31", "32"],
-                    help="run phase 31 (training over meshes of the card) or "
-                    "phase 32 (flash attention) alone and stop there, "
-                    "without the result lines")
+                    "int4, flash, flash_bwd")
+    ap.add_argument("--only", choices=["31", "32", "33"],
+                    help="run phase 31 (training over meshes of the card), "
+                    "phase 32 (flash attention) or phase 33 (its backward) "
+                    "alone and stop there, without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5582,6 +5913,8 @@ def main() -> int:
         return 0
     if args.only == "32":
         return only_flash()
+    if args.only == "33":
+        return only_flash_bwd()
     if args.times:
         card = card_line()
         print(card, flush=True)
@@ -5602,6 +5935,8 @@ def main() -> int:
             int4_times(card)
         if "flash" in which:
             flash_times(card, parent=args.parent)
+        if "flash_bwd" in which:
+            flash_bwd_times(card)
         return 0
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
@@ -5622,7 +5957,8 @@ def main() -> int:
     build_all([(m, "_library", "build_log")                   # phase 2
                for m in (K1, K2, K3, K5, K6, K7, K9, K10, K11)]
               + [(K3, "_ln_library", "ln_build_log"),
-                 (K7, "_library_i8cc", "build_log_i8cc")])
+                 (K7, "_library_i8cc", "build_log_i8cc"),
+                 (K11, "_bwd_library", "bwd_build_log")])
     stamp("2")
     kernel_rows = check_kernel(card)                          # phase 3
     opt_rows = check_opt_in_kernels(card)                     # phase 15
@@ -5728,6 +6064,10 @@ def main() -> int:
     flash_launches = flash_engine_phase(engine, vault_path,   # phase 32 (b)
                                         b32, image, rng, card)
     stamp("32")
+    bwd_rows = flash_bwd_checks(card)                         # phase 33 (a)
+    train_flash = flash_train_phase(card)                     # phase 33 (b)
+    flash_launches += train_flash["forward"]
+    stamp("33")
     decode_rows = check_decode_kernels(K6, K7)                # phase 5
     decode_step_times(card)
     decode_rows["cross_ffn_step_i8cc"] = check_i8cc_kernel(K7, card)    # 19
@@ -5814,6 +6154,16 @@ def main() -> int:
         "launches": flash_launches, "max_abs_err": flash_row["err"],
         **{k: flash_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")}})
+    for which, line in (("dkv", 1121), ("dq", 1456)):
+        row = bwd_rows[which]
+        kernels.append({
+            "name": f"flash_attention_bwd_{which}", "route": "cuda",
+            "source": "misinfo_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                        f"{line}",
+            "launches": train_flash[which], "max_abs_err": row["err"],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}})
     row = qkv_rows["roberta_b32"]
     kernels.append({
         "name": "int8_dense_qkv", "route": "cuda",

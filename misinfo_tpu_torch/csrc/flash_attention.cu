@@ -74,6 +74,11 @@
 // the f32 scores go to shared memory, a warp per row takes the online
 // softmax step, then V is staged and each thread accumulates a 2 × 4 tile
 // of the output in sequential FMA chains.
+//
+// Given two more pointers (flash_attention_launch_res), both forms also
+// write JAX's residuals for the backward (csrc/flash_attention_bwd.cu):
+// each query row's final running sum l and max m, [B, H, S] f32. A left-
+// out tile leaves both exactly as walking it would (its p are all 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -303,7 +308,8 @@ flash_bf16(const __grid_constant__ CUtensorMap mq,
            const __grid_constant__ CUtensorMap mk,
            const __grid_constant__ CUtensorMap mv,
            const int* __restrict__ qseg, const int* __restrict__ kvseg,
-           __nv_bfloat16* __restrict__ out, int S, int H, int Skv, int units,
+           __nv_bfloat16* __restrict__ out, float* __restrict__ lres,
+           float* __restrict__ mres, int S, int H, int Skv, int units,
            float scale, float mask_value) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = i8g::smem_u32(smem_raw);
@@ -548,6 +554,14 @@ flash_bf16(const __grid_constant__ CUtensorMap mq,
           *reinterpret_cast<uint4*>(ob + (size_t)hh * 8 * H * HD +
                                     8 * (4 * blk + q4)) = v;
         }
+      // the residuals: rows row0 and row0 + 8, once a quad
+      if (lres && q4 == 0) {
+        const size_t ro = ((size_t)w.b * H + w.h) * S + row0;
+        lres[ro] = l[0];
+        lres[ro + 8] = l[1];
+        mres[ro] = m[0];
+        mres[ro + 8] = m[1];
+      }
     }
   }
 }
@@ -570,7 +584,8 @@ size_t f32_smem_bytes(int nt) {
 __global__ void __launch_bounds__(THREADS)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const int* __restrict__ qseg,
-          const int* __restrict__ kvseg, float* __restrict__ out, int S,
+          const int* __restrict__ kvseg, float* __restrict__ out,
+          float* __restrict__ lres, float* __restrict__ mres, int S,
           int H, int Skv, int causal, float scale, float mask_value) {
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm;                          // [QT][LD]
@@ -707,6 +722,11 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       ob[(size_t)(s0 + r0 + r) * rs + tx + 16 * j] = acc[r][j];
+  if (lres && tid < QT) {
+    const size_t o = ((size_t)b * H + h) * S + s0 + tid;
+    lres[o] = rl[tid];
+    mres[o] = rm[tid];
+  }
 }
 
 
@@ -727,8 +747,9 @@ int sm_count() {
 
 template <bool SEG, bool CAUSAL>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const int* qseg, const int* kvseg, void* out, int B,
-                        int S, int H, int Skv, float scale, float mask_value,
+                        const int* qseg, const int* kvseg, void* out,
+                        float* lres, float* mres, int B, int S, int H,
+                        int Skv, float scale, float mask_value,
                         cudaStream_t st) {
   const long long units = (long long)B * H * (S / TQ);
   const int sms = sm_count();
@@ -746,8 +767,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
     return e;
   const int grid = (int)(units < sms ? units : sms);
   flash_bf16<SEG, CAUSAL><<<grid, TC_THREADS, BF16_SMEM, st>>>(
-      mq, mk, mv, qseg, kvseg, static_cast<__nv_bfloat16*>(out), S, H, Skv,
-      (int)units, scale, mask_value);
+      mq, mk, mv, qseg, kvseg, static_cast<__nv_bfloat16*>(out), lres, mres,
+      S, H, Skv, (int)units, scale, mask_value);
   return cudaGetLastError();
 }
 
@@ -755,33 +776,42 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // C entry: q [B, S, H, D], k/v [B, Skv, H, D], out [B, S, H, D], all of one
 // type (is_f32: 0 bf16, 1 f32), segment ids int32 [B, S] and [B, Skv] (both
-// or neither null), contiguous, 16-byte aligned. Returns a cudaError_t
-// (0 = launched). Supported: D == 64, S and Skv positive multiples of 128,
+// or neither null), contiguous, 16-byte aligned; l and m (both or neither
+// null) the residuals, f32 [B, H, S]. Returns a cudaError_t (0 =
+// launched). Supported: D == 64, S and Skv positive multiples of 128,
 // Skv <= 65,536, grid limits on H and B (<= 65,535).
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, const void* qseg,
-                                      const void* kvseg, void* out, int B,
-                                      int S, int H, int Skv, int D,
-                                      int causal, int is_f32, float scale,
-                                      float mask_value, void* stream) {
+extern "C" int flash_attention_launch_res(const void* q, const void* k,
+                                          const void* v, const void* qseg,
+                                          const void* kvseg, void* out,
+                                          void* l, void* m, int B, int S,
+                                          int H, int Skv, int D, int causal,
+                                          int is_f32, float scale,
+                                          float mask_value, void* stream) {
   if (D != HD || B <= 0 || S <= 0 || H <= 0 || Skv <= 0 || S % KT ||
       Skv % KT || Skv > MAX_SKV || B > 65535 || H > 65535 ||
-      (qseg == nullptr) != (kvseg == nullptr))
+      (qseg == nullptr) != (kvseg == nullptr) ||
+      (l == nullptr) != (m == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* qs = static_cast<const int*>(qseg);
   const int* ks = static_cast<const int*>(kvseg);
+  float* lr = static_cast<float*>(l);
+  float* mr = static_cast<float*>(m);
   const int nt = Skv / KT;
   if (!is_f32) {
     if (qs)
-      return causal ? launch_bf16<true, true>(q, k, v, qs, ks, out, B, S, H,
-                                              Skv, scale, mask_value, st)
-                    : launch_bf16<true, false>(q, k, v, qs, ks, out, B, S, H,
-                                               Skv, scale, mask_value, st);
-    return causal ? launch_bf16<false, true>(q, k, v, qs, ks, out, B, S, H,
-                                             Skv, scale, mask_value, st)
-                  : launch_bf16<false, false>(q, k, v, qs, ks, out, B, S, H,
-                                              Skv, scale, mask_value, st);
+      return causal ? launch_bf16<true, true>(q, k, v, qs, ks, out, lr, mr,
+                                              B, S, H, Skv, scale,
+                                              mask_value, st)
+                    : launch_bf16<true, false>(q, k, v, qs, ks, out, lr, mr,
+                                               B, S, H, Skv, scale,
+                                               mask_value, st);
+    return causal ? launch_bf16<false, true>(q, k, v, qs, ks, out, lr, mr, B,
+                                             S, H, Skv, scale, mask_value,
+                                             st)
+                  : launch_bf16<false, false>(q, k, v, qs, ks, out, lr, mr,
+                                              B, S, H, Skv, scale,
+                                              mask_value, st);
   }
   const size_t smem = f32_smem_bytes(nt);
   cudaError_t e = cudaFuncSetAttribute(
@@ -789,9 +819,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (e != cudaSuccess) return e;
   flash_f32<<<dim3(S / QT, H, B), THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), qs, ks, static_cast<float*>(out), S, H,
-      Skv, causal, scale, mask_value);
+      static_cast<const float*>(v), qs, ks, static_cast<float*>(out), lr, mr,
+      S, H, Skv, causal, scale, mask_value);
   return cudaGetLastError();
+}
+
+// The same without residuals (the serving path's entry).
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, const void* qseg,
+                                      const void* kvseg, void* out, int B,
+                                      int S, int H, int Skv, int D,
+                                      int causal, int is_f32, float scale,
+                                      float mask_value, void* stream) {
+  return flash_attention_launch_res(q, k, v, qseg, kvseg, out, nullptr,
+                                    nullptr, B, S, H, Skv, D, causal, is_f32,
+                                    scale, mask_value, stream);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -528,7 +528,7 @@ def check_ffn(case: Dict) -> Dict:
 
 def flash_case(B: int, S: int, H: int, layout: str, causal: bool,
                dtype=torch.bfloat16, seed: int = 0, device="cuda",
-               D: int = 64) -> Dict:
+               D: int = 64, blank_row: bool = False) -> Dict:
     """Seeded q, k, v [B, S, H, D] and segment ids in one of three
     layouts: "packed" (ragged requests of 16-200 tokens with ids 1, 2, ...
     and a padding tail of segment 0, a different length per row, none in
@@ -540,7 +540,8 @@ def flash_case(B: int, S: int, H: int, layout: str, causal: bool,
     value o − 1 zeroed, for o = t0 + 30, 50, 70 (the output is then
     v_o·1/l, l ≈ 1.33, whose bf16 rounding sits anywhere between two
     steps); causal, key t0 + 91 aimed at query t0 + 90 (visible one
-    column late)."""
+    column late). ``blank_row`` (padded only): the last row all padding,
+    so that its queries see no key (JAX's p is then uniform there)."""
     gen = _gen(seed * 7919 + S + 1)
     q, k, v = (torch.randn(B, S, H, D, generator=gen) for _ in range(3))
     q_seg = kv_seg = None
@@ -557,6 +558,8 @@ def flash_case(B: int, S: int, H: int, layout: str, causal: bool,
         q_seg = kv_seg = seg
     elif layout == "padded":
         valid = [S - (b * 37) % max(S // 3, 1) for b in range(B)]
+        if blank_row:
+            valid[-1] = 0
         kv_seg = torch.zeros(B, S, dtype=torch.int32)
         for b, n in enumerate(valid):
             kv_seg[b, :n] = 1
@@ -575,7 +578,8 @@ def flash_case(B: int, S: int, H: int, layout: str, causal: bool,
         n = int(seen[b].sum())
         for t0 in range(0, S, K11.BLOCK):
             j = min(t0 + 10, n - 1) if layout == "padded" else t0 + 10
-            aim(b, j, j)
+            if j >= 0:
+                aim(b, j, j)
             for o in (t0 + 30, t0 + 50, t0 + 70):
                 aim(b, o - 1, o, hi - gap)
                 aim(b, o, o, hi)
@@ -628,8 +632,9 @@ def flash_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
     return out
 
 
-def flash_band(case: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(the plain output, K11's band around it), elementwise [B, S, H, D].
+def flash_band(case: Dict, r=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the plain output, K11's band around it), elementwise [B, S, H, D];
+    ``r``: the case's ``flash_core(..., keep=True)``, if already taken.
 
     The kernel's f32 accumulator differs from the plain version's by at
     most E (below); its output is that accumulator rounded to q's dtype,
@@ -657,7 +662,8 @@ def flash_band(case: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     D, S_kv = q.shape[-1], k.shape[1]
     nt = S_kv // K11.BLOCK
     scale = 1.0 / math.sqrt(D)
-    r = K11.flash_core(q, k, v, qs, ks, causal, keep=True)
+    if r is None:
+        r = K11.flash_core(q, k, v, qs, ks, causal, keep=True)
     u = 2.0 ** -24
     gamma = (D + 2) * u
     A = torch.matmul(q.float().abs().permute(0, 2, 1, 3),
@@ -674,7 +680,7 @@ def flash_band(case: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     if q.dtype == torch.bfloat16:
         pre = r["p_pre"]
         delta = 2 * (gamma * (A + a_max)
-                     + u * ((r["s"] - r["m"]).abs() + S_kv + 8))
+                     + u * ((r["s"] - r["m_run"]).abs() + S_kv + 8))
         near = ((pre * (1 - delta)).to(torch.bfloat16)
                 != (pre * (1 + delta)).to(torch.bfloat16))
         E = E + 2.0 ** -7 * torch.matmul(p * near, va)
@@ -686,11 +692,249 @@ def flash_band(case: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     return r["out"], gap + torch.finfo(torch.float32).tiny
 
 
+def flash_residual_band(case: Dict, r=None) -> Dict:
+    """The plain forward's residuals and K11's bands around them: {"l",
+    "m", "l_band", "m_band"}, [B, H, S] f32 (``r`` as ``flash_band``'s).
+
+    m is the row's largest masked score: the kernel's lies within its
+    score's error, 2·(γ·A* + 2^-23·|m|) (A* and γ as in ``flash_band``),
+    where the row sees a key; a row that sees none has m = MASK_VALUE
+    exactly on both sides (s + MASK_VALUE rounds to MASK_VALUE), band 0.
+    l = Σ_j e_j over the walked keys, e_j = exp(s_j − m):
+    E_l = 2·(Σ_j e_j·(γ·(A_j + A*) + 2^-23·(|s_j| + |m|) + 4·2^-24)
+    + (2·S_kv + 8·nt + 8)·2^-24·l), the first sum over the visible keys
+    (an invisible key's e_j is exp(0) or 0 on both sides, exactly), the
+    second the sums in any order and the rescale at every tile."""
+    q, k, v, qs, ks, causal = _flash_args(case)
+    D, S, S_kv = q.shape[-1], q.shape[1], k.shape[1]
+    nt = S_kv // K11.BLOCK
+    scale = 1.0 / math.sqrt(D)
+    if r is None:
+        r = K11.flash_core(q, k, v, qs, ks, causal, keep=True)
+    l, m, s = r["l"], r["m"], r["s"]
+    u = 2.0 ** -24
+    gamma = (D + 2) * u
+    A = torch.matmul(q.float().abs().permute(0, 2, 1, 3),
+                     k.float().abs().permute(0, 2, 3, 1)) * scale
+    mask = K11.visible(qs, ks, causal, S, S_kv, q.device)
+    vis = (torch.ones_like(A, dtype=torch.bool) if mask is None
+           else mask[:, None].expand_as(A))
+    if causal:                          # the walked key blocks only
+        blk = torch.arange(S_kv, device=q.device) // K11.BLOCK
+        vis = vis & (blk[None, :]
+                     <= torch.arange(S, device=q.device)[:, None]
+                     // K11.BLOCK)
+    A = torch.where(vis, A, 0.0)
+    a_max = A.amax(-1)
+    sees = vis.any(-1)
+    e = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+    rel = gamma * (A + a_max[..., None]) + 2 * u * (s.abs()
+                                                    + m.abs()[..., None])
+    e_err = (e * torch.where(vis, rel, 0.0)).sum(-1) + 4 * u * e.sum(-1)
+    tiny = torch.finfo(torch.float32).tiny
+    return {"l": l, "m": m,
+            "l_band": 2 * (e_err + (2 * S_kv + 8 * nt + 8) * u * l) + tiny,
+            "m_band": torch.where(sees, 2 * (gamma * a_max
+                                             + 2 * u * m.abs()), 0.0) + tiny}
+
+
+def _flash_what(case: Dict) -> str:
+    B, S, H, _ = case["q"].shape
+    return (f"B={B} S={S} H={H} {case['q'].dtype} {case['layout']} "
+            f"causal={case['causal']}")
+
+
+def check_flash_residuals(case: Dict, out=None, r=None) -> Dict:
+    """K11's launch with residuals: its l and m within
+    ``flash_residual_band`` (``r`` as ``flash_band``'s) and, given the
+    launch without them (``out``), the same output bit for bit."""
+    q, k, v, qs, ks, causal = _flash_args(case)
+    what = f"flash_attention {_flash_what(case)}"
+    out_r, l, m = K11.flash_forward(q, k, v, qs, ks, causal)
+    if out is not None and not torch.equal(out_r, out):
+        raise AssertionError(f"{what}: the launch with residuals gives "
+                             "another output")
+    rb = flash_residual_band(case, r)
+    return hold(torch.stack([l, m]), torch.stack([rb["l"], rb["m"]]),
+                torch.stack([rb["l_band"], rb["m_band"]]), [],
+                f"{what} residuals l, m")
+
+
 def check_flash(case: Dict) -> Dict:
+    """K11 against its plain version (``flash_band``, ``flash_faults``),
+    and its residuals (``check_flash_residuals``)."""
     q, k, v, qs, ks, causal = _flash_args(case)
     got = K11.flash_attention(q, k, v, qs, ks, causal)
-    want, band = flash_band(case)
-    B, S, H, _ = q.shape
-    return hold(got, want, band, flash_faults(case),
-                f"flash_attention B={B} S={S} H={H} {q.dtype} "
-                f"{case['layout']} causal={causal}")
+    r = K11.flash_core(q, k, v, qs, ks, causal, keep=True)
+    want, band = flash_band(case, r)
+    res = hold(got, want, band, flash_faults(case),
+               f"flash_attention {_flash_what(case)}")
+    res["residual_worst"] = check_flash_residuals(case, got, r)["worst"]
+    return res
+
+
+# ------------------------------------------------- K11-bwd, its backward
+
+def flash_bwd_case(B: int, S: int, H: int, layout: str, causal: bool,
+                   dtype=torch.bfloat16, seed: int = 0,
+                   device="cuda") -> Dict:
+    """``flash_case`` (the padded form with its last row all padding) plus
+    what the backward takes: the plain forward's output "o" and residuals
+    "l", "m", and a seeded N(0, 1) output gradient "do" in q's dtype."""
+    c = flash_case(B, S, H, layout, causal, dtype, seed, device,
+                   blank_row=layout == "padded")
+    r = K11.flash_core(c["q"], c["k"], c["v"], c["q_seg"], c["kv_seg"],
+                       causal)
+    gen = _gen(seed * 104729 + S + 2)
+    do = torch.randn(c["q"].shape, generator=gen).to(dtype).to(device)
+    c.update(o=r["out"], l=r["l"], m=r["m"], do=do)
+    return c
+
+
+def _bwd_args(case: Dict):
+    return (*(case[n] for n in ("q", "k", "v", "q_seg", "kv_seg", "o", "l",
+                                "m", "do")), case["causal"])
+
+
+def _flat(*ts) -> torch.Tensor:
+    return torch.cat([t.float().flatten() for t in ts])
+
+
+def flash_bwd_faults(case: Dict) -> List[Tuple[str, torch.Tensor]]:
+    """The wrong backward kernels, as (dQ, dK, dV) flattened: each query
+    tile left out of dK/dV; each key tile that some query sees left out of
+    dQ; di left out; in bf16, p not rounded to dO's dtype before dV;
+    sm_scale dropped from ds; causal, the mask one column late; the einsum
+    path's ``kv_seg > 0`` rule (where some query is in segment 0); each
+    row's l taken from the row before."""
+    q, k, v, qs, ks, o, l, m, do, causal = _bwd_args(case)
+    S, S_kv = q.shape[1], k.shape[1]
+    di = K11.flash_di(o, do)
+    args = (q, k, v, qs, ks, l, m, do, di, causal)
+    dq = K11.flash_dq_plain(*args)
+    dk, dv = K11.flash_dkv_plain(*args)
+    out = []
+    for t in range(S // K11.BLOCK):
+        out.append((f"query tile {t} left out of dK/dV",
+                    _flat(dq, *K11.flash_dkv_plain(
+                        *args, fault={"skip_q": (t,)}))))
+    seen = case["seen"].amax(0)
+    for t in range(S_kv // K11.BLOCK):
+        if bool(seen[t * K11.BLOCK:(t + 1) * K11.BLOCK].any()):
+            out.append((f"key tile {t} left out of dQ",
+                        _flat(K11.flash_dq_plain(
+                            *args, fault={"skip_k": (t,)}), dk, dv)))
+
+    def run(**fault):
+        return _flat(K11.flash_dq_plain(*args, fault=fault),
+                     *K11.flash_dkv_plain(*args, fault=fault))
+    out.append(("di left out", run(no_di=True)))
+    if q.dtype == torch.bfloat16:
+        out.append(("p not rounded before dV",
+                    _flat(dq, *K11.flash_dkv_plain(
+                        *args, fault={"unrounded_p": True}))))
+    out.append(("sm_scale dropped from ds", run(no_ds_scale=True)))
+    if causal:
+        out.append(("causal mask one column late", run(shift=1)))
+    if qs is not None and bool((qs == 0).any()):
+        out.append(("the einsum path's kv_seg > 0 rule", run(rule="einsum")))
+    out.append(("l from the row before", run(l_roll=True)))
+    return out
+
+
+def flash_bwd_band(case: Dict, o_err=None, l_err=None,
+                   m_err=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the plain (dQ, dK, dV) flattened, K11-bwd's band around it).
+
+    Both sides take the same residuals and di, so they part only where
+    they sum in other orders and, in bf16, where p or ds rounds to the
+    other side of a bf16 boundary. With u = 2^-24 and γ = (D + 2)·u:
+    p_ij = exp(s_ij − m_i)·(1/l_i) is off by at most δp_ij = p_ij·(γ·A_ij
+    + 2u·(|s_ij| + |m_i|) + 4u) at a visible key (A_ij = Σ_d|q_d·k_jd|
+    ·scale; the score's sum, the scale, the subtraction and exp's last
+    bits), by 4u·p_ij at an invisible one (exp(0) or 0 on both sides);
+    dp_ij = dO_i·v_j by γ·Σ_d|dO_d·v_jd|; so ds_ij = (dp_ij − di_i)·p_ij
+    ·scale by E_ij = scale·(γ·Σ|dO·v|·(p + δp) + |dp − di|·δp) + 6u·|ds|.
+    In bf16 a p (a ds) whose interval p ± δp (ds ± E) straddles a bf16
+    boundary may round one step apart: 2^-7·(p + δp) (2^-7·(|ds| + E)).
+    Each gradient's f32 sum then carries those errors times |dO|, |q| or
+    |k| and its own rounding, (2·n + 8)·u of its terms' magnitude over n
+    terms; the factor 2 is margin, and the band is the distance from the
+    plain output to the farther rounding of its f32 sum ± that bound.
+    ``o_err`` ([B, S, H, D]), ``l_err`` and ``m_err`` ([B, H, S]) widen it
+    for a side whose forward output and residuals are only known within
+    those bands (a JAX run on the same inputs): di by Σ_d o_err·|dO|, each
+    p by m_err + l_err/l of itself."""
+    q, k, v, qs, ks, o, l, m, do, causal = _bwd_args(case)
+    B, S, H, D = q.shape
+    S_kv = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    u = 2.0 ** -24
+    gamma = (D + 2) * u
+    bf16 = q.dtype == torch.bfloat16
+    di = K11.flash_di(o, do)
+    r = K11.bwd_parts(q, k, v, qs, ks, l, m, do, di, causal, scale)
+    p, dp, ds, s = r["p"], r["dp"], r["ds"], r["s"]
+    qa, ka, va, doa = (t.float().abs().permute(0, 2, 1, 3)
+                       for t in (q, k, v, do))
+    mask = K11.visible(qs, ks, causal, S, S_kv, q.device)
+    rel = (gamma * torch.matmul(qa, ka.transpose(-1, -2)) * scale
+           + 2 * u * (s.abs() + m.abs()[..., None]))
+    if mask is not None:
+        rel = torch.where(mask[:, None], rel, 0.0)
+    rel = rel + 4 * u
+    if m_err is not None:
+        rel = rel + m_err[..., None]
+    if l_err is not None:
+        rel = rel + (l_err / l)[..., None]
+    dP = p * rel
+    e_ds = scale * (gamma * torch.matmul(doa, va.transpose(-1, -2))
+                    * (p + dP) + (dp - di[..., None]).abs() * dP)
+    if o_err is not None:
+        ddi = (o_err.float() * do.float().abs()).sum(-1).permute(0, 2, 1)
+        e_ds = e_ds + scale * ddi[..., None] * (p + dP)
+    e_ds = e_ds + 6 * u * ds.abs()
+    pd, dsd = p, ds
+    if bf16:
+        def flips(x, e):
+            return ((x - e).to(torch.bfloat16)
+                    != (x + e).to(torch.bfloat16)).float()
+        dP = dP + 2.0 ** -7 * flips(p, dP) * (p + dP)
+        e_ds = e_ds + 2.0 ** -7 * flips(ds, e_ds) * (ds.abs() + e_ds)
+        pd, dsd = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    pa, dsa = p + dP, ds.abs() + e_ds
+    qf, kf, dof = (t.float().permute(0, 2, 1, 3) for t in (q, k, do))
+    accs = (torch.matmul(dsd, kf),                           # dQ
+            torch.matmul(dsd.transpose(-1, -2), qf),         # dK
+            torch.matmul(pd.transpose(-1, -2), dof))         # dV
+    errs = (torch.matmul(e_ds, ka) + (2 * S_kv + 8) * u
+            * torch.matmul(dsa, ka),
+            torch.matmul(e_ds.transpose(-1, -2), qa) + (2 * S + 8) * u
+            * torch.matmul(dsa.transpose(-1, -2), qa),
+            torch.matmul(dP.transpose(-1, -2), doa) + (2 * S + 8) * u
+            * torch.matmul(pa.transpose(-1, -2), doa))
+    wants, bands = [], []
+    for acc, err in zip(accs, errs):
+        want = acc.to(q.dtype).float()
+        gap = torch.maximum(
+            ((acc + 2 * err).to(q.dtype).float() - want).abs(),
+            ((acc - 2 * err).to(q.dtype).float() - want).abs())
+        wants.append(want.permute(0, 2, 1, 3))
+        bands.append(gap.permute(0, 2, 1, 3) + torch.finfo(torch.float32)
+                     .tiny)
+    return _flat(*wants), _flat(*bands)
+
+
+def check_flash_bwd(case: Dict) -> Dict:
+    """K11-bwd's two kernels (through ``flash_attention_bwd``) against
+    their plain version, fed the same residuals: (dQ, dK, dV) within
+    ``flash_bwd_band`` with every fault of ``flash_bwd_faults`` outside.
+    Also "err_dq" and "err_dkv", each kernel's largest error."""
+    got = K11.flash_attention_bwd(*_bwd_args(case))
+    want, band = flash_bwd_band(case)
+    res = hold(_flat(*got), want, band, flash_bwd_faults(case),
+               f"flash_attention backward {_flash_what(case)}")
+    n = got[0].numel()
+    err = (_flat(*got) - want).abs()
+    res.update(err_dq=err[:n].max().item(), err_dkv=err[n:].max().item())
+    return res

@@ -61,7 +61,14 @@ faults outside, on packed rows with a padding tail, the padded form,
 causal rows, one key tile and S = 2,048; and at the edges of the
 persistent bf16 design: B 3 × S 384 × H 5 packed and causal (a unit
 count that is no multiple of the SMs, odd heads) and B 2 × S 8,192
-packed (a tile list of 64 with skips).
+packed (a tile list of 64 with skips); the launch with residuals gives
+the same output and its l and m keep their band. K11-bwd (flash
+attention's backward, csrc/flash_attention_bwd.cu) is held to its plain
+version within ops/kernel_checks.py::flash_bwd_band with its planted
+faults outside, fed the same residuals, at chip_smoke.py phase 33 (a)'s
+shapes; gradients through autograd are those kernels' output bit for
+bit, and the no-grad path launches no backward kernel and writes no
+residuals.
 
 Training (misinfo_tpu_torch/train/): an f32 text step on the card against
 the same step on the CPU at a small width (loss within 1e-4 relative, the
@@ -495,7 +502,84 @@ def test_flash_attention_kernel_matches_plain(card, dtype, B, S, H, layout,
     before = K11.launches
     KC.check_flash(KC.flash_case(B, S, H, layout, causal, dtype))
     torch.cuda.synchronize()
-    assert K11.launches == before + 1
+    assert K11.launches == before + 2         # without and with residuals
+
+
+# chip_smoke.py phase 33 (a): the training shape (B 16 × S 256 packed),
+# RoBERTa b32/S512 packed, padded (its last row all padding) and packed
+# causal, one key tile (S = 128), and B 3 × S 384 × H 5 packed causal
+FLASH_BWD_SHAPES = [(16, 256, 12, "packed", False),
+                    (32, 512, 12, "packed", False),
+                    (32, 512, 12, "padded", False),
+                    (32, 512, 12, "packed", True),
+                    (32, 128, 12, "packed", False),
+                    (3, 384, 5, "packed", True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,layout,causal", FLASH_BWD_SHAPES)
+def test_flash_attention_bwd_kernel_matches_plain(card, dtype, B, S, H,
+                                                  layout, causal):
+    before = (K11.bwd_dkv_launches, K11.bwd_dq_launches)
+    KC.check_flash_bwd(KC.flash_bwd_case(B, S, H, layout, causal, dtype))
+    torch.cuda.synchronize()
+    assert (K11.bwd_dkv_launches, K11.bwd_dq_launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_grads_are_the_bwd_kernels(card, dtype,
+                                                   monkeypatch):
+    """Through autograd the forward launches K11 with residuals once and
+    the backward each K11-bwd kernel once, with the kernels' output bit for
+    bit; without grad (or under no_grad) the bare launch runs, with no
+    residuals and no backward kernel."""
+    c = KC.flash_bwd_case(2, 256, 4, "packed", True, dtype)
+    q, k, v, qs, ks = (c[n] for n in ("q", "k", "v", "q_seg", "kv_seg"))
+    calls = []
+    launch = K11._launch
+    monkeypatch.setattr(K11, "_launch", lambda *a, **kw: calls.append(
+        kw.get("residuals", False)) or launch(*a, **kw))
+    counts = (K11.bwd_dkv_launches, K11.bwd_dq_launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = K11.flash_attention(*leaves, qs, ks, True)
+    grads = torch.autograd.grad(out, leaves, c["do"])
+    o, l, m = K11.flash_forward(q, k, v, qs, ks, True)
+    want = K11.flash_attention_bwd(q, k, v, qs, ks, o, l, m, c["do"], True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    assert calls == [True, True]
+    assert (K11.bwd_dkv_launches, K11.bwd_dq_launches) == (
+        counts[0] + 2, counts[1] + 2)
+    calls.clear()
+    K11.flash_attention(q, k, v, qs, ks, True)
+    with torch.no_grad():
+        K11.flash_attention(*leaves, qs, ks, True)
+    torch.cuda.synchronize()
+    assert calls == [False, False]
+    assert (K11.bwd_dkv_launches, K11.bwd_dq_launches) == (
+        counts[0] + 2, counts[1] + 2)
+    with pytest.raises(NotImplementedError):          # a second derivative
+        out = K11.flash_attention(*leaves, qs, ks, True)
+        torch.autograd.grad(out, leaves[0], c["do"], create_graph=True)
+
+
+def test_flash_attention_bwd_kernel_refuses_what_it_cannot_run(card):
+    c = KC.flash_bwd_case(2, 256, 4, "packed", False)
+    args = [c[n] for n in ("q", "k", "v", "q_seg", "kv_seg", "o", "l", "m",
+                           "do")]
+    with pytest.raises(ValueError):                   # f16
+        K11.flash_attention_bwd(*(t.half() if t.is_floating_point()
+                                  and t.dim() == 4 else t for t in args))
+    with pytest.raises(ValueError):                   # l in bf16
+        K11.flash_attention_bwd(*args[:6], args[6].bfloat16(), *args[7:])
+    with pytest.raises(ValueError):                   # l on [B, S, H]
+        K11.flash_attention_bwd(*args[:6], args[6].transpose(1, 2)
+                                .contiguous(), *args[7:])
+    with pytest.raises(ValueError):                   # int64 segment ids
+        K11.flash_attention_bwd(*args[:3], args[3].long(), args[4].long(),
+                                *args[5:])
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_run(card):

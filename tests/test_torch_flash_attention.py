@@ -5,7 +5,8 @@ mode on the CPU, on every row, padding rows included; the attention
 layer's gate and fall-through; the engine against the JAX engine in the
 same mode; a model group; and the card check's band against its planted
 faults (the CUDA kernel is held to the plain version on the card by
-chip_smoke.py phase 32).
+chip_smoke.py phase 32). Gradients through it are
+tests/test_torch_flash_attention_bwd.py's.
 
 Tolerances: the plain version within 1e-5 of JAX's kernel in f32, and in
 bf16 within K11's card band (ops/kernel_checks.py::flash_band: the
@@ -314,9 +315,12 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_flash_refuses_gradients_and_half_segment_ids():
+    """A first gradient runs K11-bwd (tests/test_torch_flash_attention_bwd
+    .py); a second one is refused, as JAX's custom_vjp refuses it."""
     q = torch.zeros(1, 128, 2, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K11-bwd"):
-        K11.flash_attention(q, q, q)
+    out = K11.flash_attention(q, q, q)
+    with pytest.raises(NotImplementedError, match="Higher-order"):
+        torch.autograd.grad(out.sum(), q, create_graph=True)
     seg = torch.ones(1, 128, dtype=torch.int32)
     with pytest.raises(ValueError, match="go together"):
         K11.flash_attention(q.detach(), q.detach(), q.detach(), seg, None)
