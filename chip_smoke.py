@@ -55,7 +55,11 @@ Phases (any failure exits non-zero before the result line):
      transcribes a 20 s
      two-tone-plus-noise WAV (wall time printed), and K6 and K7 must each
      launch once per decoder layer per fused decode step, every launch
-     with the weight type of that transcriber's body;
+     with the weight type of that transcriber's body; then
+     WhisperConfig.tiny()'s widths (heads of 16) under the default decode
+     config: no fused step (its kernels take heads of 64), no K6/K7
+     launch, the transcript and two windows' tokens those of pallas="off"
+     on the same int8 weights;
   7. a teacher-forced comparison: the greedy tokens fed through the step
      with the kernels and with their plain versions, per-step logits
      within TF_BAND (argmax agreement printed: with random weights
@@ -73,7 +77,7 @@ Phases (any failure exits non-zero before the result line):
      edge left out, nibbles swapped or read unsigned, the scale dropped)
      outside that band; CUDA-event times, kernel and plain, and the
      kernels' share of 3.35 TB/s;
- 10. the engine at full width with vault_dtype="int4" and a 1,048,576-row
+ 10. the engine at full width with vault_dtype="int4" and a 262,144-row
      vault (seeded random rows; the CLIP image embeddings of six requests
      planted with noise at known rows, the captions' text embeddings as
      their title rows; weights seeded, vision class and position
@@ -290,7 +294,7 @@ Phases (any failure exits non-zero before the result line):
      error 0, and the batch's reports == those with K2's plain version in
      its place; (f) the CLI with --mesh data=1 (the engine and
      the transcriber get the mesh) and --mesh data=2 refused by
-     make_mesh; (b) (in phase 11) data=2 over phase 10's 1,048,576-row
+     make_mesh; (b) (in phase 11) data=2 over phase 10's 262,144-row
      f32 vault row-sharded (vault_shard_min_rows below its rows): an
      analyze_batch of 32 == the replicated mesh engine's, and a
      vault_search at B = 32 torch.equal to vault_search_sharded's; (c) the
@@ -298,7 +302,7 @@ Phases (any failure exits non-zero before the result line):
      each shard's K10b torch.equal to its plain version; (e) (after phase
      6) a 60 s clip's two windows transcribed under data=2 and without a
      mesh at the full 448 decoder positions, the ladder's decodes (the
-     greedy rung, two sampled draws at t 0.2) recorded call by call: each
+     greedy rung, one sampled draw at t 0.2) recorded call by call: each
      decode's tokens torch.equal, or else each position's torch.equal to
      the witness, its windows decoded without a mesh (batch 1, as the
      position decodes them) on the same noise, which shows a difference
@@ -346,8 +350,10 @@ Phases (any failure exits non-zero before the result line):
      of the default engine, verdicts printed; a CUDA-graph engine III
      warmed for the b32 signature, both batches replayed under sync debug
      "error" bit for bit the eager engine's, K11 12 per replay; b32
-     verdicts/s beside the default engine's (printed). ``--only 32`` runs
-     phase 32 alone;
+     verdicts/s beside the default engine's (printed); DetectorConfig.
+     tiny() (heads of 16 and 24) under use_pallas=True with int8 and
+     "flash": no K3 or K11 launch, scores within 1e-4 of the einsum
+     engine's. ``--only 32`` runs phase 32 alone;
  33. (after phase 32) gradients through use_pallas="flash": (a) K11-bwd
      (csrc/flash_attention_bwd.cu: the dK/dV and the dQ kernel) against
      its plain version through ops/kernel_checks.py::check_flash_bwd,
@@ -360,9 +366,10 @@ Phases (any failure exits non-zero before the result line):
      rounded before dV, sm_scale dropped from ds, the causal mask one
      column late, the einsum path's kv_seg > 0 rule, l from the row
      before) outside; K11's residuals l and m within their band; then
-     each kernel's CUDA-event ms and device µs at the training shape and
-     at b32/S512 packed and padded beside its bound, its plain version and
-     the backward of scaled_dot_product_attention, and K11 with and
+     each kernel's CUDA-event ms and device µs at the training shape, at
+     b32/S512 packed and padded and at B 8 × S 2,048 packed beside its
+     bound, its plain version and the backward of
+     scaled_dot_product_attention, and K11 with and
      without residuals; (b) RoBERTa-base with seeded weights, the packed
      text-head loss (roberta_encode(use_pallas="flash") → CLS slots →
      head_apply → weighted_cross_entropy) on train/datasets.py's
@@ -383,7 +390,8 @@ b32/S512 shapes, one RoBERTa request and Whisper decode rows beside
 cuBLAS's two bf16 products; K10a/K10b at 1,048,576 rows for B = 1, 8, 32,
 64 beside torch._int_mm over unpacked rows; K11 at b32/S512 packed and
 padded and at S = 2,048 beside SDPA; K11-bwd's two kernels at the
-training shape and b32/S512 packed and padded beside SDPA's backward;
+training shape, b32/S512 packed and padded and B 8 × S 2,048 packed
+beside SDPA's backward;
 ``--kernels`` picks among attention, layer_norm, decode, i8cc_layer,
 int8, ffn, int4, flash and flash_bwd, where
 i8cc_layer times K8 and K9 alone at B = 1, 4, 32, K9's rows with the
@@ -393,8 +401,8 @@ whatever misinfo_tpu_torch is first on sys.path: run from another tree's
 root with ``python -c "import runpy, sys; sys.argv = ['chip_smoke.py',
 '--times']; runpy.run_path(PATH, run_name='__main__')"`` it times that
 tree's kernels. ``--parent DIR``
-also times the K4 and K11 sources of the tree at DIR, interleaved with
-this tree's.
+also times the K4, K11 and K11-bwd sources of the tree at DIR,
+interleaved with this tree's.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds. ``--profile FILE``
 also writes torch.profiler tables of the b32 batch (default engine and
@@ -1152,7 +1160,10 @@ def transcript_phases(engine, image, card, profile):
         launches["self_attn_step" + suffix] = l6
         launches["cross_ffn_step" + suffix] = l7
         trs[want] = tr, text, sec, (l6, l7)
+    tiny_transcript_check(wav, card)                          # phase 6
+    stamp("6")
     mesh_transcript_phase(weights, cfg, card)                 # phase 30 (e)
+    stamp("30 (e)")
     tr = trs["kernels"][0]
     tg = transcriber_graphs(*trs["kernels"], weights, cfg,    # phase 26
                             wav, card)
@@ -1161,6 +1172,7 @@ def transcript_phases(engine, image, card, profile):
     transcriber_from_pt(trs["kernels"], weights, cfg, wav,    # phase 27
                         engine, image, W, K6, K7)
     transcriber_from_native(trs["kernels"], weights, cfg, wav)  # phase 28
+    stamp("26-29 (transcriber)")
     teacher_forced(tr, wav, W, K6, K7)
     merged = merge_into_caption("Caption of the clip.", wav, tr)
     if not merged.startswith("Caption of the clip.\n\n"):
@@ -1170,11 +1182,117 @@ def transcript_phases(engine, image, card, profile):
     print(f"merged caption: {len(merged)} chars; analyze report ok",
           flush=True)
     transcript_timings(tr, wav, W, K6, K7, profile)
+    stamp("7-8")
     launches["fused_ffn_whisper"] = whisper_pallas_ffn(weights, cfg, wav,
                                                        card)
+    stamp("18")
     launches.update(whisper_int8_modes(tr, weights, cfg, wav,   # 21-23
                                        card))
     return launches
+
+
+def tiny_transcript_check(wav, card) -> None:
+    """Phase 6's head-width check: a transcriber of WhisperConfig.tiny()'s
+    widths (four heads of 16) under the default decode config resolves the
+    fused step on (quant "kernels"), yet decodes unfused, since the step's
+    kernels take heads of 64 only: its transcript equals the one of
+    pallas="off" on the same int8 weights, with no K6 or K7 launch."""
+    from misinfo_tpu_torch.core.config import WhisperDecodeConfig
+    from misinfo_tpu_torch.models import whisper as W
+    from misinfo_tpu_torch.ops import cross_ffn_step as K7
+    from misinfo_tpu_torch.ops import self_attn_step as K6
+    from misinfo_tpu_torch.preprocess.whisper_tokenizer import (
+        ByteWhisperTokenizer)
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    t0 = time.perf_counter()
+    sp = ByteWhisperTokenizer().specials
+    cfg = dataclasses.replace(
+        W.WhisperConfig.tiny(), vocab_size=sp.vocab_size, num_mel_bins=80,
+        max_source_positions=1500, max_target_positions=64,
+        eos_token_id=sp.eot, decoder_start_token_id=sp.sot)
+    weights = to_numpy(W.whisper_init(11, cfg))
+    dc = dataclasses.replace(WhisperDecodeConfig(),
+                             fallback_temperatures=(0.0,))
+    tr, off = (WhisperTranscriber(weights, config=cfg, device="cuda",
+                                  decode_cfg=d, cuda_graphs=False)
+               for d in (dc, dataclasses.replace(dc, pallas="off",
+                                                 quant="kernels")))
+    mels = np.random.default_rng(6).standard_normal(
+        (2, 3000, 80)).astype(np.float32)
+    prompt = torch.tensor([sp.sot_sequence("en")[1:]] * 2, device="cuda")
+    before = (K6.launches + K6.launches_i8, K7.launches + K7.launches_i8)
+    text = tr.transcribe(wav)
+    with torch.inference_mode():
+        enc = tr._encode(mels)
+        tokens = tr._decode(enc, prompt)[0]
+    torch.cuda.synchronize()
+    n = (K6.launches + K6.launches_i8 - before[0],
+         K7.launches + K7.launches_i8 - before[1])
+    want = off.transcribe(wav)
+    with torch.inference_mode():
+        same = torch.equal(tokens, off._decode(enc, prompt)[0])
+    print(f"phase 6, heads of 16 (WhisperConfig.tiny()'s widths): pallas "
+          f"{tr.pallas}, quant_kernels {tr.quant_kernels}; K6/K7 launches "
+          f"{n}; transcript {'==' if text == want else '!='} pallas='off''s "
+          f"({len(text)} chars), tokens of two windows "
+          f"{'==' if same else '!='} ({tuple(tokens.shape)}); "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if not (tr.pallas and n == (0, 0) and text == want and same):
+        raise AssertionError("phase 6: the tiny transcriber took the fused "
+                             "step or another transcript")
+
+
+def tiny_detector_check(card) -> None:
+    """Phase 32's head-width check: DetectorConfig.tiny() (RoBERTa heads
+    of 16, CLIP heads of 16 and 24) under engine I's mode (int8,
+    use_pallas=True) and engine III's ("flash") on the card takes the
+    einsum attention everywhere: no K3 or K11 launch, scores within 1e-4
+    of the einsum engine's in the same quant mode."""
+    from misinfo_tpu_torch.core.config import (
+        ForensicsConfig, ModelPaths, SequenceConfig)
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import (DetectorConfig,
+                                                   detector_init)
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    from misinfo_tpu_torch.ops import fused_attention as K3
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiny_")
+    vault = os.path.join(tmp, "vault.npz")
+    make_vault(vault, 300, 64)
+    det = DetectorConfig.tiny()
+    params = detector_init(0, det)
+    rng = np.random.default_rng(32)
+    image = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    reqs = ([{"text": words(rng, n), "image": image} for n in (20, 150)]
+            + [{"text": words(rng, 200)}, {"image": image}])
+    for use_pallas, quant in ((True, "int8"), ("flash", "none")):
+        cfg = ForensicsConfig(verbose=False)
+        cfg = cfg.replace(
+            paths=ModelPaths(vault_path=vault),
+            seq=SequenceConfig(roberta_max_len=128, image_size=64),
+            precision=dataclasses.replace(cfg.precision, quant=quant))
+        eng, einsum = (MisinfoForensics(cfg, det, params=params,
+                                        device="cuda", cuda_graphs=False,
+                                        use_pallas=p)
+                       for p in (use_pallas, False))
+        before = (K3.launches, K11.launches)
+        got = eng.analyze_batch(reqs)
+        torch.cuda.synchronize()
+        n = (K3.launches - before[0], K11.launches - before[1])
+        want = einsum.analyze_batch(reqs)
+        drift = max(abs(a["scores"][k] - b["scores"][k])
+                    for a, b in zip(got, want) for k in SCORE_KEYS
+                    if isinstance(a["scores"].get(k), float))
+        print(f"phase 32, DetectorConfig.tiny() (heads of 16 and 24), "
+              f"use_pallas={use_pallas!r}, quant={quant!r}: K3/K11 launches "
+              f"{n}, max score drift against the einsum engine {drift} "
+              f"(limit 1e-4) [{card}]", flush=True)
+        if n != (0, 0) or not drift <= 1e-4:
+            raise AssertionError("phase 32: the tiny detector's heads went "
+                                 "to a kernel or off the einsum path")
+    shutil.rmtree(tmp)
+    print(f"phase 32 tiny detector: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 # -------------------------------------------------------------------- video
@@ -3057,6 +3175,10 @@ def bound(moved: float, ops: float, kind: str):
 # -------------------------------------------------------------------- vault
 
 BIG_ROWS = 1 << 20                  # 512 × INT4_TILE_ROWS
+# the engine phases' vault (10-14, 30 (b, c)): a quarter of BIG_ROWS, still
+# 4 × int4.KERNEL_MIN_ROWS; every boot reads and converts the whole f32
+# file on the host, which at BIG_ROWS took most of the script's time
+VAULT_ROWS = BIG_ROWS // 4
 RAGGED_ROWS = BIG_ROWS - 1971       # not a multiple of 2048, nor of 128
 K10_BATCHES = (1, 8, 32)
 SEP = 0.75         # most a request image may resemble another planted one
@@ -3268,7 +3390,7 @@ def search_ms(eng, q32):
 
 
 def vault_phases(card, small_vault, profile=None):
-    """Phases 10-14: the vault capacity modes at 1,048,576 rows. Returns
+    """Phases 10-14: the vault capacity modes at 262,144 rows. Returns
     the K10a / K10b launch counts of their main-path runs. With
     ``profile``, appends profiler tables of the int4 engine's batch of 32
     and of one int4 vault_search at B = 32."""
@@ -3294,7 +3416,7 @@ def vault_phases(card, small_vault, profile=None):
             + [{"text": words(rng, 20), "image": pool[others[i % len(others)]]}
                for i in range(22)]
             + [{"image": pool[others[i % len(others)]]} for i in range(4)])
-    rows_at = {i: 1000 + BIG_ROWS // 6 * i for i in range(6)}
+    rows_at = {i: 1000 + VAULT_ROWS // 6 * i for i in range(6)}
     plant_rows = {rows_at[i]: (emb[planted[i]],
                                cap_emb[i] if i < 4 else emb[planted[i]])
                   for i in range(6)}
@@ -3302,12 +3424,12 @@ def vault_phases(card, small_vault, profile=None):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_vault_")
     path = os.path.join(tmp, "vault.npz")
     t0 = time.perf_counter()
-    rows, titles = write_vault(path, None, None, BIG_ROWS, plant_rows, 5)
-    print(f"vault: {BIG_ROWS} rows × {emb.shape[1]} (f32 image + title "
+    rows, titles = write_vault(path, None, None, VAULT_ROWS, plant_rows, 5)
+    print(f"vault: {VAULT_ROWS} rows × {emb.shape[1]} (f32 image + title "
           f"planes) made "
           f"and written in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # phase 10: the int4 engine at 1,048,576 rows, two boots; the second
+    # phase 10: the int4 engine at 262,144 rows, two boots; the second
     # with CUDA graphs, for phase 26 (the checks below run on the first)
     eng, boot1 = vault_engine(params, path, vault_dtype="int4")
     if not os.path.exists(prepack.sidecar_path(path)):
@@ -3323,8 +3445,9 @@ def vault_phases(card, small_vault, profile=None):
           f"{boot2:.1f} s ({len(builds)} re-quantizations)", flush=True)
     if builds:
         raise AssertionError("the second boot re-quantized the vault")
+    stamp("10 (vault written, two int4 boots)")
     d = emb.shape[1]
-    if any(tuple(e._vault_device["vault_emb"].shape) != (BIG_ROWS, d // 2)
+    if any(tuple(e._vault_device["vault_emb"].shape) != (VAULT_ROWS, d // 2)
            for e in (eng, geng)):
         raise AssertionError("int4 device plane shape")
 
@@ -3406,13 +3529,14 @@ def vault_phases(card, small_vault, profile=None):
                                      f"K10 {kg} (want {want_k}), profiler "
                                      f"{rec}")
     del geng
+    stamp("10, 26 (int4 engine)")
 
     # phase 11: the same vault in the other dtypes (f32 is the reference)
     q32 = torch.nn.functional.normalize(
         torch.randn(32, d, generator=torch.Generator().manual_seed(3)),
         dim=1).to(eng.device)
     if profile:
-        append_profile(profile, f"int4 vault ({BIG_ROWS} rows) "
+        append_profile(profile, f"int4 vault ({VAULT_ROWS} rows) "
                        "analyze_batch of 32", lambda: eng.analyze_batch(reqs))
         append_profile(profile, "int4 vault_search at B = 32",
                        search_call(eng, q32))
@@ -3455,9 +3579,11 @@ def vault_phases(card, small_vault, profile=None):
         print(f"vault_dtype={dt}: vault_search B=32 {ms} ms; memory_report "
               f"{json.dumps(mem)} [{card}]", flush=True)
 
+    stamp("11")
     k10_mesh = mesh_vault_phase(params, path, reqs, plants, q32,  # 30 (b, c)
                                 card, host_vault)
     del host_vault
+    stamp("30 (b, c)")
 
     # phase 12: IVF over the same f32 vault, built on the card
     real_ivf = IVF.build_ivf
@@ -3484,18 +3610,19 @@ def vault_phases(card, small_vault, profile=None):
           f"every planted row; vault_search B=32 {search_ms(ivf_eng, q32)} "
           f"ms [{card}]", flush=True)
     del ivf_eng
+    stamp("12")
 
     # phase 13: reload_vault(drop_first=True) onto the vault with rows
     # appended, one of them planted
     for f in os.listdir(tmp):
         os.remove(os.path.join(tmp, f))
     extra = 4096
-    new_row = BIG_ROWS + 100
+    new_row = VAULT_ROWS + 100
     rng = np.random.default_rng(6)
     more = rng.standard_normal((extra, d)).astype(np.float32)
     path2 = os.path.join(tmp, "vault_grown.npz")
     write_vault(path2, np.concatenate([rows, more]),
-                np.concatenate([titles, more[::-1]]), BIG_ROWS + extra,
+                np.concatenate([titles, more[::-1]]), VAULT_ROWS + extra,
                 {new_row: (emb[planted[6]], emb[planted[6]])}, 7)
     del rows, titles
     t0 = time.perf_counter()
@@ -4376,7 +4503,8 @@ FLASH_BWD_CHECKS = ((16, 256, 12, "packed", False),
 # its times: (name, B, S, H, layout); the first is the kernels line's row
 FLASH_BWD_TIMES = (("train_16x256_packed", 16, 256, 12, "packed"),
                    ("roberta_b32_packed", 32, 512, 12, "packed"),
-                   ("roberta_b32_padded", 32, 512, 12, "padded"))
+                   ("roberta_b32_padded", 32, 512, 12, "padded"),
+                   ("s2048_packed", 8, 2048, 12, "packed"))
 # phase 33 (b): the packed text-head training step through
 # use_pallas="flash"
 FLASH_TRAIN_ROWS, FLASH_TRAIN_SLOTS, FLASH_TRAIN_STEPS = 16, 64, 3
@@ -4413,17 +4541,64 @@ def flash_bwd_work(case, which: str):
     return reads + nbytes(case["o"], q, k, v), 10 * D * pairs
 
 
-def flash_bwd_times(card, reps=20):
+def _parent_flash_bwd(root: str):
+    """The K11-bwd of the tree at ``root``: {"dkv": ..., "dq": ...},
+    callables with flash_dkv's and flash_dq's arguments (bf16, the same C
+    entries), and "lib", the library."""
+    import ctypes
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    lib = _parent_library(root, "flash_attention_bwd")
+    for name, n_out in (("flash_dkv_launch", 2), ("flash_dq_launch", 1)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * (9 + n_out) + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+    def kernel(which):
+        def run(q, k, v, qs, ks, l, m, do, di, causal=False):
+            B, S, H, D = q.shape
+            outs = ((torch.empty_like(k), torch.empty_like(v))
+                    if which == "dkv" else (torch.empty_like(q),))
+            err = getattr(lib, f"flash_{which}_launch")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if qs is None else qs.data_ptr(),
+                None if ks is None else ks.data_ptr(), l.data_ptr(),
+                m.data_ptr(), do.data_ptr(), di.data_ptr(),
+                *(t.data_ptr() for t in outs), B, S, H, k.shape[1], D,
+                int(causal), 0, 1.0 / math.sqrt(D), K11.MASK_VALUE,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{root}'s flash_{which}_launch failed: "
+                                   f"{err}")
+            return outs if which == "dkv" else outs[0]
+        return run
+    return {"dkv": kernel("dkv"), "dq": kernel("dq"), "lib": lib}
+
+
+def _max_diff(a, b) -> float:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a, b))
+
+
+def flash_bwd_times(card, reps=20, parent=None):
     """K11-bwd (bf16) at FLASH_BWD_TIMES' shapes: each kernel's CUDA-event
     ms and device µs (the median of three readings) beside its bound and
     its plain version's ms, and as the library's time the backward alone
     of scaled_dot_product_attention with the equivalent boolean mask
     (torch.autograd.grad of its output; the port never calls it), which
-    computes dQ, dK and dV in one call; K11's forward with and without its
-    residuals. Printed as JSON lines, returned by (shape, kernel)."""
+    computes dQ, dK and dV in one call (CUDA-event ms, which the host's
+    autograd work can set, and its device µs); K11's forward with and
+    without its residuals. With ``parent`` (another tree's root) that tree's two
+    kernels too (``_parent_flash_bwd``), each one's device µs read in turn
+    with this tree's (this, parent, parent, this, this, parent), and the
+    largest difference between the two outputs. Printed as JSON lines,
+    returned by (shape, kernel)."""
     import torch.nn.functional as F
     from misinfo_tpu_torch.ops import flash_attention as K11
     from misinfo_tpu_torch.ops import kernel_checks as KC
+    prev = _parent_flash_bwd(parent) if parent else None
     rows = {}
     for name, B, S, H, layout in FLASH_BWD_TIMES:
         c = KC.flash_bwd_case(B, S, H, layout, False, torch.bfloat16)
@@ -4435,9 +4610,12 @@ def flash_bwd_times(card, reps=20):
         seen = K11.visible(qs, ks, False, S, S, q.device)[:, None]
         lib_out = F.scaled_dot_product_attention(*lt, attn_mask=seen)
         lib_do = c["do"].transpose(1, 2).contiguous()
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, lt, lib_do, retain_graph=True), reps)
-        del lib_out
+        def library():
+            return torch.autograd.grad(lib_out, lt, lib_do,
+                                       retain_graph=True)
+        library_ms = cuda_ms(library, reps)
+        library_us = device_us(library, 10)[0]
+        del lib_out, seen
         fwd = {"fwd_ms": cuda_ms(lambda: K11.flash_attention(
                    q, k, v, qs, ks), reps),
                "fwd_residuals_ms": cuda_ms(lambda: K11.flash_forward(
@@ -4448,11 +4626,23 @@ def flash_bwd_times(card, reps=20):
                    lambda: K11.flash_forward(q, k, v, qs, ks), 10)[0]}
         for which, fn, plain in (("dkv", K11.flash_dkv, K11.flash_dkv_plain),
                                  ("dq", K11.flash_dq, K11.flash_dq_plain)):
-            us = [device_us(lambda: fn(*args), 10)[0] for _ in range(3)]
+            runs = {"device_us": lambda fn=fn: fn(*args)}
+            extra = {}
+            if prev:
+                runs["parent_device_us"] = (
+                    lambda which=which: prev[which](*args))
+                extra["parent_max_abs_diff"] = _max_diff(
+                    runs["device_us"](), runs["parent_device_us"]())
+            us = {key: [] for key in runs}
+            for r in range(3):
+                for key in (runs if r % 2 == 0 else reversed(list(runs))):
+                    us[key].append(device_us(runs[key], 10)[0])
             row = {"ms": cuda_ms(lambda: fn(*args), reps),
                    "plain_ms": cuda_ms(lambda: plain(*args), 3),
-                   "library_ms": library_ms, "device_us": _median(us),
-                   "device_us_runs": us,
+                   "library_ms": library_ms,
+                   "library_device_us": library_us,
+                   **{key: _median(v) for key, v in us.items()},
+                   **{f"{key}_runs": v for key, v in us.items()}, **extra,
                    **bound(*flash_bwd_work(c, which), "bf16")}
             print(json.dumps({"kernel": f"flash_attention_bwd_{which}",
                               "shape": name, "B": B, "S": S, "H": H,
@@ -4464,6 +4654,8 @@ def flash_bwd_times(card, reps=20):
                           "function_bound_ms": both["bound_ms"],
                           "function_bound_by": both["bound_by"], **fwd,
                           "card": card}), flush=True)
+        del c, args, lt
+        gc_cuda()
     return rows
 
 
@@ -5605,7 +5797,7 @@ def mesh_engine_phase(engine, vault_path, batch, b32, image, card):
 
 
 def mesh_vault_phase(params, path, reqs, plants, q32, card, host_vault):
-    """Phase 30 (b) and (c) on phase 10's 1,048,576-row vault: data=2 over
+    """Phase 30 (b) and (c) on phase 10's 262,144-row vault: data=2 over
     cuda:0 twice, the vault replicated on both positions against the
     vault row-sharded over them (vault_shard_min_rows below its rows), in
     f32 and int4; every boot reads ``host_vault``, phase 11's load of
@@ -5628,7 +5820,7 @@ def mesh_vault_phase(params, path, reqs, plants, q32, card, host_vault):
                                        vault_dtype=dt)
             shd, boot_s = vault_engine(params, path, mesh=mesh,
                                        vault_dtype=dt,
-                                       vault_shard_min_rows=BIG_ROWS // 2)
+                                       vault_shard_min_rows=VAULT_ROWS // 2)
             if rep._vault_sharded or not shd._vault_sharded:
                 raise AssertionError(f"phase 30 {dt}: shard decision")
             want = rep.analyze_batch(reqs)
@@ -5671,7 +5863,7 @@ def mesh_vault_phase(params, path, reqs, plants, q32, card, host_vault):
             vps = {"replicated": verdicts_per_s(rep, reqs, reps=2),
                    "sharded": verdicts_per_s(shd, reqs, reps=2)}
             line = (f"phase 30 ({'b' if dt == 'float32' else 'c'}) {dt}: "
-                    f"data=2 over cuda:0 twice, {BIG_ROWS} rows in shards "
+                    f"data=2 over cuda:0 twice, {VAULT_ROWS} rows in shards "
                     f"of {sd['vault_emb'][0].shape[0]}; analyze_batch of "
                     f"{len(reqs)}: top-k rows and verdicts equal the "
                     f"replicated engine's {idx_same}, max top-k sim "
@@ -5709,8 +5901,8 @@ def mesh_transcript_phase(weights, cfg, card):
     """Phase 30 (e): a 60 s clip (two windows) transcribed under data=2
     over cuda:0 twice and without a mesh in the same decode mode (pallas
     and quant "auto" resolve off under a mesh), at the full 448 decoder
-    positions, the ladder's greedy rung and its sampled rung (t 0.2, two
-    draws) recorded call by call: each decode's tokens torch.equal, or
+    positions, the ladder's greedy rung and its sampled rung (t 0.2, one
+    draw) recorded call by call: each decode's tokens torch.equal, or
     else torch.equal to the witness: each position's windows decoded
     without a mesh, in a batch of that size, on the same noise, so that a
     difference is the batch size's rounding and not the mesh's; every
@@ -5724,7 +5916,7 @@ def mesh_transcript_phase(weights, cfg, card):
                        "clip60.wav")
     write_wav(wav, seconds=60.0)
     dc = dataclasses.replace(WhisperDecodeConfig(),
-                             fallback_temperatures=(0.0, 0.2), best_of=2)
+                             fallback_temperatures=(0.0, 0.2), best_of=1)
     plain = T.WhisperTranscriber(weights, config=cfg, device="cuda",
                                  decode_cfg=dataclasses.replace(
                                      dc, pallas="off", quant="none"),
@@ -5865,6 +6057,7 @@ def only_flash() -> int:
     b32 = [{"text": words(rng, 400 + i), "image": image} for i in range(32)]
     flash_checks(card)
     flash_engine_phase(engine, vault_path, b32, image, rng, card)
+    tiny_detector_check(card)
     stamp("32")
     shutil.rmtree(tmp)
     return 0
@@ -5884,8 +6077,8 @@ def main() -> int:
     ap.add_argument("--times", action="store_true",
                     help="print only the redesigned kernels' times")
     ap.add_argument("--parent", metavar="DIR",
-                    help="with --times: also time the K4 and K11 of the "
-                    "tree at DIR, interleaved with this tree's")
+                    help="with --times: also time the K4, K11 and K11-bwd "
+                    "of the tree at DIR, interleaved with this tree's")
     ap.add_argument("--kernels",
                     default="attention,layer_norm,decode,int8,ffn,int4,flash,"
                     "flash_bwd",
@@ -5936,7 +6129,7 @@ def main() -> int:
         if "flash" in which:
             flash_times(card, parent=args.parent)
         if "flash_bwd" in which:
-            flash_bwd_times(card)
+            flash_bwd_times(card, parent=args.parent)
         return 0
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
@@ -6063,6 +6256,7 @@ def main() -> int:
     flash_row, _ = flash_checks(card)                         # phase 32 (a)
     flash_launches = flash_engine_phase(engine, vault_path,   # phase 32 (b)
                                         b32, image, rng, card)
+    tiny_detector_check(card)
     stamp("32")
     bwd_rows = flash_bwd_checks(card)                         # phase 33 (a)
     train_flash = flash_train_phase(card)                     # phase 33 (b)

@@ -2,6 +2,8 @@
 
     python3 k11_probe.py steps [--parent DIR]   # the design's build steps
     python3 k11_probe.py ablate                 # one part of the work out
+    python3 k11_probe.py bwd_ablate             # the same for K11-bwd
+    python3 k11_probe.py bwd_clocks             # K11-bwd's consumer time
 
 Each variant is a scratch copy of misinfo_tpu_torch/csrc/flash_attention.cu
 (with the headers beside it) written under build/k11_probe/, built with
@@ -17,6 +19,13 @@ unpacked by ``git archive``). Every step's output is compared with the
 final's. ``ablate``: timing only
 (outputs wrong by design): no expf, no scale-and-mask pass, no softmax,
 no products, no turns, and the row max and sum split four ways.
+``bwd_ablate``: the same for K11-bwd's two bf16 kernels
+(csrc/flash_attention_bwd.cu) at chip_smoke.FLASH_BWD_TIMES' shapes,
+timing only: no expf, no elementwise pass (p and ds), no products, no
+turns. ``bwd_clocks``: a copy with clock64() readings around each part
+of a consumer warpgroup's step (the turn, the issue, the waits for the
+products, the elementwise pass, the waits for a stage), each part's share
+of the warpgroup's time.
 """
 
 from __future__ import annotations
@@ -148,7 +157,150 @@ def _ablations(final: str) -> dict:
     return v
 
 
-def _tree(name: str, text: str) -> str:
+def _bwd_ablations(final: str) -> dict:
+    """Scratch copies of csrc/flash_attention_bwd.cu with one part of the
+    bf16 kernels' work taken out (timing only: the outputs are wrong)."""
+    v = {"no_expf": _sub(
+        final, "p = __fmul_rn(expf(__fsub_rn(x, m)), inv_l);",
+        "p = __fmul_rn(__fsub_rn(x, m), inv_l);")}
+    v["no_elementwise"] = _sub(final, """    int lim, float scale, float mask_value) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {""", """    int lim, float scale, float mask_value) {
+  if (lim != 0x7fffffff) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {""")
+    nog = _sub(final, """#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          bf16w::wgmma_bf16<64, 0>(sc, da0 + 2 * kk, db0 + 2 * kk, kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          bf16w::wgmma_bf16<64, 0>(dp, da1 + 2 * kk, db1 + 2 * kk, kk > 0);""",
+               "        if (db0 == db1) sc[0] = dp[0] = 0.f;")
+    nog = _sub(nog, """      bf16w::wgmma_bf16_rs64(acc1, pw + 4 * kk, b1 + 128 * kk, 1);""",
+               """      if (b1 == 1) acc1[kk] = __uint_as_float(pw[kk]);""")
+    v["no_products"] = _sub(nog, """    bf16w::wgmma_bf16_rs64(acc0, dw + 4 * kk, b0 + 128 * kk, 1);""",
+                            """    if (b0 == 1) acc0[kk] = __uint_as_float(dw[kk]);""")
+    v["no_turns"] = _sub(_sub(_sub(
+        final, "        i8g::named_sync(TURN_BAR + c, 256);\n", ""),
+        "        named_arrive(TURN_BAR + 1 - c, 256);\n", ""),
+        "    if (c == 1) named_arrive(TURN_BAR, 256);  // consumer 0 issues "
+        "first\n", "")
+    return v
+
+
+CLOCK_PARTS = ("turn", "issue", "wait_ss", "elementwise", "wait_grads",
+               "stage_wait", "unit_wait", "total")
+
+
+def _bwd_clocks(final: str) -> str:
+    """K11-bwd's source with clock64() readings around each part of a
+    consumer warpgroup's step, summed per warpgroup into bwd_clk[8·c + x]
+    (x: CLOCK_PARTS) by its first thread; bwd_clk_zero / bwd_clk_read reach
+    them from the host. Timing only."""
+    v = _sub(final, '#include "wgmma_bf16.cuh"\n', """#include "wgmma_bf16.cuh"
+__device__ unsigned long long bwd_clk[16];
+extern "C" int bwd_clk_read(void* h) {
+  return (int)cudaMemcpyFromSymbol(h, bwd_clk, sizeof(bwd_clk));
+}
+extern "C" int bwd_clk_zero() {
+  unsigned long long z[16] = {};
+  return (int)cudaMemcpyToSymbol(bwd_clk, z, sizeof(z));
+}
+""")
+    v = _sub(v, "    if (c == 1) named_arrive(TURN_BAR, 256);  // consumer 0 issues "
+             "first\n", "    if (c == 1) named_arrive(TURN_BAR, 256);\n"
+             "    long long ck[8] = {};\n"
+             "    const long long ck0 = clock64();\n")
+    v = _sub(v, "        i8g::named_sync(TURN_BAR + c, 256);\n",
+             "        const long long q0 = clock64();\n"
+             "        i8g::named_sync(TURN_BAR + c, 256);\n"
+             "        const long long q1 = clock64();\n"
+             "        ck[0] += q1 - q0;\n")
+    v = _sub(v, """        named_arrive(TURN_BAR + 1 - c, 256);
+        if constexpr (GRADS)
+          i8g::wgmma_wait<1>();
+        else
+          i8g::wgmma_wait<0>();
+""", """        named_arrive(TURN_BAR + 1 - c, 256);
+        const long long q2 = clock64();
+        ck[1] += q2 - q1;
+        if constexpr (GRADS)
+          i8g::wgmma_wait<1>();
+        else
+          i8g::wgmma_wait<0>();
+        const long long q3 = clock64();
+        ck[2] += q3 - q2;
+""")
+    v = _sub(v, """                                    mask_value);
+        if constexpr (GRADS) {""", """                                    mask_value);
+        bf16w::fence_acc<32>(sc);
+        bf16w::fence_acc<32>(dp);
+        const long long q4 = clock64();
+        ck[3] += q4 - q3;
+        if constexpr (GRADS) {""")
+    v = _sub(v, "        // p (dK/dV) and ds rounded to bf16",
+             "        ck[4] += clock64() - q4;\n"
+             "        // p (dK/dV) and ds rounded to bf16")
+    v = _sub(v, """        i8g::mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+        const int j = hdr[s];""", """        const long long f0 = clock64();
+        i8g::mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+        ck[5] += clock64() - f0;
+        const int j = hdr[s];""")
+    v = _sub(v, """      i8g::mbar_wait(ofull0 + 8 * kb, (k >> 1) & 1);
+      const int n = count[kb];""", """      const long long f1 = clock64();
+      i8g::mbar_wait(ofull0 + 8 * kb, (k >> 1) & 1);
+      ck[6] += clock64() - f1;
+      const int n = count[kb];""")
+    return _sub(v, """      if (DKV) store_acc(out1, acc1, row + g, H, w.h);
+    }
+  }
+}""", """      if (DKV) store_acc(out1, acc1, row + g, H, w.h);
+    }
+    ck[7] = clock64() - ck0;
+    if (t == 0)
+      for (int x = 0; x < 8; ++x)
+        atomicAdd(&bwd_clk[8 * c + x], (unsigned long long)ck[x]);
+  }
+}""")
+
+
+def bwd_clocks(card: str) -> None:
+    """Where a consumer warpgroup's time goes in K11-bwd's bf16 kernels:
+    the _bwd_clocks variant run once a kernel at chip_smoke.FLASH_BWD_TIMES'
+    shapes; each part's share of the warpgroup's time, summed over blocks."""
+    import ctypes
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    with open(os.path.join(SRC, "flash_attention_bwd.cu")) as f:
+        text = _bwd_clocks(f.read())
+    fns = C._parent_flash_bwd(_tree("bwd_clocks", text,
+                                    "flash_attention_bwd.cu"))
+    lib = fns["lib"]
+    for name, B, S, H, layout in C.FLASH_BWD_TIMES:
+        c = KC.flash_bwd_case(B, S, H, layout, False, torch.bfloat16)
+        args = (c["q"], c["k"], c["v"], c["q_seg"], c["kv_seg"], c["l"],
+                c["m"], c["do"], K11.flash_di(c["o"], c["do"]), False)
+        for which in ("dkv", "dq"):
+            fns[which](*args)               # warm
+            torch.cuda.synchronize()
+            lib.bwd_clk_zero()
+            fns[which](*args)
+            torch.cuda.synchronize()
+            raw = (ctypes.c_ulonglong * 16)()
+            lib.bwd_clk_read(raw)
+            row = {}
+            for wg in range(2):
+                got = list(raw[8 * wg:8 * wg + 8])
+                row[f"consumer{wg}"] = {k: got[i] / got[-1]
+                                        for i, k in enumerate(CLOCK_PARTS)}
+            print(json.dumps({"kernel": f"flash_attention_bwd_{which}",
+                              "shape": name, "share_of_time": row,
+                              "card": card}), flush=True)
+        del c, args
+        C.gc_cuda()
+
+
+def _tree(name: str, text: str, source: str = "flash_attention.cu") -> str:
     root = os.path.join(OUT, name)
     shutil.rmtree(root, ignore_errors=True)
     d = os.path.join(root, SRC)
@@ -156,14 +308,46 @@ def _tree(name: str, text: str) -> str:
     for f in os.listdir(SRC):
         if f.endswith(".cuh"):
             shutil.copy(os.path.join(SRC, f), d)
-    with open(os.path.join(d, "flash_attention.cu"), "w") as f:
+    with open(os.path.join(d, source), "w") as f:
         f.write(text)
     return root
 
 
+def bwd_ablate(card: str) -> None:
+    """Each _bwd_ablations variant's dK/dV and dQ kernels timed in turn with
+    this tree's at chip_smoke.FLASH_BWD_TIMES' shapes: device µs over 10
+    calls, the median of four readings a kernel."""
+    from misinfo_tpu_torch.ops import flash_attention as K11
+    from misinfo_tpu_torch.ops import kernel_checks as KC
+    with open(os.path.join(SRC, "flash_attention_bwd.cu")) as f:
+        final = f.read()
+    fns = {"final": {"dkv": K11.flash_dkv, "dq": K11.flash_dq}}
+    for name, text in _bwd_ablations(final).items():
+        fns[name] = C._parent_flash_bwd(
+            _tree(f"bwd_{name}", text, "flash_attention_bwd.cu"))
+    for name, B, S, H, layout in C.FLASH_BWD_TIMES:
+        c = KC.flash_bwd_case(B, S, H, layout, False, torch.bfloat16)
+        args = (c["q"], c["k"], c["v"], c["q_seg"], c["kv_seg"], c["l"],
+                c["m"], c["do"], K11.flash_di(c["o"], c["do"]), False)
+        for which in ("dkv", "dq"):
+            us = {k: [] for k in fns}
+            order = list(fns)
+            for r in range(4):
+                for k in (order if r % 2 == 0 else order[::-1]):
+                    us[k].append(C.device_us(
+                        lambda: fns[k][which](*args), 10)[0])
+            print(json.dumps({"kernel": f"flash_attention_bwd_{which}",
+                              "shape": name, "device_us": {
+                                  k: C._median(v) for k, v in us.items()},
+                              "runs": us, "card": card}), flush=True)
+        del c, args
+        C.gc_cuda()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=["steps", "ablate"])
+    ap.add_argument("what", choices=["steps", "ablate", "bwd_ablate",
+                                     "bwd_clocks"])
     ap.add_argument("--parent", metavar="DIR",
                     help="steps: also time the K11 of the tree at DIR")
     args = ap.parse_args()
@@ -174,6 +358,9 @@ def main() -> int:
     from misinfo_tpu_torch.ops import kernel_checks as KC
     card = C.card_line()
     print(card, flush=True)
+    if args.what in ("bwd_ablate", "bwd_clocks"):
+        (bwd_ablate if args.what == "bwd_ablate" else bwd_clocks)(card)
+        return 0
     with open(os.path.join(SRC, "flash_attention.cu")) as f:
         final = f.read()
     variants = _steps(final) if args.what == "steps" else _ablations(final)

@@ -11,7 +11,9 @@ counterpart) where JAX's gate opens: S ≥ 128, S a multiple of 128 and
 S == S_kv; packed rows pass their segment ids as both query and key ids,
 padded rows all-ones query ids and the mask as key ids. Where the gate
 shuts, "flash" takes JAX's fall-through: K3 without segment ids, else the
-einsum path. A fused ``qkv`` param dict (serving's
+einsum path. On the card a head width other than 64, which neither
+kernel takes, goes to the einsum path (``_kernel_route``). A fused ``qkv``
+param dict (serving's
 ``fuse_qkv_params``) runs one [D, 3D] product and splits its output. A
 ``ModelSplit`` runs over a model group (parallel/tensor.py). A non-f32
 ``policy.accum`` rounds the context product to it, as JAX's
@@ -57,6 +59,22 @@ def score_scale(hd: int, dtype) -> float:
 def _additive(allowed_f32: torch.Tensor, dtype) -> torch.Tensor:
     """(1 − allowed) · −1e9 in f32, then cast: the JAX mask arithmetic."""
     return ((1.0 - allowed_f32) * _NEG_INF).to(dtype)
+
+
+def _kernel_route(use_pallas, S: int, S_kv: int, hd: int, device_type: str,
+                 packed: bool) -> str:
+    """Which engine computes the attention: "flash" (K11), "fused" (K3) or
+    "einsum". JAX's gates: flash where ``use_pallas == "flash"``, S >= 128,
+    S a multiple of 128 and S == S_kv; else K3 for any ``use_pallas``
+    without segment ids (``packed`` false). A rule on the shape, not a
+    fallback: on a CUDA tensor the kernels take heads of HEAD_DIM (64)
+    only, so any other width takes the einsum path there; on the CPU the
+    kernels' plain versions take every width, as JAX's kernels do."""
+    if not use_pallas or (device_type == "cuda" and hd != K11.HEAD_DIM):
+        return "einsum"
+    if use_pallas == "flash" and S >= 128 and S % 128 == 0 and S == S_kv:
+        return "flash"
+    return "einsum" if packed else "fused"
 
 
 def multi_head_attention(
@@ -112,8 +130,10 @@ def _context(params, x, heads, hd, mask, causal, kv, policy, use_pallas,
         q = dense(params["q"], x, policy).reshape(B, S, heads, hd)
         k = dense(params["k"], kv, policy).reshape(B, S_kv, heads, hd)
         v = dense(params["v"], kv, policy).reshape(B, S_kv, heads, hd)
-    if use_pallas == "flash" and S >= 128 and S % 128 == 0 and S == S_kv:
-        # JAX's gate for its library flash kernel, and its segment ids
+    route = _kernel_route(use_pallas, S, S_kv, hd, q.device.type,
+                         segment_ids is not None)
+    if route == "flash":
+        # JAX's segment ids for its library flash kernel
         q_seg = kv_seg = None
         if segment_ids is not None:
             q_seg = kv_seg = segment_ids.to(torch.int32).contiguous()
@@ -122,7 +142,7 @@ def _context(params, x, heads, hd, mask, causal, kv, policy, use_pallas,
             kv_seg = mask.to(torch.int32).contiguous()
         return K11.flash_attention(q, k, v, q_seg, kv_seg, causal=causal,
                                    sm_scale=1.0 / hd ** 0.5).reshape(B, S, W)
-    if use_pallas and segment_ids is None:
+    if route == "fused":
         check_accum(policy, "the fused attention kernel K3")
         return K3.fused_attention(q, k, v, mask=mask,
                                   causal=causal).reshape(B, S, W)

@@ -77,7 +77,7 @@ from misinfo_tpu_torch.models.whisper import (
 from misinfo_tpu_torch.ops.common import DEFAULT_POLICY, set_exact_f32
 from misinfo_tpu_torch.ops import graphs
 from misinfo_tpu_torch.ops.graphs import Runner
-from misinfo_tpu_torch.ops.self_attn_step import MAX_BATCH
+from misinfo_tpu_torch.ops.self_attn_step import HEAD_DIM, MAX_BATCH
 from misinfo_tpu_torch.ops.serving import (
     optimize_whisper_for_serving, quantize_whisper_decoder,
     quantize_whisper_embedding)
@@ -124,6 +124,16 @@ def _isolation_on() -> bool:
     default is auto: the isolated worker)."""
     return os.environ.get("MISINFO_TPU_TRANSCRIPT_ISOLATION",
                           "auto") not in ("0", "off", "false")
+
+
+def _fused_step(cfg, batch: int) -> bool:
+    """Whether the fused decode step's kernels take a window batch of
+    ``batch`` rows of model ``cfg``: at most MAX_BATCH rows, and heads
+    HEAD_DIM (64) wide. Bigger batches and other head widths (the tiny
+    test config's 16) decode through the unfused step, as the JAX
+    transcriber's ``use_pallas`` sends them to its XLA path
+    (``pallas_decode_max_batch`` returns 0 for them)."""
+    return batch <= MAX_BATCH and cfg.d_model == cfg.num_heads * HEAD_DIM
 
 
 class WhisperTranscriber:
@@ -325,11 +335,8 @@ class WhisperTranscriber:
                          {"enc": self._encode(mels[:1])})
 
     def _fused(self, enc) -> bool:
-        """The fused step for this window batch. The kernels carry at most
-        MAX_BATCH rows; bigger batches decode through the unfused step, as
-        the JAX transcriber's ``use_pallas`` sends big window buckets to
-        its XLA path."""
-        return self.pallas and enc.shape[0] <= MAX_BATCH
+        """The fused step for this window batch (``_fused_step``)."""
+        return self.pallas and _fused_step(self.cfg, enc.shape[0])
 
     def _decode_split(self, encs, prompt, temperature, seed):
         """``_decode`` of window pieces, one per data position, each on its

@@ -66,9 +66,16 @@ the same output and its l and m keep their band. K11-bwd (flash
 attention's backward, csrc/flash_attention_bwd.cu) is held to its plain
 version within ops/kernel_checks.py::flash_bwd_band with its planted
 faults outside, fed the same residuals, at chip_smoke.py phase 33 (a)'s
-shapes; gradients through autograd are those kernels' output bit for
-bit, and the no-grad path launches no backward kernel and writes no
-residuals.
+shapes and B 8 × S 2,048 packed (long tile lists, many units a block);
+two launches on the same inputs give the same bits; gradients through
+autograd are those kernels' output bit for bit, and the no-grad path
+launches no backward kernel and writes no residuals.
+
+Head widths the kernels do not take (64 only): DetectorConfig.tiny()
+under use_pallas=True and "flash" takes the einsum attention (no K3 or
+K11 launch, the einsum engine's scores), and WhisperConfig.tiny()'s
+widths decode unfused under the default decode config, token for token
+as pallas="off" on the same int8 weights.
 
 Training (misinfo_tpu_torch/train/): an f32 text step on the card against
 the same step on the CPU at a small width (loss within 1e-4 relative, the
@@ -513,7 +520,8 @@ FLASH_BWD_SHAPES = [(16, 256, 12, "packed", False),
                     (32, 512, 12, "padded", False),
                     (32, 512, 12, "packed", True),
                     (32, 128, 12, "packed", False),
-                    (3, 384, 5, "packed", True)]
+                    (3, 384, 5, "packed", True),
+                    (8, 2048, 12, "packed", False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -525,6 +533,24 @@ def test_flash_attention_bwd_kernel_matches_plain(card, dtype, B, S, H,
     torch.cuda.synchronize()
     assert (K11.bwd_dkv_launches, K11.bwd_dq_launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,layout,causal", [
+    (32, 512, 12, "packed", False), (32, 512, 12, "padded", False),
+    (3, 384, 5, "packed", True), (8, 2048, 12, "packed", False)])
+def test_flash_attention_bwd_kernels_repeat_bit_for_bit(card, dtype, B, S, H,
+                                                        layout, causal):
+    """No atomics: each output tile has one owner that sums its terms in
+    one fixed order, so two launches on the same inputs give the same
+    bits."""
+    c = KC.flash_bwd_case(B, S, H, layout, causal, dtype)
+    args = (c["q"], c["k"], c["v"], c["q_seg"], c["kv_seg"], c["l"], c["m"],
+            c["do"], K11.flash_di(c["o"], c["do"]), causal)
+    first = (*K11.flash_dkv(*args), K11.flash_dq(*args))
+    again = (*K11.flash_dkv(*args), K11.flash_dq(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1207,3 +1233,100 @@ def test_train_bf16_step_leaves_frozen_leaves_equal(card, kind):
             moved += not torch.equal(a, b)
             assert b.dtype == torch.float32
     assert moved > 0
+
+
+# ------------------------------------- head widths the kernels do not take
+# DetectorConfig.tiny() has RoBERTa heads of 16 and CLIP heads of 16 and 24,
+# WhisperConfig.tiny() four heads of 16; every kernel of the attention and
+# the decode step takes heads of 64 only.
+
+@pytest.mark.parametrize("use_pallas,quant", [(True, "int8"),
+                                              ("flash", "none")])
+def test_tiny_detector_attention_takes_the_einsum_path(card, tmp_path,
+                                                       use_pallas, quant):
+    """DetectorConfig.tiny() under use_pallas=True (engine I's mode, int8)
+    and "flash" (engine III's) on the card: every attention takes the
+    einsum path (ops/attention.py::_kernel_route), so the reports are the
+    einsum engine's in the same quant mode, scores within 1e-4, with no K3
+    or K11 launch (both used to raise ValueError on these widths)."""
+    from misinfo_tpu_torch.core import config as C
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import (DetectorConfig,
+                                                   detector_init)
+    det = DetectorConfig.tiny()
+    cfg = C.ForensicsConfig(
+        verbose=False,
+        precision=dataclasses.replace(C.PrecisionConfig(), quant=quant),
+        paths=C.ModelPaths(vault_path=_graph_vault(
+            str(tmp_path / "v.npz"), 300, 0)),
+        seq=C.SequenceConfig(roberta_max_len=128, image_size=64))
+    params = detector_init(0, det)
+    eng, einsum = (MisinfoForensics(cfg, det, params=params, device="cuda",
+                                    cuda_graphs=False, use_pallas=p)
+                   for p in (use_pallas, False))
+    reqs = [r for group in _graph_traffic()[:7] for r in group]
+    reqs += [{"text": "many words about a claim " * 40}]  # RoBERTa's 128
+    before = (K3.launches, K11.launches)
+    got = eng.analyze_batch(reqs)
+    torch.cuda.synchronize()
+    assert (K3.launches, K11.launches) == before
+    want = einsum.analyze_batch(reqs)
+    drift = max(abs(a["scores"][k] - b["scores"][k])
+                for a, b in zip(got, want) for k in a["scores"]
+                if isinstance(a["scores"][k], float))
+    assert drift <= 1e-4
+
+
+def test_tiny_transcriber_decodes_unfused(card):
+    """WhisperConfig.tiny()'s widths (four heads of 16) under the default
+    decode config on the card: pallas resolves on and quant to "kernels"
+    (int8 decoder weights), but no window batch takes the fused step, whose
+    kernels take heads of 64 only; the tokens equal those of pallas="off"
+    on the same int8 weights (quant="kernels"), token for token, greedy
+    and sampled, and no decode-step kernel launches."""
+    import numpy as np
+    from misinfo_tpu_torch.core.config import WhisperDecodeConfig
+    from misinfo_tpu_torch.models import whisper as W
+    from misinfo_tpu_torch.preprocess.whisper_tokenizer import (
+        ByteWhisperTokenizer)
+    from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
+    tok = ByteWhisperTokenizer()
+    sp = tok.specials
+    cfg = dataclasses.replace(
+        W.WhisperConfig.tiny(), vocab_size=sp.vocab_size, num_mel_bins=80,
+        max_source_positions=1500, max_target_positions=40,
+        eos_token_id=sp.eot, decoder_start_token_id=sp.sot)
+
+    def numpy_tree(t):
+        if isinstance(t, dict):
+            return {k: numpy_tree(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [numpy_tree(v) for v in t]
+        return t.numpy()
+    tree = numpy_tree(W.whisper_init(7, cfg))
+    dc = WhisperDecodeConfig(language="en")
+    tr, off = (WhisperTranscriber(tree, config=cfg, device="cuda",
+                                  decode_cfg=d, cuda_graphs=False)
+               for d in (dc, dataclasses.replace(dc, pallas="off",
+                                                 quant="kernels")))
+    assert (tr.pallas, tr.quant_kernels) == (True, True)
+    assert (off.pallas, off.quant_kernels) == (False, True)
+    mels = np.random.default_rng(0).standard_normal(
+        (2, 3000, 80)).astype(np.float32)
+    counters = (K6.launches, K6.launches_i8, K7.launches, K7.launches_i8)
+    with torch.inference_mode():
+        for b in (1, 2):
+            enc = tr._encode(mels[:b])
+            assert torch.equal(enc, off._encode(mels[:b]))
+            assert not tr._fused(enc)
+            prompt = torch.tensor([tok.sot_sequence(language="en")[1:]] * b,
+                                  device="cuda")
+            for t, seed in ((0.0, None), (0.5, 7)):
+                got = tr._decode(enc, prompt, t, seed)
+                want = off._decode(enc, prompt, t, seed)
+                assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert (tr._decode_window_batch(mels, "en")
+                == off._decode_window_batch(mels, "en"))
+    torch.cuda.synchronize()
+    assert (K6.launches, K6.launches_i8, K7.launches,
+            K7.launches_i8) == counters
