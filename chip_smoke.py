@@ -241,9 +241,9 @@ Phases (any failure exits non-zero before the result line):
      is zero, below 1e-5 of the largest on both); then in bf16 at full
      width on generated rows, each with its step ms (median after the
      first two), tokens/s or images/s, peak memory, first and last loss
-     and checkpoint save/load seconds: roberta_detective (400 CSV rows,
+     and checkpoint save/load seconds: roberta_detective (200 CSV rows,
      B = 16, 256 tokens, one epoch; its FLOPs and share of the bf16
-     peak), cifake_efficientnet and clip_detective (400 seeded 224² PNGs,
+     peak), cifake_efficientnet and clip_detective (160 seeded 224² PNGs,
      B = 32; the CLIP trainer's frozen leaves torch.equal to their start)
      and fusion_judge (precompute_scores of 64 rows through phase 4's
      engine, K1 launches and ffn_up_kernel records = 36 × its programs,
@@ -325,7 +325,17 @@ Phases (any failure exits non-zero before the result line):
      within 1e-6 of the same training in one process over the card named
      twice, one checkpoint directory written by rank 0 alone, the engine
      booted from it; (c) --mesh data=2 in one process refused ("mesh 2x1
-     != 1 devices"). ``--only 31`` runs phase 31 alone;
+     != 1 devices"); (d) the RoBERTa detective's own CLI at full width
+     (RoBERTa-base, bf16, its recipe) with --mesh data=1,model=2 in two
+     processes on the card over gloo, the model group across them: two
+     steps of B 16 × 256 and an eval, held to the same training in one
+     process over the card named twice: the ranks' trees torch.equal,
+     the history's losses within 1e-2 relative, every trained leaf within
+     2.1 × the steps' summed learning rate (AdamW moves an element by at
+     most about its learning rate a step, so a bf16 rounding apart in a
+     gradient moves it by no more), every frozen leaf torch.equal, one
+     checkpoint written by rank 0 alone; step ms per rank, the exchanges
+     and bytes a step, peak memory. ``--only 31`` runs phase 31 alone;
  32. (after phases 16-17) use_pallas="flash": (a) K11 (flash attention
      over segment ids, csrc/flash_attention.cu) against its plain version
      through ops/kernel_checks.py::check_flash, bf16 and f32, at RoBERTa
@@ -2284,8 +2294,8 @@ def transcriber_from_pt(want, weights, cfg, wav, engine, image, W, K6, K7):
 
 # ------------------------------------------------------ trainers (phase 28)
 
-TRAIN_ROWS, TRAIN_BATCH, TRAIN_LEN = 400, 16, 256
-IMAGE_ITEMS, IMAGE_BATCH = 400, 32
+TRAIN_ROWS, TRAIN_BATCH, TRAIN_LEN = 200, 16, 256
+IMAGE_ITEMS, IMAGE_BATCH = 160, 32
 FUSION_ROWS, FUSION_EPOCHS = 64, 10
 
 
@@ -2528,7 +2538,7 @@ def trainers_phase(engine, vault_path, rng, card):
     from misinfo_tpu_torch.checkpoints.from_jax import to_device
     from misinfo_tpu_torch.core.config import ForensicsConfig
     from misinfo_tpu_torch.engine import forensics as F
-    from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
+    from misinfo_tpu_torch.models.detector import DetectorConfig
     from misinfo_tpu_torch.ops import int8_ffn as K1
     from misinfo_tpu_torch.ops.serving import optimize_for_serving
     from misinfo_tpu_torch.serve import cli
@@ -2539,7 +2549,7 @@ def trainers_phase(engine, vault_path, rng, card):
     start = time.perf_counter()
     text_step_card_vs_cpu(card)
     det = DetectorConfig()
-    tree = detector_init(0, det)
+    tree = seed0_tree()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     quiet = lambda *_: None     # noqa: E731
     try:
@@ -2677,7 +2687,7 @@ def trainers_phase(engine, vault_path, rng, card):
             lambda: fusion_judge.train_on_scores(
                 vecs, labels, engine.params, out, epochs=FUSION_EPOCHS,
                 log=quiet, device="cuda"),
-            16, "rows", out, detector_init(0, det), card)
+            16, "rows", out, seed0_tree(), card)
         intact = same_leaves(fusion_before, engine.params["fusion"])
         only_fusion = same_leaves(engine.params, res.params,
                                   ("roberta", "ai_head", "misinfo_head",
@@ -2744,7 +2754,15 @@ MESH_F32_B, MESH_F32_S = 4, 64
 # a bf16 mesh step's first loss against the single card's, relative, and
 # its gradients' global norm (stated before the first card run)
 MESH_BF16_LOSS, MESH_BF16_NORM = 1e-2, 5e-2
-MESH_CLI_ROWS, MESH_CLI_BATCH = 80, 16
+MESH_CLI_ROWS, MESH_CLI_BATCH = 48, 16
+# phase 31 (d): the bf16 updates' gap ‖θ_two − θ_one‖ / ‖θ_one − θ_start‖
+# between the two-process and the one-process runs. AdamW turns a
+# gradient element at the bf16 rounding floor into an update of ±lr
+# either way, so rounding alone leaves a gap (0.0585 on the tiny config
+# over 4 steps, a CPU rehearsal); a gradient wrong in direction on a
+# share of the elements moves it by O(1) (stated before the first card
+# run)
+MESH_UPDATE_GAP = 0.25
 
 
 class CaptureTx:
@@ -2829,14 +2847,14 @@ def mesh_steps_phase(card):
     and batch: f32 at a small batch within the CPU tests' band, bf16 at
     full size within the stated band; step ms and peak memory."""
     from misinfo_tpu_torch.core.config import PrecisionConfig
-    from misinfo_tpu_torch.models.detector import DetectorConfig, detector_init
+    from misinfo_tpu_torch.models.detector import DetectorConfig
     from misinfo_tpu_torch.ops.common import Policy, set_exact_f32
     from misinfo_tpu_torch.train import optim, steps
     from misinfo_tpu_torch.train.clip_detective import clip_trainable_mask
     start = time.perf_counter()
     rng = np.random.default_rng(31)
     det = DetectorConfig()
-    tree = detector_init(0, det)
+    tree = seed0_tree()
 
     def branches(*names):          # a step places only what it reads
         return {k: tree[k] for k in names}
@@ -2947,6 +2965,21 @@ def mesh_steps_phase(card):
     return rows
 
 
+_SEED0 = {}
+
+
+def seed0_tree():
+    """``detector_init(0, DetectorConfig())``, built once for the phases
+    that only copy it (the trainers clone their ``params``, the mesh
+    placements copy, ``load_checkpoint`` reads its structure): a full
+    tree takes seconds of host time to draw."""
+    if not _SEED0:
+        from misinfo_tpu_torch.models.detector import (
+            DetectorConfig, detector_init)
+        _SEED0["tree"] = detector_init(0, DetectorConfig())
+    return _SEED0["tree"]
+
+
 def gc_cuda() -> None:
     import gc
     gc.collect()
@@ -3014,6 +3047,47 @@ def free_port() -> int:
     return port
 
 
+def start_pair(script: str, args: list, tmp: str, name: str,
+               timeout: float = 240) -> list:
+    """``script`` in two processes (init_multihost's JAX_* env path over a
+    free port), each given ``args`` and its result file; their results,
+    after an AssertionError with the log if either failed."""
+    slug = "".join(c if c.isalnum() else "_" for c in name)
+    worker = os.path.join(tmp, f"{slug}.py")
+    with open(worker, "w") as f:
+        f.write(script)
+    port = free_port()
+    procs, results = [], []
+    for pid in range(2):
+        env = dict(os.environ)
+        env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
+                   MISINFO_TPU_DIST_TIMEOUT_S="120",
+                   PYTHONPATH=os.pathsep.join(
+                       [os.getcwd(), env.get("PYTHONPATH", "")]))
+        results.append(os.path.join(tmp, f"{slug}{pid}.pt"))
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, *args, results[-1]], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        taken = [ln for ln in log.splitlines()
+                 if ln.startswith("init_multihost:")]
+        print(f"{name} rank {pid}: rc {p.returncode}; {taken}", flush=True)
+        if p.returncode != 0 or "_OK" not in log:
+            print(log[-4000:], flush=True)
+            raise AssertionError(f"{name}: rank {pid} failed")
+    return [torch.load(r, weights_only=False) for r in results]
+
+
 def two_process_phase(vault_path, rng, card):
     """Phase 31 (b) and (c): the CLIP trainer's own CLI with ``--mesh
     data=2`` in two processes on the one card (init_multihost's JAX_*
@@ -3039,41 +3113,8 @@ def two_process_phase(vault_path, rng, card):
         pd.DataFrame([{"image_path": pngs[i % len(pngs)],
                        "text": words(rng, 12), "label": int(i % 4 == 3)}
                       for i in range(MESH_CLI_ROWS)]).to_csv(csv, index=False)
-        worker = os.path.join(tmp, "worker.py")
-        with open(worker, "w") as f:
-            f.write(MESH_WORKER)
         out = os.path.join(tmp, "clip_mesh")
-        port = free_port()
-        procs, results = [], []
-        for pid in range(2):
-            env = dict(os.environ)
-            env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                       JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
-                       MISINFO_TPU_DIST_TIMEOUT_S="120",
-                       PYTHONPATH=os.pathsep.join(
-                           [os.getcwd(), env.get("PYTHONPATH", "")]))
-            results.append(os.path.join(tmp, f"rank{pid}.pt"))
-            procs.append(subprocess.Popen(
-                [sys.executable, worker, csv, out, results[-1]], env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=240)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for pid, (p, log) in enumerate(zip(procs, logs)):
-            taken = [ln for ln in log.splitlines()
-                     if ln.startswith("init_multihost:")]
-            print(f"phase 31 (b) rank {pid}: rc {p.returncode}; {taken}",
-                  flush=True)
-            if p.returncode != 0 or "MESH_WORKER_OK" not in log:
-                print(log[-4000:], flush=True)
-                raise AssertionError(f"phase 31 (b): rank {pid} failed")
-        r0, r1 = (torch.load(r, weights_only=False) for r in results)
+        r0, r1 = start_pair(MESH_WORKER, [csv, out], tmp, "phase 31 (b)")
 
         # the same training in one process, the card named twice
         entries = [(0, torch.device("cuda", 0))] * 2
@@ -3148,6 +3189,186 @@ def two_process_phase(vault_path, rng, card):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 31 (b, c): {time.perf_counter() - start:.1f} s",
           flush=True)
+
+
+MODEL_WORKER = r"""
+import hashlib, sys, time
+import torch
+import torch.distributed as dist
+from misinfo_tpu_torch.checkpoints import io as ckpt_io
+from misinfo_tpu_torch.core import mesh as M
+from misinfo_tpu_torch.parallel import collectives as C
+from misinfo_tpu_torch.train import roberta_detective as rd
+from misinfo_tpu_torch.utils.tree import leaves_with_paths
+
+csv, out, res_path = sys.argv[1:4]
+t0 = time.perf_counter()
+assert M.init_multihost() is True          # the JAX_* env path
+rank, backend = dist.get_rank(), dist.get_backend()
+ex = {"exchanges": 0, "sent": 0, "received": 0}
+real_gather = C._all_gather
+
+
+def counted(x, group, world, staged):
+    ex["exchanges"] += 1
+    ex["sent"] += x.numel() * x.element_size()
+    ex["received"] += x.numel() * x.element_size() * (world - 1)
+    return real_gather(x, group, world, staged)
+
+
+C._all_gather = counted
+steps = []
+real_make = rd.make_text_head_step
+
+
+def timed_make(*a, **k):
+    step = real_make(*a, **k)
+
+    def run(*args):
+        torch.cuda.synchronize()
+        before, t = dict(ex), time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t) * 1e3,
+                      "loss": float(out[2]["loss"]),
+                      **{k: ex[k] - before[k] for k in ex}})
+        return out
+    return run
+
+
+rd.make_text_head_step = timed_make
+saves = []
+real_save = ckpt_io.save_checkpoint
+ckpt_io.save_checkpoint = lambda *a, **k: (saves.append(1), real_save(*a, **k))
+torch.cuda.reset_peak_memory_stats()
+t1 = time.perf_counter()
+res = rd.main(["--csv", csv, "--out", out, "--epochs", "1", "--batch-size",
+               "%d", "--max-len", "%d", "--mesh", "data=1,model=2",
+               "--device", "cuda"])
+train_s = time.perf_counter() - t1
+digest = hashlib.sha256()
+for p, t in leaves_with_paths(res.params):
+    digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                  .tobytes())
+torch.save({"rank": rank, "backend": backend, "digest": digest.hexdigest(),
+            "history": res.history, "saves": len(saves), "steps": steps,
+            "exchanges": dict(ex), "peak_gb":
+            torch.cuda.max_memory_allocated() / 1e9, "train_s": train_s,
+            "wall_s": time.perf_counter() - t0}, res_path)
+M.shutdown_multihost()
+print("MODEL_WORKER_OK", rank, flush=True)
+""" % (MESH_TEXT_B, MESH_TEXT_S)
+MODEL_CLI_ROWS = 48       # 39 training rows: two steps of 16, 9 to eval
+
+
+def model_group_phase(rng, card):
+    """Phase 31 (d): the RoBERTa detective's CLI with ``--mesh
+    data=1,model=2`` in two processes on the one card (gloo), the model
+    group across them, held to the same training in one process over the
+    card named twice."""
+    import pandas as pd
+    from misinfo_tpu_torch.checkpoints.io import load_checkpoint
+    from misinfo_tpu_torch.core import mesh as M
+    from misinfo_tpu_torch.train import optim, roberta_detective
+    from misinfo_tpu_torch.utils.tree import leaves_with_paths
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_model_group_")
+    try:
+        csv = os.path.join(tmp, "text.csv")
+        pd.DataFrame([{"text": words(rng, int(rng.integers(60, 400))),
+                       "label": int(i % 3 == 0)}
+                      for i in range(MODEL_CLI_ROWS)]).to_csv(csv,
+                                                              index=False)
+        out = os.path.join(tmp, "two")
+        r0, r1 = start_pair(MODEL_WORKER, [csv, out], tmp,
+                            "phase 31 (d)")
+        # the same training in one process over the card named twice,
+        # from the CLI's own start (detector_init(0)), its step losses kept
+        start = seed0_tree()
+        one_losses = []
+        make = roberta_detective.make_text_head_step
+
+        def recorded(*a, **k):
+            step = make(*a, **k)
+
+            def run(*args):
+                out = step(*args)
+                one_losses.append(float(out[2]["loss"]))
+                return out
+            return run
+        entries = [(0, torch.device("cuda", 0))] * 2
+        with swapped((M, "_global_entries", lambda: entries),
+                     (roberta_detective, "make_text_head_step", recorded)):
+            t0 = time.perf_counter()
+            one = roberta_detective.train(
+                csv, os.path.join(tmp, "one"), epochs=1,
+                batch_size=MESH_TEXT_B, max_len=MESH_TEXT_S, params=start,
+                mesh_spec="data=1,model=2", log=lambda *_: None,
+                device="cuda")
+            one_s = time.perf_counter() - t0
+        two = load_checkpoint(out, one.params)
+        n = len(r0["steps"])
+        sched = optim.make_schedule(optim.OptimConfig(
+            lr=2e-5, warmup_fraction=0.1, total_steps=n))
+        band = 2.1 * sum(sched(c) for c in range(n))
+        trained = ("roberta", "ai_head", "misinfo_head")
+        gap, frozen_equal, apart, moved = 0.0, True, 0.0, 0.0
+        for (p, a), (_, b), (_, s0) in zip(leaves_with_paths(one.params),
+                                           leaves_with_paths(two),
+                                           leaves_with_paths(start)):
+            if p[0] in trained:          # on the card: 0.5 GB of leaves
+                a, b = a.float(), b.to(a.device).float()
+                gap = max(gap, float((a - b).abs().max()))
+                apart += float((a - b).double().square().sum())
+                moved += float((a - s0.to(a.device)).double().square().sum())
+            else:
+                frozen_equal &= torch.equal(a, b.to(a.device))
+        # the updates' gap: ‖θ_two − θ_one‖ / ‖θ_one − θ_start‖
+        update_gap = math.sqrt(apart / moved)
+        losses = [(k, a[k], b[k]) for a, b in zip(one.history, r0["history"])
+                  for k in a if k.endswith("loss")]
+        rel = max(abs(a - b) / abs(a) for _, a, b in losses)
+        per = [[st for st in r["steps"]] for r in (r0, r1)]
+        print(f"phase 31 (d): RoBERTa detective CLI, --mesh data=1,model=2 "
+              f"over two processes (backends {r0['backend']} / "
+              f"{r1['backend']}), {n} steps of B {MESH_TEXT_B} × "
+              f"{MESH_TEXT_S} in bf16: step ms rank 0 "
+              f"{[st['ms'] for st in per[0]]}, rank 1 "
+              f"{[st['ms'] for st in per[1]]}; a step's exchanges "
+              f"{[st['exchanges'] for st in per[0]]}, bytes sent "
+              f"{[st['sent'] for st in per[0]]} and received "
+              f"{[st['received'] for st in per[0]]} a rank; the run's "
+              f"{r0['exchanges']} (eval and gathers included); peak memory "
+              f"{r0['peak_gb']} / {r1['peak_gb']} GB; train s "
+              f"{r0['train_s']} / {r1['train_s']} (one process {one_s}), "
+              f"worker wall {r0['wall_s']} / {r1['wall_s']} [{card}]",
+              flush=True)
+        two_losses = [st["loss"] for st in r0["steps"]]
+        print(f"phase 31 (d): ranks' trees torch.equal "
+              f"{r0['digest'] == r1['digest']}; against one process over "
+              f"the card named twice: step losses {two_losses} / "
+              f"{one_losses} (the first equal: the forward folds in the "
+              f"same order), the history's {losses} (max rel {rel}, band "
+              f"{MESH_BF16_LOSS}), the updates' gap {update_gap} (band "
+              f"{MESH_UPDATE_GAP}), trained leaves max |Δ| {gap} (band "
+              f"{band}: 2.1 × the summed learning rate), frozen leaves "
+              f"torch.equal {frozen_equal}; checkpoint saves rank 0 "
+              f"{r0['saves']}, rank 1 {r1['saves']}", flush=True)
+        if not (r0["backend"] == r1["backend"] == "gloo"
+                and r0["digest"] == r1["digest"] and n >= 1
+                and len(r1["steps"]) == n == len(one_losses)
+                and two_losses[0] == one_losses[0]
+                and rel <= MESH_BF16_LOSS and update_gap <= MESH_UPDATE_GAP
+                and gap <= band and frozen_equal and r0["saves"] >= 1
+                and r1["saves"] == 0
+                and all(math.isfinite(v) for _, v, _ in losses)):
+            raise AssertionError("phase 31 (d): the model group across "
+                                 "processes")
+        del one, two
+        gc_cuda()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 31 (d): {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 # ------------------------------------------------------------------- bounds
@@ -6101,6 +6322,7 @@ def main() -> int:
         make_vault(vault_path)
         mesh_steps_phase(card)
         two_process_phase(vault_path, np.random.default_rng(2), card)
+        model_group_phase(np.random.default_rng(3), card)
         stamp("31")
         shutil.rmtree(tmp)
         return 0
@@ -6248,6 +6470,7 @@ def main() -> int:
     stamp("30 (a, d, f)")
     mesh_steps_phase(card)                                    # phase 31 (a)
     two_process_phase(vault_path, rng, card)                  # 31 (b, c)
+    model_group_phase(rng, card)                              # 31 (d)
     stamp("31")
     shutil.rmtree(clip_dir)
     opt_launches = opt_in_engines(engine, vault_path, b32,   # phases 16-17

@@ -20,9 +20,13 @@ each data position a replica of the tree (parallel/sharding.py::
 ``shard_train_params``) and sums gradients over ``data``
 (parallel/collectives.py). ``init_multihost`` opens a
 ``torch.distributed`` group; ``make_mesh()`` then spans every process's
-entries in rank order (``Mesh.ranks``), and each process runs the data
-positions it holds (``Mesh.local_data``). A model group across processes
-is M17c: refused by name.
+entries in rank order (``Mesh.ranks``), as ``jax.devices()`` is global.
+Each process runs the data positions where it holds an entry
+(``Mesh.local_data``), with the model positions it holds there
+(``Mesh.local_model``): a model group may sit in several processes,
+which then exchange through one ``torch.distributed`` group per model
+row and one per model column (``Mesh.process_groups``). Serving stays in
+one process (``Mesh.require_local``, M15).
 """
 
 from __future__ import annotations
@@ -60,10 +64,7 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.ranks = (np.zeros(arr.shape, dtype=int) if ranks is None
                       else np.asarray(ranks, dtype=int).reshape(arr.shape))
-        for d in range(arr.shape[0]):
-            if len(set(self.ranks[d].tolist())) > 1:
-                not_ported(f"a model group across processes (data position "
-                           f"{d} on ranks {self.ranks[d].tolist()})", "M17c")
+        self._groups: Optional[Dict[Tuple[int, ...], object]] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -93,21 +94,101 @@ class Mesh:
 
     @property
     def local_data(self) -> List[int]:
-        """The data positions this process runs (all of them in one
-        process)."""
+        """The data positions where this process holds an entry (all of
+        them in one process)."""
         me = process_index()
-        return [d for d in range(self.data) if self.ranks[d, 0] == me]
+        return [d for d in range(self.data) if me in self.ranks[d]]
+
+    def local_model(self, d: int) -> List[int]:
+        """The model positions of data position ``d`` that this process
+        holds."""
+        return np.flatnonzero(self.ranks[d] == process_index()).tolist()
+
+    def local_device(self, d: int) -> torch.device:
+        """Data position ``d``'s first device in this process: where its
+        batch rows and this process's replicated leaves live."""
+        return self.devices[d, self.local_model(d)[0]]
 
     @property
     def multiprocess(self) -> bool:
         return bool((self.ranks != self.ranks.flat[0]).any())
 
+    def row_ranks(self, d: int) -> List[int]:
+        """The processes of data position ``d``'s model group, ascending."""
+        return sorted(set(self.ranks[d].tolist()))
+
+    def column_ranks(self) -> List[int]:
+        """The processes that hold this process's model positions, each
+        for its data positions: the ranks whose gradients this one sums
+        over ``data``, ascending."""
+        mine = self.local_model(self.local_data[0])
+        return sorted(set(self.ranks[:, mine].reshape(-1).tolist()))
+
+    def _layout(self) -> None:
+        """A ValueError unless every process holds the same model
+        positions in each row it touches, as many as every other
+        process of the rows, and as many rows as the other processes of
+        its column: what ``make_mesh`` gives, whose entries are each
+        process's in turn."""
+        held: Dict[int, Tuple[int, ...]] = {}
+        for d in range(self.data):
+            for r in self.row_ranks(d):
+                js = tuple(np.flatnonzero(self.ranks[d] == r).tolist())
+                if held.setdefault(r, js) != js:
+                    raise ValueError(
+                        f"rank {r} holds model positions {held[r]} in one "
+                        f"row and {js} in another: a training mesh needs "
+                        "each process on the same model positions")
+        blocks = set(held.values())
+        if (len({len(b) for b in blocks}) > 1
+                or len({j for b in blocks for j in b})
+                != sum(len(b) for b in blocks)):
+            raise ValueError(f"the model positions split unevenly over the "
+                             f"processes: {sorted(blocks)}")
+        rows = {b: {sum(1 for d in range(self.data) if r in self.ranks[d])
+                    for r, js in held.items() if js == b} for b in blocks}
+        if any(len(n) > 1 for n in rows.values()):
+            raise ValueError("the processes of a model column hold unequal "
+                             "numbers of data positions")
+
+    def process_groups(self) -> None:
+        """Open the mesh's ``torch.distributed`` groups once: one for each
+        model row that spans processes and one for each model column,
+        each set of ranks once (the world's is the default group). Every
+        process calls ``new_group`` for every group, in the same order,
+        so this is a collective: every process calls it (training's
+        placement does, ``shard_train_params``). A no-op in one
+        process."""
+        if self._groups is not None:
+            return
+        if not self.multiprocess:
+            self._groups = {}
+            return
+        import torch.distributed as dist
+        self._layout()
+        world = tuple(range(process_count()))
+        sets = [tuple(self.row_ranks(d)) for d in range(self.data)]
+        sets += [tuple(sorted(set(self.ranks[:, m].tolist())))
+                 for m in range(self.model)]
+        groups: Dict[Tuple[int, ...], object] = {world: dist.group.WORLD}
+        for s in sets:
+            if len(s) > 1 and s not in groups:
+                groups[s] = dist.new_group(list(s))
+        self._groups = groups
+
+    def process_group(self, ranks: Sequence[int]):
+        """The group ``process_groups`` opened over ``ranks``."""
+        self.process_groups()
+        return self._groups[tuple(ranks)]
+
     def require_local(self, what: str) -> None:
         """Refuse ``what`` over a mesh with positions in another process:
-        only training runs across processes (M17c)."""
+        only training runs across processes. JAX's engine reads each
+        program's output whole, which JAX refuses for an array partly in
+        another process (M15)."""
         if self.multiprocess:
             not_ported(f"{what} over a mesh with positions in another "
-                       "process", "M17c")
+                       "process", "M15")
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, devices="
@@ -310,7 +391,8 @@ def setup_train_mesh(mesh_spec: Optional[str], params, batch_size: int):
     model) mesh, check that the batch divides the data axis, and place the
     tree for training (parallel/sharding.py::shard_train_params: a
     replica a data position, the model axis split per
-    ``detector_pspecs``). Returns ``(mesh, params)``; ``(None, params)``
+    ``detector_pspecs``, a model group across processes included).
+    Returns ``(mesh, params)``; ``(None, params)``
     unchanged without a spec."""
     if not mesh_spec:
         return None, params
@@ -333,7 +415,9 @@ def place_train_batch(mesh: Optional[Mesh], batch):
     """Host batch dict → tensors. Under a mesh the leading axis splits
     over ``data`` and this process keeps its positions' rows: each key
     becomes a list of pieces, one per ``mesh.local_data`` position, on
-    that position's first device (every process passes the same global
+    that position's first device in this process (``local_device``:
+    every process of a model group gets its position's rows, as each
+    runs the position's replica; every process passes the same global
     batch, as ``jax.device_put`` of a global array onto a sharding of
     several processes). A packed batch's per-slot arrays (``SLOT_KEYS``,
     with ``cls_rows``) go with the rows their CLS sits in: position d
@@ -347,7 +431,7 @@ def place_train_batch(mesh: Optional[Mesh], batch):
     packed = "cls_rows" in batch
     out = {k: [] for k in batch}
     for d in mesh.local_data:
-        dev = mesh.devices[d, 0]
+        dev = mesh.local_device(d)
         for k, v in batch.items():
             if packed and k in SLOT_KEYS:
                 continue

@@ -96,12 +96,14 @@ def multi_head_attention(
     hd = x.shape[-1] // num_heads
     if isinstance(params, ModelSplit):
         heads = num_heads // len(params)
-        ctxs = [_context(p, x.to(d), heads, hd,
+        xs = params.inputs(x)
+        kvs = [None] * len(xs) if kv is None else params.inputs(kv)
+        ctxs = [_context(p, xi, heads, hd,
                          None if mask is None else mask.to(d), causal,
-                         None if kv is None else kv.to(d), policy,
-                         use_pallas,
+                         kvi, policy, use_pallas,
                          None if segment_ids is None else segment_ids.to(d))
-                for p, d in zip(params.parts, params.devices)]
+                for p, d, xi, kvi in zip(params.parts, params.devices, xs,
+                                         kvs)]
         return row_dense(params, [p["o"] for p in params.parts], ctxs,
                          policy)
     ctx = _context(params, x, num_heads, hd, mask, causal, kv, policy,

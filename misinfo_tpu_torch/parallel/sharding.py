@@ -24,18 +24,22 @@ columns of q, of k and of v): the heads a column split must keep whole.
 Training (``shard_train_params``) places a ``TrainParams``: a replica of
 the tree for each of this process's data positions, every leaf a tensor
 of its own (the optimizer updates them in place), the model axis split
-as above; ``gather`` puts one replica back into the plain tree.
+as above; ``gather`` puts one replica back into the plain tree. Where a
+data position's model group spans processes, each process holds its
+positions' pieces and its own copy of every replicated leaf, and the
+split pieces exchange through the row's ``ModelGroup``
+(parallel/collectives.py); ``gather`` is then a collective over it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from misinfo_tpu_torch.core.mesh import Mesh, P, PartitionSpec, split_rows
 from misinfo_tpu_torch.ops.serving import kmajor
-from misinfo_tpu_torch.parallel.collectives import DataAxis
+from misinfo_tpu_torch.parallel.collectives import DataAxis, ModelGroup
 from misinfo_tpu_torch.parallel.tensor import AMAX_PAD, ModelSplit
 
 
@@ -129,26 +133,31 @@ class ShardedParams:
         return self._rows[0][key]
 
 
-def _splits(tree, slices: List, devices: List[torch.device], path=()):
-    """Position 0's tree with every split piece turned into a
-    ``ModelSplit`` over the group's ``slices`` (one tree per position)."""
+def _splits(tree, slices: List, devices: List[torch.device], path=(),
+            group=None):
+    """The first held position's tree with every split piece turned into
+    a ``ModelSplit`` over the held positions' ``slices`` (one tree each;
+    with ``group``, a ``ModelGroup``, this process's positions only)."""
     if isinstance(tree, dict):
         if path and str(path[-1]) == "attn" and "o" in tree:
             o = tree["o"]
             return ModelSplit(
                 [{k: v for k, v in s.items()}
                  | {"o": {k: v for k, v in s["o"].items() if k != "bias"}}
-                 for s in slices], devices, o.get("bias"), ("o", "bias"))
+                 for s in slices], devices, o.get("bias"), ("o", "bias"),
+                group)
         if path and str(path[-1]) == "mlp_in":
-            return ModelSplit(slices, devices)
+            return ModelSplit(slices, devices, group=group)
         if path and str(path[-1]) == "mlp_out":
             return ModelSplit([{k: v for k, v in s.items() if k != "bias"}
-                               for s in slices], devices, tree.get("bias"))
+                               for s in slices], devices, tree.get("bias"),
+                              group=group)
         return {k: _splits(v, [s[k] for s in slices], devices,
-                           path + (k,)) for k, v in tree.items()}
+                           path + (k,), group) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_splits(v, [s[i] for s in slices], devices,
-                                  path + (i,)) for i, v in enumerate(tree))
+                                  path + (i,), group)
+                          for i, v in enumerate(tree))
     return tree
 
 
@@ -159,6 +168,7 @@ def shard_params(mesh: Mesh, params: Dict) -> ShardedParams:
     whole), on its device. An int8 row-split kernel gets ``AMAX_PAD`` zero
     rows under its slice (parallel/tensor.py). A device named twice in the
     grid holds one copy of what its positions share."""
+    mesh.require_local("shard_params")
     specs = detector_pspecs(params)
     n = mesh.model
     grid = []
@@ -214,9 +224,11 @@ class TrainParams:
     exchanges (parallel/collectives.py). Replicas end every step with
     the same bits."""
 
-    def __init__(self, mesh: Mesh, rows: List[Dict]):
+    def __init__(self, mesh: Mesh, rows: List[Dict],
+                 groups: List[Optional[ModelGroup]]):
         self.mesh = mesh
         self.rows = rows
+        self.groups = groups      # each replica's ModelGroup, or None
         self.axis = DataAxis(mesh)
 
     @property
@@ -226,26 +238,48 @@ class TrainParams:
 
     def gather(self) -> Dict:
         """The plain tree from the first local replica: split leaves put
-        back whole, every leaf a copy on the first position's device."""
-        return build_tree(merge_pieces(replica_leaves(self.rows[0]),
-                                       self.devices[0]))
+        back whole, every leaf a copy on the first position's device (a
+        collective over the replica's model group where it spans
+        processes: every process of the group calls it)."""
+        return build_tree(merge_pieces(
+            full_pieces(self.groups[0], replica_pieces(self.rows[0])),
+            self.devices[0]))
+
+
+def replica_pieces(tree, prefix=()) -> List[Tuple[tuple, int, object,
+                                                  bool]]:
+    """``replica_leaves`` with a flag on each piece of a split leaf (a
+    row split's bias, held once, is a whole leaf)."""
+    if isinstance(tree, ModelSplit):
+        bias = prefix + tree.bias_path if tree.bias is not None else None
+        return [(p, j, t, p != bias)
+                for p, j, t in tree.leaves_with_paths(prefix)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in replica_pieces(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in replica_pieces(v, prefix + (i,))]
+    if tree is None:
+        return []
+    return [(prefix, 0, tree, False)]
 
 
 def replica_leaves(tree, prefix=()) -> List[Tuple[tuple, int, object]]:
     """``(path, j, leaf)`` for every leaf of a replica in the plain tree's
     flatten order (utils/tree.py), paths the plain tree's; ``j`` is the
-    model position of a split piece (0 for a whole leaf)."""
-    if isinstance(tree, ModelSplit):
-        return tree.leaves_with_paths(prefix)
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree)
-                for x in replica_leaves(tree[k], prefix + (k,))]
-    if isinstance(tree, (list, tuple)):
-        return [x for i, v in enumerate(tree)
-                for x in replica_leaves(v, prefix + (i,))]
-    if tree is None:
-        return []
-    return [(prefix, 0, tree)]
+    model position of a split piece (0 for a whole leaf). Where the
+    model group spans processes, this process's pieces only."""
+    return [(p, j, t) for p, j, t, _ in replica_pieces(tree, prefix)]
+
+
+def full_pieces(group: Optional[ModelGroup], pieces):
+    """``replica_pieces``-ordered pieces (any tensors in the leaves'
+    places) → ``(path, j, tensor)`` with every model position's piece:
+    as they are in one process, else all-gathered over ``group``."""
+    if group is None:
+        return [(p, j, t) for p, j, t, _ in pieces]
+    return group.gather_pieces(pieces)
 
 
 def merge_pieces(pieces, device) -> List[Tuple[tuple, object]]:
@@ -304,16 +338,23 @@ def shard_train_params(mesh: Mesh, params: Dict) -> TrainParams:
     """Place ``params`` for training over ``mesh``: for each of this
     process's data positions a replica of its own on the position's model
     group, the ``model`` axis split per ``detector_pspecs`` into leaf
-    tensors that AdamW updates. Float trees only (training runs float
-    policies; an int8 ``kernel_q`` is refused)."""
+    tensors that AdamW updates. A group in one process shares its first
+    position's copy of each replicated leaf; where it spans processes,
+    this process holds its positions' pieces and a copy of its own of
+    every replicated leaf, on its first position's device. A collective
+    over a mesh of several processes (``Mesh.process_groups``). Float
+    trees only (training runs float policies; an int8 ``kernel_q`` is
+    refused)."""
     specs = detector_pspecs(params)
     n = mesh.model
-    rows = []
+    mesh.process_groups()
+    rows, groups = [], []
     for d in mesh.local_data:
-        devs = mesh.row(d)
+        held = mesh.local_model(d)
+        group = ModelGroup(mesh, d) if len(held) < n else None
         slices = []
-        for m, dev in enumerate(devs):
-            def piece(path, x, m=m, dev=dev):
+        for m in held:
+            def piece(path, x, m=m, dev=mesh.devices[d, m]):
                 if not isinstance(x, torch.Tensor):
                     return x
                 if path[-1] == "kernel_q":
@@ -321,11 +362,13 @@ def shard_train_params(mesh: Mesh, params: Dict) -> TrainParams:
                                      f"({'/'.join(path)}); training runs "
                                      "float trees")
                 spec = _lookup(specs, path)
-                if m and "model" not in spec:
-                    return x          # position 0's copy serves the group
+                if m != held[0] and "model" not in spec:
+                    return x     # the first held position's copy serves
                 return _slice(x, spec, m, n, "qkv" in path).detach().to(
                     dev, copy=True, memory_format=torch.contiguous_format)
             slices.append(_map_with_path(piece, params))
-        rows.append(slices[0] if n == 1
-                    else _splits(slices[0], slices, devs))
-    return TrainParams(mesh, rows)
+        rows.append(slices[0] if n == 1 else _splits(
+            slices[0], slices, [mesh.devices[d, m] for m in held],
+            group=group))
+        groups.append(group)
+    return TrainParams(mesh, rows, groups)

@@ -20,7 +20,13 @@ places each int8 row-split kernel with ``AMAX_PAD`` zero rows under it.
 
 The float products are differentiable: training over a mesh
 (parallel/sharding.py::shard_train_params) runs autograd through the
-column and row splits, and AdamW updates each position's pieces.
+column and row splits, and AdamW updates each position's pieces. Where a
+model group spans processes, a ``ModelSplit`` holds this process's
+positions' parts only and its ``group`` (parallel/collectives.py::
+``ModelGroup``) does the two exchanges: the row-split partials folded
+in position order on every rank, and the column-split inputs' gradient
+partials summed in position order. A group in one process keeps the
+``.to()`` copies above.
 """
 
 from __future__ import annotations
@@ -42,28 +48,42 @@ AMAX_PAD = 64
 
 
 class ModelSplit:
-    """One layer piece split over a model group. ``parts[j]`` is the
-    param dict of position j on ``devices[j]``; ``bias`` is a row-split
-    product's bias (on ``devices[0]``), added once after the partial
-    sums; None for a column split."""
+    """One layer piece split over a model group. ``parts[i]`` is the
+    param dict of model position ``positions[i]`` on ``devices[i]``
+    (every position of the group, or with ``group`` this process's
+    only); ``bias`` is a row-split product's bias (on ``devices[0]``; with
+    ``group`` each process's own copy), added once after the partial
+    sums; None for a column split. ``len()`` is the group's size."""
 
     def __init__(self, parts: Sequence[Dict], devices: Sequence,
                  bias: Optional[torch.Tensor] = None,
-                 bias_path: Tuple[str, ...] = ("bias",)):
+                 bias_path: Tuple[str, ...] = ("bias",), group=None):
         self.parts = list(parts)
         self.devices = [torch.device(d) for d in devices]
         self.bias = bias
         self.bias_path = tuple(bias_path)   # where ``bias`` sits unsplit
+        self.group = group
+        self.positions = (list(range(len(self.parts))) if group is None
+                          else group.positions)
 
     def __len__(self) -> int:
-        return len(self.parts)
+        return len(self.parts) if self.group is None else self.group.size
+
+    def inputs(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """A column split's replicated input for each held position, on
+        its device: ``.to()`` copies in one process (autograd sums their
+        gradients), else ``group.inputs``."""
+        xs = [x] * len(self.parts) if self.group is None else \
+            self.group.inputs(x)
+        return [t.to(d) for t, d in zip(xs, self.devices)]
 
     def leaves_with_paths(self, prefix=()) -> List[Tuple[tuple, int,
                                                          torch.Tensor]]:
         """``(path, j, tensor)`` for every leaf, the paths the unsplit
         tree's (``prefix`` + the piece's), in its flatten order
         (utils/tree.py), position j's piece of a split leaf after j − 1's;
-        the bias held once has j 0."""
+        the bias held once has j 0. With ``group``, this process's
+        pieces only."""
         subs = [p for p, _ in leaves_with_paths(self.parts[0])]
         if self.bias is not None:
             subs.append(self.bias_path)
@@ -72,7 +92,7 @@ class ModelSplit:
             if self.bias is not None and sub == self.bias_path:
                 out.append((prefix + sub, 0, self.bias))
                 continue
-            for j, part in enumerate(self.parts):
+            for j, part in zip(self.positions, self.parts):
                 t = part
                 for k in sub:
                     t = t[k]
@@ -100,10 +120,10 @@ def _int8_partial(p: Dict, x: torch.Tensor, amax: torch.Tensor,
 
 def row_dense(split: ModelSplit, parts: List[Dict], xs: List[torch.Tensor],
               policy: Policy) -> torch.Tensor:
-    """A row-split product: ``xs[j]`` (position j's input columns) times
-    ``parts[j]`` (its weight rows), the partials summed on the first
-    position's device, then ``split.bias`` and one rounding to the compute
-    dtype."""
+    """A row-split product: ``xs[i]`` (held position i's input columns)
+    times ``parts[i]`` (its weight rows), the partials summed on the first
+    position's device (across processes: ``split.group.fold``), then
+    ``split.bias`` and one rounding to the compute dtype."""
     out_dev = xs[0].device
     if "kernel_q" in parts[0]:
         amax = None
@@ -116,9 +136,12 @@ def row_dense(split: ModelSplit, parts: List[Dict], xs: List[torch.Tensor],
         partials = [matmul_f32(x.to(policy.compute),
                                p["kernel"].to(policy.compute))
                     for p, x in zip(parts, xs)]
-    y = partials[0]
-    for p in partials[1:]:
-        y = y + p.to(out_dev)
+    if split.group is not None:
+        y = split.group.fold([p.to(out_dev) for p in partials])
+    else:
+        y = partials[0]
+        for p in partials[1:]:
+            y = y + p.to(out_dev)
     y = y.to(policy.accum)
     if split.bias is not None:
         y = y + split.bias.to(policy.accum)
@@ -134,6 +157,6 @@ def tp_ffn(split_in: ModelSplit, split_out: ModelSplit, x: torch.Tensor,
     dense (K2 on the card) on both products: the kernel K1 fuses a
     per-chunk requantization of the intermediate that the split does not
     keep, and JAX serves a mesh through its plain int8 chain too."""
-    hs = [act(dense(p, x.to(d), policy))
-          for p, d in zip(split_in.parts, split_in.devices)]
+    hs = [act(dense(p, xi, policy))
+          for p, xi in zip(split_in.parts, split_in.inputs(x))]
     return row_dense(split_out, split_out.parts, hs, policy)

@@ -14,7 +14,9 @@ the first local replica, the best tree and the checkpoints are the
 gathered plain tree and optimizer state, and in a run of several
 processes process 0 writes the checkpoint while the others wait at a
 barrier. Every process evaluates the same replica bits on the same
-rows, so all of them take the same best epoch and stop together.
+rows, so all of them take the same best epoch and stop together; where
+a model group spans processes, eval and the gathers are collectives
+over it, which every process of the group runs.
 """
 
 from __future__ import annotations
@@ -164,9 +166,9 @@ def run_training(
             best, best_epoch, patience = current, epoch, 0
             best_params = params.gather() if mesh else clone_tree(params)
             if checkpoint_fn and mesh:
+                state = opt_state.gather()       # collective, as gather()
                 if process_index() == 0:
-                    checkpoint_fn(best_params, opt_state.gather(), epoch,
-                                  all_metrics)
+                    checkpoint_fn(best_params, state, epoch, all_metrics)
                 params.axis.barrier()
             elif checkpoint_fn:
                 checkpoint_fn(params, opt_state, epoch, all_metrics)

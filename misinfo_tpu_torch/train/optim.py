@@ -109,6 +109,10 @@ class OptState:
         self.m = [torch.zeros_like(t) for t in self.leaves]
         self.v = [torch.zeros_like(t) for t in self.leaves]
         self.count = 0
+        # over a model group across processes (MeshOptState): the group,
+        # and each leaf's (model position, whether it is a split piece)
+        self.group = None
+        self.pieces: List[tuple] = []
 
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
         self.tx.update(grads, self)
@@ -136,26 +140,39 @@ class MeshOptState:
     its unsplit leaf's, for the mask). The gradients reach every replica
     summed over ``data`` (train/steps.py), so each replica's clip sees
     the global norm and every replica ends the step with the same bits.
-    ``gather()`` is the state over the plain tree (a checkpoint's)."""
+    Where a replica's model group spans processes, its state holds this
+    process's pieces, and the clip's norm and ``gather`` are collectives
+    over the group. ``gather()`` is the state over the plain tree (a
+    checkpoint's)."""
 
     def __init__(self, tx: "Optimizer", params):
-        from misinfo_tpu_torch.parallel.sharding import replica_leaves
+        from misinfo_tpu_torch.parallel.sharding import replica_pieces
         self.tx = tx
         self.params = params
-        self.states = [OptState(tx, row, [(p, t) for p, _, t
-                                          in replica_leaves(row)])
-                       for row in params.rows]
+        self.states = []
+        for row, group in zip(params.rows, params.groups):
+            pieces = replica_pieces(row)
+            st = OptState(tx, row, [(p, t) for p, _, t, _ in pieces])
+            if group is not None:
+                where = {id(t): (j, split) for _, j, t, split in pieces}
+                st.group = group
+                st.pieces = [where[id(t)] for t in st.leaves]
+            self.states.append(st)
 
     def gather(self) -> OptState:
         """The first replica's state over the plain tree: split leaves'
-        moments put back whole, on the first position's device."""
-        from misinfo_tpu_torch.parallel.sharding import merge_pieces
+        moments put back whole, on the first position's device (every
+        process of a model group across processes calls it)."""
+        from misinfo_tpu_torch.parallel.sharding import (
+            full_pieces, merge_pieces)
         s0 = self.states[0]
         dev = self.params.devices[0]
+        flags = s0.pieces or [(0, False)] * len(s0.paths)
 
         def merged(ts):
-            return merge_pieces([(p, 0, t) for p, t in zip(s0.paths, ts)],
-                                dev)
+            return merge_pieces(full_pieces(s0.group, [
+                (p, j, t, split)
+                for p, t, (j, split) in zip(s0.paths, ts, flags)]), dev)
         st = OptState.__new__(OptState)
         st.tx = self.tx
         pairs = merged(s0.leaves)
@@ -197,8 +214,13 @@ class Optimizer:
         g = [torch.zeros_like(p) if gi is None else gi.to(p.dtype)
              for gi, p in zip(grads, leaves)]
         if cfg.clip_norm:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(g)))
+            norms = torch._foreach_norm(g)
+            if state.group is not None:
+                # every position's piece norms, in the one-process order
+                norms = [t for _, _, t in state.group.gather_pieces([
+                    (p, j, n, split) for p, n, (j, split)
+                    in zip(state.paths, norms, state.pieces)])]
+            norm = torch.linalg.vector_norm(torch.stack(norms))
             under = norm < cfg.clip_norm
             one = torch.ones_like(norm)
             denom = torch.where(under, one, norm)

@@ -120,19 +120,24 @@ def test_init_multihost_single_process_noop(monkeypatch):
         t_mesh.init_multihost("localhost:1234", 2)
 
 
-def test_what_stays_in_one_process_is_refused_as_m17c():
-    """A model group across processes, and serving over a mesh with
-    positions in another process, are refused by name (ROADMAP.md M17c);
-    a mesh whose positions are all this process's is local."""
+def test_serving_across_processes_is_refused_as_m15(tree):
+    """A model group across processes builds, and says what this process
+    holds (training runs it); serving over a mesh with positions in
+    another process is refused by name (ROADMAP.md M15); a mesh whose
+    positions are all this process's is local."""
     from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.parallel.sharding import shard_params
     from misinfo_tpu_torch.serve.transcript import WhisperTranscriber
-    with pytest.raises(NotImplementedError, match="M17c"):
-        t_mesh.Mesh([["cpu", "cpu"]], ranks=[[0, 1]])
+    across = t_mesh.Mesh([["cpu", "cpu"]], ranks=[[0, 1]])
+    assert across.multiprocess and across.local_data == [0]
+    assert across.local_model(0) == [0] and across.row_ranks(0) == [0, 1]
+    with pytest.raises(NotImplementedError, match="M15"):
+        shard_params(across, tree)
     two = t_mesh.Mesh([["cpu"], ["cpu"]], ranks=[[0], [1]])
     assert two.multiprocess and two.local_data == [0]
-    with pytest.raises(NotImplementedError, match="M17c"):
+    with pytest.raises(NotImplementedError, match="M15"):
         MisinfoForensics(mesh=two, device="cpu")
-    with pytest.raises(NotImplementedError, match="M17c"):
+    with pytest.raises(NotImplementedError, match="M15"):
         WhisperTranscriber(mesh=two, device="cpu")
     one = t_mesh.make_mesh(MeshConfig(data=2), devices=["cpu"] * 2)
     assert not one.multiprocess and one.local_data == [0, 1]
