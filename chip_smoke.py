@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the result line):
      (misinfo_tpu_torch/csrc/{int8_ffn,int8_dense,fused_attention,
      layer_norm,fused_ffn,self_attn_step,cross_ffn_step,
      cross_ffn_step_i8cc,layer_step,int4_sims,flash_attention,
-     flash_attention_bwd}.cu);
+     flash_attention_bwd}.cu), and the BPE encoder (csrc/bpe_encoder.cpp)
+     with g++ beside them;
   3. K1 (int8 FFN) against its plain PyTorch version on the card through
      misinfo_tpu_torch/ops/kernel_checks.py at the main path's three
      shapes (RoBERTa, CLIP text, CLIP vision; B = 3, the kernel's split
@@ -390,6 +391,20 @@ Phases (any failure exits non-zero before the result line):
      AdamW steps launching K11, dK/dV and dQ 12 times each a step, their
      losses within 1e-2 of the einsum path's, step ms of both. ``--only
      33`` runs phase 33 alone;
+ 34. (last) the host residue of analyze()'s path: (a) RoBERTa-form BPE
+     assets from a seed (seeded_bpe_assets: 50,265 ids, 50,004 merges);
+     (b) the native C++ encoder (csrc/bpe_encoder.cpp, built by g++ in
+     phase 2) against the Python one on phase 4's b32 texts and on corpus
+     texts of that shape, four rows of each with non-ASCII text, at S
+     512: ids and masks equal, host ms a batch fresh and again; (c) an
+     engine at full width on those assets: its tokenizer the native one,
+     the b32 reports equal to the same engine's on the Python encoder,
+     eager verdicts/s of both; (d) probe_link() and auto_policy() on the
+     card, from_env under MISINFO_TPU_HOST_POLICY=auto applying that
+     decision and an explicit MISINFO_TPU_DEVICE_RESIZE=0 winning,
+     host_prep_report()'s link; (e) profile_trace around one analyze()
+     writes a trace naming K1's ffn_up_kernel, nan_guard raises on a NaN
+     made on the card and is silent outside. ``--only 34`` runs it alone;
 ``--times`` prints only the redesigned kernels' times (K3 at its three
 shapes beside SDPA and its plain version; K4's interleaved medians; K6 at
 pos 32, 224 and 447, K7, K8 and K9 at B = 1, 4, 32, with each CUDA
@@ -433,6 +448,7 @@ import sys
 import tempfile
 import time
 import wave
+from unittest import mock
 
 import numpy as np
 import torch
@@ -684,8 +700,9 @@ STREAM_BAND = 0.06
 
 
 def build_all(builds) -> None:
-    """Phase 2: one nvcc per kernel source, all started together. builds:
-    (module, the name of its build function, the name of its build log)."""
+    """Phase 2: one nvcc per kernel source, all started together, and g++
+    on the BPE encoder beside them. builds: (module, the name of its build
+    function, the name of its build log or None)."""
     def one(b):
         t0 = time.perf_counter()
         getattr(b[0], b[1])()
@@ -694,8 +711,9 @@ def build_all(builds) -> None:
         secs = list(pool.map(one, builds))
     for (m, fn, log), sec in zip(builds, secs):
         print(f"build {m.__name__}.{fn}: {sec:.2f} s", flush=True)
-        print("\n".join(line for line in getattr(m, log).splitlines()
-                        if "registers" in line or "spill" in line))
+        if log:
+            print("\n".join(line for line in getattr(m, log).splitlines()
+                            if "registers" in line or "spill" in line))
 
 
 def check_decode_kernels(K6, K7):
@@ -6255,6 +6273,260 @@ def mesh_transcript_phase(weights, cfg, card):
     shutil.rmtree(os.path.dirname(wav))
 
 
+# ------------------------------------------------- host residue (phase 34)
+
+_ONSETS = ("", "", "b", "c", "d", "f", "g", "h", "j", "k", "l", "m", "n",
+           "p", "r", "s", "t", "v", "w", "y", "z", "bl", "br", "ch", "cl",
+           "cr", "dr", "fl", "fr", "gl", "gr", "pl", "pr", "sc", "sh", "sk",
+           "sl", "sm", "sn", "sp", "st", "str", "sw", "th", "tr", "wh")
+_VOWELS = ("a", "e", "i", "o", "u", "a", "e", "i", "o", "ai", "ea", "ee",
+           "ie", "oa", "oo", "ou", "y")
+_CODAS = ("", "", "", "n", "r", "s", "t", "l", "m", "d", "ck", "ng", "nd",
+          "nt", "rd", "rt", "st", "sh", "th", "x")
+NON_ASCII = " — café naïve «Zürich» 東京 😀 "
+
+
+def corpus_words(seed: int, n_types: int) -> list:
+    """``n_types`` distinct lowercase pseudo-words of one to four syllables
+    from a seed, shortest first: the order is each word's frequency rank
+    (``corpus_texts`` draws them by a Zipf law over it)."""
+    rng = np.random.default_rng(seed)
+    seen, out = set(), []
+    while len(out) < n_types:
+        w = "".join(_ONSETS[rng.integers(len(_ONSETS))]
+                    + _VOWELS[rng.integers(len(_VOWELS))]
+                    + _CODAS[rng.integers(len(_CODAS))]
+                    for _ in range(1 + rng.binomial(3, 0.4)))
+        if len(w) > 1 and w not in seen:
+            seen.add(w)
+            out.append(w)
+    return sorted(out, key=len)
+
+
+def seeded_bpe_assets(out_dir: str, n_vocab: int = 50_265,
+                      seed: int = 34) -> tuple:
+    """RoBERTa-form byte-level BPE assets from a seed, with no tokenizer
+    library: ``vocab.json`` of ``n_vocab`` ids (<s> 0, <pad> 1, </s> 2,
+    <unk> 3, GPT-2's 256 byte symbols, one token a merge, <mask> last) and
+    ``merges.txt`` of ``n_vocab`` − 261 merges (50,004 at RoBERTa's
+    50,265): the left-to-right merge chains of ``corpus_words``' words by
+    rank, each with a leading space (Ġ), the first 3,000 also bare and
+    capitalized, after the numbers 0-999. Returns (dir, the corpus's
+    words)."""
+    from misinfo_tpu_torch.preprocess.bpe import bytes_to_unicode
+    b2u = bytes_to_unicode()
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for b in range(256):
+        vocab[b2u[b]] = len(vocab)
+    n_merges = n_vocab - len(vocab) - 1
+    merges = []
+    words = corpus_words(seed, max(64, n_merges))
+
+    def chain(text: str) -> bool:
+        syms = [b2u[b] for b in text.encode("utf-8")]
+        tok = syms[0]
+        for c in syms[1:]:
+            if tok + c not in vocab:
+                if len(merges) == n_merges:
+                    return False
+                merges.append((tok, c))
+                vocab[tok + c] = len(vocab)
+            tok += c
+        return True
+
+    forms = ([f" {n}" for n in range(1000)] + [str(n) for n in range(1000)]
+             + [f for r, w in enumerate(words)
+                for f in ((f" {w}", w, f" {w.capitalize()}") if r < 3000
+                          else (f" {w}",))])
+    if all(chain(f) for f in forms):
+        raise ValueError(f"{len(words)} words fill {len(merges)} of "
+                         f"{n_merges} merges")
+    vocab["<mask>"] = len(vocab)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "vocab.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(out_dir, "merges.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+        f.writelines(f"{a} {b}\n" for a, b in merges)
+    return out_dir, words
+
+
+def corpus_texts(seed: int, words: list, n_texts: int, n_words: int,
+                 non_ascii_every: int = 8) -> list:
+    """``n_texts`` texts of ``n_words`` + i words drawn by a Zipf law over
+    ``words``' ranks, in sentences (capitals, commas, full stops, a number
+    now and then); every ``non_ascii_every``-th text carries NON_ASCII in
+    its middle."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, len(words) + 1) ** 1.07
+    p /= p.sum()
+    texts = []
+    for i in range(n_texts):
+        out, start = [], True
+        for j, r in zip(rng.choice(len(words), n_words + i, p=p),
+                        rng.random(n_words + i)):
+            w = words[j].capitalize() if start else words[j]
+            if r < 0.03:
+                w += f" {int(r * 70_000)}"
+            start = r > 0.93
+            out.append(w + ("." if start else "," if r < 0.08 else ""))
+        if non_ascii_every and i % non_ascii_every == non_ascii_every - 1:
+            out.insert(len(out) // 2, NON_ASCII.strip())
+        texts.append(" ".join(out))
+    return texts
+
+
+def encode_ms(tok, texts, max_len: int = 512, reps: int = 3) -> tuple:
+    """Host ms of ``tok.batch(texts, max_len)``: the first call (fresh
+    word caches) and the best of ``reps`` more (the same batch again)."""
+    t0 = time.perf_counter()
+    out = tok.batch(texts, max_len)
+    fresh = (time.perf_counter() - t0) * 1e3
+    again = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        tok.batch(texts, max_len)
+        again = min(again, (time.perf_counter() - t0) * 1e3)
+    return out, fresh, again
+
+
+def host_residue_phase(vault_path: str, b32_phase4: list, image, card):
+    """Phase 34: the port's host residue on the main path. (a) RoBERTa-form
+    BPE assets from a seed; (b) the native encoder against the Python one
+    on phase 4's b32 texts and on corpus texts of the same shape, each
+    with four non-ASCII rows, at S 512: ids and masks equal, host ms a
+    batch fresh and again; (c) an engine at full width with the assets:
+    its tokenizer native, the b32 reports equal to the same engine's on
+    the Python encoder, eager verdicts/s of both; (d) probe_link(),
+    auto_policy() and from_env under MISINFO_TPU_HOST_POLICY=auto (the
+    decision applied, an explicit MISINFO_TPU_DEVICE_RESIZE=0 winning),
+    host_prep_report's link; (e) profile_trace around one analyze() names
+    K1's ffn_up_kernel; nan_guard raises on a NaN made on the card and is
+    silent outside."""
+    from misinfo_tpu_torch.core.config import ForensicsConfig, ServingConfig
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import DetectorConfig
+    from misinfo_tpu_torch.ops import cuda_build
+    from misinfo_tpu_torch.preprocess import hostprobe
+    from misinfo_tpu_torch.preprocess.native_bpe import NativeRobertaTokenizer
+    from misinfo_tpu_torch.preprocess.tokenizer import RobertaTokenizer
+    from misinfo_tpu_torch.utils.tracing import nan_guard, profile_trace
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bpe_")
+    t0 = time.perf_counter()
+    assets, words = seeded_bpe_assets(os.path.join(tmp, "roberta"))  # (a)
+    vocab, merges = (os.path.join(assets, n)
+                     for n in ("vocab.json", "merges.txt"))
+    t_assets = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cuda_build.build_host("bpe_encoder")
+    print(f"phase 34 (a): seeded assets ({len(words)} corpus words) "
+          f"{t_assets:.2f} s; encoder build {time.perf_counter() - t0:.2f} s "
+          "(cached where phase 2 built it)", flush=True)
+    batches = {
+        "phase 4's b32": [t + NON_ASCII if i % 8 == 7 else t
+                          for i, t in enumerate(b32_phase4)],
+        "corpus b32": corpus_texts(35, words, 32, 400)}
+    for label, texts in batches.items():                      # (b)
+        if sum(not t.isascii() for t in texts) != 4:
+            raise AssertionError(f"phase 34 (b) {label}: want 4 non-ASCII")
+        t0 = time.perf_counter()
+        native = NativeRobertaTokenizer(vocab, merges)
+        t_load = time.perf_counter() - t0
+        python = RobertaTokenizer(vocab, merges)
+        (n_ids, n_mask), n_fresh, n_again = encode_ms(native, texts)
+        (p_ids, p_mask), p_fresh, p_again = encode_ms(python, texts)
+        if not (np.array_equal(n_ids, p_ids)
+                and np.array_equal(n_mask, p_mask)):
+            bad = [i for i in range(len(texts))
+                   if not np.array_equal(n_ids[i], p_ids[i])]
+            raise AssertionError(f"phase 34 (b) {label}: native ids differ "
+                                 f"from Python's in rows {bad}")
+        print(f"phase 34 (b) {label}: ids and masks equal at S 512 "
+              f"({int(n_mask.sum())} tokens, {native.num_threads} threads; "
+              f"native load {t_load:.3f} s); host ms a batch, native fresh "
+              f"{n_fresh:.2f} again {n_again:.2f}, Python fresh "
+              f"{p_fresh:.2f} again {p_again:.2f} [{card}]", flush=True)
+
+    cfg = ForensicsConfig(verbose=False)                      # (c)
+    cfg = cfg.replace(paths=dataclasses.replace(
+        cfg.paths, vault_path=vault_path, roberta_tokenizer_dir=assets))
+    t0 = time.perf_counter()
+    eng = MisinfoForensics(cfg, DetectorConfig(), device="cuda",
+                           cuda_graphs=False)
+    boot = time.perf_counter() - t0
+    tok = eng.roberta_tokenizer
+    if not (isinstance(tok, NativeRobertaTokenizer) and tok.native_available):
+        raise AssertionError(f"phase 34 (c): the engine's tokenizer is "
+                             f"{type(tok).__name__}")
+    reqs = [{"text": t, "image": image} for t in batches["corpus b32"]]
+    native_reports = eng.analyze_batch(reqs)
+    check_reports(native_reports, "phase 34 (c)")
+    vps_native = verdicts_per_s(eng, reqs)
+    eng.roberta_tokenizer = RobertaTokenizer(vocab, merges)
+    python_reports = eng.analyze_batch(reqs)
+    vps_python = verdicts_per_s(eng, reqs)
+    eng.roberta_tokenizer = tok
+    if native_reports != python_reports:
+        raise AssertionError("phase 34 (c): reports on the native encoder "
+                             "differ from the Python encoder's")
+    print(f"phase 34 (c): engine boot {boot:.2f} s with the native encoder; "
+          f"b32 reports equal on both encoders; eager verdicts/s native "
+          f"{vps_native}, Python {vps_python} [{card}]", flush=True)
+
+    link = hostprobe.probe_link()                             # (d)
+    decision = hostprobe.auto_policy()
+    if link is None or set(link) != {
+            "platform", "staging", "staged_h2d_ms_per_image",
+            "crops_h2d_ms_per_image", "delta_ms_per_image"}:
+        raise AssertionError(f"phase 34 (d): probe_link() = {link}")
+    base = ServingConfig()
+    with mock.patch.dict(os.environ, MISINFO_TPU_HOST_POLICY="auto"):
+        auto = ForensicsConfig.from_env().serving
+        with mock.patch.dict(os.environ, MISINFO_TPU_DEVICE_RESIZE="0"):
+            explicit = ForensicsConfig.from_env().serving
+    want = dataclasses.replace(base, **decision)
+    if (auto.fast_decode, auto.device_resize) != (want.fast_decode,
+                                                  want.device_resize):
+        raise AssertionError(f"phase 34 (d): from_env gave fast_decode="
+                             f"{auto.fast_decode}, device_resize="
+                             f"{auto.device_resize} for {decision}")
+    if explicit.device_resize or explicit.fast_decode != want.fast_decode:
+        raise AssertionError("phase 34 (d): MISINFO_TPU_DEVICE_RESIZE=0 "
+                             "did not win over the auto policy")
+    if eng.host_prep_report().get("link") != link:
+        raise AssertionError("phase 34 (d): host_prep_report() has no link")
+    print(f"phase 34 (d): probe_link() {json.dumps(link)}; host probe "
+          f"{json.dumps(hostprobe.probe_host_prep())}; auto_policy() "
+          f"{decision} applied by from_env, MISINFO_TPU_DEVICE_RESIZE=0 wins "
+          f"[{card}]", flush=True)
+
+    trace_dir = os.path.join(tmp, "trace")                    # (e)
+    with profile_trace(trace_dir):
+        eng.analyze(batches["corpus b32"][0], image, verbose=False)
+        torch.cuda.synchronize()
+    traces = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        named = f.read().count("ffn_up_kernel")
+    if len(traces) != 1 or not named:
+        raise AssertionError(f"phase 34 (e): traces {traces}, "
+                             f"{named} mentions of ffn_up_kernel")
+    x = torch.tensor([-1.0, 4.0], device="cuda")
+    torch.log(x)                                 # silent outside the guard
+    try:
+        with nan_guard():
+            torch.sqrt(x[1:])                    # no NaN: silent
+            torch.log(x)
+        raise AssertionError("phase 34 (e): nan_guard let a NaN through")
+    except FloatingPointError as e:
+        print(f"phase 34 (e): the trace names ffn_up_kernel {named} times; "
+              f"nan_guard raised: {e}", flush=True)
+    del eng
+    shutil.rmtree(tmp)
+
+
 _START = time.perf_counter()
 
 
@@ -6306,10 +6578,11 @@ def main() -> int:
                     help="with --times: which kernels to time, a comma list "
                     "of attention, layer_norm, decode, i8cc_layer, int8, ffn, "
                     "int4, flash, flash_bwd")
-    ap.add_argument("--only", choices=["31", "32", "33"],
+    ap.add_argument("--only", choices=["31", "32", "33", "34"],
                     help="run phase 31 (training over meshes of the card), "
-                    "phase 32 (flash attention) or phase 33 (its backward) "
-                    "alone and stop there, without the result lines")
+                    "phase 32 (flash attention), phase 33 (its backward) or "
+                    "phase 34 (the host residue) alone and stop there, "
+                    "without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6330,6 +6603,19 @@ def main() -> int:
         return only_flash()
     if args.only == "33":
         return only_flash_bwd()
+    if args.only == "34":
+        card = card_line()
+        print(card, flush=True)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        vault_path = os.path.join(tmp, "vault.npz")
+        make_vault(vault_path)
+        rng = np.random.default_rng(2)
+        image = rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
+        host_residue_phase(vault_path, [words(rng, 400 + i)
+                                        for i in range(32)], image, card)
+        stamp("34")
+        shutil.rmtree(tmp)
+        return 0
     if args.times:
         card = card_line()
         print(card, flush=True)
@@ -6364,6 +6650,7 @@ def main() -> int:
     from misinfo_tpu_torch.ops import int8_ffn as K1
     from misinfo_tpu_torch.ops import layer_step as K9
     from misinfo_tpu_torch.ops import self_attn_step as K6
+    from misinfo_tpu_torch.preprocess import native_bpe as NB
     from misinfo_tpu_torch.vault import int4 as K10
     from misinfo_tpu_torch.vault import int4_checks as IC
 
@@ -6373,7 +6660,8 @@ def main() -> int:
                for m in (K1, K2, K3, K5, K6, K7, K9, K10, K11)]
               + [(K3, "_ln_library", "ln_build_log"),
                  (K7, "_library_i8cc", "build_log_i8cc"),
-                 (K11, "_bwd_library", "bwd_build_log")])
+                 (K11, "_bwd_library", "bwd_build_log"),
+                 (NB, "_load_lib", None)])
     stamp("2")
     kernel_rows = check_kernel(card)                          # phase 3
     opt_rows = check_opt_in_kernels(card)                     # phase 15
@@ -6502,6 +6790,9 @@ def main() -> int:
     int4_launches = vault_phases(card, vault_path,            # phases 10-14
                                  args.profile)                # and 30 (b, c)
     stamp("9-14, 30 (b, c)")
+    host_residue_phase(vault_path, [r["text"] for r in b32],  # phase 34
+                       image, card)
+    stamp("34")
 
     err_k1 = max(r["err"] for r in kernel_rows.values())
     kernels = [{

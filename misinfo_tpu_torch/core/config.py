@@ -3,8 +3,9 @@
 Host copy of ``misinfo_tpu/core/config.py`` (the JAX package's ``core``
 imports JAX on import), including ``WhisperDecodeConfig`` for the
 transcript path. Defaults are held identical to the original by
-tests/test_torch_host.py; only the host-probe branch of ``from_env``
-differs (the probe is not ported, ROADMAP.md M15).
+tests/test_torch_host.py, and ``from_env``'s fields under
+``MISINFO_TPU_HOST_POLICY=auto`` by tests/test_torch_host_policy.py (the
+link probe runs where the engine's card is CUDA, JAX's where it is a TPU).
 
 Replaces the reference's three ad-hoc config mechanisms — hardcoded
 constants (incl. Windows absolute paths, reference misinfo_forensics.py:123),
@@ -326,13 +327,21 @@ class ForensicsConfig:
                     cfg.serving, fast_decode=_fd in ("1", "true", "on")))
         if os.getenv("MISINFO_TPU_HOST_POLICY") == "auto" and (
                 _fd is None or _dr is None):
-            # measure THIS host's image-prep ceiling (and, on TPU, the
-            # host↔device link) once and apply the knobs it justifies
-            # (VERDICT r3 #5 / r4 #6; explicit MISINFO_TPU_FAST_DECODE /
-            # MISINFO_TPU_DEVICE_RESIZE always win per knob)
-            raise NotImplementedError(
-                "MISINFO_TPU_HOST_POLICY=auto needs the host probe, which the "
-                "PyTorch port does not carry (ROADMAP.md M15)")
+            # measure THIS host's image-prep ceiling (and, on a CUDA card,
+            # the host→card link) once and apply the knobs it justifies
+            # (explicit MISINFO_TPU_FAST_DECODE / MISINFO_TPU_DEVICE_RESIZE
+            # always win per knob)
+            from misinfo_tpu_torch.preprocess.hostprobe import auto_policy
+            updates = auto_policy(allow_fast_decode=_fd is None,
+                                  allow_device_resize=_dr is None)
+            if updates:
+                import logging
+                logging.getLogger("misinfo_tpu_torch.config").warning(
+                    "MISINFO_TPU_HOST_POLICY=auto: applying %s (host-bound "
+                    "image prep; see /metrics host_prep for the probe)",
+                    updates)
+                cfg = dataclasses.replace(
+                    cfg, serving=dataclasses.replace(cfg.serving, **updates))
         vd = os.getenv("MISINFO_TPU_VAULT_DTYPE")
         if vd in ("float32", "bfloat16", "int8", "int4"):
             cfg = dataclasses.replace(

@@ -108,7 +108,7 @@ from misinfo_tpu_torch.ops.graphs import Runner
 from misinfo_tpu_torch.ops.serving import (
     optimize_for_serving, quant_mode, resolve_quant)
 from misinfo_tpu_torch.parallel.sharding import shard_params
-from misinfo_tpu_torch.preprocess.hostprobe import recommend
+from misinfo_tpu_torch.preprocess import hostprobe
 from misinfo_tpu_torch.preprocess.image import (
     batch_images, choose_staging_bucket, decode_rgb, image_to_array,
     resize_param_row, stage_image_batch)
@@ -614,12 +614,16 @@ class MisinfoForensics:
         recommendation: one cached ~0.3 s probe of the ``_image_batch``
         path (preprocess/hostprobe.py), with the knobs in effect. Read by
         the verbose boot banner and ``/metrics``."""
-        rec = dict(recommend())
+        rec = dict(hostprobe.recommend())
         rec["active"] = {
             "fast_decode": self.cfg.serving.fast_decode,
             "device_resize": self.cfg.serving.device_resize,
             "prep_pool_workers": min(16, (os.cpu_count() or 1)),
         }
+        # the link probe's numbers once one has been taken (HOST_POLICY=auto
+        # takes it at boot); never taken from here: a cold probe copies MBs
+        if hostprobe._link_cache is not None:
+            rec["link"] = dict(hostprobe._link_cache)
         return rec
 
     # ------------------------------------------------------------ runners

@@ -5,6 +5,8 @@ first use, keyed by a hash of the source and of the headers it includes
 from ``csrc/``, and loaded with ctypes (a plain C interface, no PyTorch
 headers: a build takes seconds, not minutes). Never add
 ``--use_fast_math``: the kernels' quantization scales need IEEE division.
+``build_host`` does the same for a host source, ``csrc/<name>.cpp``, with
+the host C++ compiler (the BPE encoder of preprocess/native_bpe.py).
 
 ``tickets`` keeps the zeroed counters that the decode-step kernels use to
 find the last block of each column tile (or batch row), ``workspace``
@@ -27,7 +29,7 @@ import threading
 import weakref
 from collections import OrderedDict
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +43,7 @@ _WEIGHTS_LOCK = threading.Lock()
 WEIGHT_SETS = 64        # weight sets whose pointers are kept (LRU)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
 
 def _local_headers(src: Path, seen=None):
@@ -54,6 +57,30 @@ def _local_headers(src: Path, seen=None):
     return seen
 
 
+def _compiled(src: Path, digest, tool: str, flags: Sequence[str]
+              ) -> Tuple[ctypes.CDLL, str]:
+    """Compile ``src`` with ``tool`` into ``BUILD_DIR`` under the name of
+    its content ``digest`` (once) and load it. Returns the library and the
+    compiler's output ("" when the build was cached). The output goes to a
+    name of this process and thread first, then into place, so workers
+    that build the same source at once do not race. Raises RuntimeError
+    with the compiler's output when the build fails."""
+    so = BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
+    log = ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run([tool, *flags, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{Path(tool).name} failed building {src}:"
+                               f"\n{log}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so)), log
+
+
 def build(name: str) -> Tuple[ctypes.CDLL, str]:
     """Compile ``csrc/<name>.cu`` (once per content hash) and load it.
     Returns the library and nvcc's output ("" when the build was cached).
@@ -62,20 +89,25 @@ def build(name: str) -> Tuple[ctypes.CDLL, str]:
     h = hashlib.sha256(src.read_bytes())
     for dep in _local_headers(src):
         h.update(dep.read_bytes())
-    so = BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
-    log = ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC),
-                               "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {src}:\n{log}")
-        os.replace(tmp, so)
-    return ctypes.CDLL(str(so)), log
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    return _compiled(src, h, nvcc, (*NVCC_FLAGS, "-I", str(CSRC)))
+
+
+def host_compiler() -> Optional[str]:
+    """The host C++ compiler on PATH (g++, else c++), or None."""
+    return shutil.which("g++") or shutil.which("c++")
+
+
+def build_host(name: str) -> Tuple[ctypes.CDLL, str]:
+    """Compile the host source ``csrc/<name>.cpp`` with the host C++
+    compiler (once per content hash) and load it, as ``build`` does a
+    kernel. Raises FileNotFoundError when there is no compiler, and
+    RuntimeError with its output when the build fails."""
+    cxx = host_compiler()
+    if cxx is None:
+        raise FileNotFoundError("no host C++ compiler (g++ or c++) on PATH")
+    src = CSRC / f"{name}.cpp"
+    return _compiled(src, hashlib.sha256(src.read_bytes()), cxx, CXX_FLAGS)
 
 
 def check_tensor(t, what: str, dtype, shape, device) -> None:

@@ -1,4 +1,4 @@
-"""Host-prep capacity probe: the image-prep half of
+"""Host-prep capacity probe and the serving auto-policy: the port of
 ``misinfo_tpu/preprocess/hostprobe.py``.
 
 Image-bearing requests pay a host cost before the device program runs:
@@ -8,8 +8,14 @@ prep path, exact and reduced ``fast_decode``) and ``recommend`` turns the
 numbers into a recommendation, surfaced in the engine's verbose banner and
 ``/metrics`` (``host_prep``).
 
-Not carried (ROADMAP.md M15): the host↔device link probe and the
-``MISINFO_TPU_HOST_POLICY=auto`` policy built on it.
+``device_resize``'s trade also depends on the host→card LINK, so
+``probe_link`` measures that: the cost per image of copying one staged
+S² uint8 frame from pinned host memory, against the two 224² crops it
+replaces. ``auto_policy`` is the ``MISINFO_TPU_HOST_POLICY=auto``
+decision: ``fast_decode`` on for host-bound image prep, ``device_resize``
+on only when the link's extra copy is under half the host resize work it
+saves (a 2× margin). Explicit ``MISINFO_TPU_FAST_DECODE`` /
+``MISINFO_TPU_DEVICE_RESIZE`` always win (core/config.py::from_env).
 """
 
 from __future__ import annotations
@@ -127,3 +133,80 @@ def recommend(probe: Optional[Dict] = None,
         f"< device ~{device_images_per_s:.0f} — image traffic is "
         f"HOST-bound at {p['probe_resolution']}p. " + "; ".join(hints))
     return rec
+
+
+_link_cache: Optional[Dict] = None
+
+
+def _device_platform() -> str:
+    """The platform the engine boots on by default: "cuda" where a card is
+    usable (``MisinfoForensics(device="cuda")``), else "cpu"."""
+    import torch
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def probe_link(staging: int = 640, image_size: int = 224,
+               iters: int = 16) -> Optional[Dict]:
+    """Measure THIS host→card link's side of the device_resize trade: the
+    cost per image of one staged ``staging``² uint8 frame against the two
+    ``image_size``² crops it replaces, each copied the way the engine
+    copies a request's input (pinned, then an asynchronous copy:
+    engine/forensics.py::_stage, ops/graphs.py::Runner.copy_in), over
+    ``iters`` images. One element of every copied buffer goes into a
+    single device sum that is read back once, so the time closes on the
+    data having arrived. Cached per process; None without a CUDA
+    device."""
+    global _link_cache
+    if _link_cache is not None:
+        return _link_cache
+    import torch
+    if not torch.cuda.is_available():
+        return None
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def amortized_ms(shape) -> float:
+        rng = np.random.default_rng(0)
+        arrs = [torch.from_numpy(rng.integers(0, 255, shape).astype(np.uint8))
+                for _ in range(iters)]
+        # warm one copy and read outside the timing
+        float(arrs[0].pin_memory().to(dev, non_blocking=True).sum())
+        t0 = time.perf_counter()
+        xs = [a.pin_memory().to(dev, non_blocking=True) for a in arrs]
+        float(torch.stack([x.reshape(-1)[0] for x in xs]).sum())  # one read
+        return (time.perf_counter() - t0) / iters * 1000.0
+
+    staged_ms = amortized_ms((staging, staging, 3))
+    crops_ms = amortized_ms((2, image_size, image_size, 3))
+    _link_cache = {
+        "platform": "cuda",
+        "staging": staging,
+        "staged_h2d_ms_per_image": round(staged_ms, 3),
+        "crops_h2d_ms_per_image": round(crops_ms, 3),
+        "delta_ms_per_image": round(staged_ms - crops_ms, 3),
+    }
+    return _link_cache
+
+
+def auto_policy(allow_fast_decode: bool = True,
+                allow_device_resize: bool = True) -> Dict:
+    """The MISINFO_TPU_HOST_POLICY=auto decision: probe the host (and, where
+    the engine runs on a CUDA card, the host→card link) once and return
+    the ServingConfig field overrides to apply. ``fast_decode`` flips on
+    for host-bound image prep; ``device_resize`` flips on only when the
+    measured extra copy of staged frames is under HALF the host resize
+    work it eliminates. Explicit env vars suppress the corresponding knob
+    via the allow_* flags (core/config.from_env)."""
+    rec = recommend()
+    out = {}
+    if allow_fast_decode and rec["fast_decode_recommended"]:
+        out["fast_decode"] = True
+    if allow_device_resize:
+        p = rec["probe"]
+        resize_ms = max(p["exact_ms_per_image"]
+                        - p.get("decode_ms_per_image", 0.0), 0.0)
+        link = None
+        if _device_platform() == "cuda" and resize_ms > 0:
+            link = probe_link()
+        if link is not None and link["delta_ms_per_image"] < 0.5 * resize_ms:
+            out["device_resize"] = True
+    return out

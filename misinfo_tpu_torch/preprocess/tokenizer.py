@@ -139,9 +139,20 @@ class HashTokenizer(_Batcher):
 
 def load_roberta_tokenizer(tokenizer_dir: Optional[str],
                            vocab_size: int = 50265) -> _Batcher:
+    """The native C++ batch encoder (preprocess/native_bpe.py) where
+    ``tokenizer_dir`` holds vocab.json and the host has a C++ compiler,
+    the Python one where it has none, else the hash stand-in. A compiler
+    that fails raises with its output: the main path never serves the
+    slow encoder in the fast one's place unnoticed."""
     if tokenizer_dir and os.path.exists(os.path.join(tokenizer_dir, "vocab.json")):
-        # the native C++ batch encoder of the JAX package is not carried
-        return RobertaTokenizer.from_dir(tokenizer_dir)
+        vocab = os.path.join(tokenizer_dir, "vocab.json")
+        merges = os.path.join(tokenizer_dir, "merges.txt")
+        from misinfo_tpu_torch.ops.cuda_build import host_compiler
+        if host_compiler() is None:
+            return RobertaTokenizer(vocab, merges)
+        from misinfo_tpu_torch.preprocess.native_bpe import (
+            NativeRobertaTokenizer)
+        return NativeRobertaTokenizer(vocab, merges)
     return HashTokenizer("roberta", vocab_size=vocab_size)
 
 

@@ -7,17 +7,19 @@ held to the original by tests/test_torch_host.py:
     with counters: verdicts/sec, per-signal latency, and rolling-window
     p50/p95/p99 stage latency
   * `stage_timer` — context manager feeding the tracer
-
-The original's ``profile_trace`` (jax.profiler) and ``nan_guard``
-(jax_debug_nans) are JAX tools and are not carried; on the card,
-torch.profiler traces the kernels.
+  * `profile_trace` — torch.profiler around a block (the card's kernels
+    too, where there is one), written as a Chrome/Perfetto trace
+  * `nan_guard` — torch's ``jax_debug_nans``: inside it an op whose
+    floating output holds a NaN raises ``FloatingPointError``
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
+import os
 import threading
 import time
 from collections import defaultdict, deque
@@ -114,3 +116,84 @@ def stage_timer(stage: str, tracer: Optional[Tracer] = None, **fields
         yield
     finally:
         tracer.event(stage, time.perf_counter() - t0, **fields)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str = "/tmp/misinfo_tpu_trace") -> Iterator[None]:
+    """torch.profiler over the block, with the CUDA activity where a card
+    is present; on exit, as the block ends or raises, writes a
+    Chrome/Perfetto trace (view it in Perfetto or chrome://tracing) into
+    ``log_dir`` as ``trace_<pid>_<n>.json``, a new ``n`` per trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        n = 0
+        while os.path.exists(path := os.path.join(
+                log_dir, f"trace_{os.getpid()}_{n}.json")):
+            n += 1
+        prof.export_chrome_trace(path)
+
+
+@functools.lru_cache(maxsize=None)
+def _nan_check():
+    """The TorchDispatchMode class that checks every op's floating outputs
+    for NaN while its ``on`` is set (made at first use, so that importing
+    this module does not import torch)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class NanCheck(TorchDispatchMode):
+        on = True
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if self.on:
+                for t in tree_leaves(out):
+                    if (isinstance(t, torch.Tensor)
+                            and (t.is_floating_point() or t.is_complex())
+                            and t.device.type != "meta"
+                            and bool(torch.isnan(t).any())):
+                        raise FloatingPointError(
+                            f"invalid value (nan) encountered in {func}")
+            return out
+
+    return NanCheck
+
+
+@contextlib.contextmanager
+def nan_guard(enable: bool = True) -> Iterator[None]:
+    """JAX's ``jax_debug_nans`` for torch: inside the block (with
+    ``enable``), an op that leaves a NaN in a floating output raises
+    ``FloatingPointError`` naming the op, forward and backward alike, and
+    autograd's anomaly mode is on for the backward's traceback. Each op
+    then waits for its result to check it, so this is a debugging tool.
+    On exit the previous state returns; a nested ``nan_guard(False)``
+    turns the check off for its block."""
+    import torch
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    outer = [m for m in _get_current_dispatch_mode_stack()
+             if isinstance(m, _nan_check())]
+    with torch.autograd.set_detect_anomaly(enable):
+        if outer:
+            prev, outer[-1].on = outer[-1].on, enable
+            try:
+                yield
+            finally:
+                outer[-1].on = prev
+        elif enable:
+            with _nan_check()():
+                yield
+        else:
+            yield

@@ -77,6 +77,14 @@ K11 launch, the einsum engine's scores), and WhisperConfig.tiny()'s
 widths decode unfused under the default decode config, token for token
 as pallas="off" on the same int8 weights.
 
+The host residue on the card: ``probe_link()`` returns its five keys
+with positive times from pinned copies; ``nan_guard`` raises
+``FloatingPointError`` on a NaN that an op leaves in a CUDA tensor,
+forward and backward, and is silent outside or under ``nan_guard(False)``;
+an engine on chip_smoke.py's seeded BPE assets takes the native encoder
+(csrc/bpe_encoder.cpp, built by g++), and its reports equal the same
+engine's on the Python encoder, non-ASCII rows included.
+
 Training (misinfo_tpu_torch/train/): an f32 text step on the card against
 the same step on the CPU at a small width (loss within 1e-4 relative, the
 global gradient norm within 1e-3 relative, each leaf's gradient within
@@ -1330,3 +1338,66 @@ def test_tiny_transcriber_decodes_unfused(card):
     torch.cuda.synchronize()
     assert (K6.launches, K6.launches_i8, K7.launches,
             K7.launches_i8) == counters
+
+
+# ---------------------------------------------------------- host residue
+# The link probe on the card, nan_guard on CUDA tensors, and the native
+# BPE encoder (csrc/bpe_encoder.cpp, built by g++) through a card engine.
+
+def test_probe_link_on_the_card(card, monkeypatch):
+    from misinfo_tpu_torch.preprocess import hostprobe
+    monkeypatch.setattr(hostprobe, "_link_cache", None)
+    link = hostprobe.probe_link(iters=4)
+    assert set(link) == {"platform", "staging", "staged_h2d_ms_per_image",
+                         "crops_h2d_ms_per_image", "delta_ms_per_image"}
+    assert link["platform"] == "cuda" and link["staging"] == 640
+    assert link["staged_h2d_ms_per_image"] > 0
+    assert link["crops_h2d_ms_per_image"] > 0
+    assert hostprobe.probe_link() is link                # cached
+
+
+def test_nan_guard_on_cuda_tensors(card):
+    from misinfo_tpu_torch.utils.tracing import nan_guard
+    x = torch.tensor([-1.0, 4.0], device=card)
+    assert torch.isnan(torch.log(x)).any()               # silent outside
+    with nan_guard():
+        torch.sqrt(x[1:])
+        with pytest.raises(FloatingPointError, match="log"):
+            torch.log(x)
+        with nan_guard(False):
+            torch.log(x)
+    w = torch.zeros(2, device=card, requires_grad=True)
+    with nan_guard(), pytest.raises(FloatingPointError):
+        (torch.sqrt(w) * 0).sum().backward()             # 0 · inf
+    assert not torch.is_anomaly_enabled()
+
+
+def test_native_encoder_through_a_card_engine(card, tmp_path):
+    import chip_smoke
+    from misinfo_tpu_torch.core import config as C
+    from misinfo_tpu_torch.engine.forensics import MisinfoForensics
+    from misinfo_tpu_torch.models.detector import detector_init
+    from misinfo_tpu_torch.preprocess.native_bpe import NativeRobertaTokenizer
+    from misinfo_tpu_torch.preprocess.tokenizer import RobertaTokenizer
+    det = _small_det()
+    assets, words = chip_smoke.seeded_bpe_assets(
+        str(tmp_path / "bpe"), n_vocab=det.roberta.vocab_size)
+    cfg = C.ForensicsConfig(
+        verbose=False,
+        paths=C.ModelPaths(vault_path=_graph_vault(str(tmp_path / "v.npz"),
+                                                   300, 0),
+                           roberta_tokenizer_dir=assets),
+        seq=C.SequenceConfig(roberta_max_len=128, image_size=64))
+    eng = MisinfoForensics(cfg, det, params=detector_init(0, det),
+                           device="cuda", cuda_graphs=False)
+    tok = eng.roberta_tokenizer
+    assert isinstance(tok, NativeRobertaTokenizer) and tok.native_available
+    import numpy as np
+    image = np.random.default_rng(1).integers(0, 256, (64, 64, 3), np.uint8)
+    reqs = [{"text": t, "image": image}
+            for t in chip_smoke.corpus_texts(3, words, 8, 60,
+                                             non_ascii_every=3)]
+    native = eng.analyze_batch(reqs)
+    eng.roberta_tokenizer = RobertaTokenizer(*(f"{assets}/{n}" for n in
+                                               ("vocab.json", "merges.txt")))
+    assert eng.analyze_batch(reqs) == native

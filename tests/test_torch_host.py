@@ -360,7 +360,8 @@ def test_host_prep_probe_and_recommendation_identical():
     """preprocess/hostprobe.py's image-prep half: the probe's keys, and
     ``recommend``'s decisions on the same probes (host-bound or not, the
     fast decode worth it or not). The port's device rate and hint text
-    are its own (no TPU rate, no link probe or auto policy: M15)."""
+    are its own (no TPU rate); the link probe and the auto policy are
+    held to JAX's in tests/test_torch_host_policy.py."""
     from misinfo_tpu.preprocess import hostprobe as j_hp
     from misinfo_tpu_torch.preprocess import hostprobe as t_hp
     got = t_hp.probe_host_prep(res=120, trials=1)
